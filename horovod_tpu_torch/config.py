@@ -85,3 +85,14 @@ knobs.register("HOROVOD_SERVE_DRAFT", "off", str,
 knobs.register("HOROVOD_SERVE_SPEC_K", 4, int,
                help="Draft tokens per speculative step (unused while "
                     "HOROVOD_SERVE_DRAFT=off).")
+
+# Training knobs (ops/blockwise_ce.py, ops/fusion.py), read at each call.
+# The flash kernels fix their tiles at compile time, so the JAX package's
+# HOROVOD_FLASH_BLOCK_Q/_K have no counterpart here.
+knobs.register("HOROVOD_CE_BLOCK_VOCAB", 1024, int,
+               help="Vocab chunk width of the blockwise fused "
+                    "cross-entropy (0 = unfused reference path, which "
+                    "materializes the [.., V] logits).")
+knobs.register("HOROVOD_BATCH_D2D_MEMCOPIES", True, bool,
+               help="Pack same-dtype tensors into one buffer per fused "
+                    "collective; 0 runs one collective per tensor.")

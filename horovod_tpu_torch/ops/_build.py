@@ -23,7 +23,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "horovod_tpu_torch"
-SOURCES = {"paged_decode": "paged_decode.cu"}
+SOURCES = {"paged_decode": "paged_decode.cu", "flash_fwd": "flash_fwd.cu",
+           "flash_bwd": "flash_bwd.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -66,12 +67,12 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     seconds = {n: 0.0 for n in names}
-    for n in names:
+    todo = [n for n in names if not library_path(n).exists()]
+    compiler = nvcc() if todo else None
+    for n in todo:
         out = library_path(n)
-        if out.exists():
-            continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
+        cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, out, time.perf_counter())

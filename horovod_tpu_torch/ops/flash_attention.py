@@ -1,32 +1,251 @@
-"""Paged single-query decode attention: the wrapper of the CUDA kernel.
+"""Flash attention and paged decode attention: the wrappers of the CUDA
+kernels.
 
-``flash_paged_decode`` launches ``csrc/paged_decode.cu``, the Hopper
-counterpart of the Pallas kernel ``_paged_decode_kernel`` of
-``horovod_tpu/ops/pallas/flash_attention.py``. It takes CUDA tensors only;
-the plain PyTorch version of the same function is
-``serving.kv_cache.paged_attention_reference``, which the dispatch in
-``serving.kv_cache.paged_decode_attention`` uses for CPU tensors.
+Four kernels, each the Hopper counterpart of a Pallas kernel of
+``horovod_tpu/ops/pallas/flash_attention.py``:
+
+- ``flash_block_attend`` launches ``csrc/flash_fwd.cu`` (for ``_kernel``):
+  the unnormalized block forward with row stats ``m`` and ``l``;
+- ``flash_bwd_block`` launches ``csrc/flash_bwd.cu`` twice, its dq kernel
+  and its dk/dv kernel (for ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``);
+- ``flash_paged_decode`` launches ``csrc/paged_decode.cu`` (for
+  ``_paged_decode_kernel``).
+
+They take CUDA tensors only. The plain PyTorch versions of the same
+functions are ``parallel.sequence._block_attend``,
+``parallel.sequence._bwd_block_plain`` and
+``serving.kv_cache.paged_attention_reference``; the dispatchers
+(:func:`flash_attention`, ``kv_cache.paged_decode_attention``) use them for
+CPU tensors, and nothing else does. A CUDA tensor the kernel's gate refuses
+raises; it never goes to the plain version.
+
+:func:`flash_attention` is the differentiable entry of the training path,
+a ``torch.autograd.Function`` whose forward is the flash forward kernel
+and whose backward is the two backward kernels, as the JAX package's
+``custom_vjp`` is.
 
 ``LAUNCHES`` counts launches per kernel, so a run can show that its main
-path went through the kernel.
+path went through the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-LAUNCHES: Dict[str, int] = {"paged_decode": 0}
+LAUNCHES: Dict[str, int] = {"paged_decode": 0, "flash_fwd": 0,
+                            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures per library: pointers, then ints, then scale, causal,
+# dtype and the stream.
+_SIGNATURES = {
+    "paged_decode": {"hvd_paged_decode": [_P] * 6 + [_I] * 6 + [_F, _I, _P]},
+    "flash_fwd": {"hvd_flash_fwd": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P]},
+    "flash_bwd": {
+        "hvd_flash_bwd_dq": [_P] * 7 + [_I] * 7 + [_F, _I, _I, _P],
+        "hvd_flash_bwd_dkv": [_P] * 8 + [_I] * 7 + [_F, _I, _I, _P]},
+}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
 
+
+def _library(name: str) -> ctypes.CDLL:
+    """Kernel library ``name`` with its C signatures set (built on first
+    use)."""
+    from horovod_tpu_torch.ops import _build
+    lib = _build.load(name)
+    if lib.hvd_cuda_error_string.restype is not ctypes.c_char_p:
+        for fn, argtypes in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.hvd_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.hvd_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(name: str, fn: str, device: torch.device, *args) -> None:
+    """Call ``fn`` of library ``name`` on the device's current stream;
+    raises when the launch fails."""
+    lib = _library(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn)(*args, stream)
+    if err:
+        msg = lib.hvd_cuda_error_string(err).decode()
+        raise RuntimeError(f"{fn} kernel launch failed: {msg} "
+                           f"(cudaError {err})")
+
+
+def _check_cuda(fn: str, tensors: Sequence[torch.Tensor], plain: str) -> None:
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError(f"{fn} takes CUDA tensors only; the plain version "
+                         f"for CPU tensors is {plain}")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{fn}: tensors on different devices")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{fn}: tensors must be 16-byte aligned")
+
+
+# ---------------------------------------------------------------------------
+# flash attention (training path)
+# ---------------------------------------------------------------------------
+
+def supports(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Shape gate of the Hopper flash kernels: q ``[B, Sq, H, D]`` and k/v
+    ``[B, Sk, H, D]`` in one dtype (bf16 or f32), D a multiple of 8 up to
+    128 (16-byte row loads; the tiles are padded to 64 or 128 columns),
+    B*H at most 65535 (the grid's second axis), contiguous tensors. Any
+    S >= 1 passes: the kernels mask the ragged edge of the last tile."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        return False
+    b, s_q, h, d = q.shape
+    if (k.shape != v.shape or k.shape[0] != b or k.shape[2] != h
+            or k.shape[3] != d):
+        return False
+    return (q.dtype in _DTYPE_CODE and q.dtype == k.dtype == v.dtype
+            and d % 8 == 0 and 8 <= d <= 128 and s_q >= 1 and k.shape[1] >= 1
+            and 0 < b * h <= 65535 and q.is_contiguous()
+            and k.is_contiguous() and v.is_contiguous())
+
+
+def _gate(fn: str, q, k, v) -> None:
+    if not supports(q, k, v):
+        raise ValueError(
+            f"{fn}: unsupported geometry q {tuple(q.shape)} {q.dtype}, "
+            f"k {tuple(k.shape)} {k.dtype}, v {tuple(v.shape)} {v.dtype} "
+            f"(see supports)")
+
+
+def flash_block_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       q_offset: int, k_offset: int, causal: bool,
+                       scale: float
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash forward of one Q block against one K/V block on the card:
+    q/k/v ``[B, S, H, D]`` -> (o ``[B, Sq, H, D]`` UNNORMALIZED f32,
+    m ``[B, H, Sq]`` f32, l ``[B, H, Sq]`` f32), the causal mask taken at
+    global positions ``q_offset + i >= k_offset + j``. A row that sees no
+    key gives ``m = -1e30``, ``l = 0`` and ``o = 0``.
+
+    Unlike the JAX function it takes no ``block_q``/``block_k``: the
+    kernel fixes its 64-row tiles at compile time."""
+    _check_cuda("flash_block_attend", (q, k, v),
+                "parallel.sequence._block_attend")
+    _gate("flash_block_attend", q, k, v)
+    b, s_q, h, d = q.shape
+    s_k = k.shape[1]
+    f32 = dict(dtype=torch.float32, device=q.device)
+    o = torch.empty((b, s_q, h, d), **f32)
+    m = torch.empty((b, h, s_q), **f32)
+    l = torch.empty((b, h, s_q), **f32)
+    _launch("flash_fwd", "hvd_flash_fwd", q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            m.data_ptr(), l.data_ptr(), b, h, s_q, s_k, d, int(q_offset),
+            int(k_offset), float(scale), int(bool(causal)),
+            _DTYPE_CODE[q.dtype])
+    LAUNCHES["flash_fwd"] += 1
+    return o, m, l
+
+
+def flash_bwd_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    do: torch.Tensor, lse: torch.Tensor, dD: torch.Tensor,
+                    q_offset: int, k_offset: int, causal: bool, scale: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash backward of one Q block against one K/V block on the card:
+    gradients of normalized attention against the GLOBAL row stats
+    ``lse`` (logsumexp) and ``dD`` (rowsum(do * o)), both ``[B, H, Sq]``.
+    Returns (dq ``[B, Sq, H, D]``, dk, dv ``[B, Sk, H, D]``) in f32. Two
+    launches: the dq kernel and the dk/dv kernel.
+
+    Unlike the JAX function it takes no ``block_q``/``block_k``: the
+    kernels fix their 64-row tiles at compile time."""
+    do = do.to(q.dtype).contiguous()
+    lse = lse.to(torch.float32).contiguous()
+    dD = dD.to(torch.float32).contiguous()
+    _check_cuda("flash_bwd_block", (q, k, v, do, lse, dD),
+                "parallel.sequence._bwd_block_plain")
+    _gate("flash_bwd_block", q, k, v)
+    b, s_q, h, d = q.shape
+    s_k = k.shape[1]
+    if do.shape != q.shape or lse.shape != (b, h, s_q) or \
+            dD.shape != (b, h, s_q):
+        raise ValueError(
+            f"flash_bwd_block: do {tuple(do.shape)}, lse {tuple(lse.shape)} "
+            f"and dD {tuple(dD.shape)} must be q's shape and [B, H, Sq]")
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq = torch.empty((b, s_q, h, d), **f32)
+    dk = torch.empty((b, s_k, h, d), **f32)
+    dv = torch.empty((b, s_k, h, d), **f32)
+    tail = (b, h, s_q, s_k, d, int(q_offset), int(k_offset), float(scale),
+            int(bool(causal)), _DTYPE_CODE[q.dtype])
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), dD.data_ptr())
+    _launch("flash_bwd", "hvd_flash_bwd_dq", q.device, *ins, dq.data_ptr(),
+            *tail)
+    LAUNCHES["flash_bwd_dq"] += 1
+    _launch("flash_bwd", "hvd_flash_bwd_dkv", q.device, *ins, dk.data_ptr(),
+            dv.data_ptr(), *tail)
+    LAUNCHES["flash_bwd_dkv"] += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Normalized attention over the full sequence: the flash forward,
+    then the dq and dk/dv backward (``_flash_attention_fwd``/``_bwd`` of
+    the JAX package). CUDA tensors go through the kernels, CPU tensors
+    through their plain versions in ``parallel.sequence``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        if q.is_cuda:
+            o_un, m, l = flash_block_attend(q, k, v, 0, 0, causal, scale)
+        else:
+            from horovod_tpu_torch.parallel.sequence import _block_attend
+            o_un, m, l = _block_attend(q.float(), k.float(), v.float(), 0, 0,
+                                       causal, scale)
+        l_safe = l.clamp_min(1e-30)
+        o = (o_un / l_safe.transpose(1, 2)[..., None]).to(q.dtype)
+        lse = m + torch.log(l_safe)                       # [B, H, S]
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dD = (do.float() * o.float()).sum(dim=-1).transpose(1, 2)  # [B,H,S]
+        if q.is_cuda:
+            dq, dk, dv = flash_bwd_block(q, k, v, do, lse, dD, 0, 0,
+                                         ctx.causal, ctx.scale)
+        else:
+            from horovod_tpu_torch.parallel.sequence import _bwd_block_plain
+            dq, dk, dv = _bwd_block_plain(q, k, v, do, lse, dD, 0, 0,
+                                          ctx.causal, ctx.scale)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Differentiable normalized attention, q/k/v ``[B, S, H, D]`` ->
+    ``[B, S, H, D]`` in q's dtype. It follows its tensors' device: on the
+    card the forward and backward are the flash kernels; on the CPU their
+    plain versions. ``scale`` defaults to ``D ** -0.5``."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _FlashAttention.apply(q, k, v, bool(causal), float(scale))
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention (serving path)
+# ---------------------------------------------------------------------------
 
 def paged_decode_supports(q: torch.Tensor, k_pages: torch.Tensor,
                           v_pages: Optional[torch.Tensor] = None) -> bool:
@@ -87,32 +306,9 @@ def flash_paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
     if b == 0:
         return out
-    lib = _library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.hvd_paged_decode(
+    _launch("paged_decode", "hvd_paged_decode", q.device,
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            b, h, kvh, d, page, n_max, float(scale), _DTYPE_CODE[q.dtype],
-            stream)
-    if err:
-        msg = lib.hvd_cuda_error_string(err).decode()
-        raise RuntimeError(f"paged_decode kernel launch failed: {msg} "
-                           f"(cudaError {err})")
+            b, h, kvh, d, page, n_max, float(scale), _DTYPE_CODE[q.dtype])
     LAUNCHES["paged_decode"] += 1
     return out
-
-
-def _library() -> ctypes.CDLL:
-    """The kernel's library with its C signatures set (built on first
-    use)."""
-    from horovod_tpu_torch.ops import _build
-    lib = _build.load("paged_decode")
-    if lib.hvd_paged_decode.argtypes is None:
-        lib.hvd_paged_decode.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        lib.hvd_paged_decode.restype = ctypes.c_int
-        lib.hvd_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.hvd_cuda_error_string.restype = ctypes.c_char_p
-    return lib

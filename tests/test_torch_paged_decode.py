@@ -194,13 +194,18 @@ def test_build_runs_one_nvcc_per_source_into_the_build_dir(tmp_path,
                                 'echo built > "$2"; echo ptxas ok\n')
     monkeypatch.setattr(_build, "nvcc", lambda: nvcc)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    names = {"paged_decode", "flash_fwd", "flash_bwd"}
+    assert set(_build.SOURCES) == names
     seconds = _build.build_all()
-    assert set(seconds) == set(_build.SOURCES) and seconds["paged_decode"] > 0
-    lib = _build.library_path("paged_decode")
-    assert lib.parent == tmp_path / "build" and lib.read_text() == "built\n"
+    assert set(seconds) == names and all(t > 0 for t in seconds.values())
+    for name in names:
+        lib = _build.library_path(name)
+        assert lib.parent == tmp_path / "build"
+        assert lib.read_text() == "built\n"
+        assert _build.build_logs[name].strip() == "ptxas ok"
+    assert len({_build.library_path(n) for n in names}) == 3
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
-    assert _build.build_logs["paged_decode"].strip() == "ptxas ok"
-    assert _build.build_all() == {"paged_decode": 0.0}     # built once
+    assert _build.build_all() == {n: 0.0 for n in names}   # built once
 
 
 def test_build_failure_and_missing_nvcc_raise(tmp_path, monkeypatch):

@@ -389,6 +389,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "             or k.startswith('jax.') or k == 'horovod_tpu'\n"
         "             or k.startswith('horovod_tpu.'))\n"
         "assert not bad, bad\n"
+        "for m in ('runtime.context', 'ops.collectives', 'ops.reduce_ops',\n"
+        "          'ops.fusion', 'ops.blockwise_ce', 'parallel.sequence',\n"
+        "          'parallel.trainer', 'parallel.tensor_parallel',\n"
+        "          'models.transformer', 'utils.tree'):\n"
+        "    assert 'horovod_tpu_torch.' + m in sys.modules, m\n"
         "import horovod_tpu_torch.ops._build as b\n"
         "assert not b._libs, 'a kernel was built at import time'\n"
         "print('ok', len([k for k in sys.modules\n"
@@ -396,7 +401,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.startswith("ok") and int(out.stdout.split()[1]) >= 12
+    assert out.stdout.startswith("ok") and int(out.stdout.split()[1]) >= 22
 
 
 def test_entry_points_default_to_cuda_and_raise_without_a_gpu(jparams):
