@@ -13,7 +13,10 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    timed beside its bound and a library call that computes the same
    function: the paged-decode kernel (serving), then the flash forward
    and the two flash backward kernels (training: B=8, S=2048, H=16,
-   D=64, bf16, causal; plus f32, offset, fully masked and ragged cases);
+   D=64, bf16, causal; plus f32, offset, fully masked and ragged cases),
+   then the conv+BN forward and backward kernels at every distinct 1x1
+   conv of ResNet-50 at 128 images (three of them timed beside the cuBLAS
+   GEMM alone; plus f32 ragged and wide cases);
 3. serving at full width: the flagship TransformerLM (268M parameters,
    random weights from a seed) served through ``ServeScheduler.run`` —
    the launch counts are zeroed just before and read just after, and the
@@ -24,21 +27,27 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    one warm-up step and then ``train_loop`` steps through an NCCL world
    of one — launch counts zeroed just before and read just after, losses
    finite, at least 16 launches of each flash kernel per step; then a
-   profile of one step;
+   profile of one step. Then ResNet-50 with ``fused_conv_bn=True`` as
+   ``bench.py`` trains it (224^2, bf16, 128 images, SGD with momentum
+   through ``DistributedOptimizer`` and ``data_parallel_train_step``):
+   at least 36 launches of each conv+BN kernel per step, then a profile;
 5. card against CPU: a 2-layer f32 serving engine (greedy tokens
-   identical, logits within 1e-4) and a 2-layer f32 training copy (loss,
-   every gradient leaf and the parameters after two SGD steps).
+   identical, logits within 1e-4), a 2-layer f32 training copy (loss,
+   every gradient leaf and the parameters after two SGD steps) and a
+   small f32 fused ResNet (logits, running statistics, every gradient
+   leaf, the parameters after two SGD steps).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the
 package, it exits non-zero and prints no result.
 
-``--data-parallel N`` runs only the training step across N cards of one
+``--data-parallel N`` runs only the training steps across N cards of one
 host: one process per card joins an NCCL world through the launcher's
 environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``,
-``LOCAL_RANK``), each on its 8 rows of a global batch of 8 N; a world of
-one runs first in the same call as the yardstick. It checks that every
-rank ends with the same parameters, and prints step ms, tokens/s and the
+``LOCAL_RANK``), each on its rows of the global batch (8 sequences of the
+flagship, then 128 ResNet-50 images, per card); a world of one runs
+first in the same call as the yardstick. It checks that every rank ends
+with the same parameters, and prints step ms, throughput and the
 scaling efficiency against the one-card world.
 """
 
@@ -70,6 +79,21 @@ FLASH_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 GRAD_REL_TOL = 1e-4
 PARAM_REL_TOL = 1e-5
 TRAIN_B, TRAIN_S = 8, 2048
+# conv+BN kernels against their plain versions, relative to the largest
+# reference value: bf16 outputs are rounded once to bf16 (2^-8) after f32
+# sums in another order; f32 outputs differ in the order of f32 sums.
+CONV_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+# ResNet-50 training: images per card (in bench.py's sweep), and the
+# forward GFLOP per 224^2 image of bench.py's MFU convention (x3 for
+# forward and backward).
+RESNET_B = 128
+RESNET_FWD_FLOPS = 4.1e9
+RESNET50_CONVS = 36          # 16 blocks x (conv1, conv3) + 4 projections
+# Small f32 fused ResNet, card against CPU, relative to each leaf's largest
+# value: cuDNN and the CPU sum convolutions in other orders, and batch norm
+# over 32 positions in the second stage amplifies that in the gradients.
+RESNET_REL_TOL = {"logits": 1e-4, "running_stats": 1e-4, "gradients": 1e-3,
+                  "params_after_2_steps": 1e-4}
 
 
 def log(*parts) -> None:
@@ -372,6 +396,176 @@ def check_flash_all(fa, sq, gen):
 
 
 # ---------------------------------------------------------------------------
+# phase 2: the conv+BN kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def resnet50_convs(batch: int = RESNET_B, image: int = 224):
+    """The distinct 1x1 convs of ResNet-50 at ``batch`` images: (stage,
+    what, M, K, N, prologue, stride). M counts the rows the kernel sees
+    (after a strided projection subsamples them)."""
+    out = []
+    side = image // 4                       # after the stem and max-pool
+    cin = 64
+    for i, f in enumerate((64, 128, 256, 512)):
+        stride = 2 if i else 1
+        m_in, m_out = batch * side * side, batch * (side // stride) ** 2
+        out.append((i + 1, "conv1 block 0", m_in, cin, f, False, 1))
+        if i or cin != 4 * f:
+            out.append((i + 1, "projection", m_out, cin, 4 * f, False,
+                        stride))
+        out.append((i + 1, "conv1", m_out, 4 * f, f, False, 1))
+        out.append((i + 1, "conv3", m_out, f, 4 * f, True, 1))
+        cin, side = 4 * f, side // stride
+    return out
+
+
+def conv_bounds(m, k, n, dtype):
+    """Least time of each kernel: inputs read once, outputs written once,
+    over the card's memory rate; its products (forward 2MKN, backward
+    4MKN) at the tensor-core bf16 rate or the f32 rate. Returns {kernel:
+    (ms, bound_by)}."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    vec = 4 * (2 * k + 2 * n)               # inv, shift, s1/ds1, s2/ds2
+    cases = {"conv_bn_fwd": ((m * k + k * n + m * n) * es + vec,
+                             2 * m * k * n),
+             "conv_bn_bwd": ((2 * m * k + 2 * m * n + 2 * k * n) * es
+                             + vec, 4 * m * k * n)}
+    out = {}
+    for name, (nbytes, flops) in cases.items():
+        t_mem, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+        out[name] = (max(t_mem, t_ops) * 1e3,
+                     "bytes" if t_mem >= t_ops else "operations")
+    return out
+
+
+def check_conv(cb, gen, m, k, n, prologue, dtype, tag, timed=False):
+    """Both conv+BN kernels against their plain versions on the same
+    inputs; each output's error against CONV_REL_TOL times its largest
+    reference value (at least 1). bf16: y, dx and dw are stored in bf16
+    (one rounding, 2^-8) after f32 sums in another order; f32: sums in
+    another order only. The backward is linear in its three cotangents, so
+    it is held to its plain version on each alone (ds1 and ds2 scaled so
+    that their terms of dy_eff are as large as dy's) and then on the three
+    together at training's scales. Returns {"max_abs_err": {output: (largest
+    absolute error, largest share of its limit)}} plus the times when
+    ``timed``."""
+    dev = torch.device("cuda")
+    x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(dtype)
+    inv = shift = None
+    if prologue:
+        inv = torch.rand((k,), generator=gen, device=dev) + 0.5
+        shift = torch.randn((k,), generator=gen, device=dev) * 0.1
+    dy = torch.randn((m, n), generator=gen, device=dev).to(dtype)
+    ds1 = torch.randn((n,), generator=gen, device=dev) * 1e-2
+    ds2 = torch.randn((n,), generator=gen, device=dev) * 1e-3
+    fwd = cb.conv_bn_fwd(x, w, inv, shift)
+    torch.cuda.synchronize()
+    y = fwd[0]
+    zdy, zn = torch.zeros_like(dy), torch.zeros_like(ds1)
+    cotangents = (("dy", (dy, zn, zn)),
+                  ("ds1", (zdy, ds1 * 100.0, zn)),
+                  ("ds2", (zdy, zn, ds2 * 500.0)),
+                  ("all", (dy, ds1, ds2)))
+    errs = {}
+
+    def compare(what, got, want, names):
+        for a, ref, nm in zip(got, want, names.split()):
+            if ref is None:
+                continue
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{tag}: {what} {nm} non-finite")
+            e = float((a.float() - ref.float()).abs().max())
+            lim = CONV_REL_TOL[dtype] * max(1.0,
+                                            float(ref.float().abs().max()))
+            if e > lim:
+                raise AssertionError(f"{tag}: {what} {nm} disagrees with "
+                                     f"its plain version: {e} > {lim}")
+            old = errs.get(nm, (0.0, 0.0))
+            errs[nm] = (max(old[0], e), max(old[1], e / lim))
+
+    compare("conv_bn_fwd", fwd, cb.conv1x1_bn_stats_plain(x, w, inv, shift),
+            "y s1 s2")
+    for cot, args in cotangents:
+        bwd = cb.conv_bn_bwd(x, w, inv, shift, y, *args)
+        torch.cuda.synchronize()
+        compare(f"conv_bn_bwd ({cot})", bwd,
+                cb.conv1x1_bn_bwd_plain(x, w, inv, shift, y, *args),
+                "dx dw dinv dshift")
+    res = {"max_abs_err": errs}
+    log(f"conv_bn {tag} M={m} {k}->{n} {str(dtype)[6:]}"
+        f"{' prologue' if prologue else ''}: max_abs_err (share of limit) "
+        + json.dumps({nm: f"{e:.3e} ({share:.3f})"
+                      for nm, (e, share) in errs.items()}))
+    if not timed:
+        return res
+    # determinism: a second run gives the same bits (no float atomics);
+    # bwd is the last of the loop, all three cotangents
+    fwd2 = cb.conv_bn_fwd(x, w, inv, shift)
+    bwd2 = cb.conv_bn_bwd(x, w, inv, shift, y, dy, ds1, ds2)
+    for a, b in zip(fwd[1:] + bwd[1:], fwd2[1:] + bwd2[1:]):
+        if a is not None and not torch.equal(a, b):
+            raise AssertionError(f"{tag}: two runs differ")
+    res["ms"] = {
+        "conv_bn_fwd": cuda_ms(lambda i: cb.conv_bn_fwd(x, w, inv, shift),
+                               20),
+        "conv_bn_bwd": cuda_ms(lambda i: cb.conv_bn_bwd(
+            x, w, inv, shift, y, dy, ds1, ds2), 20)}
+    res["plain_ms"] = {
+        "conv_bn_fwd": cuda_ms(lambda i: cb.conv1x1_bn_stats_plain(
+            x, w, inv, shift), 5),
+        "conv_bn_bwd": cuda_ms(lambda i: cb.conv1x1_bn_bwd_plain(
+            x, w, inv, shift, y, dy, ds1, ds2), 5)}
+    # yardstick only (the port never calls it): cuBLAS on the same
+    # operands, the GEMM alone — no PyTorch call computes GEMM + BN sums
+    res["gemm_ms"] = {
+        "conv_bn_fwd": cuda_ms(lambda i: x @ w, 20),
+        "conv_bn_bwd": cuda_ms(lambda i: (dy @ w.t(), x.t() @ dy), 20)}
+    res["bounds"] = conv_bounds(m, k, n, dtype)
+    log(f"conv_bn {tag}: kernels " + json.dumps(
+        {k_: round(v_, 4) for k_, v_ in res["ms"].items()})
+        + " ms; plain " + json.dumps(
+            {k_: round(v_, 4) for k_, v_ in res["plain_ms"].items()})
+        + " ms; cuBLAS GEMM alone " + json.dumps(
+            {k_: round(v_, 4) for k_, v_ in res["gemm_ms"].items()})
+        + " ms; bounds " + json.dumps(res["bounds"]))
+    return res
+
+
+def check_conv_all(cb, gen):
+    """Every distinct 1x1 conv of ResNet-50 at 128 images (bf16), three of
+    them timed, plus an f32 ragged case (3x7x7 rows, 130 -> 70, prologue)
+    and 32 -> 576. Returns the timed cases and, for each output, its
+    largest absolute error and largest share of its limit over them."""
+    timed_tags = {(1, "conv3"): "main", (3, "conv1"): "stage3",
+                  (4, "projection"): "stage4"}
+    timed, errs = {}, []
+    for stage, what, m, k, n, prologue, stride in resnet50_convs():
+        key = timed_tags.get((stage, what))
+        res = check_conv(cb, gen, m, k, n, prologue, torch.bfloat16,
+                         f"stage {stage} {what}"
+                         + (f" (stride {stride})" if stride > 1 else ""),
+                         timed=key is not None)
+        errs.append(res["max_abs_err"])
+        if key:
+            timed[key] = res
+    errs.append(check_conv(cb, gen, 147, 130, 70, True, torch.float32,
+                           "ragged")["max_abs_err"])
+    errs.append(check_conv(cb, gen, 64, 32, 576, False, torch.float32,
+                           "wide")["max_abs_err"])
+    errs.append(check_conv(cb, gen, 64, 32, 576, True, torch.bfloat16,
+                           "wide")["max_abs_err"])
+    worst = {nm: (max(c[nm][0] for c in errs if nm in c),
+                  max(c[nm][1] for c in errs if nm in c))
+             for nm in dict.fromkeys(nm for c in errs for nm in c)}
+    log("conv_bn over all cases, max_abs_err (share of limit): "
+        + json.dumps({nm: f"{e:.3e} ({share:.3f})"
+                      for nm, (e, share) in worst.items()}))
+    return timed, worst
+
+
+# ---------------------------------------------------------------------------
 # phase 3: serving at full width
 # ---------------------------------------------------------------------------
 
@@ -582,7 +776,8 @@ def train_flagship(htt, fa, card, n_steps: int = 4):
     return launches
 
 
-def profile_train_step(step, state, batch, card) -> None:
+def profile_train_step(step, state, batch, card,
+                       label="train profile") -> None:
     """Where a training step's time goes: host wall ms, device ms (kernel
     rows only), busy share, and the top device ops, from torch.profiler
     over one step."""
@@ -598,10 +793,151 @@ def profile_train_step(step, state, batch, card) -> None:
     out = {"wall_ms": wall_ms,
            "device_ms": dev_ms if rows else None,
            "device_busy_share": (dev_ms / wall_ms) if rows else None,
+           "kernel_launches": sum(r[2] for r in rows),
            "top_device_ops": [{"op": k_[:70], "ms": us / 1e3, "calls": c}
                               for us, k_, c in rows[:8]],
            "card": card}
-    log("train profile: " + json.dumps(out))
+    log(f"{label}: " + json.dumps(out))
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: ResNet-50 training at full width and depth
+# ---------------------------------------------------------------------------
+
+def resnet_loss(model, images, labels):
+    return torch.nn.functional.cross_entropy(model(images, train=True),
+                                             labels)
+
+
+def resnet_step(htt, dev, seed: int):
+    """``ResNet50(fused_conv_bn=True)`` (bf16 compute, f32 parameters and
+    BN statistics, random weights from ``seed``), SGD(0.01, momentum 0.9)
+    through ``DistributedOptimizer``, and ``data_parallel_train_step``."""
+    model = htt.ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                         fused_conv_bn=True, device=dev, seed=seed)
+    opt = htt.DistributedOptimizer(torch.optim.SGD(
+        model.parameters(), lr=0.01, momentum=0.9), op=htt.Average)
+    init_fn, step, put_batch = htt.data_parallel_train_step(
+        resnet_loss, opt, device=dev)
+    return init_fn(model), step, put_batch
+
+
+def resnet_batches(put_batch, n, batch, dev, seed=1):
+    """``n`` global batches of ``batch`` synthetic 224^2 bf16 images and
+    labels (bench.py's synthetic data), made on the card from ``seed``;
+    ``put_batch`` keeps this rank's rows."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [put_batch((
+        torch.rand((batch, 224, 224, 3), generator=gen, device=dev
+                   ).to(torch.bfloat16),
+        torch.randint(0, 1000, (batch,), generator=gen, device=dev)))
+        for _ in range(n)]
+
+
+def train_resnet50(htt, cb, card, n_steps: int = 4):
+    """The ResNet main path: ``runtime.init()`` forms an NCCL world of
+    one, then one warm-up step and ``train_loop`` over ``n_steps``
+    batches of 128 images, launch counts zeroed just before and read just
+    after; then a profile of one step."""
+    ctx = htt.init()
+    if ctx.backend != "nccl" or htt.size() != 1:
+        raise AssertionError(f"expected an NCCL world of one, got "
+                             f"{ctx.backend} x {htt.size()}")
+    state, step, put_batch = resnet_step(htt, "cuda", seed=0)
+    batches = resnet_batches(put_batch, n_steps + 1, RESNET_B, "cuda")
+    state, loss = step(state, *batches[0])                  # warm-up
+    torch.cuda.synchronize()
+    warm_loss = float(loss)
+    losses, stamps = [], []
+
+    def on_step(i, st, loss_t):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append(float(loss_t))
+
+    torch.cuda.reset_peak_memory_stats()
+    cb.reset_launches()
+    t0 = time.perf_counter()
+    state, info = htt.train_loop(step, state, batches[1:], on_step=on_step)
+    torch.cuda.synchronize()
+    launches = dict(cb.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    if info["final_step"] != n_steps + 1 or info["status"] != "completed":
+        raise AssertionError(f"train_loop info {info}")
+    if not all(np.isfinite(x) for x in [warm_loss] + losses):
+        raise AssertionError(f"non-finite loss: {[warm_loss] + losses}")
+    for name in ("conv_bn_fwd", "conv_bn_bwd"):
+        if launches[name] < RESNET50_CONVS * n_steps:
+            raise AssertionError(
+                f"{name} launched {launches[name]} times over {n_steps} "
+                f"steps of {RESNET50_CONVS} 1x1 convs")
+    step_s = np.diff([t0] + stamps)
+    mean_s = float(step_s.mean())
+    ips = RESNET_B / mean_s
+    train = {
+        "model": "ResNet-50 fused_conv_bn", "batch": RESNET_B,
+        "image": 224, "steps": n_steps, "warm_loss": warm_loss,
+        "losses": losses, "step_ms": [float(x) * 1e3 for x in step_s],
+        "step_ms_mean": mean_s * 1e3, "images_per_s": ips,
+        "mfu": ips * 3 * RESNET_FWD_FLOPS / BF16_FLOPS_PER_S,
+        "mfu_convention": "bench.py: 3 x 4.1 GFLOP per image over 989 TF/s",
+        "peak_memory_gb": peak_gb,
+        "launches": {k_: launches[k_] for k_ in ("conv_bn_fwd",
+                                                  "conv_bn_bwd")},
+        "card": card}
+    log("resnet train: " + json.dumps(train))
+    profile_train_step(step, state, batches[-1], card,
+                       label="resnet train profile")
+    htt.shutdown()
+    return launches
+
+
+def resnet_card_vs_cpu(htt) -> None:
+    """The small f32 fused ResNet of tests/test_fused_conv_bn.py
+    (stage_sizes [1, 1], 8 filters, 10 classes, 2 x 32 x 32 images) with
+    the same weights and batch on the CPU (plain versions) and on the card
+    (the kernels): train-mode logits, running statistics, every gradient
+    leaf, then the parameters after two SGD steps (0.01, momentum 0.9)."""
+    from horovod_tpu_torch.models import resnet
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(
+        np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, (2,)))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = htt.ResNet(stage_sizes=[1, 1],
+                           block_cls=resnet.BottleneckBlock, num_classes=10,
+                           num_filters=8, dtype=torch.float32,
+                           fused_conv_bn=True, device=dev, seed=3)
+        xd, yd = x.to(dev), y.to(dev)
+        logits = model(xd, train=True)
+        torch.nn.functional.cross_entropy(logits, yd).backward()
+        stats = [b.detach().cpu().clone() for b in model.buffers()]
+        grads = [p.grad.detach().cpu().clone() for p in model.parameters()]
+        opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+        opt.step()
+        opt.zero_grad()
+        torch.nn.functional.cross_entropy(model(xd, train=True), yd
+                                          ).backward()
+        opt.step()
+        runs[dev] = (logits.detach().cpu(), stats, grads,
+                     [p.detach().cpu() for p in model.parameters()])
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    (lc, sc, gc, pc), (lg, sg, gg, pg) = runs["cpu"], runs["cuda"]
+    out = {"logits": rel(lg, lc),
+           "running_stats": max(rel(a, b) for a, b in zip(sg, sc)),
+           "gradients": max(rel(a, b) for a, b in zip(gg, gc)),
+           "params_after_2_steps": max(rel(a, b) for a, b in zip(pg, pc))}
+    log("resnet card vs cpu (small f32 fused ResNet, 2 x 32^2): worst "
+        "relative difference " + json.dumps(
+            {k_: float(f"{v_:.2e}") for k_, v_ in out.items()})
+        + f" (tol {RESNET_REL_TOL})")
+    for k_, v_ in out.items():
+        if not v_ <= RESNET_REL_TOL[k_]:
+            raise AssertionError(f"resnet card vs cpu: {k_} differ: {v_}")
 
 
 # ---------------------------------------------------------------------------
@@ -707,34 +1043,42 @@ def train_card_vs_cpu(htt) -> None:
 # --data-parallel N: the training step across N cards
 # ---------------------------------------------------------------------------
 
-def dp_rank(rank, world, port, results, device="cuda", cfg_kw=None,
-            n_steps=4):
-    """One rank of an N-card world: trains the flagship (or ``cfg_kw``) on
-    its rows of each global batch; rank 0 puts the world's numbers on
-    ``results``."""
+def dp_rank(rank, world, port, results, device="cuda", model="transformer",
+            cfg_kw=None, n_steps=4):
+    """One rank of an N-card world: trains the flagship (or ``cfg_kw``),
+    or ResNet-50 with ``model="resnet"``, on its rows of each global batch;
+    rank 0 puts the world's numbers on ``results``."""
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       MASTER_ADDR="localhost", MASTER_PORT=str(port),
                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
     import horovod_tpu_torch as htt
     from horovod_tpu_torch.utils import tree as tree_util
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     ctx = htt.init(device=device)
-    cfg = flagship_cfg(htt.TransformerConfig, mlp_recompute=True,
-                       dp_axis="dp", **(cfg_kw or {}))
     dev = ctx.device
     # each rank starts from other weights: init_fn broadcasts rank 0's
-    params = htt.init_params(
-        cfg, torch.Generator(device=dev).manual_seed(rank), device=dev)
-    init_fn, step = htt.make_transformer_train_step(
-        cfg, lambda ps: torch.optim.SGD(ps, lr=0.01, momentum=0.9),
-        device=dev)
-    state = init_fn(params)
-    b, s = TRAIN_B, TRAIN_S
-    gen = torch.Generator(device=dev).manual_seed(1)
-    rows = slice(rank * b, (rank + 1) * b)
-    batches = [tuple(torch.randint(0, cfg.vocab_size, (b * world, s),
-                                   generator=gen, device=dev)[rows]
-                     for _ in range(2)) for _ in range(n_steps + 1)]
+    if model == "resnet":
+        state, step, put_batch = resnet_step(htt, dev, seed=rank)
+        batches = resnet_batches(put_batch, n_steps + 1, RESNET_B * world,
+                                 dev)
+        units, unit = RESNET_B * world, "images"
+    else:
+        cfg = flagship_cfg(htt.TransformerConfig, mlp_recompute=True,
+                           dp_axis="dp", **(cfg_kw or {}))
+        params = htt.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(rank), device=dev)
+        init_fn, step = htt.make_transformer_train_step(
+            cfg, lambda ps: torch.optim.SGD(ps, lr=0.01, momentum=0.9),
+            device=dev)
+        state = init_fn(params)
+        b, s = TRAIN_B, TRAIN_S
+        gen = torch.Generator(device=dev).manual_seed(1)
+        rows = slice(rank * b, (rank + 1) * b)
+        batches = [tuple(torch.randint(0, cfg.vocab_size, (b * world, s),
+                                       generator=gen, device=dev)[rows]
+                         for _ in range(2)) for _ in range(n_steps + 1)]
+        units, unit = b * s * world, "tokens"
     state, _ = step(state, *batches[0])                    # warm-up
     losses, stamps = [], []
     htt.barrier()
@@ -743,18 +1087,19 @@ def dp_rank(rank, world, port, results, device="cuda", cfg_kw=None,
         state, loss = step(state, *batch)
         losses.append(float(loss))                          # synchronizes
         stamps.append(time.perf_counter())
-    total = sum(float(t.detach().double().sum())
-                for t in tree_util.tree_leaves(state.params))
+    leaves = (list(state.params.parameters()) if model == "resnet"
+              else tree_util.tree_leaves(state.params))
+    total = sum(float(t.detach().double().sum()) for t in leaves)
     lo = htt.allreduce(torch.tensor([total], dtype=torch.float64,
                                     device=dev), htt.Min)
     hi = htt.allreduce(torch.tensor([total], dtype=torch.float64,
                                     device=dev), htt.Max)
     if rank == 0:
         step_s = np.diff([t0] + stamps)
-        results.put({"world": world, "losses": losses,
+        results.put({"model": model, "world": world, "losses": losses,
                      "step_ms": [float(x) * 1e3 for x in step_s],
                      "step_ms_mean": float(step_s.mean()) * 1e3,
-                     "tokens_per_s": b * s * world / float(step_s.mean()),
+                     f"{unit}_per_s": units / float(step_s.mean()),
                      "params_equal_across_ranks": float(lo) == float(hi)})
     htt.shutdown()
 
@@ -783,16 +1128,19 @@ def run_world(world, **kw):
 
 
 def data_parallel(n: int, card: str, **kw) -> None:
-    one = run_world(1, **kw)
-    many = run_world(n, **kw)
-    for res in (one, many):
-        if not (res["params_equal_across_ranks"]
-                and all(np.isfinite(x) for x in res["losses"])):
-            raise AssertionError(f"data-parallel run failed: {res}")
-    many["scaling_efficiency"] = many["tokens_per_s"] / (
-        n * one["tokens_per_s"])
-    log("data parallel: " + json.dumps({"one_card": one, "n_cards": many,
-                                         "card": card}))
+    """The flagship step, then the ResNet-50 step, each on one card (the
+    yardstick) and on ``n``."""
+    for model, unit in (("transformer", "tokens"), ("resnet", "images")):
+        one = run_world(1, model=model, **kw)
+        many = run_world(n, model=model, **kw)
+        for res in (one, many):
+            if not (res["params_equal_across_ranks"]
+                    and all(np.isfinite(x) for x in res["losses"])):
+                raise AssertionError(f"data-parallel run failed: {res}")
+        many["scaling_efficiency"] = many[f"{unit}_per_s"] / (
+            n * one[f"{unit}_per_s"])
+        log(f"data parallel {model}: " + json.dumps(
+            {"one_card": one, "n_cards": many, "card": card}))
 
 
 def main(argv) -> int:
@@ -812,6 +1160,7 @@ def main(argv) -> int:
             return 2
     import horovod_tpu_torch as htt
     from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops import conv_bn as cb
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.parallel import sequence as sq
     from horovod_tpu_torch.serving import kv_cache as kvc
@@ -846,6 +1195,7 @@ def main(argv) -> int:
                              timed=True)["max_abs_err"])
     check_kernel(fa, kvc, gen, kvh=16, dtype=torch.float32, timed=False)
     flash_case, flash_errs = check_flash_all(fa, sq, gen)
+    conv_case, conv_errs = check_conv_all(cb, gen)
 
     # phase 3: serving at full width
     launches, live_err = serve_flagship(htt, fa, kvc, card)
@@ -853,10 +1203,12 @@ def main(argv) -> int:
 
     # phase 4: training at full width and depth
     train_launches = train_flagship(htt, fa, card)
+    resnet_launches = train_resnet50(htt, cb, card)
 
     # phase 5: card against CPU
     card_vs_cpu(htt)
     train_card_vs_cpu(htt)
+    resnet_card_vs_cpu(htt)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",
@@ -889,6 +1241,30 @@ def main(argv) -> int:
             "ms": flash_case["ms"][name], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms})
+    # The conv+BN rows carry the stage-1 expand conv (M = 401,408, 64 ->
+    # 256, bf16, prologue), the largest of the path; no single PyTorch call
+    # computes a GEMM with BN statistics, so library_ms is null (the cuBLAS
+    # GEMM alone is printed beside the kernels). Its outputs' scales differ
+    # by up to 1e5 (y against sum(y^2)), so beside the largest absolute
+    # error over them each output's own error and its largest share of its
+    # limit (CONV_REL_TOL of its largest value) are listed.
+    main_conv = conv_case["main"]
+    for name, line, outs in (("conv_bn_fwd", 78, "y s1 s2"),
+                             ("conv_bn_bwd", 137, "dx dw dinv dshift")):
+        bound_ms, bound_by = main_conv["bounds"][name]
+        by_out = {nm: conv_errs[nm] for nm in outs.split()}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"horovod_tpu_torch/csrc/{name}.cu",
+            "replaces": f"horovod_tpu/ops/pallas/conv_bn.py:{line}",
+            "launches": resnet_launches[name],
+            "max_abs_err": max(e for e, _ in by_out.values()),
+            "max_abs_err_by_output": {nm: e for nm, (e, _) in by_out.items()},
+            "share_of_limit_by_output": {nm: s for nm, (_, s)
+                                         in by_out.items()},
+            "ms": main_conv["ms"][name],
+            "plain_ms": main_conv["plain_ms"][name],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,15 +12,19 @@ returns (for ``broadcast``, ``x[root_rank]``).
 ``allreduce`` supports Sum, Average, Min, Max and Product with
 ``prescale_factor``/``postscale_factor`` (applied in the tensor's dtype,
 as in the JAX package). ``allreduce_`` and ``broadcast_`` work in place.
-Not ported yet (slice 3): allgather, alltoall, reducescatter, the
-hierarchical and two-level allreduce, Adasum, process sets and the async
-handle API.
+``psum`` is the differentiable sum over the ranks that a model calls
+inside a step whose axis is bound (``bind_axis``): sync batch norm.
+Not ported yet: allgather, alltoall, reducescatter, the hierarchical and
+two-level allreduce, Adasum, process sets and the async handle API
+(ROADMAP A.3).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -112,3 +116,60 @@ def barrier() -> None:
     """Returns once every rank has called it."""
     get_context()
     dist.barrier()
+
+
+# ---------------------------------------------------------------------------
+# named axes inside a step (the JAX package's shard_map-bound axis names)
+# ---------------------------------------------------------------------------
+
+_bound_axes: contextvars.ContextVar[Tuple[str, ...]] = contextvars.ContextVar(
+    "horovod_tpu_torch_bound_axes", default=())
+
+
+@contextlib.contextmanager
+def bind_axis(name: str):
+    """Within the block, :func:`psum` over ``name`` sums over every rank
+    of the world (what ``shard_map`` binding the data-parallel axis does
+    in the JAX package)."""
+    token = _bound_axes.set(_bound_axes.get() + (name,))
+    try:
+        yield
+    finally:
+        _bound_axes.reset(token)
+
+
+class _AllreduceSum(torch.autograd.Function):
+    """Differentiable sum over the ranks: the backward is the sum of the
+    cotangents over the ranks (the transpose of ``psum``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = x.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM)
+        return g
+
+
+def psum(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """Differentiable sum of ``x`` over the ranks of the bound axis
+    ``axis_name``; raises when the axis is not bound (as ``lax.psum``
+    does outside ``shard_map``)."""
+    if axis_name not in _bound_axes.get():
+        raise NameError(f"unbound axis name: {axis_name!r} (bind it with "
+                        f"collectives.bind_axis, or "
+                        f"data_parallel_train_step(bind_axis=True))")
+    if get_context().size == 1:
+        return x
+    return _AllreduceSum.apply(x)
+
+
+def axis_size(axis_name: str) -> int:
+    """Ranks over which :func:`psum` over ``axis_name`` sums."""
+    if axis_name not in _bound_axes.get():
+        raise NameError(f"unbound axis name: {axis_name!r}")
+    return get_context().size

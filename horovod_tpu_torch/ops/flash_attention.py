@@ -30,68 +30,21 @@ path went through the kernels.
 
 from __future__ import annotations
 
-import ctypes
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from horovod_tpu_torch.ops._build import DTYPE_CODE as _DTYPE_CODE
+from horovod_tpu_torch.ops._build import check_cuda as _check_cuda
+from horovod_tpu_torch.ops._build import launch as _launch
+
 LAUNCHES: Dict[str, int] = {"paged_decode": 0, "flash_fwd": 0,
                             "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
-
-_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
-
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures per library: pointers, then ints, then scale, causal,
-# dtype and the stream.
-_SIGNATURES = {
-    "paged_decode": {"hvd_paged_decode": [_P] * 6 + [_I] * 6 + [_F, _I, _P]},
-    "flash_fwd": {"hvd_flash_fwd": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P]},
-    "flash_bwd": {
-        "hvd_flash_bwd_dq": [_P] * 7 + [_I] * 7 + [_F, _I, _I, _P],
-        "hvd_flash_bwd_dkv": [_P] * 8 + [_I] * 7 + [_F, _I, _I, _P]},
-}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def _library(name: str) -> ctypes.CDLL:
-    """Kernel library ``name`` with its C signatures set (built on first
-    use)."""
-    from horovod_tpu_torch.ops import _build
-    lib = _build.load(name)
-    if lib.hvd_cuda_error_string.restype is not ctypes.c_char_p:
-        for fn, argtypes in _SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.hvd_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.hvd_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _launch(name: str, fn: str, device: torch.device, *args) -> None:
-    """Call ``fn`` of library ``name`` on the device's current stream;
-    raises when the launch fails."""
-    lib = _library(name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn)(*args, stream)
-    if err:
-        msg = lib.hvd_cuda_error_string(err).decode()
-        raise RuntimeError(f"{fn} kernel launch failed: {msg} "
-                           f"(cudaError {err})")
-
-
-def _check_cuda(fn: str, tensors: Sequence[torch.Tensor], plain: str) -> None:
-    if not all(t.is_cuda for t in tensors):
-        raise ValueError(f"{fn} takes CUDA tensors only; the plain version "
-                         f"for CPU tensors is {plain}")
-    if len({t.device for t in tensors}) != 1:
-        raise ValueError(f"{fn}: tensors on different devices")
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{fn}: tensors must be 16-byte aligned")
 
 
 # ---------------------------------------------------------------------------

@@ -1,26 +1,30 @@
-"""Data-parallel trainer of the flagship TransformerLM: the port's
-"DistributedOptimizer loop".
+"""Data-parallel trainers: the port's "DistributedOptimizer loop".
 
 The counterpart of ``horovod_tpu/parallel/trainer.py`` for ``dp_axis``
 alone. One step is: forward and backward on this rank's rows of the
 global batch (Horovod's convention: each rank feeds its own shard), the
 gradient sync (one fused allreduce per dtype over the default process
 group, NCCL on the card, then 1/W), and the optimizer update in place.
+``make_transformer_train_step`` trains the flagship TransformerLM;
+``data_parallel_train_step`` any ``nn.Module`` (ResNet) through a
+``DistributedOptimizer``.
 
 Not ported yet: ``make_transformer_train_step_fused``,
-``DistributedApply``, ``DistributedOptimizer`` and the reverse-backward
-bucket plan (``parallel/distributed.py``, with ``WireCodec``: the next
-slice); and the checkpoint, preemption, verify-step, artifact-store,
-goodput, numerics and straggler hooks of ``train_loop`` (slice 5).
+``DistributedApply`` and the reverse-backward bucket plan (with
+``WireCodec``, ROADMAP A.6); and the checkpoint, preemption, verify-step,
+artifact-store, goodput, numerics and straggler hooks of ``train_loop``
+(slice 5).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Iterable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from horovod_tpu_torch.functions import broadcast_parameters
 from horovod_tpu_torch.models import transformer as tfm
 from horovod_tpu_torch.ops import collectives
 from horovod_tpu_torch.ops.fusion import fused_group_apply
@@ -101,9 +105,7 @@ def make_transformer_train_step(
         if any(t.device != dev for t in leaves):
             raise ValueError(f"init_fn: every parameter must be on {dev}")
         if cfg.dp_axis:
-            with torch.no_grad():
-                for t in leaves:
-                    collectives.broadcast_(t, root_rank=0)
+            broadcast_parameters(params, root_rank=0)
         for t in leaves:
             t.requires_grad_(True)
         return TrainState(0, params, make_optimizer(leaves))
@@ -127,6 +129,85 @@ def make_transformer_train_step(
         return TrainState(state.step + 1, state.params, state.opt_state), loss
 
     return init_fn, train_step
+
+
+def data_parallel_train_step(
+    loss_fn: Callable[..., torch.Tensor],
+    optimizer,
+    *,
+    device="cuda",
+    axis: str = "hvd",
+    bind_axis: bool = False,
+) -> Tuple[Callable, Callable, Callable]:
+    """Data-parallel trainer for any ``nn.Module`` (e.g. ``ResNet``): the
+    ``hvd.DistributedOptimizer`` loop of the JAX package's
+    ``data_parallel_train_step`` and ``bench.py``'s ``build_step``.
+
+    ``loss_fn(model, *batch) -> scalar`` is written for one rank's rows
+    (``batch`` = e.g. images and labels); ``optimizer`` is a
+    ``DistributedOptimizer`` over the model's parameters. Returns
+    ``(init_fn, train_step, put_batch)``:
+
+    - ``init_fn(model) -> TrainState``: broadcasts every parameter and
+      buffer from rank 0 (when the runtime is initialized);
+    - ``put_batch(batch)``: this rank's rows of each leaf of a global
+      batch (a tensor, numpy array, or tuple of them), on ``device``;
+    - ``train_step(state, *batch) -> (state, loss)``: forward (the
+      model's batch norms advance their running statistics in place),
+      backward, the optimizer's gradient sync and update in place;
+      ``loss`` is the mean over the ranks, an f32 scalar on ``device``.
+      It takes the batch's leaves as ``train_loop`` splats them.
+
+    ``bind_axis=True`` binds ``axis`` during the forward and backward, so
+    a model built with ``bn_cross_replica_axis=axis`` sums its batch-norm
+    statistics over the ranks (sync batch norm) through a differentiable
+    allreduce."""
+    from horovod_tpu_torch.parallel.distributed import DistributedOptimizer
+    if not isinstance(optimizer, DistributedOptimizer):
+        raise TypeError("data_parallel_train_step: pass a "
+                        "DistributedOptimizer, which syncs the gradients")
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+
+    def world() -> int:
+        return context.size() if context.is_initialized() else 1
+
+    def init_fn(model: torch.nn.Module) -> TrainState:
+        if any(t.device != dev for t in model.parameters()):
+            raise ValueError(f"init_fn: every parameter must be on {dev}")
+        if context.is_initialized():
+            broadcast_parameters(model, root_rank=0)
+        return TrainState(0, model, optimizer)
+
+    def put_batch(batch):
+        if isinstance(batch, tuple):
+            return tuple(put_batch(b) for b in batch)
+        if isinstance(batch, np.ndarray):
+            batch = torch.from_numpy(np.ascontiguousarray(batch))
+        w = world()
+        if batch.shape[0] % w:
+            raise ValueError(f"put_batch: {batch.shape[0]} rows do not "
+                             f"split over {w} ranks")
+        rows = batch.shape[0] // w
+        r = context.rank() if context.is_initialized() else 0
+        return batch[r * rows:(r + 1) * rows].to(dev)
+
+    def train_step(state: TrainState, *batch
+                   ) -> Tuple[TrainState, torch.Tensor]:
+        binding = (collectives.bind_axis(axis) if bind_axis
+                   else contextlib.nullcontext())
+        with binding:
+            loss = loss_fn(state.params, *batch)
+            loss.backward()
+        state.opt_state.step()
+        state.opt_state.zero_grad(set_to_none=True)
+        loss = loss.detach().float()
+        if world() != 1:
+            loss = collectives.allreduce_(loss, ReduceOp.AVERAGE)
+        return TrainState(state.step + 1, state.params, state.opt_state), loss
+
+    return init_fn, train_step, put_batch
 
 
 def train_loop(

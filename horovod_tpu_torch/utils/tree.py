@@ -9,7 +9,7 @@ that, as in JAX).
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 # A treedef is the tree itself with every leaf replaced by None.
 TreeDef = Any
@@ -44,6 +44,29 @@ def tree_unflatten(treedef: TreeDef, leaves: List[Any]) -> Any:
     out = build(treedef)
     if next(it, it) is not it:
         raise ValueError("tree_unflatten: more leaves than the tree holds")
+    return out
+
+
+def flatten_dict(tree: Mapping) -> Dict[Tuple[str, ...], Any]:
+    """``{path: leaf}`` of a nested mapping (``flax.traverse_util``'s
+    ``flatten_dict``): each path is the tuple of keys down to a leaf."""
+    out: Dict[Tuple[str, ...], Any] = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update({(k,) + p: leaf for p, leaf in flatten_dict(v).items()})
+        else:
+            out[(k,)] = v
+    return out
+
+
+def unflatten_dict(flat: Mapping[Tuple[str, ...], Any]) -> Dict:
+    """The nested dict of :func:`flatten_dict`'s ``{path: leaf}``."""
+    out: Dict = {}
+    for path, v in flat.items():
+        node = out
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = v
     return out
 
 

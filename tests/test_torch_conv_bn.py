@@ -1,0 +1,179 @@
+"""The port's fused 1x1-conv + batch-norm op against the JAX package, on
+the CPU.
+
+The same numpy inputs go through ``horovod_tpu.ops.pallas.conv_bn.
+conv1x1_bn_stats(..., interpret=True)`` (the Pallas kernels, interpreted)
+and the port's ``conv1x1_bn_stats``, whose ``autograd.Function`` takes
+the kernels' plain versions for CPU tensors. Tolerances are the JAX
+tests' own (``tests/test_fused_conv_bn.py``): y 2e-5; s1 rtol 2e-4 /
+atol 2e-3; s2 rtol 2e-4 / atol 2e-2; gradients rtol 2e-4 / atol 2e-3 —
+f32 sums taken in other orders.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from horovod_tpu.ops.pallas import conv_bn as jconv_bn
+from horovod_tpu_torch.ops import conv_bn
+
+Y_TOL = dict(rtol=2e-5, atol=2e-5)
+S1_TOL = dict(rtol=2e-4, atol=2e-3)
+S2_TOL = dict(rtol=2e-4, atol=2e-2)
+GRAD_TOL = dict(rtol=2e-4, atol=2e-3)
+
+CASES = [
+    (2, 8, 8, 16, 32, (1, 1), False),
+    (2, 8, 8, 16, 32, (1, 1), True),      # prologue
+    (3, 7, 7, 130, 70, (1, 1), True),     # M, K, N not multiples of a tile
+    (2, 8, 8, 16, 32, (2, 2), True),      # strided (projection conv)
+    (1, 8, 8, 32, 576, (1, 1), False),    # N = 576: columns past a tile
+]
+
+
+def _inputs(seed, n, h, w, k, c, prologue):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, h, w, k).astype(np.float32)
+    wt = (rng.randn(k, c) * 0.1).astype(np.float32)
+    inv = (rng.rand(k) + 0.5).astype(np.float32) if prologue else None
+    shift = (rng.randn(k) * 0.1).astype(np.float32) if prologue else None
+    return x, wt, inv, shift
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+@pytest.mark.parametrize("n,h,w,k,c,stride,prologue", CASES)
+def test_forward_matches_jax_kernel(n, h, w, k, c, stride, prologue):
+    x, wt, inv, shift = _inputs(0, n, h, w, k, c, prologue)
+    jy, js1, js2 = jconv_bn.conv1x1_bn_stats(
+        _j(x), _j(wt), _j(inv), _j(shift), strides=stride, interpret=True)
+    conv_bn.reset_launches()
+    y, s1, s2 = conv_bn.conv1x1_bn_stats(_t(x), _t(wt), _t(inv), _t(shift),
+                                         strides=stride)
+    assert conv_bn.LAUNCHES == {"conv_bn_fwd": 0, "conv_bn_bwd": 0}
+    assert y.shape == jy.shape and y.dtype == torch.float32
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **Y_TOL)
+    np.testing.assert_allclose(s1.numpy(), np.asarray(js1), **S1_TOL)
+    np.testing.assert_allclose(s2.numpy(), np.asarray(js2), **S2_TOL)
+
+
+@pytest.mark.parametrize("n,h,w,k,c,stride,prologue", CASES)
+def test_gradients_match_jax_kernel(n, h, w, k, c, stride, prologue):
+    """d(x), d(w), d(inv), d(shift) of the JAX tests' loss
+    sum(y^2)/2 + s1.c1 + s2.c2 against jax.grad through the interpreted
+    Pallas custom VJP."""
+    x, wt, inv, shift = _inputs(1, n, h, w, k, c, True)
+    rng = np.random.RandomState(2)
+    c1 = rng.randn(c).astype(np.float32)
+    c2 = (rng.randn(c) * 0.01).astype(np.float32)
+    if not prologue:
+        inv = shift = None
+
+    def jloss(x, wt, *bn):
+        y, s1, s2 = jconv_bn.conv1x1_bn_stats(x, wt, *bn, strides=stride,
+                                              interpret=True)
+        return jnp.sum(y * y) * 0.5 + jnp.sum(s1 * c1) + jnp.sum(s2 * c2)
+
+    args = [x, wt] + ([inv, shift] if prologue else [])
+    jgrads = jax.grad(jloss, argnums=tuple(range(len(args))))(
+        *[jnp.asarray(a) for a in args])
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    y, s1, s2 = conv_bn.conv1x1_bn_stats(*ts[:2], *(ts[2:] or [None, None]),
+                                         strides=stride)
+    loss = ((y * y).sum() * 0.5 + (s1 * torch.from_numpy(c1)).sum()
+            + (s2 * torch.from_numpy(c2)).sum())
+    grads = torch.autograd.grad(loss, ts)
+    for g, jg, name in zip(grads, jgrads, "x w inv shift".split()):
+        np.testing.assert_allclose(g.numpy(), np.asarray(jg), **GRAD_TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("m,k,n", [(128, 16, 32), (147, 130, 70)])
+def test_plain_backward_equals_autograd_of_plain_forward(m, k, n, prologue):
+    """The single-pass formulas of conv1x1_bn_bwd_plain against autograd
+    through conv1x1_bn_stats_plain, f32 (1e-5: the same products summed in
+    other orders)."""
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32))
+    w = torch.from_numpy((rng.randn(k, n) * 0.1).astype(np.float32))
+    inv = torch.from_numpy((rng.rand(k) + 0.5).astype(np.float32))
+    shift = torch.from_numpy((rng.randn(k) * 0.5).astype(np.float32))
+    dy = torch.from_numpy(rng.randn(m, n).astype(np.float32))
+    ds1 = torch.from_numpy(rng.randn(n).astype(np.float32))
+    ds2 = torch.from_numpy((rng.randn(n) * 0.01).astype(np.float32))
+    bn = (inv, shift) if prologue else (None, None)
+    leaves = [t.clone().requires_grad_(True)
+              for t in (x, w) + (bn if prologue else ())]
+    y, s1, s2 = conv_bn.conv1x1_bn_stats_plain(
+        *leaves[:2], *(leaves[2:] or [None, None]))
+    want = torch.autograd.grad((y, s1, s2), leaves, (dy, ds1, ds2))
+    y_det = conv_bn.conv1x1_bn_stats_plain(x, w, *bn)[0]
+    got = conv_bn.conv1x1_bn_bwd_plain(x, w, *bn, y_det, dy, ds1, ds2)
+    if not prologue:
+        assert got[2] is None and got[3] is None
+    for g, wnt, name in zip(got, want, "dx dw dinv dshift".split()):
+        torch.testing.assert_close(g, wnt, rtol=1e-5, atol=1e-5, msg=name)
+
+
+def test_unused_outputs_count_as_zero_cotangents():
+    """Only y reaches the loss: the Function gets None for ds1 and ds2 and
+    must give autograd-of-plain's gradients (which see zeros there)."""
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy(rng.randn(2, 4, 4, 8).astype(np.float32))
+    w = torch.from_numpy((rng.randn(8, 12) * 0.3).astype(np.float32))
+    xa, wa = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    y, _, _ = conv_bn.conv1x1_bn_stats(xa, wa)
+    y.sum().backward()
+    xb, wb = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    yb = conv_bn.conv1x1_bn_stats_plain(xb.reshape(-1, 8), wb)[0]
+    yb.sum().backward()
+    torch.testing.assert_close(xa.grad, xb.grad, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(wa.grad, wb.grad, rtol=1e-6, atol=1e-6)
+
+
+def test_hwio_weight_bf16_and_errors():
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(1, 4, 4, 8).astype(np.float32))
+    w = torch.from_numpy((rng.randn(8, 6) * 0.3).astype(np.float32))
+    y2, a2, b2 = conv_bn.conv1x1_bn_stats(x, w)
+    y4, a4, b4 = conv_bn.conv1x1_bn_stats(x, w.reshape(1, 1, 8, 6))
+    assert torch.equal(y2, y4) and torch.equal(a2, a4)
+    # bf16: the product is rounded to bf16, the sums are f32 over the
+    # rounded values
+    yb, s1b, s2b = conv_bn.conv1x1_bn_stats(x.bfloat16(), w)
+    assert yb.dtype == torch.bfloat16 and s1b.dtype == torch.float32
+    torch.testing.assert_close(s1b, yb.float().sum((0, 1, 2)))
+    with pytest.raises(ValueError, match="1x1"):
+        conv_bn.conv1x1_bn_stats(x, torch.zeros(3, 3, 8, 6))
+    with pytest.raises(ValueError, match="channels"):
+        conv_bn.conv1x1_bn_stats(x, torch.zeros(4, 6))
+    with pytest.raises(ValueError, match="together"):
+        conv_bn.conv1x1_bn_stats(x, w, torch.ones(8))
+
+
+def test_gate_and_cuda_only_wrappers():
+    """The Hopper gate takes every ResNet 1x1 conv (the TPU gate refused
+    the 1024 -> 2048 projection) in bf16 and f32; the kernel wrappers
+    refuse CPU tensors."""
+    for cin, cout in ((64, 256), (2048, 512), (1024, 2048), (130, 70)):
+        for dt in (torch.bfloat16, torch.float32):
+            assert conv_bn.supports(cin, cout, dt)
+    assert not jconv_bn.supports(1024, 2048)
+    assert not conv_bn.supports(64, 64, torch.float16)
+    assert not conv_bn.supports(0, 64, torch.float32)
+    x, w = torch.zeros(4, 8), torch.zeros(8, 8)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        conv_bn.conv_bn_fwd(x, w)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        conv_bn.conv_bn_bwd(x, w, None, None, x, x, torch.zeros(8),
+                            torch.zeros(8))

@@ -160,3 +160,193 @@ def test_cuda_train_step_matches_cpu():
     np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
     for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the fused 1x1-conv + batch-norm kernels
+# ---------------------------------------------------------------------------
+
+CONV_CASES = [(147, 130, 70), (64, 32, 576), (401, 64, 256), (1000, 256, 64)]
+
+
+def _conv_case(m, k, n, prologue, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device="cuda").to(dtype)
+    w = (torch.randn((k, n), generator=g, device="cuda") * k ** -0.5).to(dtype)
+    inv = shift = None
+    if prologue:
+        inv = torch.rand((k,), generator=g, device="cuda") + 0.5
+        shift = torch.randn((k,), generator=g, device="cuda") * 0.1
+    dy = torch.randn((m, n), generator=g, device="cuda").to(dtype)
+    ds1 = torch.randn((n,), generator=g, device="cuda") * 1e-2
+    ds2 = torch.randn((n,), generator=g, device="cuda") * 1e-3
+    return x, w, inv, shift, dy, ds1, ds2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("m,k,n", CONV_CASES)
+def test_cuda_conv_bn_kernels_match_plain_versions(m, k, n, prologue, dtype,
+                                                   rel):
+    """Both conv+BN kernels against their plain versions on the card
+    (ragged K and N included). Errors relative to the largest reference
+    value: f32 sums in another order (1e-4); bf16 outputs rounded once to
+    bf16 after them (1e-2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from horovod_tpu_torch.ops import conv_bn as cb
+    x, w, inv, shift, dy, ds1, ds2 = _conv_case(m, k, n, prologue, dtype)
+    before = dict(cb.LAUNCHES)
+    got = cb.conv_bn_fwd(x, w, inv, shift)
+    gotb = cb.conv_bn_bwd(x, w, inv, shift, got[0], dy, ds1, ds2)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES == {kn: v + 1 for kn, v in before.items()}
+    want = cb.conv1x1_bn_stats_plain(x, w, inv, shift)
+    wantb = cb.conv1x1_bn_bwd_plain(x, w, inv, shift, got[0], dy, ds1, ds2)
+    for a, ref, what in zip(got + gotb, want + wantb,
+                            "y s1 s2 dx dw dinv dshift".split()):
+        if ref is None:
+            assert a is None, what
+            continue
+        assert a.dtype == ref.dtype and a.shape == ref.shape, what
+        assert bool(torch.isfinite(a).all()), what
+        _assert_rel_close(a.float(), ref.float(), rel, what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("cotangent", ["dy", "ds1", "ds2"])
+def test_cuda_conv_bn_bwd_each_cotangent(cotangent, dtype, rel):
+    """The backward kernel is linear in dy, ds1 and ds2: each alone, scaled
+    so that its term of dy_eff = dy + ds1 + 2 ds2 y is as large as dy's,
+    against the plain version (at training's scales ds1 and ds2 hide under
+    dy's term within the bf16 tolerance)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from horovod_tpu_torch.ops import conv_bn as cb
+    x, w, inv, shift, dy, ds1, ds2 = _conv_case(401, 64, 256, True, dtype)
+    zn = torch.zeros_like(ds1)
+    cots = {"dy": (dy, zn, zn),
+            "ds1": (torch.zeros_like(dy), ds1 * 100.0, zn),
+            "ds2": (torch.zeros_like(dy), zn, ds2 * 500.0)}[cotangent]
+    y = cb.conv_bn_fwd(x, w, inv, shift)[0]
+    got = cb.conv_bn_bwd(x, w, inv, shift, y, *cots)
+    want = cb.conv1x1_bn_bwd_plain(x, w, inv, shift, y, *cots)
+    for a, ref, what in zip(got, want, "dx dw dinv dshift".split()):
+        assert float(ref.float().abs().max()) > 1.0, what
+        _assert_rel_close(a.float(), ref.float(), rel, what)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_block_refuses_unsupported_dtype():
+    """On the card a 1x1 conv the kernels' gate refuses (float16) raises;
+    the fused block never routes it to a plain composition."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from horovod_tpu_torch.models import resnet
+    model = htt.ResNet(stage_sizes=[1], block_cls=resnet.BottleneckBlock,
+                       num_classes=10, num_filters=8, dtype=torch.float16,
+                       fused_conv_bn=True, device="cuda", seed=1)
+    x = torch.zeros((2, 32, 32, 3), device="cuda")
+    with pytest.raises(ValueError, match="do not take"):
+        model(x, train=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride,prologue", [((1, 1), False),
+                                             ((1, 1), True),
+                                             ((2, 2), True)])
+def test_cuda_conv1x1_bn_stats_grads_match_cpu(stride, prologue):
+    """The public NHWC op with its autograd.Function on the card against
+    the same op on the CPU (plain versions), f32, strided rows included:
+    y, the sums and every gradient (1e-4 relative to the largest value)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from horovod_tpu_torch.ops import conv_bn as cb
+    rng = np.random.default_rng(12)
+    arrays = [rng.standard_normal((3, 7, 7, 130)).astype(np.float32),
+              (rng.standard_normal((130, 70)) * 0.1).astype(np.float32)]
+    if prologue:
+        arrays += [(rng.random(130) + 0.5).astype(np.float32),
+                   (rng.standard_normal(130) * 0.1).astype(np.float32)]
+    c1, c2 = _t(rng.standard_normal(70).astype(np.float32),
+                (rng.standard_normal(70) * 0.01).astype(np.float32))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        ts = [t.to(dev).requires_grad_(True) for t in _t(*arrays)]
+        y, s1, s2 = cb.conv1x1_bn_stats(ts[0], ts[1], *(ts[2:] or [None,
+                                                                   None]),
+                                        strides=stride)
+        loss = ((y * y).sum() * 0.5 + (s1 * c1.to(dev)).sum()
+                + (s2 * c2.to(dev)).sum())
+        grads = torch.autograd.grad(loss, ts)
+        outs[dev] = [t.detach().cpu() for t in (y, s1, s2) + grads]
+    for a, ref in zip(outs["cuda"], outs["cpu"]):
+        _assert_rel_close(a, ref, 1e-4, "conv1x1_bn_stats")
+
+
+@pytest.mark.cuda
+def test_cuda_conv_bn_sums_are_deterministic():
+    """Two runs give bitwise-equal s1, s2, dW, d_inv and d_shift: partial
+    rows and split-M partials are added in a fixed order (no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from horovod_tpu_torch.ops import conv_bn as cb
+    x, w, inv, shift, dy, ds1, ds2 = _conv_case(50000, 64, 256, True,
+                                                torch.bfloat16, seed=3)
+    runs = []
+    for _ in range(2):
+        y, s1, s2 = cb.conv_bn_fwd(x, w, inv, shift)
+        _, dw, dinv, dshift = cb.conv_bn_bwd(x, w, inv, shift, y, dy, ds1,
+                                             ds2)
+        runs.append((s1, s2, dw, dinv, dshift))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_resnet_train_step_matches_cpu():
+    """A small f32 fused ResNet trained by data_parallel_train_step and
+    DistributedOptimizer for two steps in an NCCL world of one against the
+    gloo CPU world: losses and parameters (1e-4: convolutions and sums in
+    other orders)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import torch.nn.functional as F
+    from horovod_tpu_torch.models import resnet
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(13)
+    batches = [(rng.standard_normal((4, 32, 32, 3)).astype(np.float32),
+                rng.integers(0, 10, (4,))) for _ in range(2)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        htt.init(device=dev)
+        try:
+            model = htt.ResNet(stage_sizes=[1, 1],
+                               block_cls=resnet.BottleneckBlock,
+                               num_classes=10, num_filters=8,
+                               dtype=torch.float32, fused_conv_bn=True,
+                               device=dev, seed=1)
+            opt = htt.DistributedOptimizer(torch.optim.SGD(
+                model.parameters(), lr=0.01, momentum=0.9))
+            init_fn, step, put_batch = htt.data_parallel_train_step(
+                lambda m, x, y: F.cross_entropy(m(x, train=True), y), opt,
+                device=dev)
+            state = init_fn(model)
+            losses = []
+            for b in batches:
+                state, loss = step(state, *put_batch(b))
+                losses.append(float(loss))
+            runs[dev] = (losses, [p.detach().cpu()
+                                  for p in model.parameters()])
+        finally:
+            htt.shutdown()
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
+    for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
+        _assert_rel_close(a, b, 1e-4, "parameter")

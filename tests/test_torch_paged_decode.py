@@ -194,7 +194,8 @@ def test_build_runs_one_nvcc_per_source_into_the_build_dir(tmp_path,
                                 'echo built > "$2"; echo ptxas ok\n')
     monkeypatch.setattr(_build, "nvcc", lambda: nvcc)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    names = {"paged_decode", "flash_fwd", "flash_bwd"}
+    names = {"paged_decode", "flash_fwd", "flash_bwd", "conv_bn_fwd",
+             "conv_bn_bwd"}
     assert set(_build.SOURCES) == names
     seconds = _build.build_all()
     assert set(seconds) == names and all(t > 0 for t in seconds.values())
@@ -203,7 +204,7 @@ def test_build_runs_one_nvcc_per_source_into_the_build_dir(tmp_path,
         assert lib.parent == tmp_path / "build"
         assert lib.read_text() == "built\n"
         assert _build.build_logs[name].strip() == "ptxas ok"
-    assert len({_build.library_path(n) for n in names}) == 3
+    assert len({_build.library_path(n) for n in names}) == len(names)
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert _build.build_all() == {n: 0.0 for n in names}   # built once
 

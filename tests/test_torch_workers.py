@@ -82,6 +82,41 @@ def dp_worker(rank, world, port, cfg, np_params, batches, out_dir):
         htt.shutdown()
 
 
+def resnet_dp_worker(rank, world, port, model_kw, np_vars, batches, out_dir):
+    """Trains ``ResNet(**model_kw, bn_cross_replica_axis="hvd")`` from the
+    flax variables ``np_vars`` on this rank's rows of each global batch
+    with ``data_parallel_train_step(bind_axis=True)`` and a
+    ``DistributedOptimizer`` (SGD 0.01, momentum 0.9). Rank r starts from
+    the variables times (1 + r): ``init_fn`` must broadcast rank 0's
+    parameters and running statistics. Saves the losses and the final
+    variables as ``<collection>|<path>`` entries."""
+    import torch.nn.functional as F
+    from horovod_tpu_torch.models import resnet
+    _join_gloo(rank, world, port)
+    try:
+        model = resnet.ResNet(**model_kw, bn_cross_replica_axis="hvd",
+                              device="cpu")
+        resnet.variables_from_numpy(model, tree_util.tree_map(
+            lambda a: a * (1 + rank), np_vars))
+        opt = htt.DistributedOptimizer(torch.optim.SGD(
+            model.parameters(), lr=0.01, momentum=0.9))
+        init_fn, step, put_batch = htt.data_parallel_train_step(
+            lambda m, x, y: F.cross_entropy(m(x, train=True), y), opt,
+            device="cpu", axis="hvd", bind_axis=True)
+        state = init_fn(model)
+        losses = []
+        for batch in batches:
+            state, loss = step(state, *put_batch(batch))
+            losses.append(float(loss))
+        out = {"losses": np.asarray(losses)}
+        for coll, tree in resnet.variables_to_numpy(model).items():
+            for path, leaf in tree_util.flatten_dict(tree).items():
+                out["|".join((coll,) + path)] = leaf
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    finally:
+        htt.shutdown()
+
+
 def collectives_worker(rank, world, port, out_dir):
     """Every collective of the port on rank-dependent inputs: rank r holds
     ``x[r]`` of the rank-stacked arrays the parent rebuilds with
