@@ -16,7 +16,11 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    D=64, bf16, causal; plus f32, offset, fully masked and ragged cases),
    then the conv+BN forward and backward kernels at every distinct 1x1
    conv of ResNet-50 at 128 images (three of them timed beside the cuBLAS
-   GEMM alone; plus f32 ragged and wide cases);
+   GEMM alone; plus f32 ragged and wide cases), then the stream copy bit
+   for bit at bench.py's probe shape (bf16 [131072, 1024]), ragged and
+   misaligned; then the stream copy's own path, the bandwidth probe
+   (``bandwidth:`` line: ms and GB/s of torch's elementwise pass, copy_
+   and the kernel at 1, 4, 16 and 64 rows per CTA);
 3. serving at full width: the flagship TransformerLM (268M parameters,
    random weights from a seed) served through ``ServeScheduler.run`` —
    the launch counts are zeroed just before and read just after, and the
@@ -27,28 +31,39 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    one warm-up step and then ``train_loop`` steps through an NCCL world
    of one — launch counts zeroed just before and read just after, losses
    finite, at least 16 launches of each flash kernel per step; then a
-   profile of one step. Then ResNet-50 with ``fused_conv_bn=True`` as
+   profile of one step. Then the same through
+   ``make_transformer_train_step_fused`` (buckets launched from the
+   gradient hooks, EpilogueSGD in each bucket's epilogue): at tier none
+   its losses against the unfused step's, then at fp8_e4m3 with error
+   feedback (``train fused:`` line: losses, step ms, buckets, wire and
+   logical bytes). Then ResNet-50 with ``fused_conv_bn=True`` as
    ``bench.py`` trains it (224^2, bf16, 128 images, SGD with momentum
-   through ``DistributedOptimizer`` and ``data_parallel_train_step``):
-   at least 36 launches of each conv+BN kernel per step, then a profile;
+   through the bucketed, hook-launched ``DistributedOptimizer`` and
+   ``data_parallel_train_step``): at least 36 launches of each conv+BN
+   kernel per step, every bucket launched from the hooks, then a profile;
 5. card against CPU: a 2-layer f32 serving engine (greedy tokens
    identical, logits within 1e-4), a 2-layer f32 training copy (loss,
-   every gradient leaf and the parameters after two SGD steps) and a
-   small f32 fused ResNet (logits, running statistics, every gradient
-   leaf, the parameters after two SGD steps).
+   every gradient leaf and the parameters after two SGD steps), a small
+   f32 fused ResNet (logits, running statistics, every gradient leaf, the
+   parameters after two SGD steps) and the tiny f32 fused step at
+   fp8_e4m3 with error feedback (losses, parameters, residual).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the
 package, it exits non-zero and prints no result.
 
-``--data-parallel N`` runs only the training steps across N cards of one
-host: one process per card joins an NCCL world through the launcher's
-environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``,
+``--data-parallel N`` runs only training across N cards of one host: one
+process per card joins an NCCL world through the launcher's environment
+(``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``,
 ``LOCAL_RANK``), each on its rows of the global batch (8 sequences of the
-flagship, then 128 ResNet-50 images, per card); a world of one runs
-first in the same call as the yardstick. It checks that every rank ends
-with the same parameters, and prints step ms, throughput and the
-scaling efficiency against the one-card world.
+flagship, 128 ResNet-50 images, per card). The variants: the unfused
+flagship, ResNet-50 with the default buckets and with one bucket after
+the backward (HOROVOD_GRADIENT_BUCKET_BYTES=0), and the fused flagship at
+tier none and fp8_e4m3; the first two also on one card, first, as the
+yardstick. Each ``data parallel <variant>:`` line gives step ms,
+throughput, the scaling efficiency where there is a yardstick, and from
+one profiled step the NCCL kernels' device ms and the part of it that
+overlapped compute kernels; every rank must end with the same parameters.
 """
 
 from __future__ import annotations
@@ -94,6 +109,20 @@ RESNET50_CONVS = 36          # 16 blocks x (conv1, conv3) + 4 projections
 # over 32 positions in the second stage amplifies that in the gradients.
 RESNET_REL_TOL = {"logits": 1e-4, "running_stats": 1e-4, "gradients": 1e-3,
                   "params_after_2_steps": 1e-4}
+# The fused flagship at tier none against the unfused step, relative loss
+# difference: the first loss is the same forward; later ones follow
+# parameters that differ in their last f32 bits (EpilogueSGD's p - lr * m
+# against torch.optim.SGD's p + (-lr) * m), which the bf16 forward can
+# round to other bf16 values.
+FUSED_LOSS_REL_TOL = 2e-3
+# The tiny f32 fused step at fp8_e4m3 with error feedback, card against
+# CPU: the two devices' f32 gradients differ in their last bits, so a value
+# on an fp8 rounding boundary can round the other way. At most this share
+# of a leaf's parameters may differ by more than 1e-5 of its largest value,
+# all within 1e-3 (one wire step times the learning rate); losses 1e-5.
+FP8_FLIP_SHARE = 5e-3
+TINY_CFG = dict(vocab_size=256, d_model=64, n_heads=2, head_dim=32,
+                n_layers=2, d_ff=128, max_seq=32)
 
 
 def log(*parts) -> None:
@@ -566,6 +595,81 @@ def check_conv_all(cb, gen):
 
 
 # ---------------------------------------------------------------------------
+# phase 2: the stream-copy kernel and the bandwidth probe
+# ---------------------------------------------------------------------------
+
+PROBE_ROWS, PROBE_COLS = 131072, 1024    # bench.py's bf16 probe array
+
+
+def check_stream_copy(sc, gen):
+    """The stream-copy kernel against its plain version (out.copy_(x)) bit
+    for bit: at the probe's shape, at ragged shapes and tiles, and on views
+    1..15 bytes off a 16-byte boundary; then its time at the probe's shape
+    beside its bound, the plain version's and ``copy_``'s (CUDA events)."""
+    dev = torch.device("cuda")
+    cases = [((PROBE_ROWS, PROBE_COLS), torch.bfloat16, None),
+             ((PROBE_ROWS, PROBE_COLS), torch.bfloat16, 1),
+             ((1000, 37), torch.uint8, 3), ((777, 129), torch.float32, 64),
+             ((3, 5, 7), torch.bfloat16, 1)]
+    err = 0.0
+    for shape, dtype, tile in cases:
+        x = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                          generator=gen)
+        if dtype != torch.uint8:
+            x = torch.randn(shape, device=dev, generator=gen).to(dtype)
+        got = sc.stream_copy(x, rows_per_cta=tile)
+        want = sc.stream_copy_plain(x, torch.empty_like(x))
+        torch.cuda.synchronize()
+        err = max(err, float((got.float() - want.float()).abs().max()))
+        if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
+            raise AssertionError(f"stream_copy {shape} {dtype} rows/CTA "
+                                 f"{tile}: differs from its plain version")
+    base = torch.randint(0, 256, (1 << 18,), dtype=torch.uint8, device=dev,
+                         generator=gen)
+    for so, do in ((1, 1), (3, 7), (0, 8), (16, 5)):
+        dst = torch.zeros(1 << 18, dtype=torch.uint8, device=dev)
+        xs = base[so:so + 100000].view(1000, 100)
+        sc.stream_copy(xs, dst[do:do + 100000].view(1000, 100),
+                       rows_per_cta=7)
+        torch.cuda.synchronize()
+        if not (torch.equal(dst[do:do + 100000], base[so:so + 100000])
+                and not dst[:do].any() and not dst[do + 100000:].any()):
+            raise AssertionError(f"stream_copy misaligned ({so}, {do}) "
+                                 f"differs from its plain version")
+    log(f"stream_copy: bit-equal to its plain version over "
+        f"{len(cases) + 4} cases (probe shape, ragged, misaligned)")
+    x = torch.randn((PROBE_ROWS, PROBE_COLS), device=dev, generator=gen
+                    ).to(torch.bfloat16)
+    y = torch.empty_like(x)
+    nbytes = 2 * x.numel() * x.element_size()
+    res = {"max_abs_err": err,
+           "ms": cuda_ms(lambda i: sc.stream_copy(x, y), 20),
+           "plain_ms": cuda_ms(lambda i: sc.stream_copy_plain(x, y), 20),
+           "library_ms": cuda_ms(lambda i: y.copy_(x), 20),
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    log(f"stream_copy bf16 [{PROBE_ROWS}, {PROBE_COLS}]: kernel "
+        f"{res['ms']:.4f} ms, bound {res['bound_ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms, copy_ {res['library_ms']:.4f} ms")
+    return res
+
+
+def bandwidth(sc, card):
+    """The probe's main path: launch count zeroed just before
+    ``bandwidth_probe`` and read just after; one ``bandwidth:`` line."""
+    sc.reset_launches()
+    rows = sc.bandwidth_probe("cuda", rows=PROBE_ROWS, cols=PROBE_COLS)
+    launches = sc.LAUNCHES["stream_copy"]
+    if launches == 0:
+        raise AssertionError("the bandwidth probe launched no stream copy")
+    log("bandwidth: " + json.dumps({
+        "array": f"bf16 [{PROBE_ROWS}, {PROBE_COLS}]",
+        "bytes_per_pass": 2 * PROBE_ROWS * PROBE_COLS * 2,
+        "data_sheet_gb_s": HBM_BYTES_PER_S / 1e9, "rows": rows,
+        "stream_copy_launches": launches, "card": card}))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 3: serving at full width
 # ---------------------------------------------------------------------------
 
@@ -773,7 +877,86 @@ def train_flagship(htt, fa, card, n_steps: int = 4):
     log("train: " + json.dumps(train))
     profile_train_step(step, state, batches[-1], card)
     htt.shutdown()
-    return launches
+    return launches, [warm_loss] + losses
+
+
+def flagship_fused_step(htt, cfg, dev, seed: int):
+    """The flagship through ``make_transformer_train_step_fused`` with
+    ``distributed_apply(EpilogueSGD(0.01, momentum=0.9),
+    sync_axes=grad_sync_axes(cfg))``, from weights of ``seed``."""
+    from horovod_tpu_torch.models import transformer as tfm
+    params = htt.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    da = htt.distributed_apply(htt.EpilogueSGD(0.01, momentum=0.9),
+                               sync_axes=tfm.grad_sync_axes(cfg))
+    init_fn, step = htt.make_transformer_train_step_fused(cfg, da,
+                                                          device=dev)
+    return init_fn(params), step
+
+
+def train_flagship_fused(htt, fa, card, unfused_losses, n_steps: int = 4):
+    """The fused flagship step (hook-launched buckets, the update in each
+    bucket's epilogue), 1 + ``n_steps`` steps through an NCCL world of one
+    from the unfused run's seeds: at tier none its losses against the
+    unfused step's (FUSED_LOSS_REL_TOL), then at fp8_e4m3 with error
+    feedback (losses finite; wire and logical bytes, bucket count)."""
+    from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.parallel import distributed as D
+    cfg = flagship_cfg(htt.TransformerConfig, mlp_recompute=True,
+                       dp_axis="dp")
+    out = {}
+    for tier in ("none", "fp8_e4m3"):
+        knobs.set_override("HOROVOD_GRADIENT_COMPRESSION", tier)
+        htt.init()
+        try:
+            state, step = flagship_fused_step(htt, cfg, "cuda", seed=0)
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            batches = [tuple(torch.randint(
+                0, cfg.vocab_size, (TRAIN_B, TRAIN_S), generator=gen,
+                device="cuda") for _ in range(2)) for _ in range(n_steps + 1)]
+            state, loss = step(state, *batches[0])              # warm-up
+            losses, stamps = [float(loss)], []
+            fa.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for batch in batches[1:]:
+                state, loss = step(state, *batch)
+                losses.append(float(loss))                  # synchronizes
+                stamps.append(time.perf_counter())
+            launches = dict(fa.LAUNCHES)
+            trace = D.last_wire_trace()
+        finally:
+            htt.shutdown()
+            knobs.clear_override("HOROVOD_GRADIENT_COMPRESSION")
+        if not all(np.isfinite(x) for x in losses):
+            raise AssertionError(f"fused {tier}: non-finite loss {losses}")
+        if min(launches.get(k, 0) for k in ("flash_fwd", "flash_bwd_dq",
+                                            "flash_bwd_dkv")) \
+                < cfg.n_layers * n_steps:
+            raise AssertionError(f"fused {tier}: flash launches {launches}")
+        step_ms = [float(x) * 1e3 for x in np.diff([t0] + stamps)]
+        res = {"tier": tier, "losses": losses, "step_ms": step_ms,
+               "step_ms_mean": float(np.mean(step_ms)),
+               "buckets": trace["n_buckets"],
+               "wire_bytes": trace["wire_bytes"],
+               "logical_bytes": trace["logical_bytes"],
+               "error_feedback": trace["error_feedback"],
+               "flash_launches": launches}
+        if tier == "none":
+            rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(losses, unfused_losses))
+            res["max_rel_loss_diff_vs_unfused"] = rel
+            if rel > FUSED_LOSS_REL_TOL:
+                raise AssertionError(
+                    f"fused step at tier none: losses {losses} differ from "
+                    f"the unfused step's {unfused_losses} by {rel}")
+        elif not trace["error_feedback"] or trace["tier"] != tier:
+            raise AssertionError(f"fused fp8: wire trace {trace}")
+        out[tier] = res
+    log("train fused: " + json.dumps({
+        "model": "flagship TransformerLM", "batch": TRAIN_B, "seq": TRAIN_S,
+        "optimizer": "EpilogueSGD(0.01, momentum=0.9)", "tiers": out,
+        "card": card}))
 
 
 def profile_train_step(step, state, batch, card,
@@ -866,6 +1049,11 @@ def train_resnet50(htt, cb, card, n_steps: int = 4):
         raise AssertionError(f"train_loop info {info}")
     if not all(np.isfinite(x) for x in [warm_loss] + losses):
         raise AssertionError(f"non-finite loss: {[warm_loss] + losses}")
+    opt = state.opt_state
+    if len(opt.buckets) < 2 or not all(h for _, h in opt.launch_log):
+        raise AssertionError(f"expected every one of several buckets "
+                             f"launched from the gradient hooks: "
+                             f"{opt.launch_log}")
     for name in ("conv_bn_fwd", "conv_bn_bwd"):
         if launches[name] < RESNET50_CONVS * n_steps:
             raise AssertionError(
@@ -884,6 +1072,8 @@ def train_resnet50(htt, cb, card, n_steps: int = 4):
         "peak_memory_gb": peak_gb,
         "launches": {k_: launches[k_] for k_ in ("conv_bn_fwd",
                                                   "conv_bn_bwd")},
+        "sync_buckets": len(opt.buckets),
+        "buckets_launched_from_hooks": sum(h for _, h in opt.launch_log),
         "card": card}
     log("resnet train: " + json.dumps(train))
     profile_train_step(step, state, batches[-1], card,
@@ -1039,83 +1229,220 @@ def train_card_vs_cpu(htt) -> None:
         raise AssertionError("training on the card and on the CPU differ")
 
 
+def fused_card_vs_cpu(htt) -> None:
+    """The tiny f32 fused step (TINY_CFG, EpilogueSGD(0.05, momentum 0.9),
+    fp8_e4m3 with error feedback, small buckets) in a world of one, from
+    the same numpy weights and batches on the CPU (gloo) and on the card
+    (NCCL): losses, parameters and the residual after three steps."""
+    from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.utils import tree as tree_util
+    cfg = htt.TransformerConfig(**TINY_CFG, dtype=torch.float32,
+                                dp_axis="dp")
+    np_params = tree_util.tree_map(lambda t: t.numpy(), htt.init_params(
+        cfg, torch.Generator().manual_seed(5), device="cpu"))
+    rng = np.random.default_rng(8)
+    batches = [(rng.integers(0, 256, (4, 32)), rng.integers(0, 256, (4, 32)))
+               for _ in range(3)]
+    knobs.set_override("HOROVOD_GRADIENT_COMPRESSION", "fp8_e4m3")
+    knobs.set_override("HOROVOD_GRADIENT_BUCKET_BYTES", 64 * 1024)
+    runs = {}
+    try:
+        for dev in ("cpu", "cuda"):
+            htt.init(device=dev)
+            try:
+                da = htt.distributed_apply(
+                    htt.EpilogueSGD(0.05, momentum=0.9),
+                    sync_axes=tfm.grad_sync_axes(cfg))
+                init_fn, step = htt.make_transformer_train_step_fused(
+                    cfg, da, device=dev)
+                state = init_fn(htt.params_from_numpy(np_params, device=dev))
+                losses = []
+                for toks, labels in batches:
+                    state, loss = step(state, toks, labels)
+                    losses.append(float(loss))
+                runs[dev] = (losses, [t.detach().cpu() for t in
+                                      tree_util.tree_leaves(state.params)],
+                             [t.cpu() for t in tree_util.tree_leaves(
+                                 state.opt_state.residual)])
+            finally:
+                htt.shutdown()
+    finally:
+        knobs.clear_override("HOROVOD_GRADIENT_COMPRESSION")
+        knobs.clear_override("HOROVOD_GRADIENT_BUCKET_BYTES")
+    (lc, pc, rc), (lg, pg, rg) = runs["cpu"], runs["cuda"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    flip_share, param_rel = 0.0, 0.0
+    for a, b in zip(pg, pc):
+        top = max(1.0, float(b.abs().max()))
+        d = (a - b).abs() / top
+        flip_share = max(flip_share, float((d > 1e-5).float().mean()))
+        param_rel = max(param_rel, float(d.max()))
+    res_close = min(float(((a - b).abs() <= 1e-5).float().mean())
+                    for a, b in zip(rg, rc))
+    log(f"fused card vs cpu (tiny f32, fp8_e4m3 + error feedback, 3 steps):"
+        f" loss rel {loss_rel:.2e}, params worst rel {param_rel:.2e}, "
+        f"largest share of a leaf beyond 1e-5 {flip_share:.2e} (tol "
+        f"{FP8_FLIP_SHARE:.0e}), residual share within 1e-5 {res_close:.4f}")
+    if not (loss_rel <= 1e-5 and param_rel <= 1e-3
+            and flip_share <= FP8_FLIP_SHARE and res_close >= 0.95):
+        raise AssertionError("the fused fp8 step on the card and on the CPU "
+                             "differ")
+
+
 # ---------------------------------------------------------------------------
 # --data-parallel N: the training step across N cards
 # ---------------------------------------------------------------------------
 
-def dp_rank(rank, world, port, results, device="cuda", model="transformer",
-            cfg_kw=None, n_steps=4):
-    """One rank of an N-card world: trains the flagship (or ``cfg_kw``),
-    or ResNet-50 with ``model="resnet"``, on its rows of each global batch;
-    rank 0 puts the world's numbers on ``results``."""
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
-                      MASTER_ADDR="localhost", MASTER_PORT=str(port),
-                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
-    import horovod_tpu_torch as htt
-    from horovod_tpu_torch.utils import tree as tree_util
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    ctx = htt.init(device=device)
-    dev = ctx.device
-    # each rank starts from other weights: init_fn broadcasts rank 0's
+def nccl_overlap(prof):
+    """From a profiled step's device events: the NCCL kernels' device ms,
+    the part of it during which a compute kernel also ran, and the
+    compute kernels' ms (copies and memsets count as neither)."""
+    def merged(ivs):
+        out = []
+        for a, b in sorted(ivs):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    nccl, comp = [], []
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        a, b = ev.time_range.start, ev.time_range.end
+        name = ev.name.lower()
+        if b <= a or name.startswith(("memcpy", "memset")):
+            continue
+        (nccl if "nccl" in name else comp).append((a, b))
+    comp_m, nccl_m = merged(comp), merged(nccl)
+    overlap = 0.0
+    for a, b in nccl_m:
+        for c, d in comp_m:
+            overlap += max(0.0, min(b, d) - max(a, c))
+    return {"nccl_ms": sum(b - a for a, b in nccl_m) / 1e3,
+            "nccl_overlapped_ms": overlap / 1e3,
+            "compute_ms": sum(b - a for a, b in comp_m) / 1e3}
+
+
+def dp_variant(htt, rank, world, dev, variant, n_steps):
+    """Build one variant's step and its batches (this rank's rows)."""
+    model = variant["model"]
     if model == "resnet":
         state, step, put_batch = resnet_step(htt, dev, seed=rank)
-        batches = resnet_batches(put_batch, n_steps + 1, RESNET_B * world,
+        batches = resnet_batches(put_batch, n_steps + 2, RESNET_B * world,
                                  dev)
-        units, unit = RESNET_B * world, "images"
+        return state, step, batches, RESNET_B * world, "images"
+    cfg = flagship_cfg(htt.TransformerConfig, mlp_recompute=True,
+                       dp_axis="dp")
+    if model == "fused":
+        state, step = flagship_fused_step(htt, cfg, dev, seed=rank)
     else:
-        cfg = flagship_cfg(htt.TransformerConfig, mlp_recompute=True,
-                           dp_axis="dp", **(cfg_kw or {}))
         params = htt.init_params(
             cfg, torch.Generator(device=dev).manual_seed(rank), device=dev)
         init_fn, step = htt.make_transformer_train_step(
             cfg, lambda ps: torch.optim.SGD(ps, lr=0.01, momentum=0.9),
             device=dev)
         state = init_fn(params)
-        b, s = TRAIN_B, TRAIN_S
-        gen = torch.Generator(device=dev).manual_seed(1)
-        rows = slice(rank * b, (rank + 1) * b)
-        batches = [tuple(torch.randint(0, cfg.vocab_size, (b * world, s),
-                                       generator=gen, device=dev)[rows]
-                         for _ in range(2)) for _ in range(n_steps + 1)]
-        units, unit = b * s * world, "tokens"
-    state, _ = step(state, *batches[0])                    # warm-up
-    losses, stamps = [], []
-    htt.barrier()
-    t0 = time.perf_counter()
-    for batch in batches[1:]:
-        state, loss = step(state, *batch)
-        losses.append(float(loss))                          # synchronizes
-        stamps.append(time.perf_counter())
-    leaves = (list(state.params.parameters()) if model == "resnet"
-              else tree_util.tree_leaves(state.params))
-    total = sum(float(t.detach().double().sum()) for t in leaves)
-    lo = htt.allreduce(torch.tensor([total], dtype=torch.float64,
-                                    device=dev), htt.Min)
-    hi = htt.allreduce(torch.tensor([total], dtype=torch.float64,
-                                    device=dev), htt.Max)
-    if rank == 0:
-        step_s = np.diff([t0] + stamps)
-        results.put({"model": model, "world": world, "losses": losses,
-                     "step_ms": [float(x) * 1e3 for x in step_s],
-                     "step_ms_mean": float(step_s.mean()) * 1e3,
-                     f"{unit}_per_s": units / float(step_s.mean()),
-                     "params_equal_across_ranks": float(lo) == float(hi)})
+    b, s = TRAIN_B, TRAIN_S
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = slice(rank * b, (rank + 1) * b)
+    batches = [tuple(torch.randint(0, cfg.vocab_size, (b * world, s),
+                                   generator=gen, device=dev)[rows]
+                     for _ in range(2)) for _ in range(n_steps + 2)]
+    return state, step, batches, b * s * world, "tokens"
+
+
+def dp_rank(rank, world, port, results, variants, device="cuda",
+            n_steps=4):
+    """One rank of an N-card world: each variant (``model`` transformer,
+    fused or resnet, with ``knobs`` overridden while it runs) trains from
+    other weights on every rank (init broadcasts rank 0's) on its rows of
+    each global batch: a warm-up step, ``n_steps`` timed steps, then one
+    step under torch.profiler on rank 0 (the NCCL kernels' overlap with
+    compute). Rank 0 puts each variant's numbers on ``results``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    import horovod_tpu_torch as htt
+    from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.parallel import distributed as D
+    from horovod_tpu_torch.utils import tree as tree_util
+    from torch.profiler import ProfilerActivity, profile
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = htt.init(device=device)
+    dev = ctx.device
+    for variant in variants:
+        for k, v in variant.get("knobs", {}).items():
+            knobs.set_override(k, v)
+        state, step, batches, units, unit = dp_variant(
+            htt, rank, world, dev, variant, n_steps)
+        state, _ = step(state, *batches[0])                # warm-up
+        losses, stamps = [], []
+        htt.barrier()
+        t0 = time.perf_counter()
+        for batch in batches[1:-1]:
+            state, loss = step(state, *batch)
+            losses.append(float(loss))                      # synchronizes
+            stamps.append(time.perf_counter())
+        htt.barrier()
+        torch.cuda.synchronize()
+        if rank == 0:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                tp = time.perf_counter()
+                state, loss = step(state, *batches[-1])
+                torch.cuda.synchronize()
+                prof_ms = (time.perf_counter() - tp) * 1e3
+            overlap = nccl_overlap(prof)
+        else:
+            state, loss = step(state, *batches[-1])
+        losses.append(float(loss))
+        trace = D.last_wire_trace()
+        for k in variant.get("knobs", {}):
+            knobs.clear_override(k)
+        leaves = (list(state.params.parameters())
+                  if variant["model"] == "resnet"
+                  else tree_util.tree_leaves(state.params))
+        total = sum(float(t.detach().double().sum()) for t in leaves)
+        lo = htt.allreduce(torch.tensor([total], dtype=torch.float64,
+                                        device=dev), htt.Min)
+        hi = htt.allreduce(torch.tensor([total], dtype=torch.float64,
+                                        device=dev), htt.Max)
+        if rank == 0:
+            step_s = np.diff([t0] + stamps)
+            results.put({
+                "variant": variant["label"], "world": world,
+                "losses": losses,
+                "step_ms": [float(x) * 1e3 for x in step_s],
+                "step_ms_mean": float(step_s.mean()) * 1e3,
+                f"{unit}_per_s": units / float(step_s.mean()),
+                "profiled_step_ms": prof_ms, **overlap,
+                "sync_buckets": trace["n_buckets"],
+                "wire_bytes": trace["wire_bytes"],
+                "logical_bytes": trace["logical_bytes"],
+                "params_equal_across_ranks": float(lo) == float(hi)})
+        del state, step, batches
+        torch.cuda.empty_cache()
     htt.shutdown()
 
 
-def run_world(world, **kw):
-    """``dp_rank`` in ``world`` spawned processes; rank 0's results."""
+def run_world(world, variants, **kw):
+    """``dp_rank`` in ``world`` spawned processes; rank 0's results, one
+    per variant."""
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
-    procs = [ctx.Process(target=dp_rank, args=(r, world, port, results),
-                         kwargs=kw) for r in range(world)]
+    procs = [ctx.Process(target=dp_rank,
+                         args=(r, world, port, results, variants), kwargs=kw)
+             for r in range(world)]
     for p in procs:
         p.start()
-    out = results.get(timeout=600)          # drained before the join
+    out = [results.get(timeout=900) for _ in variants]   # before the join
     for p in procs:
         p.join(timeout=120)
     for p in procs:
@@ -1124,23 +1451,42 @@ def run_world(world, **kw):
     if any(p.exitcode != 0 for p in procs):
         raise AssertionError(f"a rank of the {world}-card world failed: "
                              f"{[p.exitcode for p in procs]}")
-    return out
+    return {r["variant"]: r for r in out}
+
+
+# The --data-parallel variants: the unfused flagship and bucketed ResNet-50
+# (one card as the yardstick, then N), then, on N cards only, ResNet-50 with
+# one bucket after the backward and the fused flagship at tier none and
+# fp8_e4m3.
+DP_YARDSTICK = [
+    dict(label="transformer", model="transformer"),
+    dict(label="resnet bucketed", model="resnet")]
+DP_VARIANTS = DP_YARDSTICK + [
+    dict(label="resnet one bucket", model="resnet",
+         knobs={"HOROVOD_GRADIENT_BUCKET_BYTES": 0}),
+    dict(label="fused transformer none", model="fused",
+         knobs={"HOROVOD_GRADIENT_COMPRESSION": "none"}),
+    dict(label="fused transformer fp8_e4m3", model="fused",
+         knobs={"HOROVOD_GRADIENT_COMPRESSION": "fp8_e4m3"})]
 
 
 def data_parallel(n: int, card: str, **kw) -> None:
-    """The flagship step, then the ResNet-50 step, each on one card (the
-    yardstick) and on ``n``."""
-    for model, unit in (("transformer", "tokens"), ("resnet", "images")):
-        one = run_world(1, model=model, **kw)
-        many = run_world(n, model=model, **kw)
-        for res in (one, many):
-            if not (res["params_equal_across_ranks"]
-                    and all(np.isfinite(x) for x in res["losses"])):
-                raise AssertionError(f"data-parallel run failed: {res}")
-        many["scaling_efficiency"] = many[f"{unit}_per_s"] / (
-            n * one[f"{unit}_per_s"])
-        log(f"data parallel {model}: " + json.dumps(
-            {"one_card": one, "n_cards": many, "card": card}))
+    """Every variant on ``n`` cards, the yardsticks on one card first; one
+    ``data parallel <variant>:`` line each."""
+    one = run_world(1, DP_YARDSTICK, **kw)
+    many = run_world(n, DP_VARIANTS, **kw)
+    for label, res in many.items():
+        for r in ([res, one[label]] if label in one else [res]):
+            if not (r["params_equal_across_ranks"]
+                    and all(np.isfinite(x) for x in r["losses"])):
+                raise AssertionError(f"data-parallel run failed: {r}")
+        line = {"n_cards": res, "card": card}
+        if label in one:
+            unit = "tokens" if "transformer" in label else "images"
+            line["one_card"] = one[label]
+            res["scaling_efficiency"] = res[f"{unit}_per_s"] / (
+                n * one[label][f"{unit}_per_s"])
+        log(f"data parallel {label}: " + json.dumps(line))
 
 
 def main(argv) -> int:
@@ -1162,6 +1508,7 @@ def main(argv) -> int:
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import conv_bn as cb
     from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import stream_copy as sc
     from horovod_tpu_torch.parallel import sequence as sq
     from horovod_tpu_torch.serving import kv_cache as kvc
 
@@ -1196,19 +1543,23 @@ def main(argv) -> int:
     check_kernel(fa, kvc, gen, kvh=16, dtype=torch.float32, timed=False)
     flash_case, flash_errs = check_flash_all(fa, sq, gen)
     conv_case, conv_errs = check_conv_all(cb, gen)
+    copy_case = check_stream_copy(sc, gen)
+    copy_launches = bandwidth(sc, card)
 
     # phase 3: serving at full width
     launches, live_err = serve_flagship(htt, fa, kvc, card)
     errs.append(live_err)
 
     # phase 4: training at full width and depth
-    train_launches = train_flagship(htt, fa, card)
+    train_launches, unfused_losses = train_flagship(htt, fa, card)
+    train_flagship_fused(htt, fa, card, unfused_losses)
     resnet_launches = train_resnet50(htt, cb, card)
 
     # phase 5: card against CPU
     card_vs_cpu(htt)
     train_card_vs_cpu(htt)
     resnet_card_vs_cpu(htt)
+    fused_card_vs_cpu(htt)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",
@@ -1265,6 +1616,16 @@ def main(argv) -> int:
             "ms": main_conv["ms"][name],
             "plain_ms": main_conv["plain_ms"][name],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    # The stream copy: its main path is the bandwidth probe; timed at the
+    # probe's shape (bf16 [131072, 1024]). The plain version is
+    # out.copy_(x), and copy_ alone is the library yardstick.
+    kernels.append({
+        "name": "stream_copy", "route": "cuda",
+        "source": "horovod_tpu_torch/csrc/stream_copy.cu",
+        "replaces": "bench.py:815", "launches": copy_launches,
+        **{k_: copy_case[k_] for k_ in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")}})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

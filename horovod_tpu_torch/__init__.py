@@ -4,7 +4,7 @@ Hopper GPUs.
 A package of its own beside ``horovod_tpu`` (the JAX reference): it
 imports torch and never jax, and every Pallas kernel on a ported path is a
 CUDA kernel written by hand for ``sm_90a`` (``csrc/``), built from source
-at its first launch. Three paths are ported:
+at its first launch. These paths are ported:
 
 - serving the flagship TransformerLM through a paged KV cache
   (``horovod_tpu_torch.serving``, the paged-decode kernel);
@@ -14,7 +14,13 @@ at its first launch. Three paths are ported:
   forward and backward kernels and a fused gradient allreduce;
 - data-parallel training of ResNet (``ResNet50(fused_conv_bn=True)``)
   through ``DistributedOptimizer`` and ``data_parallel_train_step``, with
-  the fused 1x1-conv + batch-norm forward and backward kernels.
+  the fused 1x1-conv + batch-norm forward and backward kernels;
+- Horovod's bucketed gradient sync: reverse-backward buckets launched
+  from the gradient hooks, the wire codec with error feedback
+  (``compression``), and the optimizer-in-epilogue fused step
+  (``distributed_apply``, ``make_transformer_train_step_fused``);
+- ``ops.stream_copy``, the stream-copy kernel of ``bench.py``'s bandwidth
+  probe.
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``, which takes the kernels' plain PyTorch versions.
@@ -35,12 +41,15 @@ from horovod_tpu_torch.ops.collectives import (allreduce, barrier,
 from horovod_tpu_torch.ops.reduce_ops import (Average, Max, Min, Product,
                                               Sum)
 from horovod_tpu_torch.parallel.distributed import (Compression,
+                                                    DistributedApply,
                                                     DistributedOptimizer,
-                                                    allreduce_gradients)
-from horovod_tpu_torch.parallel.trainer import (TrainState,
-                                                data_parallel_train_step,
-                                                make_transformer_train_step,
-                                                train_loop)
+                                                    EpilogueAdam,
+                                                    EpilogueSGD,
+                                                    allreduce_gradients,
+                                                    distributed_apply)
+from horovod_tpu_torch.parallel.trainer import (
+    TrainState, data_parallel_train_step, make_transformer_train_step,
+    make_transformer_train_step_fused, train_loop)
 from horovod_tpu_torch.runtime.context import (init, is_initialized,
                                                local_rank, local_size, rank,
                                                shutdown, size)
@@ -49,13 +58,16 @@ from horovod_tpu_torch.serving import (Request, ServeEngine,
 
 __version__ = "0.3.0"
 
-__all__ = ["Average", "Compression", "DistributedOptimizer", "Max", "Min",
-           "Product", "Request", "ResNet", "ResNet101", "ResNet152",
+__all__ = ["Average", "Compression", "DistributedApply",
+           "DistributedOptimizer", "EpilogueAdam", "EpilogueSGD", "Max",
+           "Min", "Product", "Request", "ResNet", "ResNet101", "ResNet152",
            "ResNet18", "ResNet34", "ResNet50", "ServeEngine",
            "ServeScheduler", "Sum", "TrainState", "TransformerConfig",
            "TransformerLM", "allreduce", "allreduce_gradients", "barrier",
            "broadcast", "broadcast_parameters", "data_parallel_train_step",
-           "grouped_allreduce", "init", "init_params", "is_initialized",
-           "local_rank", "local_size", "make_transformer_train_step",
-           "params_from_numpy", "rank", "shutdown", "size", "train_loop",
-           "variables_from_numpy", "variables_to_numpy"]
+           "distributed_apply", "grouped_allreduce", "init", "init_params",
+           "is_initialized", "local_rank", "local_size",
+           "make_transformer_train_step",
+           "make_transformer_train_step_fused", "params_from_numpy", "rank",
+           "shutdown", "size", "train_loop", "variables_from_numpy",
+           "variables_to_numpy"]

@@ -11,11 +11,32 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 
 def _parse_bool(v: str) -> bool:
     return v.strip().lower() in ("1", "true", "yes", "on")
+
+
+def _parse_size(v) -> int:
+    """Byte size with optional kb/mb/gb (or k/m/g) suffix: '8MB' -> 8388608."""
+    if isinstance(v, (int, float)):
+        return int(v)
+    s = str(v).strip().lower()
+    for suffix, mult in (("gb", 1 << 30), ("mb", 1 << 20), ("kb", 1 << 10),
+                         ("g", 1 << 30), ("m", 1 << 20), ("k", 1 << 10),
+                         ("b", 1)):
+        if s.endswith(suffix):
+            return int(float(s[:-len(suffix)]) * mult)
+    return int(float(s))
+
+
+def _parse_bucket_bytes(v):
+    """Gradient bucket size: a byte size (suffixes allowed), or 'auto'
+    (``autotune.resolve_bucket_bytes``)."""
+    if str(v).strip().lower() == "auto":
+        return "auto"
+    return _parse_size(v)
 
 
 @dataclasses.dataclass
@@ -24,26 +45,43 @@ class Knob:
     default: Any
     type: Callable[[str], Any]
     help: str = ""
+    choices: Optional[tuple] = None
 
 
 class KnobRegistry:
-    """Values resolve as: environment variable > default."""
+    """Values resolve as: programmatic override > environment variable >
+    default."""
 
     def __init__(self):
         self._knobs: Dict[str, Knob] = {}
+        self._overrides: Dict[str, Any] = {}
 
-    def register(self, name, default, type=str, help=""):
+    def register(self, name, default, type=str, help="", choices=None):
         if type is bool:
             type = _parse_bool
-        self._knobs[name] = Knob(name, default, type, help)
+        self._knobs[name] = Knob(name, default, type, help, choices)
         return self._knobs[name]
 
     def get(self, name: str) -> Any:
         knob = self._knobs[name]
+        if name in self._overrides:
+            return self._overrides[name]
         raw = os.environ.get(name)
         if raw is None or raw == "":
             return knob.default
-        return knob.type(raw)
+        val = knob.type(raw)
+        if knob.choices is not None and val not in knob.choices:
+            raise ValueError(
+                f"{name}={val!r} not in allowed choices {knob.choices}")
+        return val
+
+    def set_override(self, name: str, value: Any) -> None:
+        if name not in self._knobs:
+            raise KeyError(f"unknown knob {name}")
+        self._overrides[name] = value
+
+    def clear_override(self, name: str) -> None:
+        self._overrides.pop(name, None)
 
 
 knobs = KnobRegistry()
@@ -96,3 +134,28 @@ knobs.register("HOROVOD_CE_BLOCK_VOCAB", 1024, int,
 knobs.register("HOROVOD_BATCH_D2D_MEMCOPIES", True, bool,
                help="Pack same-dtype tensors into one buffer per fused "
                     "collective; 0 runs one collective per tensor.")
+
+# Gradient-sync knobs (parallel/distributed.py, compression.py), read when
+# a DistributedOptimizer or DistributedApply plans its buckets (the first
+# step) and, for the tier, when it is built.
+knobs.register("HOROVOD_GRADIENT_BUCKET_BYTES", 25 * 1024 * 1024,
+               _parse_bucket_bytes,
+               help="Split the gradient list into contiguous buckets of at "
+                    "most this many bytes in reverse backward order; each "
+                    "bucket's collective is launched from the gradient "
+                    "hooks as soon as its gradients are complete, so it "
+                    "overlaps the rest of the backward. 0 = one fused sync "
+                    "per dtype after the backward. 'auto' = the 25 MiB "
+                    "default with a warning (the sweep cache is not "
+                    "ported).")
+knobs.register("HOROVOD_GRADIENT_COMPRESSION", "none", str,
+               choices=("none", "bf16", "fp16", "fp8_e4m3", "fp8_e5m2"),
+               help="Wire dtype of the bucketed gradient collectives "
+                    "(compression.WireCodec): each packed bucket is cast to "
+                    "it before the SUM and decoded after; fp8 tiers carry "
+                    "one global-amax scale per bucket. Overrides the tier "
+                    "implied by a compression= argument unless 'none'.")
+knobs.register("HOROVOD_GRADIENT_ERROR_FEEDBACK", "auto", str,
+               help="Error-feedback residual for lossy wire tiers: 'auto' "
+                    "= on for fp8, off for bf16/fp16; '1' always; '0' "
+                    "never. Costs one f32 copy of the gradients.")

@@ -30,14 +30,15 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "horovod_tpu_torch"
 SOURCES = {"paged_decode": "paged_decode.cu", "flash_fwd": "flash_fwd.cu",
            "flash_bwd": "flash_bwd.cu", "conv_bn_fwd": "conv_bn_fwd.cu",
-           "conv_bn_bwd": "conv_bn_bwd.cu"}
+           "conv_bn_bwd": "conv_bn_bwd.cu", "stream_copy": "stream_copy.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # The kernels' dtype argument.
 DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_longlong)
 # C signatures per library, the stream last.
 SIGNATURES = {
     "paged_decode": {"hvd_paged_decode": [_P] * 6 + [_I] * 6 + [_F, _I, _P]},
@@ -47,6 +48,7 @@ SIGNATURES = {
         "hvd_flash_bwd_dkv": [_P] * 8 + [_I] * 7 + [_F, _I, _I, _P]},
     "conv_bn_fwd": {"hvd_conv_bn_fwd": [_P] * 8 + [_I] * 5 + [_P]},
     "conv_bn_bwd": {"hvd_conv_bn_bwd": [_P] * 14 + [_I] * 6 + [_P]},
+    "stream_copy": {"hvd_stream_copy": [_P, _P, _LL, _LL, _I, _P]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

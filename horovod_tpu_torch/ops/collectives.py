@@ -14,9 +14,11 @@ returns (for ``broadcast``, ``x[root_rank]``).
 as in the JAX package). ``allreduce_`` and ``broadcast_`` work in place.
 ``psum`` is the differentiable sum over the ranks that a model calls
 inside a step whose axis is bound (``bind_axis``): sync batch norm.
-Not ported yet: allgather, alltoall, reducescatter, the hierarchical and
-two-level allreduce, Adasum, process sets and the async handle API
-(ROADMAP A.3).
+``allreduce_async`` and ``wire_sum_async`` start the SUMs of the bucketed
+gradient sync (``parallel/distributed.py``) and return a handle to wait
+on. Not ported yet: allgather, alltoall, reducescatter, the hierarchical
+and two-level allreduce, Adasum, process sets and the eager async handle
+API (ROADMAP A.3).
 """
 
 from __future__ import annotations
@@ -98,6 +100,66 @@ def grouped_allreduce(tensors: Sequence[torch.Tensor],
                            postscale_factor=postscale_factor)
     return fuse_apply(fn, tensors,
                       batch=bool(knobs.get("HOROVOD_BATCH_D2D_MEMCOPIES")))
+
+
+def allreduce_async(buf: torch.Tensor):
+    """Start the in-place SUM of this rank's ``buf`` over the ranks;
+    returns the handle (``.wait()``)."""
+    get_context()
+    return dist.all_reduce(buf, op=dist.ReduceOp.SUM, async_op=True)
+
+
+# all_gather_into_tensor is all_gather_single in newer torch releases
+_all_gather_flat = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+
+
+class WireSumHandle:
+    """The handle of :func:`wire_sum_async`: ``wait()`` waits on the
+    all_gather; ``tensors`` are the buffers the collective still reads,
+    which the caller keeps alive (and, on the card, records on the stream
+    that waits) until then."""
+
+    def __init__(self, work, tensors):
+        self._work, self.tensors = work, tensors
+
+    def wait(self):
+        return self._work.wait()
+
+
+def wire_sum_async(wire: torch.Tensor):
+    """Start the SUM of this rank's wire buffer (bf16, fp16 or fp8) over
+    the ranks; returns ``(handle, out)``: ``out`` holds the sum in the wire
+    dtype once ``handle.wait()`` has returned.
+
+    gloo has no fp8 sums and NCCL refuses float8 reductions in many torch
+    builds, so both backends take one route, which is the JAX package's
+    CPU semantics (XLA sums bf16 in f32 and fp8 in f16, then rounds once):
+    the buffer is padded to a multiple of W, ``all_to_all_single`` of its
+    bytes hands each rank every rank's copy of its own shard, the W copies
+    are summed in f32 in rank order and rounded once to the wire dtype, and
+    ``all_gather`` of the bytes puts the full sum on every rank. It moves
+    2(W-1)/W of the wire bytes per rank, as a ring allreduce does."""
+    world = get_context().size
+    n, dtype = wire.numel(), wire.dtype
+    pad = (-n) % world
+    # bytes throughout: the wire dtype only for the sum
+    flat = wire.reshape(-1).view(torch.uint8)
+    if pad:
+        flat = torch.cat([flat, torch.zeros(pad * dtype.itemsize,
+                                            dtype=torch.uint8,
+                                            device=wire.device)])
+    recv = torch.empty_like(flat)
+    dist.all_to_all_single(recv, flat, async_op=True).wait()
+    shards = recv.view(dtype).view(world, (n + pad) // world)
+    acc = shards[0].float()
+    for r in range(1, world):
+        acc += shards[r].float()
+    mine = acc.to(dtype).view(torch.uint8)
+    out = torch.empty_like(flat)
+    work = _all_gather_flat(out, mine, async_op=True)
+    return (WireSumHandle(work, (mine, out)),
+            out.view(dtype)[:n].view(wire.shape))
 
 
 def broadcast_(tensor: torch.Tensor, root_rank: int = 0) -> torch.Tensor:

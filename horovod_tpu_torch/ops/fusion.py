@@ -8,9 +8,11 @@ the card the pack is one ``torch.cat`` and the unpack returns views of
 the reduced buffer, so no persistent buffer is managed.
 
 Pytrees are the port's nested ``dict``s of tensors, walked in sorted-key
-order as ``jax.tree`` walks them (``utils.tree``). Not ported yet
-(slice 3): ``plan_fusion_bins`` and the native planner, and the bucket
-manifest of the IR verifier.
+order as ``jax.tree`` walks them (``utils.tree``).
+:func:`_plan_buckets_by_bytes` is the reverse-backward bucket schedule of
+the gradient sync (``parallel/distributed.py``). Not ported yet:
+``plan_fusion_bins`` and the native planner (ROADMAP A.9), and the bucket
+manifest of the IR verifier (A.15).
 """
 
 from __future__ import annotations
@@ -69,6 +71,26 @@ def unflatten_from_fusion(buffer: torch.Tensor, specs) -> List[torch.Tensor]:
         out.append(buffer[offset:offset + size].view(shape))
         offset += size
     return out
+
+
+def _plan_buckets_by_bytes(sizes_bytes: Sequence[int],
+                           bucket_bytes: int) -> List[List[int]]:
+    """The bucket schedule of the gradient sync: contiguous chunks over
+    the leaf list in REVERSE order, each at most ``bucket_bytes`` (every
+    bucket holds at least one leaf)."""
+    buckets: List[List[int]] = []
+    cur: List[int] = []
+    acc = 0
+    for i in reversed(range(len(sizes_bytes))):
+        b = int(sizes_bytes[i])
+        if cur and acc + b > bucket_bytes:
+            buckets.append(cur)
+            cur, acc = [], 0
+        cur.append(i)
+        acc += b
+    if cur:
+        buckets.append(cur)
+    return buckets
 
 
 def _is_axes(x) -> bool:

@@ -6,14 +6,13 @@ global batch (Horovod's convention: each rank feeds its own shard), the
 gradient sync (one fused allreduce per dtype over the default process
 group, NCCL on the card, then 1/W), and the optimizer update in place.
 ``make_transformer_train_step`` trains the flagship TransformerLM;
-``data_parallel_train_step`` any ``nn.Module`` (ResNet) through a
-``DistributedOptimizer``.
+``make_transformer_train_step_fused`` trains it with the bucketed sync
+launched from the gradient hooks and the optimizer update in each
+bucket's epilogue (``DistributedApply``); ``data_parallel_train_step``
+trains any ``nn.Module`` (ResNet) through a ``DistributedOptimizer``.
 
-Not ported yet: ``make_transformer_train_step_fused``,
-``DistributedApply`` and the reverse-backward bucket plan (with
-``WireCodec``, ROADMAP A.6); and the checkpoint, preemption, verify-step,
-artifact-store, goodput, numerics and straggler hooks of ``train_loop``
-(slice 5).
+Not ported yet: the checkpoint, preemption, verify-step, artifact-store,
+goodput, numerics and straggler hooks of ``train_loop`` (slice 5).
 """
 
 from __future__ import annotations
@@ -127,6 +126,78 @@ def make_transformer_train_step(
         if w != 1:
             loss = collectives.allreduce_(loss, ReduceOp.AVERAGE)
         return TrainState(state.step + 1, state.params, state.opt_state), loss
+
+    return init_fn, train_step
+
+
+def make_transformer_train_step_fused(
+    cfg: tfm.TransformerConfig,
+    apply_opt,
+    *,
+    device="cuda",
+) -> Tuple[Callable, Callable]:
+    """The bucketed sync + optimizer-in-epilogue flagship step: the same
+    ``TrainState`` and signature as :func:`make_transformer_train_step`.
+
+    ``apply_opt`` is a ``DistributedApply`` (``distributed_apply(
+    EpilogueSGD(...), sync_axes=grad_sync_axes(cfg))``). ``init_fn(params)``
+    broadcasts the leaves from rank 0, makes them require grad, installs
+    the gradient hooks and returns ``TrainState(0, params,
+    apply_opt.init(params))``. ``train_step`` runs ``loss.backward()``; the
+    hooks launch each bucket of the reverse sorted-key leaf list (the JAX
+    package's order, so the plans and the fp8 scales are the reference's)
+    once its gradients are complete, and the update of each bucket runs in
+    place as soon as its sync completes. The loss is averaged over the
+    ranks. The error-feedback residual rides ``state.opt_state``."""
+    from horovod_tpu_torch.parallel.distributed import DistributedApply
+    if not isinstance(apply_opt, DistributedApply):
+        raise TypeError(
+            "make_transformer_train_step_fused needs a DistributedApply "
+            "(distributed_apply(EpilogueSGD(...), sync_axes=grad_sync_axes"
+            "(cfg))); for a torch optimizer use make_transformer_train_step")
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    attached = {}
+
+    def world() -> int:
+        return context.size() if cfg.dp_axis else 1
+
+    def init_fn(params) -> TrainState:
+        leaves = tree_util.tree_leaves(params)
+        if any(t.device != dev for t in leaves):
+            raise ValueError(f"init_fn: every parameter must be on {dev}")
+        if cfg.dp_axis:
+            broadcast_parameters(params, root_rank=0)
+        for t in leaves:
+            t.requires_grad_(True)
+        if "launcher" in attached:
+            attached["launcher"].remove_hooks()
+        attached["launcher"] = apply_opt.attach(params)
+        attached["leaves"] = leaves
+        return TrainState(0, params, apply_opt.init(params))
+
+    def train_step(state: TrainState, tokens, labels
+                   ) -> Tuple[TrainState, torch.Tensor]:
+        leaves = tree_util.tree_leaves(state.params)
+        launcher = attached.get("launcher")
+        if launcher is None or any(
+                a is not b for a, b in zip(leaves, attached["leaves"])):
+            raise ValueError("train_step: pass the TrainState of init_fn "
+                             "(its leaves carry the gradient hooks)")
+        launcher.bind(None, tree_util.tree_leaves(state.opt_state.residual)
+                      if launcher.sync.ef else None)
+        tokens, labels = _as_tokens(tokens, dev), _as_tokens(labels, dev)
+        loss = tfm.loss_fn(cfg, state.params, tokens, labels)
+        loss.backward()
+        params, opt_state = apply_opt.apply_attached(launcher, state.params,
+                                                     state.opt_state)
+        for p in leaves:
+            p.grad = None
+        loss = loss.detach()
+        if world() != 1:
+            loss = collectives.allreduce_(loss, ReduceOp.AVERAGE)
+        return TrainState(state.step + 1, params, opt_state), loss
 
     return init_fn, train_step
 

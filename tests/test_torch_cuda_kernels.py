@@ -350,3 +350,115 @@ def test_cuda_resnet_train_step_matches_cpu():
     np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
     for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
         _assert_rel_close(a, b, 1e-4, "parameter")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.uint8])
+@pytest.mark.parametrize("shape,rows_per_cta", [
+    ((4096, 1024), None),             # the probe's rows, fewer of them
+    ((1000, 37), 3),                  # rows not a multiple of 16 bytes
+    ((777, 129), 64),                 # ragged last CTA
+    ((3, 5, 7), 1),
+    ((1,), 1),
+])
+def test_cuda_stream_copy_bit_equal(dtype, shape, rows_per_cta):
+    """The stream-copy kernel equals its plain version (out.copy_(x)) bit
+    for bit, and counts one launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from horovod_tpu_torch.ops import stream_copy as sc
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda",
+                      generator=g)
+    if dtype != torch.uint8:
+        x = torch.randn(shape, device="cuda", generator=g).to(dtype)
+    want = sc.stream_copy_plain(x, torch.empty_like(x))
+    sc.reset_launches()
+    got = sc.stream_copy(x, rows_per_cta=rows_per_cta)
+    torch.cuda.synchronize()
+    assert sc.LAUNCHES["stream_copy"] == 1
+    bits = torch.int16 if dtype == torch.bfloat16 else (
+        torch.int32 if dtype == torch.float32 else torch.uint8)
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src_off,dst_off", [(1, 1), (3, 7), (0, 8),
+                                             (16, 5), (5, 0)])
+def test_cuda_stream_copy_misaligned(src_off, dst_off):
+    """Views that start 1..15 bytes off a 16-byte boundary: co-aligned
+    pairs take the scalar head, the vector body and a tail; others copy
+    byte by byte. The bytes around the destination stay untouched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from horovod_tpu_torch.ops import stream_copy as sc
+    g = torch.Generator(device="cuda").manual_seed(8)
+    base = torch.randint(0, 256, (1 << 18,), dtype=torch.uint8,
+                         device="cuda", generator=g)
+    dst = torch.zeros(1 << 18, dtype=torch.uint8, device="cuda")
+    n = 100000
+    xs = base[src_off:src_off + n].view(1000, 100)
+    ds = dst[dst_off:dst_off + n].view(1000, 100)
+    sc.stream_copy(xs, ds, rows_per_cta=7)
+    torch.cuda.synchronize()
+    assert torch.equal(ds, xs)
+    assert not dst[:dst_off].any() and not dst[dst_off + n:].any()
+
+
+@pytest.mark.cuda
+def test_cuda_stream_copy_raises_rather_than_falling_back(monkeypatch):
+    """On a CUDA tensor the wrapper launches the kernel or raises: with the
+    build failing it raises, and the plain version is never taken."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from horovod_tpu_torch.ops import stream_copy as sc
+
+    def no_build(*args):
+        raise RuntimeError("kernel build failed")
+
+    def no_plain(*args):
+        raise AssertionError("plain version taken for a CUDA tensor")
+
+    monkeypatch.setattr(sc, "launch", no_build)
+    monkeypatch.setattr(sc, "stream_copy_plain", no_plain)
+    with pytest.raises(RuntimeError, match="kernel build failed"):
+        sc.stream_copy(torch.ones(4, 4, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["none", "bf16", "fp8_e4m3"])
+def test_cuda_bucketed_sync_on_a_world_of_one(tier):
+    """DistributedOptimizer with small buckets in an NCCL world of one:
+    every bucket launched from the hooks on the side stream, the synced
+    gradients equal to the gradients through the wire tier, and with fp8
+    the gradient equal to the decode plus the residual."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from horovod_tpu_torch.config import knobs
+    knobs.set_override("HOROVOD_GRADIENT_COMPRESSION", tier)
+    knobs.set_override("HOROVOD_GRADIENT_BUCKET_BYTES", 4096)
+    htt.init()
+    try:
+        g = torch.Generator(device="cuda").manual_seed(9)
+        ps = [torch.randn(300 + i, device="cuda", generator=g,
+                          requires_grad=True) for i in range(6)]
+        opt = htt.DistributedOptimizer(torch.optim.SGD(ps, lr=0.1))
+        sum((p * p).sum() for p in ps).backward()
+        want = [2 * p.detach() for p in ps]
+        assert all(hook for _, hook in opt.launch_log)
+        opt.synchronize()
+        torch.cuda.synchronize()
+        assert len(opt.launch_log) == len(opt.buckets) > 1
+        for i, (p, w) in enumerate(zip(ps, want)):
+            if tier == "none":
+                assert torch.equal(p.grad, w)
+            elif tier == "bf16":
+                assert torch.equal(p.grad, w.bfloat16().float())
+            else:
+                r = opt.wire_state.residual[i]
+                _assert_rel_close(p.grad + r, w, 1e-6, "decode + residual")
+    finally:
+        htt.shutdown()
+        knobs.clear_override("HOROVOD_GRADIENT_COMPRESSION")
+        knobs.clear_override("HOROVOD_GRADIENT_BUCKET_BYTES")

@@ -195,7 +195,7 @@ def test_build_runs_one_nvcc_per_source_into_the_build_dir(tmp_path,
     monkeypatch.setattr(_build, "nvcc", lambda: nvcc)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     names = {"paged_decode", "flash_fwd", "flash_bwd", "conv_bn_fwd",
-             "conv_bn_bwd"}
+             "conv_bn_bwd", "stream_copy"}
     assert set(_build.SOURCES) == names
     seconds = _build.build_all()
     assert set(seconds) == names and all(t > 0 for t in seconds.values())

@@ -165,11 +165,14 @@ def test_non_relu_act_and_unported_options_raise():
         with pytest.raises(NotImplementedError, match="A.14"):
             _model(False, **kw)
     sgd = torch.optim.SGD([torch.zeros(1, requires_grad=True)], lr=0.1)
-    for kw in (dict(compression=distributed.Compression.fp16),
-               dict(backward_passes_per_step=2),
-               dict(bucket_bytes=1 << 20)):
-        with pytest.raises(NotImplementedError, match="A.6"):
-            htt.DistributedOptimizer(sgd, **kw)
+    with pytest.raises(NotImplementedError, match="A.9"):
+        htt.DistributedOptimizer(sgd, op=htt.ops.reduce_ops.Adasum)
+    with pytest.raises(ValueError, match="unknown wire-compression"):
+        htt.DistributedOptimizer(sgd, compression="int4")
+    with pytest.raises(TypeError):       # the bucket knob governs
+        htt.DistributedOptimizer(sgd, bucket_bytes=1 << 20)
+    htt.DistributedOptimizer(sgd, compression=distributed.Compression.fp16,
+                             backward_passes_per_step=2)
     with pytest.raises(TypeError, match="DistributedOptimizer"):
         htt.data_parallel_train_step(lambda m, x: x, sgd, device="cpu")
     with pytest.raises(NameError, match="unbound axis"):

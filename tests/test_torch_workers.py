@@ -158,3 +158,110 @@ def collective_inputs(world: int):
              rng.standard_normal((world, 6)).astype(np.float32),
              rng.integers(0, 9, (world, 5)).astype(np.int64)]
     return x, ints, mixed
+
+
+# ---------------------------------------------------------------------------
+# the bucketed gradient sync (tests/test_torch_grad_sync.py)
+# ---------------------------------------------------------------------------
+
+def _quadratic_loss(ps, x):
+    """sum over leaves of sum(v * v), times sum(x): the JAX wire tests'
+    loss (tests/test_wire_compression.py), on this rank's rows of x."""
+    return sum((p * p).sum() for p in ps) * torch.from_numpy(x).sum()
+
+
+def _scenario_optimizer(rank, sc):
+    """DistributedOptimizer(SGD) over the leaves of ``sc["params"]`` in
+    sorted-key order, one step per global x of ``sc["xs"]`` (with
+    ``passes`` backward passes per step, each on its own x)."""
+    keys = sorted(sc["params"])
+    ps = [torch.tensor(sc["params"][k], requires_grad=True) for k in keys]
+    passes = sc.get("passes", 1)
+    opt = htt.DistributedOptimizer(
+        torch.optim.SGD(ps, lr=0.1, momentum=sc.get("momentum", 0.0)),
+        op=htt.Average, backward_passes_per_step=passes)
+    xs = sc["xs"]
+    for t in range(0, len(xs), passes):
+        for x in xs[t:t + passes]:
+            _quadratic_loss(ps, x[rank:rank + 1]).backward()
+        opt.step()
+        opt.zero_grad()
+    out = {f"param|{k}": p.detach().numpy() for k, p in zip(keys, ps)}
+    if opt.wire_state:
+        out.update({f"residual|{k}": r.numpy()
+                    for k, r in zip(keys, opt.wire_state.residual)})
+    out["n_buckets"] = np.asarray(len(opt.buckets))
+    return out
+
+
+def _scenario_epilogue(rank, sc):
+    """distributed_apply(EpilogueSGD or EpilogueAdam, axis="hvd") on the
+    quadratic, three steps of the same x."""
+    from horovod_tpu_torch.parallel import distributed as D
+    params = {k: torch.tensor(v) for k, v in sc["params"].items()}
+    kind, kw = sc["opt"]
+    epi = (D.EpilogueAdam if kind == "adam" else D.EpilogueSGD)(**kw)
+    da = htt.distributed_apply(epi, axis="hvd")
+    state = da.init(params)
+    x = sc["x"][rank:rank + 1]
+    for _ in range(sc["steps"]):
+        leaves = [params[k].requires_grad_(True) for k in sorted(params)]
+        grads = torch.autograd.grad(_quadratic_loss(leaves, x), leaves)
+        params, state = da.apply(
+            params, dict(zip(sorted(params), grads)), state)
+    return {f"param|{k}": v.detach().numpy() for k, v in params.items()}
+
+
+def _scenario_fused(rank, sc):
+    """make_transformer_train_step_fused with distributed_apply(
+    EpilogueSGD(0.05, momentum=0.9), sync_axes=grad_sync_axes(cfg)) from
+    ``sc["params"]``, one step per global batch on this rank's rows; rank
+    r starts from the weights times (1 + r)."""
+    from horovod_tpu_torch.models import transformer as tfm
+    cfg = sc["cfg"]
+    da = htt.distributed_apply(htt.EpilogueSGD(0.05, momentum=0.9),
+                               sync_axes=tfm.grad_sync_axes(cfg))
+    init_fn, step = htt.make_transformer_train_step_fused(cfg, da,
+                                                          device="cpu")
+    state = init_fn(htt.params_from_numpy(tree_util.tree_map(
+        lambda a: a * (1 + rank), sc["params"]), device="cpu"))
+    losses = []
+    for tokens, labels in sc["batches"]:
+        rows = slice(rank * tokens.shape[0] // 2,
+                     (rank + 1) * tokens.shape[0] // 2)
+        state, loss = step(state, tokens[rows], labels[rows])
+        losses.append(float(loss))
+    out = {"losses": np.asarray(losses)}
+    flat = tree_util.flatten_dict(state.params)
+    out.update({"param|" + "/".join(k): v.detach().numpy()
+                for k, v in flat.items()})
+    if state.opt_state.residual:
+        flat = tree_util.flatten_dict(state.opt_state.residual)
+        out.update({"residual|" + "/".join(k): v.numpy()
+                    for k, v in flat.items()})
+    return out
+
+
+_SCENARIOS = {"optimizer": _scenario_optimizer,
+              "epilogue": _scenario_epilogue, "fused": _scenario_fused}
+
+
+def grad_sync_worker(rank, world, port, scenarios, out_dir):
+    """Runs each scenario (a dict: ``name``, ``kind`` in _SCENARIOS,
+    ``knobs`` to override while it runs, and its inputs) and saves its
+    arrays as ``<out_dir>/<name>-rank<r>.npz``."""
+    from horovod_tpu_torch.config import knobs
+    _join_gloo(rank, world, port)
+    try:
+        for sc in scenarios:
+            for k, v in sc.get("knobs", {}).items():
+                knobs.set_override(k, v)
+            try:
+                out = _SCENARIOS[sc["kind"]](rank, sc)
+            finally:
+                for k in sc.get("knobs", {}):
+                    knobs.clear_override(k)
+            np.savez(os.path.join(out_dir, f"{sc['name']}-rank{rank}.npz"),
+                     **out)
+    finally:
+        htt.shutdown()
