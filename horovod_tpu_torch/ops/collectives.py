@@ -109,24 +109,6 @@ def allreduce_async(buf: torch.Tensor):
     return dist.all_reduce(buf, op=dist.ReduceOp.SUM, async_op=True)
 
 
-# all_gather_into_tensor is all_gather_single in newer torch releases
-_all_gather_flat = getattr(dist, "all_gather_single", None) \
-    or dist.all_gather_into_tensor
-
-
-class WireSumHandle:
-    """The handle of :func:`wire_sum_async`: ``wait()`` waits on the
-    all_gather; ``tensors`` are the buffers the collective still reads,
-    which the caller keeps alive (and, on the card, records on the stream
-    that waits) until then."""
-
-    def __init__(self, work, tensors):
-        self._work, self.tensors = work, tensors
-
-    def wait(self):
-        return self._work.wait()
-
-
 def wire_sum_async(wire: torch.Tensor):
     """Start the SUM of this rank's wire buffer (bf16, fp16 or fp8) over
     the ranks; returns ``(handle, out)``: ``out`` holds the sum in the wire
@@ -138,8 +120,11 @@ def wire_sum_async(wire: torch.Tensor):
     the buffer is padded to a multiple of W, ``all_to_all_single`` of its
     bytes hands each rank every rank's copy of its own shard, the W copies
     are summed in f32 in rank order and rounded once to the wire dtype, and
-    ``all_gather`` of the bytes puts the full sum on every rank. It moves
-    2(W-1)/W of the wire bytes per rank, as a ring allreduce does."""
+    ``all_gather_into_tensor`` of the bytes puts the full sum on every
+    rank. It moves 2(W-1)/W of the wire bytes per rank, as a ring allreduce
+    does. The process group keeps the buffers the all_gather reads and
+    writes alive until ``handle.wait()``; on the card the caller records
+    ``out`` on the stream that reads it."""
     world = get_context().size
     n, dtype = wire.numel(), wire.dtype
     pad = (-n) % world
@@ -157,9 +142,8 @@ def wire_sum_async(wire: torch.Tensor):
         acc += shards[r].float()
     mine = acc.to(dtype).view(torch.uint8)
     out = torch.empty_like(flat)
-    work = _all_gather_flat(out, mine, async_op=True)
-    return (WireSumHandle(work, (mine, out)),
-            out.view(dtype)[:n].view(wire.shape))
+    work = dist.all_gather_into_tensor(out, mine, async_op=True)
+    return work, out.view(dtype)[:n].view(wire.shape)
 
 
 def broadcast_(tensor: torch.Tensor, root_rank: int = 0) -> torch.Tensor:

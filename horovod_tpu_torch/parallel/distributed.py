@@ -140,12 +140,15 @@ class _Part:
 
 class _PendingBucket:
     """A launched bucket. :meth:`finish` waits on its collectives and
-    returns the synced leaves, in the bucket's leaf order."""
+    returns the synced leaves, in the bucket's leaf order. ``ready`` is the
+    CUDA event recorded on the side stream after the launch (None on the
+    CPU)."""
 
     def __init__(self, n, parts, codec, post, leaf_comp, logical, wire):
         self.n, self.parts, self.codec = n, parts, codec
         self.post, self.leaf_comp = post, leaf_comp
         self.logical_bytes, self.wire_bytes = logical, wire
+        self.ready: Optional[torch.cuda.Event] = None
 
     def finish(self) -> List[torch.Tensor]:
         out: List[Optional[torch.Tensor]] = [None] * self.n
@@ -154,11 +157,10 @@ class _PendingBucket:
             if part.work is not None:
                 part.work.wait()
             if part.buf.is_cuda:
-                # made on the side stream, read on this one (or by a
-                # collective this one waited for): not reused before
+                # made on the side stream, read on this one: not reused
+                # before this stream is done with them
                 stream = stream or torch.cuda.current_stream(part.buf.device)
-                for t in (part.buf, part.scale,
-                          *getattr(part.work, "tensors", ())):
+                for t in (part.buf, part.scale):
                     if t is not None:
                         t.record_stream(stream)
             if part.compressed:
@@ -305,16 +307,20 @@ class _BucketLauncher:
     """Launches the buckets of a :class:`_GradSync` over ``leaves``.
 
     With ``hooks=True`` a post-accumulate-grad hook on every leaf counts
-    its backward passes; once a leaf has seen ``passes`` of them it is
-    ready, and every bucket whose leaves are all ready is launched, in plan
-    order. :meth:`finish` launches what is left, then waits bucket by bucket
-    in plan order. The gradients are the leaves' ``.grad`` (zeros where a
-    leaf got none), or the list given to :meth:`bind`. On the card the
-    launches run on a side stream that first waits for the current one."""
+    its backward passes, and a pass beyond ``passes`` before the sync
+    raises (as the reference's ``torch/optimizer.py`` does). Once a leaf
+    has seen ``passes`` of them it is ready, and, with ``early=True``,
+    every bucket whose leaves are all ready is launched, in plan order.
+    :meth:`finish` launches what is left, then waits bucket by bucket in
+    plan order. The gradients are the leaves' ``.grad`` (zeros where a leaf
+    got none), or the list given to :meth:`bind`. On the card the launches
+    run on a side stream that first waits for the current one, and the
+    current one waits for a bucket's launch before it reads the bucket."""
 
     def __init__(self, sync: _GradSync, leaves: Sequence[torch.Tensor],
-                 passes: int = 1, hooks: bool = False):
+                 passes: int = 1, hooks: bool = False, early: bool = True):
         self.sync, self.leaves, self.passes = sync, list(leaves), passes
+        self.early = early
         self.residuals: Optional[List[torch.Tensor]] = None
         self._grads: Optional[List[torch.Tensor]] = None
         self._bucket_of = {i: k for k, (_, idxs) in enumerate(sync.buckets)
@@ -355,7 +361,14 @@ class _BucketLauncher:
     def grad_ready(self, i: int) -> None:
         with self._lock:
             self._fired[i] += 1
-            if self._fired[i] != self.passes:
+            if self._fired[i] > self.passes:
+                raise RuntimeError(
+                    f"Gradients were computed more than "
+                    f"backward_passes_per_step ({self.passes}) times before "
+                    f"the gradient sync (step()). Increase "
+                    f"backward_passes_per_step to accumulate gradients "
+                    f"locally.")
+            if self._fired[i] < self.passes or not self.early:
                 return
             k = self._bucket_of[i]
             self._missing[k] -= 1
@@ -387,6 +400,7 @@ class _BucketLauncher:
             self._stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(self._stream):
                 pending = self.sync.launch(k, grads, res, prescale)
+            pending.ready = self._stream.record_event()
         self._pending[k] = pending
         self._next = k + 1
         self.launch_log.append((k, from_hook))
@@ -400,6 +414,11 @@ class _BucketLauncher:
         pending = self._pending
         try:
             for (_, idxs), p in zip(self.sync.buckets, pending):
+                if p.ready is not None:
+                    # the pack (and a local group's whole bucket, which
+                    # has no collective to wait on) ran on the side stream
+                    torch.cuda.current_stream(
+                        self.leaves[0].device).wait_event(p.ready)
                 yield idxs, p.finish()
         finally:
             if self._stream is not None:
@@ -557,7 +576,8 @@ class DistributedOptimizer:
     ``backward_passes_per_step=N``: call ``backward()`` N times, then
     ``step()`` once. torch sums the N gradients into ``.grad``; the sync
     divides by N, so the update sees their mean, as ``optax.MultiSteps``
-    averages them, and syncs once.
+    averages them, and syncs once. A backward pass beyond N before
+    ``step()`` raises ``RuntimeError``.
 
     The runtime must be initialized (``horovod_tpu_torch.init``) before
     the first backward; the tier and the bucket knob are read here."""
@@ -578,12 +598,12 @@ class DistributedOptimizer:
         self.wire_state = (WireState([_residual_zeros(p)
                                       for p in self.params])
                            if self._sync.ef else ())
-        hooks = resolve_bucket_bytes(
+        early = resolve_bucket_bytes(
             [(tuple(p.shape), p.dtype) for p in self.params],
             context.size() if context.is_initialized() else 1) > 0
         self._launcher = _BucketLauncher(self._sync, self.params,
                                          passes=backward_passes_per_step,
-                                         hooks=hooks)
+                                         hooks=True, early=early)
         self._launcher.bind(None, self.wire_state.residual
                             if self._sync.ef else None)
 
@@ -787,15 +807,15 @@ class DistributedApply:
                        ) -> Tuple[Any, DistributedApplyState]:
         """Finish ``launcher``'s buckets (the hooks launched some during
         the backward) and apply the update of each bucket as soon as it is
-        synced; returns ``(params, new_state)``."""
+        synced; returns ``(params, new_state)``. With error feedback the
+        caller binds ``state.residual``'s leaves before the backward
+        (``launcher.bind(None, residual_leaves)``)."""
         opt = self.optimizer
         p_leaves = tree_util.tree_leaves(params)
         if len(p_leaves) != launcher.sync.n_leaves:
             raise ValueError(
                 f"params tree has {len(p_leaves)} leaves but the gradient "
                 f"tree has {launcher.sync.n_leaves}")
-        if launcher.sync.ef and launcher.residuals is None:
-            launcher.residuals = tree_util.tree_leaves(state.residual)
         slot_leaves = [tree_util.tree_leaves(s) for s in state.opt.slots]
         scalars, ctx = opt.begin_step(state.opt.scalars)
         with torch.no_grad():

@@ -462,3 +462,49 @@ def test_cuda_bucketed_sync_on_a_world_of_one(tier):
         htt.shutdown()
         knobs.clear_override("HOROVOD_GRADIENT_COMPRESSION")
         knobs.clear_override("HOROVOD_GRADIENT_BUCKET_BYTES")
+
+
+@pytest.mark.cuda
+def test_cuda_fused_local_step_matches_unfused(monkeypatch):
+    """``dp_axis=None``: every leaf is local, so the fused step's one
+    bucket has no collective to wait on; its pack runs on the side stream,
+    held back here by a sleep queued there before each launch. The
+    epilogue must still read the packed gradients: three steps against the
+    unfused step, losses and parameters within 1e-5 (EpilogueSGD's
+    ``p - lr * m`` and torch.optim.SGD's ``p + (-lr) * m`` round in the
+    last bits)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.parallel import distributed as D
+    torch.backends.cuda.matmul.allow_tf32 = False
+    real = D._GradSync.launch
+
+    def held_back(self, *args, **kw):
+        torch.cuda._sleep(50_000_000)      # tens of ms on the side stream
+        return real(self, *args, **kw)
+
+    monkeypatch.setattr(D._GradSync, "launch", held_back)
+    cfg = htt.TransformerConfig(**{**CFG_KW, "dp_axis": None})
+    np_params = tree_util.tree_map(lambda t: t.numpy(), htt.init_params(
+        cfg, torch.Generator().manual_seed(2), device="cpu"))
+    runs = []
+    for fused in (False, True):
+        if fused:
+            da = htt.distributed_apply(htt.EpilogueSGD(0.01, momentum=0.9),
+                                       sync_axes=tfm.grad_sync_axes(cfg))
+            init_fn, step = htt.make_transformer_train_step_fused(
+                cfg, da, device="cuda")
+        else:
+            init_fn, step = htt.make_transformer_train_step(cfg, _sgd,
+                                                            device="cuda")
+        state = init_fn(htt.params_from_numpy(np_params, device="cuda"))
+        losses = []
+        for tokens, labels in _batches(3):
+            state, loss = step(state, tokens, labels)
+            losses.append(float(loss))
+        runs.append((losses, [t.detach().cpu() for t in
+                              tree_util.tree_leaves(state.params)]))
+    np.testing.assert_allclose(runs[1][0], runs[0][0], rtol=1e-5)
+    for a, b in zip(runs[1][1], runs[0][1]):
+        _assert_rel_close(a, b, 1e-5, "parameter after 3 steps")

@@ -425,11 +425,13 @@ def tfm_leaves(params):
     return tree_util.tree_leaves(params)
 
 
-def test_one_rank_fused_step_equals_unfused_step(world_of_one):
+@pytest.mark.parametrize("dp_axis", ["dp", None])
+def test_one_rank_fused_step_equals_unfused_step(world_of_one, dp_axis):
     """At tier none on a world of one the fused step (hooks, buckets,
-    EpilogueSGD) gives the unfused step's (torch SGD) trajectory."""
+    EpilogueSGD) gives the unfused step's (torch SGD) trajectory; with
+    ``dp_axis=None`` every leaf is local: one bucket, no collective."""
     knobs.set_override("HOROVOD_GRADIENT_BUCKET_BYTES", 64 * 64 * 4)
-    cfg = htt.TransformerConfig(**TINY, dtype=torch.float32, dp_axis="dp")
+    cfg = htt.TransformerConfig(**TINY, dtype=torch.float32, dp_axis=dp_axis)
     runs = []
     for fused in (False, True):
         params = htt.params_from_numpy(_tiny_params(), device="cpu")
@@ -452,6 +454,30 @@ def test_one_rank_fused_step_equals_unfused_step(world_of_one):
     np.testing.assert_allclose(runs[1][0], runs[0][0], rtol=F32, atol=F32)
     for a, b in zip(runs[1][1], runs[0][1]):
         _assert_rel(a.numpy(), b.numpy(), F32, "params after 3 steps")
+
+
+@pytest.mark.parametrize("bucket", [0, 2 * 48 * 4])
+@pytest.mark.parametrize("passes", [1, 2])
+def test_backward_pass_beyond_passes_per_step_raises(world_of_one, bucket,
+                                                     passes):
+    """A backward pass beyond ``backward_passes_per_step`` before
+    ``step()`` raises, as the reference's ``torch/optimizer.py`` does,
+    whether the buckets launch from the hooks or after the backward: its
+    gradients would otherwise be dropped (hook-launched buckets are already
+    packed) or summed into a mean over the wrong count."""
+    knobs.set_override("HOROVOD_GRADIENT_BUCKET_BYTES", bucket)
+    ps = _quad_model()
+    opt = htt.DistributedOptimizer(torch.optim.SGD(ps, lr=0.1),
+                                   backward_passes_per_step=passes)
+    for _ in range(2):                  # the count starts again after step()
+        for _ in range(passes):
+            _quadratic(ps).backward()
+        opt.step()
+        opt.zero_grad()
+    for _ in range(passes):
+        _quadratic(ps).backward()
+    with pytest.raises(RuntimeError, match="backward_passes_per_step"):
+        _quadratic(ps).backward()
 
 
 def test_allreduce_gradients_local_filter_and_error_feedback(world_of_one):
