@@ -8,12 +8,16 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 
 1. setup: the card's name and power limit, the kernels built from the
    sources in ``horovod_tpu_torch/csrc`` (one nvcc per source, started
-   together), TF32 off;
+   together), the flash backward's wgmma kernels' registers, spills and
+   shared bytes (``flash_bwd kernels:`` line), TF32 off;
 2. every kernel against its plain PyTorch version at its path's shapes,
    timed beside its bound and a library call that computes the same
    function: the paged-decode kernel (serving), then the flash forward
    and the two flash backward kernels (training: B=8, S=2048, H=16,
-   D=64, bf16, causal; plus f32, offset, fully masked and ragged cases),
+   D=64, bf16, causal; plus f32, offset, fully masked and ragged cases;
+   the timed line is followed by a ``backward`` line with each backward
+   kernel's TFLOP/s, share of its bound and factor against sdpa's
+   backward, and the pair's),
    then the conv+BN forward and backward kernels at every distinct 1x1
    conv of ResNet-50 at 128 images (three of them timed beside the cuBLAS
    GEMM alone; plus f32 ragged and wide cases), then the stream copy bit
@@ -261,7 +265,7 @@ def flash_bounds(q, s_k, q_offset, k_offset, causal):
     """Least time of each kernel at this geometry: inputs read once,
     outputs written once, over the card's memory rate; its matrix
     products over the visible pairs at the inputs' tensor-core rate (bf16)
-    or the f32 rate. Returns {kernel: (ms, bound_by)}."""
+    or the f32 rate. Returns {kernel: (ms, bound_by, operations)}."""
     b, s_q, h, d = q.shape
     pairs = b * h * visible_pairs(s_q, s_k, q_offset, k_offset, causal)
     rate = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else F32_FLOPS_PER_S
@@ -283,7 +287,47 @@ def flash_bounds(q, s_k, q_offset, k_offset, causal):
     for name, (nbytes, flops) in cases.items():
         t_mem, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
         out[name] = (max(t_mem, t_ops) * 1e3,
-                     "bytes" if t_mem >= t_ops else "operations")
+                     "bytes" if t_mem >= t_ops else "operations", flops)
+    return out
+
+
+def ptxas_kernels(text):
+    """{kernel symbol: {registers, spill stores/loads, stack bytes}} from
+    ``nvcc -Xptxas -v`` output."""
+    import re
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        for key, pat in (("stack_bytes", r"(\d+) bytes stack frame"),
+                         ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                         ("spill_load_bytes", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers")):
+            m = re.search(pat, line)
+            if m:
+                cur[key] = int(m.group(1))
+    return out
+
+
+def flash_bwd_resources(build):
+    """Registers, spills and shared bytes of the backward's wgmma kernels
+    (ptxas) with the dynamic shared memory each block asks for."""
+    lib = build.load("flash_bwd")
+    dyn = {"dq": lib.hvd_flash_bwd_smem_bytes(0),
+           "dkv": lib.hvd_flash_bwd_smem_bytes(1)}
+    out = {}
+    for sym, info in ptxas_kernels(build.build_log("flash_bwd")).items():
+        if "wgmma" in sym:
+            which = "dkv" if "dkv" in sym else "dq"
+            out[f"flash_bwd_{which}"] = {**info,
+                                         "dynamic_smem_bytes": dyn[which]}
+    if set(out) != {"flash_bwd_dq", "flash_bwd_dkv"}:
+        raise AssertionError(f"ptxas reported no wgmma kernels: {out}")
     return out
 
 
@@ -405,6 +449,18 @@ def check_flash(fa, sq, gen, *, b, s_q, s_k, h, d, dtype, q_offset=0,
         f"{res['plain_bwd_ms']:.3f} ms; sdpa fwd "
         f"{res['library_fwd_ms']:.4f} ms, bwd {res['library_bwd_ms']:.4f}"
         f" ms; bounds " + json.dumps(res["bounds"]))
+    bwd = {}
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        ms, (bound_ms, _, flops) = res["ms"][name], res["bounds"][name]
+        bwd[name] = {"ms": ms, "tflops": flops / ms / 1e9,
+                     "share_of_bound": bound_ms / ms,
+                     "x_sdpa_bwd": ms / res["library_bwd_ms"]}
+    pair = sum(b_["ms"] for b_ in bwd.values())
+    bwd["pair"] = {
+        "ms": pair,
+        "share_of_bound": sum(res["bounds"][n][0] for n in bwd) / pair,
+        "x_sdpa_bwd": pair / res["library_bwd_ms"]}
+    log(f"{tag}: backward " + json.dumps(bwd))
     return res
 
 
@@ -1556,6 +1612,7 @@ def main(argv) -> int:
     for name, text in _build.build_logs.items():
         for line in text.strip().splitlines():
             log(f"  [{name}] {line}")
+    log("flash_bwd kernels: " + json.dumps(flash_bwd_resources(_build)))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if n_dp:
@@ -1616,7 +1673,7 @@ def main(argv) -> int:
         ("flash_bwd_dkv", "flash_bwd.cu", 285, flash_case["plain_bwd_ms"],
          None))
     for name, src, line, plain_ms, lib_ms in flash_rows:
-        bound_ms, bound_by = flash_case["bounds"][name]
+        bound_ms, bound_by, _ = flash_case["bounds"][name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"horovod_tpu_torch/csrc/{src}",

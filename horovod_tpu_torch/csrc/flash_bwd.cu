@@ -12,27 +12,51 @@
 //   dk_j  = scale * sum_i dS_ij q_i           (hvd_flash_bwd_dkv)
 //   dv_j  = sum_i P_ij do_i                   (hvd_flash_bwd_dkv)
 // with the causal mask at global positions q_offset + i >= k_offset + j.
-// q/k/v/do in bf16 or f32 -> dq/dk/dv in f32 [B, S, H, D].
+// q/k/v/do in bf16 or f32 -> dq/dk/dv in f32 [B, S, H, D]. A row that sees
+// no key gets dq = 0 exactly, a key no row sees dk = dv = 0 exactly.
 //
 // Bound: operations. The dq kernel does three products over the visible
 // tiles (s, dp, dq), the dk/dv kernel four (s, dp, dv, dk), each recomputing
-// s from q and k instead of reading a saved [Sq, Sk] tensor. What the
-// design does about it:
-//   - no atomics: the dq kernel owns one (b*h, q tile) and loops over the K
-//     tiles that tile can see; the dk/dv kernel owns one (b*h, k tile) and
-//     loops over the q tiles that can see it. Every sum stays inside one
-//     block, so the gradients are the same from run to run;
-//   - the causal skip of the forward, on both sides;
-//   - P comes from the saved lse (no second max/sum pass), and the
-//     accumulators stay in registers across the loop;
-//   - inputs are read in their own dtype from the [B, S, H, D] strides and
-//     converted to f32 once per tile in shared memory.
-// Two implementations of each kernel, as in flash_fwd.cu: tensor cores
-// (mma.sync m16n8k16, f32 accumulation) for bf16 with D <= 64, where P and
-// dS enter their products rounded to bf16; f32 FMAs on shared-memory tiles
-// for f32 or D > 64.
+// s from q and k instead of reading a saved [Sq, Sk] tensor: 7 products
+// against a fused kernel's 5, the price of having no float atomics. What
+// the design does about it:
+//   - no atomics: the dq kernel owns q rows and loops over the K tiles
+//     they can see; the dk/dv kernel owns keys and loops over the q tiles
+//     that can see them. Every sum stays inside one block, in a fixed
+//     order, so the gradients are bitwise the same from run to run;
+//   - the causal skip on both sides, blocks launched heaviest first over
+//     the whole grid, the mask applied only on tiles that cross the
+//     diagonal or the ragged edge;
+//   - P comes from the saved lse (no second max/sum pass); the tensor-core
+//     route takes it as ex2.approx with log2(e) folded into the scale and
+//     lse; the accumulators stay in registers across the loop.
+// Two implementations of each kernel:
+//   - bf16 with D <= 64 (the flagship): Hopper's warpgroup products. Every
+//     product is a wgmma m64n64k16 with f32 accumulation. s and dp read
+//     both operands from shared memory; the dq, dk and dv products take
+//     P, dS (or their transposes) as the A operand from registers, rounded
+//     to bf16 straight from the accumulators (as the mma.sync route did),
+//     and read their B operand (k, q, do) from the same shared tile that
+//     served K-major, through an MN-major (transposed) descriptor: no
+//     operand is copied twice or transposed by hand. Tiles arrive by TMA
+//     (4-D tensor maps over [B, S, H, D], 128-byte swizzle, which zero-fills
+//     rows past S and columns past D) into a ring of 3 stages signalled by
+//     mbarriers, so the next tile loads while the current one is
+//     multiplied. A block is two consumer warpgroups, each owning 64 of
+//     the block's 128 rows and sharing every staged tile, plus a producer
+//     warpgroup whose first warp starts the copies (and stages lse/dD for
+//     dk/dv) and which hands its registers to the consumers (setmaxnreg).
+//     The two consumer warpgroups overlap each other's exp work with
+//     their products; inside a warpgroup, the dq kernel computes P while
+//     its dp product still runs. Measured alternatives that were slower:
+//     A operands of s and dp from registers, issuing the next tile's s/dp
+//     behind the current gradient products, 2 or 4 stages, and the same
+//     split waits in the dk/dv kernel (PERF.md);
+//   - f32, or bf16 with D > 64: f32 FMAs on shared-memory tiles, 64 rows
+//     a block.
 
 #include "flash_common.cuh"
+#include "sm90_common.cuh"
 
 namespace hvd_flash {
 namespace {
@@ -250,211 +274,468 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 
-// Tensor-core dq for bf16, D <= 64: warp w owns q rows q0 + 16 w .. + 15
-// (fragment layout as in flash_fwd.cu).
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ dD, float* __restrict__ dq,
-                        int H, int Sq, int Sk, int D, int q_offset,
-                        int k_offset, float scale, int causal) {
-  __shared__ __align__(16) bf16 sQ[kTile * kLdH];   // q, then k^T
-  __shared__ __align__(16) bf16 sDO[kTile * kLdH];
-  __shared__ __align__(16) bf16 sK[kTile * kLdH];
-  __shared__ __align__(16) bf16 sV[kTile * kLdH];
-  bf16* sKt = sQ;
+// ---------------------------------------------------------------------------
+// Tensor-core route for bf16, D <= 64: wgmma and TMA (sm90_common.cuh).
+//
+// A block is two consumer warpgroups and one producer warpgroup. The block
+// owns 128 rows (the dq kernel: q rows; the dk/dv kernel: keys), 64 per
+// consumer warpgroup, loaded once by TMA. One warp of the producer streams
+// the other side in 64-row tiles through a ring of kStages stages, each
+// signalled full by an mbarrier (TMA bytes + the producer's arrivals) and
+// empty by an mbarrier each consumer warp arrives on once it is done with
+// it. Each staged tile serves both warpgroups. A warpgroup whose 64 rows
+// see none of a tile (the causal edge, or rows past S) skips its products
+// but still takes part in the ring. The producer gives its registers to
+// the consumers (setmaxnreg): 232 a thread, which the dk/dv warpgroup's
+// four 64 x 64 f32 tiles (dk, dv, s^T, dp^T) need without spilling.
+// ---------------------------------------------------------------------------
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // heaviest first
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
+using namespace hvd_sm90;
+
+constexpr int kStages = 3;
+constexpr int kProducer = 8;                   // the producer's working warp
+constexpr int kWgmmaThreads = 3 * 128;         // 2 consumer + 1 producer wg
+constexpr int kConsumerRegs = 232;             // 2 x 128 x 232 + 128 x 40
+constexpr int kProducerRegs = 40;              //   = 64,512 of 65,536
+constexpr int kConsumerWarps = 8;              // arrivals that empty a stage
+constexpr int kOwnRows = 128;                  // rows a block owns
+constexpr uint32_t kTileBytes = 64 * 64 * 2;   // one swizzled bf16 tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the SFU; results below 2^-126 flush to zero.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A consumer warp is done with a stage: one arrival for the warp, after
+// every lane's reads of it.
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
+struct DqSmem {
+  bf16 q[2][64 * 64];                 // the block's 128 q rows
+  bf16 dout[2][64 * 64];
+  bf16 k[kStages][64 * 64];           // the ring: streamed K/V tiles
+  bf16 v[kStages][64 * 64];
+  uint64_t full[kStages], empty[kStages], own;
+};
+
+struct DkvSmem {
+  bf16 k[2][64 * 64];                 // the block's 128 keys
+  bf16 v[2][64 * 64];
+  bf16 q[kStages][64 * 64];           // the ring: streamed Q/dO tiles
+  bf16 dout[kStages][64 * 64];
+  float lse2[kStages][64];            // lse * log2(e) of the tile's rows
+  float dd[kStages][64];
+  uint64_t full[kStages], empty[kStages], own;
+};
+
+template <typename Smem>
+__device__ __forceinline__ Smem& aligned_smem(uint8_t* raw) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(raw);
+  return *reinterpret_cast<Smem*>((p + 1023) & ~uintptr_t(1023));
+}
+
+// Rounds the accumulator pairs of k16 step kk (d[8 kk .. 8 kk + 7]) to the
+// bf16 A fragment of the next product.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
+                                       const float (&d)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[kk][i] = pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+}
+
+// The dq kernel's products for one K/V tile: s = q k^T and dp = do v^T
+// (both from shared memory, K-major, committed as two groups),
+// p = exp2(s * scale2 - lse2) while dp still runs, ds = p (dp - dD), then
+// dq += ds . k with ds as the A fragment and k read MN-major. kMask: the
+// tile crosses the causal diagonal or the ragged edge.
+template <bool kMask>
+__device__ __forceinline__ void dq_tile(float (&acc)[32], float (&s)[32],
+                                        float (&dp)[32], uint64_t dq_a,
+                                        uint64_t ddo_a, const bf16* sk,
+                                        const bf16* sv, const float (&lse2)[2],
+                                        const float (&dd)[2], float scale2,
+                                        int row0, int key0, int Sk,
+                                        int q_offset, int k_offset,
+                                        int causal) {
+  const uint64_t dk = sw128_desc(sk), dv = sw128_desc(sv);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss<0>(s, dq_a + kk * kKMajorStep, dk + kk * kKMajorStep, kk);
+  wgmma_commit();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss<0>(dp, ddo_a + kk * kKMajorStep, dv + kk * kKMajorStep, kk);
+  wgmma_commit();
+  wgmma_wait<1>();  // s is ready; p is computed while dp is multiplied
+  fence_regs(s);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      float p = ex2(fmaf(s[4 * j + e], scale2, -lse2[i]));
+      if (kMask) {
+        const int c = key0 + 8 * j + (e & 1);
+        const bool ok = c < Sk && (!causal || q_offset + row0 + 8 * i >=
+                                                  k_offset + c);
+        p = ok ? p : 0.f;
+      }
+      s[4 * j + e] = p;
+    }
+  wgmma_wait<0>();
+  fence_regs(dp);
+#pragma unroll
+  for (int j = 0; j < 32; ++j) dp[j] = s[j] * (dp[j] - dd[(j >> 1) & 1]);
+  uint32_t a[4][4];
+  pack_a(a, dp);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs<1>(acc, a[kk], dk + kk * kMNMajorStep);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+  fence_regs(a);
+}
+
+// Grid (B * H, ceil(Sq / 128)); blockIdx.y runs over q blocks heaviest
+// first (under the causal mask the last rows see the most keys).
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ dD,
+                          float* __restrict__ dq, int H, int Sq, int Sk,
+                          int D, int q_offset, int k_offset, float scale,
+                          int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  DqSmem& sm = aligned_smem<DqSmem>(smem_raw);
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int qb0 = (gridDim.y - 1 - blockIdx.y) * kOwnRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t rs = (size_t)H * D;
-  const bf16* kb = k + ((size_t)b * Sk * H + h) * D;
-  const bf16* vb = v + ((size_t)b * Sk * H + h) * D;
-  const int n_kk = (D + 15) / 16;
+  // K tiles some row of the block sees.
+  int n_kt = (Sk + 63) / 64;
+  if (causal) {
+    const int visible = q_offset + min(qb0 + kOwnRows, Sq) - k_offset;
+    n_kt = visible <= 0 ? 0 : min(n_kt, (visible + 63) / 64);
+  }
 
-  copy_tile_bf16(sQ, q + ((size_t)b * Sq * H + h) * D, q0, Sq, rs, D);
-  copy_tile_bf16(sDO, dout + ((size_t)b * Sq * H + h) * D, q0, Sq, rs, D);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&sm.full[i], 1);
+      mbar_init(&sm.empty[i], kConsumerWarps);
+    }
+    mbar_init(&sm.own, 1);
+    mbar_fence_init();
+  }
   __syncthreads();
-  uint32_t qa[4][4], da[4][4];
-  load_a_frags(qa, sQ, warp * 16, n_kk, g, t);
-  load_a_frags(da, sDO, warp * 16, n_kk, g, t);
 
-  const int r0 = q0 + warp * 16 + g;  // this thread's rows: r0 and r0 + 8
-  float lse_r[2], dd_r[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r0 + 8 * i;
-    lse_r[i] = r < Sq ? lse[(size_t)bh * Sq + r] : 0.f;
-    dd_r[i] = r < Sq ? dD[(size_t)bh * Sq + r] : 0.f;
-  }
-  const int n_kt = visible_k_tiles(q0, Sq, Sk, q_offset, k_offset, causal);
-  float acc[8][4];
-#pragma unroll
-  for (int nd = 0; nd < 8; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // fragments built / the previous tile is consumed
-    copy_tile_bf16(sK, kb, k0, Sk, rs, D);
-    copy_tile_bf16_t(sKt, kb, k0, Sk, rs, D);
-    copy_tile_bf16(sV, vb, k0, Sk, rs, D);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = 0.f;
-        dp[nt][e] = 0.f;
+  if (warp >= kProducer) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp != kProducer) return;
+    if (lane == 0 && n_kt > 0) {
+      mbar_arrive_expect_tx(&sm.own, 4 * kTileBytes);
+      for (int i = 0; i < 2; ++i) {
+        tma_load_4d(sm.q[i], &tm_q, &sm.own, 0, h, qb0 + 64 * i, b);
+        tma_load_4d(sm.dout[i], &tm_do, &sm.own, 0, h, qb0 + 64 * i, b);
       }
-    mma_abt(s, qa, sK, n_kk, g, t);
-    mma_abt(dp, da, sV, n_kk, g, t);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1;
-        const int c = k0 + nt * 8 + 2 * t + (e & 1);
-        const bool ok = c < Sk &&
-                        (!causal || q_offset + r0 + 8 * half >= k_offset + c);
-        const float p = ok ? expf(s[nt][e] * scale - lse_r[half]) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - dd_r[half]);  // dS
+      for (int it = 0; it < n_kt; ++it) {
+        const int st = it % kStages;
+        mbar_wait(&sm.empty[st], ((it / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&sm.full[st], 2 * kTileBytes);
+        tma_load_4d(sm.k[st], &tm_k, &sm.full[st], 0, h, it * 64, b);
+        tma_load_4d(sm.v[st], &tm_v, &sm.full[st], 0, h, it * 64, b);
       }
-    mma_sv(acc, s, sKt, D, g, t);  // dq += dS . k
+    }
+    return;
   }
 
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp >> 2, w = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = qb0 + 64 * wg;               // the warpgroup's first row
+  const int row0 = r0 + 16 * w + g;           // this thread's rows: +0, +8
+  const float scale2 = scale * kLog2e;
+  float lse2[2], dd[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int r = r0 + 8 * i;
+    const int r = row0 + 8 * i;
+    lse2[i] = r < Sq ? lse[(size_t)bh * Sq + r] * kLog2e : 0.f;
+    dd[i] = r < Sq ? dD[(size_t)bh * Sq + r] : 0.f;
+  }
+  // K tiles this warpgroup's rows see.
+  int n_kt_wg = r0 < Sq ? n_kt : 0;
+  if (causal && n_kt_wg > 0) {
+    const int visible = q_offset + min(r0 + 64, Sq) - k_offset;
+    n_kt_wg = visible <= 0 ? 0 : min(n_kt, (visible + 63) / 64);
+  }
+  float acc[32], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = s[i] = dp[i] = 0.f;
+
+  if (n_kt > 0) {
+    mbar_wait(&sm.own, 0);
+    const uint64_t dq_a = sw128_desc(sm.q[wg]);
+    const uint64_t ddo_a = sw128_desc(sm.dout[wg]);
+    for (int it = 0; it < n_kt; ++it) {
+      const int st = it % kStages;
+      mbar_wait(&sm.full[st], (it / kStages) & 1);
+      if (it < n_kt_wg) {
+        const int k0 = it * 64;
+        // Every (row, key) of the tile visible: the warpgroup's first row
+        // sees the tile's last key, and the tile lies inside Sk.
+        const bool edge = k0 + 64 > Sk ||
+                          (causal && q_offset + r0 < k_offset + k0 + 63);
+        if (edge)
+          dq_tile<true>(acc, s, dp, dq_a, ddo_a, sm.k[st], sm.v[st], lse2,
+                        dd, scale2, row0, k0 + 2 * t, Sk, q_offset,
+                        k_offset, causal);
+        else
+          dq_tile<false>(acc, s, dp, dq_a, ddo_a, sm.k[st], sm.v[st], lse2,
+                         dd, scale2, row0, k0 + 2 * t, Sk, q_offset,
+                         k_offset, causal);
+      }
+      release(&sm.empty[st], lane);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + 8 * i;
     if (r >= Sq) continue;
     float* row = dq + ((size_t)(b * Sq + r) * H + h) * D;
 #pragma unroll
-    for (int nd = 0; nd < 8; ++nd) {
-      const int d = nd * 8 + 2 * t;
+    for (int j = 0; j < 8; ++j) {
+      const int d = 8 * j + 2 * t;
       if (d < D)
         *reinterpret_cast<float2*>(row + d) = make_float2(
-            acc[nd][2 * i] * scale, acc[nd][2 * i + 1] * scale);
+            acc[4 * j + 2 * i] * scale, acc[4 * j + 2 * i + 1] * scale);
     }
   }
 }
 
-// Tensor-core dk/dv for bf16, D <= 64: warp w owns key rows
-// k0 + 16 w .. + 15; score tiles are transposed (rows keys, columns
-// queries), so lse and dD are read per column from shared memory.
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ dD,
-                         float* __restrict__ dk, float* __restrict__ dv,
-                         int H, int Sq, int Sk, int D, int q_offset,
-                         int k_offset, float scale, int causal) {
-  __shared__ __align__(16) bf16 sQ[kTile * kLdH];    // k first, then q
-  __shared__ __align__(16) bf16 sDO[kTile * kLdH];   // v first, then do
-  __shared__ __align__(16) bf16 sQt[kTile * kLdH];
-  __shared__ __align__(16) bf16 sDOt[kTile * kLdH];
-  __shared__ float sLse[kTile];
-  __shared__ float sDD[kTile];
-
-  const int k0 = blockIdx.x * kTile;  // causal: tile 0 has the most work
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t rs = (size_t)H * D;
-  const bf16* qb = q + ((size_t)b * Sq * H + h) * D;
-  const bf16* db = dout + ((size_t)b * Sq * H + h) * D;
-  const int n_kk = (D + 15) / 16;
-
-  copy_tile_bf16(sQ, k + ((size_t)b * Sk * H + h) * D, k0, Sk, rs, D);
-  copy_tile_bf16(sDO, v + ((size_t)b * Sk * H + h) * D, k0, Sk, rs, D);
-  __syncthreads();
-  uint32_t ka[4][4], va[4][4];
-  load_a_frags(ka, sQ, warp * 16, n_kk, g, t);
-  load_a_frags(va, sDO, warp * 16, n_kk, g, t);
-
-  const int c0 = k0 + warp * 16 + g;  // this thread's keys: c0 and c0 + 8
-  const int n_qt = (Sq + kTile - 1) / kTile;
-  int qt_begin = 0;
-  if (causal) {
-    const int r0 = k_offset + k0 - q_offset;
-    if (r0 > 0) qt_begin = r0 / kTile;
-  }
-  float gk[8][4], gv[8][4];
+// The dk/dv kernel's products for one Q/dO tile, transposed against the
+// dq kernel (rows keys, columns q rows): s^T = k q^T and dp^T = v do^T
+// (shared memory, K-major), p^T and ds^T in registers with lse2/dD per
+// column from the stage, then dv += p^T . do and dk += ds^T . q with the
+// A fragments from registers and do, q read MN-major.
+template <bool kMask>
+__device__ __forceinline__ void dkv_tile(
+    float (&gk)[32], float (&gv)[32], float (&s)[32], float (&dp)[32],
+    uint64_t dk_a, uint64_t dv_a, const bf16* sq, const bf16* sdo,
+    const float* lse2, const float* dd, float scale2, int key0, int qrow0,
+    int Sq, int Sk, int q_offset, int k_offset, int causal, int t) {
+  const uint64_t dq_b = sw128_desc(sq), ddo_b = sw128_desc(sdo);
+  wgmma_fence();
 #pragma unroll
-  for (int nd = 0; nd < 8; ++nd)
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss<0>(s, dk_a + kk * kKMajorStep, dq_b + kk * kKMajorStep, kk);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss<0>(dp, dv_a + kk * kKMajorStep, ddo_b + kk * kKMajorStep, kk);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+  fence_regs(dp);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    const float2 l2 = *reinterpret_cast<const float2*>(lse2 + col);
+    const float2 d2 = *reinterpret_cast<const float2*>(dd + col);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      gk[nd][e] = 0.f;
-      gv[nd][e] = 0.f;
-    }
-
-  for (int qt = qt_begin; qt < n_qt; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();  // fragments built / the previous tile is consumed
-    copy_tile_bf16(sQ, qb, q0, Sq, rs, D);
-    copy_tile_bf16_t(sQt, qb, q0, Sq, rs, D);
-    copy_tile_bf16(sDO, db, q0, Sq, rs, D);
-    copy_tile_bf16_t(sDOt, db, q0, Sq, rs, D);
-    if (threadIdx.x < kTile) {
-      const int r = q0 + threadIdx.x;
-      sLse[threadIdx.x] = r < Sq ? lse[(size_t)bh * Sq + r] : 0.f;
-      sDD[threadIdx.x] = r < Sq ? dD[(size_t)bh * Sq + r] : 0.f;
-    }
-    __syncthreads();
-
-    float st[8][4], dpt[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        st[nt][e] = 0.f;
-        dpt[nt][e] = 0.f;
-      }
-    mma_abt(st, ka, sQ, n_kk, g, t);    // s^T = k . q^T
-    mma_abt(dpt, va, sDO, n_kk, g, t);  // dp^T = v . do^T
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = c0 + 8 * (e >> 1);
-        const int rl = nt * 8 + 2 * t + (e & 1);
-        const int r = q0 + rl;
+      const float lv = (e & 1) ? l2.y : l2.x;
+      const float dv = (e & 1) ? d2.y : d2.x;
+      float p = ex2(fmaf(s[4 * j + e], scale2, -lv));
+      if (kMask) {
+        const int c = key0 + 8 * (e >> 1);
+        const int r = qrow0 + col + (e & 1);
         const bool ok = c < Sk && r < Sq &&
                         (!causal || q_offset + r >= k_offset + c);
-        const float p = ok ? expf(st[nt][e] * scale - sLse[rl]) : 0.f;
-        st[nt][e] = p;                              // P^T
-        dpt[nt][e] = p * (dpt[nt][e] - sDD[rl]);    // dS^T
+        p = ok ? p : 0.f;
       }
-    mma_sv(gv, st, sDOt, D, g, t);   // dv += P^T . do
-    mma_sv(gk, dpt, sQt, D, g, t);   // dk += dS^T . q
+      s[4 * j + e] = p;                              // p^T
+      dp[4 * j + e] = p * (dp[4 * j + e] - dv);      // ds^T
+    }
+  }
+  uint32_t pa[4][4], da[4][4];
+  pack_a(pa, s);
+  pack_a(da, dp);
+  const uint64_t dq_m = sw128_desc(sq), ddo_m = sw128_desc(sdo);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs<1>(gv, pa[kk], ddo_m + kk * kMNMajorStep);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs<1>(gk, da[kk], dq_m + kk * kMNMajorStep);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(gv);
+  fence_regs(gk);
+  fence_regs(pa);
+  fence_regs(da);
+}
+
+// Grid (B * H, ceil(Sk / 128)); key block 0 first (under the causal mask
+// the first keys are seen by the most q rows).
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ dD,
+                           float* __restrict__ dk, float* __restrict__ dv,
+                           int H, int Sq, int Sk, int D, int q_offset,
+                           int k_offset, float scale, int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  DkvSmem& sm = aligned_smem<DkvSmem>(smem_raw);
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int kb0 = blockIdx.y * kOwnRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // The first q tile holding a row that sees the block's first key.
+  const int n_qt = (Sq + 63) / 64;
+  int qt_begin = 0;
+  if (causal) {
+    const int r = k_offset + kb0 - q_offset;
+    if (r > 0) qt_begin = min(r / 64, n_qt);
+  }
+  const int n_it = n_qt - qt_begin;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&sm.full[i], 32);
+      mbar_init(&sm.empty[i], kConsumerWarps);
+    }
+    mbar_init(&sm.own, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kProducer) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp != kProducer) return;
+    if (n_it > 0) {
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&sm.own, 4 * kTileBytes);
+        for (int i = 0; i < 2; ++i) {
+          tma_load_4d(sm.k[i], &tm_k, &sm.own, 0, h, kb0 + 64 * i, b);
+          tma_load_4d(sm.v[i], &tm_v, &sm.own, 0, h, kb0 + 64 * i, b);
+        }
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int st = it % kStages;
+        const int q0 = (qt_begin + it) * 64;
+        mbar_wait(&sm.empty[st], ((it / kStages) & 1) ^ 1);
+        for (int i = lane; i < 64; i += 32) {
+          const int r = q0 + i;
+          sm.lse2[st][i] = r < Sq ? lse[(size_t)bh * Sq + r] * kLog2e : 0.f;
+          sm.dd[st][i] = r < Sq ? dD[(size_t)bh * Sq + r] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&sm.full[st], 2 * kTileBytes);
+          tma_load_4d(sm.q[st], &tm_q, &sm.full[st], 0, h, q0, b);
+          tma_load_4d(sm.dout[st], &tm_do, &sm.full[st], 0, h, q0, b);
+        } else {
+          mbar_arrive(&sm.full[st]);
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp >> 2, w = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int c0 = kb0 + 64 * wg;               // the warpgroup's first key
+  const int key0 = c0 + 16 * w + g;           // this thread's keys: +0, +8
+  const float scale2 = scale * kLog2e;
+  float gk[32], gv[32], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) gk[i] = gv[i] = s[i] = dp[i] = 0.f;
+
+  if (n_it > 0) {
+    mbar_wait(&sm.own, 0);
+    const uint64_t dk_a = sw128_desc(sm.k[wg]);
+    const uint64_t dv_a = sw128_desc(sm.v[wg]);
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it % kStages;
+      const int q0 = (qt_begin + it) * 64;
+      mbar_wait(&sm.full[st], (it / kStages) & 1);
+      // Some (row, key) visible: the tile's last row sees the warpgroup's
+      // first key. All visible: its first row sees the last key, and the
+      // tile lies inside Sq and Sk.
+      const bool any = c0 < Sk &&
+                       (!causal || q_offset + q0 + 63 >= k_offset + c0);
+      if (any) {
+        const bool edge = c0 + 64 > Sk || q0 + 64 > Sq ||
+                          (causal && q_offset + q0 < k_offset + c0 + 63);
+        if (edge)
+          dkv_tile<true>(gk, gv, s, dp, dk_a, dv_a, sm.q[st], sm.dout[st],
+                         sm.lse2[st], sm.dd[st], scale2, key0, q0, Sq, Sk,
+                         q_offset, k_offset, causal, t);
+        else
+          dkv_tile<false>(gk, gv, s, dp, dk_a, dv_a, sm.q[st], sm.dout[st],
+                          sm.lse2[st], sm.dd[st], scale2, key0, q0, Sq, Sk,
+                          q_offset, k_offset, causal, t);
+      }
+      release(&sm.empty[st], lane);
+    }
   }
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int c = c0 + 8 * i;
+    const int c = key0 + 8 * i;
     if (c >= Sk) continue;
     const size_t off = ((size_t)(b * Sk + c) * H + h) * D;
 #pragma unroll
-    for (int nd = 0; nd < 8; ++nd) {
-      const int d = nd * 8 + 2 * t;
+    for (int j = 0; j < 8; ++j) {
+      const int d = 8 * j + 2 * t;
       if (d < D) {
         *reinterpret_cast<float2*>(dk + off + d) = make_float2(
-            gk[nd][2 * i] * scale, gk[nd][2 * i + 1] * scale);
+            gk[4 * j + 2 * i] * scale, gk[4 * j + 2 * i + 1] * scale);
         *reinterpret_cast<float2*>(dv + off + d) =
-            make_float2(gv[nd][2 * i], gv[nd][2 * i + 1]);
+            make_float2(gv[4 * j + 2 * i], gv[4 * j + 2 * i + 1]);
       }
     }
   }
+}
+
+// Encodes the four [B, S, H, D] maps and launches a wgmma kernel with
+// the block's shared memory (+1 KB to align it to 1024 bytes).
+template <typename Smem, typename Kernel, typename... Out>
+int launch_wgmma(Kernel kernel, int n_own_rows, const void* q, const void* k,
+                 const void* v, const void* dout, const void* lse,
+                 const void* dD, int B, int H, int Sq, int Sk, int D,
+                 int q_offset, int k_offset, float scale, int causal,
+                 cudaStream_t stream, Out*... out) {
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t e;
+  if ((e = encode_bshd_bf16(&tq, q, B, Sq, H, D, 64)) != cudaSuccess ||
+      (e = encode_bshd_bf16(&tk, k, B, Sk, H, D, 64)) != cudaSuccess ||
+      (e = encode_bshd_bf16(&tv, v, B, Sk, H, D, 64)) != cudaSuccess ||
+      (e = encode_bshd_bf16(&tdo, dout, B, Sq, H, D, 64)) != cudaSuccess)
+    return (int)e;
+  const size_t smem = sizeof(Smem) + 1024;  // see hvd_flash_bwd_smem_bytes
+  if ((e = allow_smem(kernel, smem)) != cudaSuccess) return (int)e;
+  const dim3 grid(B * H, (n_own_rows + kOwnRows - 1) / kOwnRows);
+  kernel<<<grid, kWgmmaThreads, smem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(dD), static_cast<float*>(out)..., H, Sq, Sk,
+      D, q_offset, k_offset, scale, causal);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int kDP>
@@ -495,6 +776,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+
 }  // namespace
 }  // namespace hvd_flash
 
@@ -510,16 +792,10 @@ extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
   using namespace hvd_flash;
   if (bad_args(B, H, Sq, Sk, D, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D <= 64) {
-    const dim3 grid((Sq + kTile - 1) / kTile, B * H);
-    flash_bwd_dq_mma_kernel<<<grid, kMmaThreads, 0, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(dD),
-        static_cast<float*>(dq), H, Sq, Sk, D, q_offset, k_offset, scale,
-        causal);
-    return (int)cudaGetLastError();
-  }
+  if (dtype == 0 && D <= 64)
+    return launch_wgmma<DqSmem>(flash_bwd_dq_wgmma_kernel, Sq, q, k, v,
+                                dout, lse, dD, B, H, Sq, Sk, D, q_offset,
+                                k_offset, scale, causal, s, dq);
   if (dtype == 0) {
     return launch_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, dD, dq, B, H,
                                          Sq, Sk, D, q_offset, k_offset,
@@ -543,16 +819,10 @@ extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
   using namespace hvd_flash;
   if (bad_args(B, H, Sq, Sk, D, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D <= 64) {
-    const dim3 grid((Sk + kTile - 1) / kTile, B * H);
-    flash_bwd_dkv_mma_kernel<<<grid, kMmaThreads, 0, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(dD),
-        static_cast<float*>(dk), static_cast<float*>(dv), H, Sq, Sk, D,
-        q_offset, k_offset, scale, causal);
-    return (int)cudaGetLastError();
-  }
+  if (dtype == 0 && D <= 64)
+    return launch_wgmma<DkvSmem>(flash_bwd_dkv_wgmma_kernel, Sk, q, k, v,
+                                 dout, lse, dD, B, H, Sq, Sk, D, q_offset,
+                                 k_offset, scale, causal, s, dk, dv);
   if (dtype == 0) {
     return launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, dD, dk, dv, B,
                                           H, Sq, Sk, D, q_offset, k_offset,
@@ -564,6 +834,13 @@ extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                  : launch_dkv<float, 128>(q, k, v, dout, lse, dD, dk, dv, B,
                                           H, Sq, Sk, D, q_offset, k_offset,
                                           scale, causal, s);
+}
+
+// Dynamic shared memory a block of the wgmma dq (0) or dk/dv (1) kernel
+// asks for, in bytes.
+extern "C" int hvd_flash_bwd_smem_bytes(int dkv) {
+  using namespace hvd_flash;
+  return (int)((dkv ? sizeof(DkvSmem) : sizeof(DqSmem)) + 1024);
 }
 
 extern "C" const char* hvd_cuda_error_string(int code) {

@@ -72,16 +72,23 @@ def _assert_rel_close(a, ref, rel, what):
     (torch.float32, 64, 1e-4),        # FMA kernels
     (torch.bfloat16, 64, 1e-2),       # tensor-core kernels
     (torch.bfloat16, 16, 1e-2),       # tensor cores, zero-padded columns
+    (torch.bfloat16, 40, 1e-2),       # tensor cores, padding inside a k16
     (torch.bfloat16, 96, 1e-4),       # FMA kernels (D > 64)
 ])
-@pytest.mark.parametrize("sq,sk,qoff,koff,causal", [
-    (256, 256, 0, 0, True),           # the training geometry
-    (200, 328, 0, 0, False),          # ragged S on both sides
-    (1000, 1000, 0, 0, True),         # ragged S, causal
-    (128, 128, 0, 128, True),         # fully masked K block
-    (128, 128, 256, 128, True),       # K block behind Q
+@pytest.mark.parametrize("b,h,sq,sk,qoff,koff,causal", [
+    (2, 3, 256, 256, 0, 0, True),     # the training geometry
+    (2, 3, 200, 328, 0, 0, False),    # ragged S on both sides
+    (2, 3, 1000, 1000, 0, 0, True),   # ragged S, causal
+    (2, 3, 128, 128, 0, 128, True),   # fully masked K block
+    (2, 3, 128, 128, 256, 128, True), # K block behind Q
+    (2, 3, 129, 129, 0, 0, True),     # one row past a 128-row block
+    (2, 3, 129, 1000, 0, 0, False),   # ragged, Sq != Sk
+    (2, 3, 1000, 129, 0, 0, True),
+    (2, 3, 256, 256, 96, 32, True),   # offsets off the 64/128 tiles
+    (2, 3, 256, 256, 32, 96, True),   # ... with rows that see no key
+    (8, 16, 256, 256, 0, 0, True),    # B * H = 128
 ])
-def test_cuda_kernels_match_plain_versions(dtype, d, rel, sq, sk, qoff,
+def test_cuda_kernels_match_plain_versions(dtype, d, rel, b, h, sq, sk, qoff,
                                           koff, causal):
     """Each kernel against its plain version on the card (skips without
     one): o, m, l of the forward; dq, dk, dv of the backward pair. Errors
@@ -92,7 +99,7 @@ def test_cuda_kernels_match_plain_versions(dtype, d, rel, sq, sk, qoff,
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(10)
-    q, k, v, do = _cuda_case(rng, 2, sq, sk, 3, d, dtype)
+    q, k, v, do = _cuda_case(rng, b, sq, sk, h, d, dtype)
     scale = d ** -0.5
     before = dict(fa.LAUNCHES)
     o, m, l = fa.flash_block_attend(q, k, v, qoff, koff, causal, scale)
@@ -111,9 +118,70 @@ def test_cuda_kernels_match_plain_versions(dtype, d, rel, sq, sk, qoff,
                             ("o", "m", "l", "dq", "dk", "dv")):
         assert bool(torch.isfinite(a).all()), what
         _assert_rel_close(a, ref, rel, what)
-    if qoff < koff:
-        assert bool((m == sp.NEG_INF).all()) and bool((l == 0).all())
-        assert bool((o == 0).all())
+    blind = qoff + torch.arange(sq, device=q.device) < koff  # see no key
+    if causal and bool(blind.any()):
+        assert bool((m[..., blind] == sp.NEG_INF).all())
+        assert bool((l[..., blind] == 0).all())
+        assert bool((o[:, blind] == 0).all()) and bool((got[0][:, blind] == 0
+                                                        ).all())
+
+
+def _bwd_inputs(rng, b, sq, sk, h, d, dtype, qoff, koff, causal):
+    """Inputs of the backward pair, with lse from the plain forward."""
+    q, k, v, do = _cuda_case(rng, b, sq, sk, h, d, dtype)
+    _, rm, rl = sp._block_attend(q.float(), k.float(), v.float(), qoff, koff,
+                                 causal, d ** -0.5)
+    lse = rm + torch.log(rl.clamp_min(1e-30))
+    dD = torch.from_numpy(rng.standard_normal(lse.shape).astype(
+        np.float32)).cuda()
+    return q, k, v, do, lse, dD
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
+                                     (torch.bfloat16, 40),
+                                     (torch.float32, 64)])
+def test_cuda_flash_bwd_is_bitwise_repeatable(dtype, d):
+    """Two launches of each backward kernel on the same inputs give
+    bitwise-equal dq, dk and dv: every sum stays inside one block, in a
+    fixed order (no float atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    rng = np.random.default_rng(12)
+    args = _bwd_inputs(rng, 2, 1000, 1000, 4, d, dtype, 0, 0, True)
+    runs = [fa.flash_bwd_block(*args, 0, 0, True, d ** -0.5)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b, what in zip(*runs, ("dq", "dk", "dv")):
+        assert torch.equal(a, b), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sq,sk,qoff,koff", [(256, 256, 32, 96),
+                                             (200, 200, 0, 100),
+                                             (129, 129, 0, 64)])
+def test_cuda_flash_bwd_masked_rows_and_keys_are_exact_zeros(
+        dtype, sq, sk, qoff, koff):
+    """Causal, K block partly after Q: a q row that sees no key gets
+    dq == 0 exactly, and a key that no q row sees gets dk == dv == 0
+    exactly (nothing of them is computed as a small number)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    rng = np.random.default_rng(14)
+    d = 64
+    args = _bwd_inputs(rng, 2, sq, sk, 3, d, dtype, qoff, koff, True)
+    dq, dk, dv = fa.flash_bwd_block(*args, qoff, koff, True, d ** -0.5)
+    torch.cuda.synchronize()
+    blind_rows = qoff + np.arange(sq) < koff           # see no key
+    unseen_keys = koff + np.arange(sk) > qoff + sq - 1  # seen by no row
+    assert blind_rows.any() and unseen_keys.any()
+    assert bool((dq[:, torch.from_numpy(blind_rows).cuda()] == 0).all())
+    for g, what in ((dk, "dk"), (dv, "dv")):
+        assert bool((g[:, torch.from_numpy(unseen_keys).cuda()] == 0).all()), \
+            what
+    seen = torch.from_numpy(~unseen_keys).cuda()
+    assert bool((dv[:, seen] != 0).any())
 
 
 @pytest.mark.cuda
