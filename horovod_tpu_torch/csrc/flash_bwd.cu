@@ -42,16 +42,17 @@
 //     (4-D tensor maps over [B, S, H, D], 128-byte swizzle, which zero-fills
 //     rows past S and columns past D) into a ring of 3 stages signalled by
 //     mbarriers, so the next tile loads while the current one is
-//     multiplied. A block is two consumer warpgroups, each owning 64 of
-//     the block's 128 rows and sharing every staged tile, plus a producer
-//     warpgroup whose first warp starts the copies (and stages lse/dD for
-//     dk/dv) and which hands its registers to the consumers (setmaxnreg).
-//     The two consumer warpgroups overlap each other's exp work with
-//     their products; inside a warpgroup, the dq kernel computes P while
-//     its dp product still runs. Measured alternatives that were slower:
-//     A operands of s and dp from registers, issuing the next tile's s/dp
-//     behind the current gradient products, 2 or 4 stages, and the same
-//     split waits in the dk/dv kernel (PERF.md);
+//     multiplied. A block is three consumer warpgroups, each owning 64 of
+//     the block's 192 rows and sharing every staged tile; they overlap
+//     each other's exp work with their products, and inside a warpgroup
+//     the dq kernel computes P while its dp product still runs. The dq
+//     kernel adds a producer warpgroup that hands its registers to the
+//     consumers (setmaxnreg); the dk/dv kernel needs all 168 registers a
+//     thread of 384 for its four 64x64 f32 tiles, so the last warp done
+//     with a stage refills it. Measured alternatives that were slower:
+//     two consumer warpgroups, A operands of s and dp from registers,
+//     issuing the next tile's s/dp behind the current gradient products,
+//     2 or 4 stages, and split waits in the dk/dv kernel (PERF.md);
 //   - f32, or bf16 with D > 64: f32 FMAs on shared-memory tiles, 64 rows
 //     a block.
 
@@ -277,28 +278,26 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 // Tensor-core route for bf16, D <= 64: wgmma and TMA (sm90_common.cuh).
 //
-// A block is two consumer warpgroups and one producer warpgroup. The block
-// owns 128 rows (the dq kernel: q rows; the dk/dv kernel: keys), 64 per
-// consumer warpgroup, loaded once by TMA. One warp of the producer streams
-// the other side in 64-row tiles through a ring of kStages stages, each
-// signalled full by an mbarrier (TMA bytes + the producer's arrivals) and
-// empty by an mbarrier each consumer warp arrives on once it is done with
-// it. Each staged tile serves both warpgroups. A warpgroup whose 64 rows
-// see none of a tile (the causal edge, or rows past S) skips its products
-// but still takes part in the ring. The producer gives its registers to
-// the consumers (setmaxnreg): 232 a thread, which the dk/dv warpgroup's
-// four 64 x 64 f32 tiles (dk, dv, s^T, dp^T) need without spilling.
+// A block owns 192 rows (the dq kernel: q rows; the dk/dv kernel: keys),
+// 64 per consumer warpgroup, loaded once by TMA, and streams the other
+// side in 64-row tiles through a ring of kStages stages; each staged tile
+// serves the three warpgroups. A stage is signalled full by an mbarrier
+// (TMA bytes + arrivals). A warpgroup whose 64 rows see none of a tile
+// (the causal edge, or rows past S) skips its products but still takes
+// part in the ring.
+//   - dq: a fourth, producer warpgroup; one of its threads refills a stage
+//     once the stage's empty mbarrier has an arrival from every consumer
+//     warp. It hands its registers to the consumers (setmaxnreg).
+//   - dk/dv: three warpgroups and no producer: its 4 x 32 f32 accumulator
+//     tiles need 168 registers a thread, and 3 x 128 x 168 leaves none for
+//     a fourth warpgroup. Each warp counts itself done with a stage on a
+//     shared counter; the last one refills the stage (TMA for q and do,
+//     cp.async for lse and dD), so no warp waits to start a copy.
 // ---------------------------------------------------------------------------
 
 using namespace hvd_sm90;
 
 constexpr int kStages = 3;
-constexpr int kProducer = 8;                   // the producer's working warp
-constexpr int kWgmmaThreads = 3 * 128;         // 2 consumer + 1 producer wg
-constexpr int kConsumerRegs = 232;             // 2 x 128 x 232 + 128 x 40
-constexpr int kProducerRegs = 40;              //   = 64,512 of 65,536
-constexpr int kConsumerWarps = 8;              // arrivals that empty a stage
-constexpr int kOwnRows = 128;                  // rows a block owns
 constexpr uint32_t kTileBytes = 64 * 64 * 2;   // one swizzled bf16 tile
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -309,30 +308,64 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// A consumer warp is done with a stage: one arrival for the warp, after
-// every lane's reads of it.
+// A dq consumer warp is done with a stage: one arrival for the warp,
+// after every lane's reads of it.
 __device__ __forceinline__ void release(uint64_t* bar, int lane) {
   __syncwarp();
   if (lane == 0) mbar_arrive(bar);
 }
 
+constexpr int kDqWgs = 3;                        // consumer warpgroups
+constexpr int kDqRows = 64 * kDqWgs;
+constexpr int kDqThreads = (kDqWgs + 1) * 128;   // + the producer
+constexpr int kDqConsumerRegs = 152;             // 3 x 128 x 152 + 128 x 56
+constexpr int kDqProducerRegs = 56;              //   = 65,536
+
 struct DqSmem {
-  bf16 q[2][64 * 64];                 // the block's 128 q rows
-  bf16 dout[2][64 * 64];
+  bf16 q[kDqWgs][64 * 64];            // the block's q rows
+  bf16 dout[kDqWgs][64 * 64];
   bf16 k[kStages][64 * 64];           // the ring: streamed K/V tiles
   bf16 v[kStages][64 * 64];
   uint64_t full[kStages], empty[kStages], own;
 };
 
+constexpr int kDkvWgs = 3;
+constexpr int kDkvRows = 64 * kDkvWgs;
+constexpr int kDkvThreads = kDkvWgs * 128;
+
 struct DkvSmem {
-  bf16 k[2][64 * 64];                 // the block's 128 keys
-  bf16 v[2][64 * 64];
+  bf16 k[kDkvWgs][64 * 64];           // the block's keys
+  bf16 v[kDkvWgs][64 * 64];
   bf16 q[kStages][64 * 64];           // the ring: streamed Q/dO tiles
   bf16 dout[kStages][64 * 64];
-  float lse2[kStages][64];            // lse * log2(e) of the tile's rows
+  float lse[kStages][64];             // lse of the tile's rows
   float dd[kStages][64];
-  uint64_t full[kStages], empty[kStages], own;
+  uint64_t full[kStages], own;
+  uint32_t done[kStages];             // warps done with the stage, ever
 };
+
+// Stage st gets q tile q0: lane 0 starts the TMA copies of q and do, every
+// lane copies two rows of lse and dD with cp.async; the 32 arrivals land
+// with the copies.
+__device__ __forceinline__ void dkv_fill(DkvSmem& sm, int st, int q0,
+                                         const CUtensorMap* tm_q,
+                                         const CUtensorMap* tm_do,
+                                         const float* lse, const float* dD,
+                                         int bh, int h, int b, int Sq,
+                                         int lane) {
+  if (lane == 0) {
+    mbar_expect_tx(&sm.full[st], 2 * kTileBytes);
+    tma_load_4d(sm.q[st], tm_q, &sm.full[st], 0, h, q0, b);
+    tma_load_4d(sm.dout[st], tm_do, &sm.full[st], 0, h, q0, b);
+  }
+  for (int i = lane; i < 64; i += 32) {
+    const int r = q0 + i;
+    const size_t at = (size_t)bh * Sq + min(r, Sq - 1);
+    cp_async_4(&sm.lse[st][i], lse + at, r < Sq);
+    cp_async_4(&sm.dd[st][i], dD + at, r < Sq);
+  }
+  cp_async_arrive(&sm.full[st]);
+}
 
 template <typename Smem>
 __device__ __forceinline__ Smem& aligned_smem(uint8_t* raw) {
@@ -407,9 +440,9 @@ __device__ __forceinline__ void dq_tile(float (&acc)[32], float (&s)[32],
   fence_regs(a);
 }
 
-// Grid (B * H, ceil(Sq / 128)); blockIdx.y runs over q blocks heaviest
+// Grid (B * H, ceil(Sq / 192)); blockIdx.y runs over q blocks heaviest
 // first (under the causal mask the last rows see the most keys).
-__global__ void __launch_bounds__(kWgmmaThreads, 1)
+__global__ void __launch_bounds__(kDqThreads, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v,
@@ -422,31 +455,31 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   extern __shared__ uint8_t smem_raw[];
   DqSmem& sm = aligned_smem<DqSmem>(smem_raw);
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int qb0 = (gridDim.y - 1 - blockIdx.y) * kOwnRows;
+  const int qb0 = (gridDim.y - 1 - blockIdx.y) * kDqRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // K tiles some row of the block sees.
   int n_kt = (Sk + 63) / 64;
   if (causal) {
-    const int visible = q_offset + min(qb0 + kOwnRows, Sq) - k_offset;
+    const int visible = q_offset + min(qb0 + kDqRows, Sq) - k_offset;
     n_kt = visible <= 0 ? 0 : min(n_kt, (visible + 63) / 64);
   }
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < kStages; ++i) {
       mbar_init(&sm.full[i], 1);
-      mbar_init(&sm.empty[i], kConsumerWarps);
+      mbar_init(&sm.empty[i], 4 * kDqWgs);
     }
     mbar_init(&sm.own, 1);
     mbar_fence_init();
   }
   __syncthreads();
 
-  if (warp >= kProducer) {
-    setmaxnreg_dec<kProducerRegs>();
-    if (warp != kProducer) return;
+  if (warp >= 4 * kDqWgs) {  // the producer; one thread starts the copies
+    setmaxnreg_dec<kDqProducerRegs>();
+    if (warp != 4 * kDqWgs) return;
     if (lane == 0 && n_kt > 0) {
-      mbar_arrive_expect_tx(&sm.own, 4 * kTileBytes);
-      for (int i = 0; i < 2; ++i) {
+      mbar_arrive_expect_tx(&sm.own, 2 * kDqWgs * kTileBytes);
+      for (int i = 0; i < kDqWgs; ++i) {
         tma_load_4d(sm.q[i], &tm_q, &sm.own, 0, h, qb0 + 64 * i, b);
         tma_load_4d(sm.dout[i], &tm_do, &sm.own, 0, h, qb0 + 64 * i, b);
       }
@@ -461,7 +494,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     return;
   }
 
-  setmaxnreg_inc<kConsumerRegs>();
+  setmaxnreg_inc<kDqConsumerRegs>();
   const int wg = warp >> 2, w = warp & 3;
   const int g = lane >> 2, t = lane & 3;
   const int r0 = qb0 + 64 * wg;               // the warpgroup's first row
@@ -555,7 +588,7 @@ __device__ __forceinline__ void dkv_tile(
     const float2 d2 = *reinterpret_cast<const float2*>(dd + col);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float lv = (e & 1) ? l2.y : l2.x;
+      const float lv = ((e & 1) ? l2.y : l2.x) * kLog2e;
       const float dv = (e & 1) ? d2.y : d2.x;
       float p = ex2(fmaf(s[4 * j + e], scale2, -lv));
       if (kMask) {
@@ -588,9 +621,9 @@ __device__ __forceinline__ void dkv_tile(
   fence_regs(da);
 }
 
-// Grid (B * H, ceil(Sk / 128)); key block 0 first (under the causal mask
+// Grid (B * H, ceil(Sk / 192)); key block 0 first (under the causal mask
 // the first keys are seen by the most q rows).
-__global__ void __launch_bounds__(kWgmmaThreads, 1)
+__global__ void __launch_bounds__(kDkvThreads, 1)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v,
@@ -603,7 +636,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   extern __shared__ uint8_t smem_raw[];
   DkvSmem& sm = aligned_smem<DkvSmem>(smem_raw);
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int kb0 = blockIdx.y * kOwnRows;
+  const int kb0 = blockIdx.y * kDkvRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // The first q tile holding a row that sees the block's first key.
   const int n_qt = (Sq + 63) / 64;
@@ -617,46 +650,27 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (threadIdx.x == 0) {
     for (int i = 0; i < kStages; ++i) {
       mbar_init(&sm.full[i], 32);
-      mbar_init(&sm.empty[i], kConsumerWarps);
+      sm.done[i] = 0;
     }
     mbar_init(&sm.own, 1);
     mbar_fence_init();
   }
   __syncthreads();
-
-  if (warp >= kProducer) {
-    setmaxnreg_dec<kProducerRegs>();
-    if (warp != kProducer) return;
-    if (n_it > 0) {
-      if (lane == 0) {
-        mbar_arrive_expect_tx(&sm.own, 4 * kTileBytes);
-        for (int i = 0; i < 2; ++i) {
-          tma_load_4d(sm.k[i], &tm_k, &sm.own, 0, h, kb0 + 64 * i, b);
-          tma_load_4d(sm.v[i], &tm_v, &sm.own, 0, h, kb0 + 64 * i, b);
-        }
-      }
-      for (int it = 0; it < n_it; ++it) {
-        const int st = it % kStages;
-        const int q0 = (qt_begin + it) * 64;
-        mbar_wait(&sm.empty[st], ((it / kStages) & 1) ^ 1);
-        for (int i = lane; i < 64; i += 32) {
-          const int r = q0 + i;
-          sm.lse2[st][i] = r < Sq ? lse[(size_t)bh * Sq + r] * kLog2e : 0.f;
-          sm.dd[st][i] = r < Sq ? dD[(size_t)bh * Sq + r] : 0.f;
-        }
-        if (lane == 0) {
-          mbar_arrive_expect_tx(&sm.full[st], 2 * kTileBytes);
-          tma_load_4d(sm.q[st], &tm_q, &sm.full[st], 0, h, q0, b);
-          tma_load_4d(sm.dout[st], &tm_do, &sm.full[st], 0, h, q0, b);
-        } else {
-          mbar_arrive(&sm.full[st]);
-        }
+  // No producer: warp 0 fills the ring first, then the last warp to be
+  // done with a stage refills it.
+  if (warp == 0 && n_it > 0) {
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&sm.own, 2 * kDkvWgs * kTileBytes);
+      for (int i = 0; i < kDkvWgs; ++i) {
+        tma_load_4d(sm.k[i], &tm_k, &sm.own, 0, h, kb0 + 64 * i, b);
+        tma_load_4d(sm.v[i], &tm_v, &sm.own, 0, h, kb0 + 64 * i, b);
       }
     }
-    return;
+    for (int st = 0; st < min(kStages, n_it); ++st)
+      dkv_fill(sm, st, (qt_begin + st) * 64, &tm_q, &tm_do, lse, dD, bh, h,
+               b, Sq, lane);
   }
 
-  setmaxnreg_inc<kConsumerRegs>();
   const int wg = warp >> 2, w = warp & 3;
   const int g = lane >> 2, t = lane & 3;
   const int c0 = kb0 + 64 * wg;               // the warpgroup's first key
@@ -684,14 +698,28 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           (causal && q_offset + q0 < k_offset + c0 + 63);
         if (edge)
           dkv_tile<true>(gk, gv, s, dp, dk_a, dv_a, sm.q[st], sm.dout[st],
-                         sm.lse2[st], sm.dd[st], scale2, key0, q0, Sq, Sk,
+                         sm.lse[st], sm.dd[st], scale2, key0, q0, Sq, Sk,
                          q_offset, k_offset, causal, t);
         else
           dkv_tile<false>(gk, gv, s, dp, dk_a, dv_a, sm.q[st], sm.dout[st],
-                          sm.lse2[st], sm.dd[st], scale2, key0, q0, Sq, Sk,
+                          sm.lse[st], sm.dd[st], scale2, key0, q0, Sq, Sk,
                           q_offset, k_offset, causal, t);
       }
-      release(&sm.empty[st], lane);
+      __syncwarp();
+      uint32_t before = 0;
+      if (lane == 0) {
+        __threadfence_block();
+        before = atomicAdd(&sm.done[st], 1u);
+      }
+      before = __shfl_sync(0xffffffffu, before, 0);
+      // The count only grows: the last warp of round it / kStages reads
+      // one less than the warps of that many rounds.
+      if (before == 4 * kDkvWgs * (it / kStages + 1) - 1) {  // refill
+        __threadfence_block();
+        if (it + kStages < n_it)
+          dkv_fill(sm, st, (qt_begin + it + kStages) * 64, &tm_q, &tm_do,
+                   lse, dD, bh, h, b, Sq, lane);
+      }
     }
   }
 
@@ -715,7 +743,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // Encodes the four [B, S, H, D] maps and launches a wgmma kernel with
 // the block's shared memory (+1 KB to align it to 1024 bytes).
-template <typename Smem, typename Kernel, typename... Out>
+template <typename Smem, int kThreads, int kRows, typename Kernel,
+          typename... Out>
 int launch_wgmma(Kernel kernel, int n_own_rows, const void* q, const void* k,
                  const void* v, const void* dout, const void* lse,
                  const void* dD, int B, int H, int Sq, int Sk, int D,
@@ -730,8 +759,8 @@ int launch_wgmma(Kernel kernel, int n_own_rows, const void* q, const void* k,
     return (int)e;
   const size_t smem = sizeof(Smem) + 1024;  // see hvd_flash_bwd_smem_bytes
   if ((e = allow_smem(kernel, smem)) != cudaSuccess) return (int)e;
-  const dim3 grid(B * H, (n_own_rows + kOwnRows - 1) / kOwnRows);
-  kernel<<<grid, kWgmmaThreads, smem, stream>>>(
+  const dim3 grid(B * H, (n_own_rows + kRows - 1) / kRows);
+  kernel<<<grid, kThreads, smem, stream>>>(
       tq, tk, tv, tdo, static_cast<const float*>(lse),
       static_cast<const float*>(dD), static_cast<float*>(out)..., H, Sq, Sk,
       D, q_offset, k_offset, scale, causal);
@@ -793,9 +822,9 @@ extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (bad_args(B, H, Sq, Sk, D, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 0 && D <= 64)
-    return launch_wgmma<DqSmem>(flash_bwd_dq_wgmma_kernel, Sq, q, k, v,
-                                dout, lse, dD, B, H, Sq, Sk, D, q_offset,
-                                k_offset, scale, causal, s, dq);
+    return launch_wgmma<DqSmem, kDqThreads, kDqRows>(
+        flash_bwd_dq_wgmma_kernel, Sq, q, k, v, dout, lse, dD, B, H, Sq, Sk,
+        D, q_offset, k_offset, scale, causal, s, dq);
   if (dtype == 0) {
     return launch_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, dD, dq, B, H,
                                          Sq, Sk, D, q_offset, k_offset,
@@ -820,9 +849,9 @@ extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (bad_args(B, H, Sq, Sk, D, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 0 && D <= 64)
-    return launch_wgmma<DkvSmem>(flash_bwd_dkv_wgmma_kernel, Sk, q, k, v,
-                                 dout, lse, dD, B, H, Sq, Sk, D, q_offset,
-                                 k_offset, scale, causal, s, dk, dv);
+    return launch_wgmma<DkvSmem, kDkvThreads, kDkvRows>(
+        flash_bwd_dkv_wgmma_kernel, Sk, q, k, v, dout, lse, dD, B, H, Sq, Sk,
+        D, q_offset, k_offset, scale, causal, s, dk, dv);
   if (dtype == 0) {
     return launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, dD, dk, dv, B,
                                           H, Sq, Sk, D, q_offset, k_offset,
