@@ -8,8 +8,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 
 1. setup: the card's name and power limit, the kernels built from the
    sources in ``horovod_tpu_torch/csrc`` (one nvcc per source, started
-   together), the flash backward's wgmma kernels' registers, spills and
-   shared bytes (``flash_bwd kernels:`` line), TF32 off;
+   together) with each build's ``ptxas -v`` lines (registers, spills,
+   static shared bytes), TF32 off;
 2. every kernel against its plain PyTorch version at its path's shapes,
    timed beside its bound and a library call that computes the same
    function: the paged-decode kernel (serving), then the flash forward
@@ -288,46 +288,6 @@ def flash_bounds(q, s_k, q_offset, k_offset, causal):
         t_mem, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
         out[name] = (max(t_mem, t_ops) * 1e3,
                      "bytes" if t_mem >= t_ops else "operations", flops)
-    return out
-
-
-def ptxas_kernels(text):
-    """{kernel symbol: {registers, spill stores/loads, stack bytes}} from
-    ``nvcc -Xptxas -v`` output."""
-    import re
-    out, cur = {}, None
-    for line in text.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties "
-                      r"for) '?([\w$]+)'?", line)
-        if m:
-            cur = out.setdefault(m.group(1), {})
-            continue
-        if cur is None:
-            continue
-        for key, pat in (("stack_bytes", r"(\d+) bytes stack frame"),
-                         ("spill_store_bytes", r"(\d+) bytes spill stores"),
-                         ("spill_load_bytes", r"(\d+) bytes spill loads"),
-                         ("registers", r"Used (\d+) registers")):
-            m = re.search(pat, line)
-            if m:
-                cur[key] = int(m.group(1))
-    return out
-
-
-def flash_bwd_resources(build):
-    """Registers, spills and shared bytes of the backward's wgmma kernels
-    (ptxas) with the dynamic shared memory each block asks for."""
-    lib = build.load("flash_bwd")
-    dyn = {"dq": lib.hvd_flash_bwd_smem_bytes(0),
-           "dkv": lib.hvd_flash_bwd_smem_bytes(1)}
-    out = {}
-    for sym, info in ptxas_kernels(build.build_log("flash_bwd")).items():
-        if "wgmma" in sym:
-            which = "dkv" if "dkv" in sym else "dq"
-            out[f"flash_bwd_{which}"] = {**info,
-                                         "dynamic_smem_bytes": dyn[which]}
-    if set(out) != {"flash_bwd_dq", "flash_bwd_dkv"}:
-        raise AssertionError(f"ptxas reported no wgmma kernels: {out}")
     return out
 
 
@@ -1612,7 +1572,6 @@ def main(argv) -> int:
     for name, text in _build.build_logs.items():
         for line in text.strip().splitlines():
             log(f"  [{name}] {line}")
-    log("flash_bwd kernels: " + json.dumps(flash_bwd_resources(_build)))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if n_dp:

@@ -49,10 +49,13 @@
 //     kernel adds a producer warpgroup that hands its registers to the
 //     consumers (setmaxnreg); the dk/dv kernel needs all 168 registers a
 //     thread of 384 for its four 64x64 f32 tiles, so the last warp done
-//     with a stage refills it. Measured alternatives that were slower:
-//     two consumer warpgroups, A operands of s and dp from registers,
-//     issuing the next tile's s/dp behind the current gradient products,
-//     2 or 4 stages, and split waits in the dk/dv kernel (PERF.md);
+//     with a stage refills it. A block takes 99,384 (dq) or 100,912
+//     bytes (dk/dv) of shared memory. Measured alternatives that were
+//     slower: two consumer warpgroups, A operands of s and dp from
+//     registers, issuing the next tile's s/dp behind the current gradient
+//     products, 2 or 4 stages, and split waits in the dk/dv kernel
+//     (PERF.md). Every register A fragment is built inside the iteration
+//     that multiplies it (see wgmma_rs in sm90_common.cuh);
 //   - f32, or bf16 with D > 64: f32 FMAs on shared-memory tiles, 64 rows
 //     a block.
 
@@ -343,6 +346,11 @@ struct DkvSmem {
   uint64_t full[kStages], own;
   uint32_t done[kStages];             // warps done with the stage, ever
 };
+
+// A block asks for its struct + 1 KB (to align it to 1024 bytes) of
+// dynamic shared memory: 99,384 bytes (dq) and 100,912 (dk/dv).
+static_assert(sizeof(DqSmem) + 1024 == 99384, "dq shared bytes");
+static_assert(sizeof(DkvSmem) + 1024 == 100912, "dk/dv shared bytes");
 
 // Stage st gets q tile q0: lane 0 starts the TMA copies of q and do, every
 // lane copies two rows of lse and dD with cp.async; the 32 arrivals land
@@ -757,7 +765,7 @@ int launch_wgmma(Kernel kernel, int n_own_rows, const void* q, const void* k,
       (e = encode_bshd_bf16(&tv, v, B, Sk, H, D, 64)) != cudaSuccess ||
       (e = encode_bshd_bf16(&tdo, dout, B, Sq, H, D, 64)) != cudaSuccess)
     return (int)e;
-  const size_t smem = sizeof(Smem) + 1024;  // see hvd_flash_bwd_smem_bytes
+  const size_t smem = sizeof(Smem) + 1024;
   if ((e = allow_smem(kernel, smem)) != cudaSuccess) return (int)e;
   const dim3 grid(B * H, (n_own_rows + kRows - 1) / kRows);
   kernel<<<grid, kThreads, smem, stream>>>(
@@ -863,13 +871,6 @@ extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                  : launch_dkv<float, 128>(q, k, v, dout, lse, dD, dk, dv, B,
                                           H, Sq, Sk, D, q_offset, k_offset,
                                           scale, causal, s);
-}
-
-// Dynamic shared memory a block of the wgmma dq (0) or dk/dv (1) kernel
-// asks for, in bytes.
-extern "C" int hvd_flash_bwd_smem_bytes(int dkv) {
-  using namespace hvd_flash;
-  return (int)((dkv ? sizeof(DkvSmem) : sizeof(DqSmem)) + 1024);
 }
 
 extern "C" const char* hvd_cuda_error_string(int code) {

@@ -151,13 +151,8 @@ inline EncodeTiledFn encode_tiled_fn() {
   if (fn == nullptr) {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
     const cudaError_t e = cudaGetDriverEntryPointByVersion(
         "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
-#endif
     if (e == cudaSuccess && status == cudaDriverEntryPointSuccess)
       fn = reinterpret_cast<EncodeTiledFn>(p);
   }
@@ -269,6 +264,12 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
 
 // d += A . B, m64n64k16, A from registers (four bf16 pairs in the layout
 // above), B from shared memory, K-major (kTransB = 0) or MN-major (1).
+// Build A inside the loop iteration that multiplies it (from the
+// accumulators or from memory); do not carry it across iterations. ptxas
+// of CUDA 12.9, when it serializes products that sit in a branch (C7520),
+// reuses the registers of an A fragment that is live around the loop and
+// never reloads them: tests/cuda/wgmma_rs_probe.cu shows it, and
+// test_cuda_wgmma_rs_carried_a_fragment_is_miscompiled holds it.
 template <int kTransB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4],

@@ -45,8 +45,7 @@ SIGNATURES = {
     "flash_fwd": {"hvd_flash_fwd": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P]},
     "flash_bwd": {
         "hvd_flash_bwd_dq": [_P] * 7 + [_I] * 7 + [_F, _I, _I, _P],
-        "hvd_flash_bwd_dkv": [_P] * 8 + [_I] * 7 + [_F, _I, _I, _P],
-        "hvd_flash_bwd_smem_bytes": [_I]},
+        "hvd_flash_bwd_dkv": [_P] * 8 + [_I] * 7 + [_F, _I, _I, _P]},
     "conv_bn_fwd": {"hvd_conv_bn_fwd": [_P] * 8 + [_I] * 5 + [_P]},
     "conv_bn_bwd": {"hvd_conv_bn_bwd": [_P] * 14 + [_I] * 6 + [_P]},
     "stream_copy": {"hvd_stream_copy": [_P, _P, _LL, _LL, _I, _P]},
@@ -109,19 +108,9 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             failed.append(f"{n} (nvcc exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)
-        out.with_suffix(".log").write_text(log)
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return seconds
-
-
-def build_log(name: str) -> str:
-    """The compiler's output (``-Xptxas -v``) for the built library of
-    kernel ``name``; empty when it is not built."""
-    if name not in build_logs:
-        path = library_path(name).with_suffix(".log")
-        return path.read_text() if path.exists() else ""
-    return build_logs[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -576,3 +576,89 @@ def test_cuda_fused_local_step_matches_unfused(monkeypatch):
     np.testing.assert_allclose(runs[1][0], runs[0][0], rtol=1e-5)
     for a, b in zip(runs[1][1], runs[0][1]):
         _assert_rel_close(a, b, 1e-5, "parameter after 3 steps")
+
+
+@pytest.fixture(scope="module")
+def wgmma_probe(tmp_path_factory):
+    """tests/cuda/wgmma_rs_probe.cu built with the kernels' nvcc flags
+    against csrc/sm90_common.cuh, loaded."""
+    import ctypes
+    import subprocess
+    from pathlib import Path
+    from horovod_tpu_torch.ops import _build
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    src = Path(__file__).resolve().parent / "cuda" / "wgmma_rs_probe.cu"
+    lib_path = tmp_path_factory.mktemp("probe") / "libwgmma_rs_probe.so"
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-I",
+                    str(_build.CSRC), "-o", str(lib_path), str(src)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.hvd_wgmma_rs_probe.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                                       + [ctypes.c_int, ctypes.c_float,
+                                          ctypes.c_void_p])
+    return lib
+
+
+def _wgmma_rs_probe(lib, mode, n_tiles, seed=0):
+    """Runs the probe in ``mode`` over ``n_tiles`` tiles and the same
+    chain in PyTorch. Returns (out, ref), f32 [192, 64]."""
+    import math
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x, y = (torch.randn(192, 64, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    k, v = (torch.randn(64 * n_tiles, 64, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    scale2 = 0.125 * math.log2(math.e)
+    s_full = x.float() @ k.float().T
+    lse2 = torch.logsumexp(s_full * scale2 * math.log(2), dim=1) / math.log(2)
+    dd = torch.randn(192, generator=g, device=dev)
+    out = torch.full((192, 64), float("nan"), device=dev)
+    err = lib.hvd_wgmma_rs_probe(mode, x.data_ptr(), y.data_ptr(),
+                                 k.data_ptr(), v.data_ptr(), lse2.data_ptr(),
+                                 dd.data_ptr(), out.data_ptr(), n_tiles,
+                                 scale2, torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"probe launch failed: cudaError {err}"
+    # Warpgroup wg (rows 64 wg ..) multiplies tiles t < n_tiles - 2 + wg.
+    wg = torch.arange(192, device=dev) // 64
+    ref = torch.zeros(192, 64, device=dev)
+    for t in range(n_tiles):
+        kt = k[64 * t:64 * t + 64].float()
+        vt = v[64 * t:64 * t + 64].float()
+        ds = torch.exp2((x.float() @ kt.T) * scale2 - lse2[:, None]) * (
+            y.float() @ vt.T - dd[:, None])
+        ref += torch.where((wg >= t - n_tiles + 3)[:, None],
+                           ds.bfloat16().float() @ kt, 0.0)
+    torch.cuda.synchronize()
+    return out, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tiles", [1, 2, 3, 32])
+def test_cuda_wgmma_rs_probe_matches_torch(wgmma_probe, n_tiles):
+    """The sm90_common.cuh helpers in the flash kernels' pattern: register
+    A fragments (x, y, then the packed ds) built inside the iteration that
+    multiplies them, products in a per-warpgroup branch, K-major and
+    MN-major descriptors over one swizzled tile, over 1 to 32 tiles.
+    Tolerance as the bf16 flash kernels: 1e-2 relative (ds enters its
+    product rounded to bf16 in both)."""
+    out, ref = _wgmma_rs_probe(wgmma_probe, 0, n_tiles)
+    _assert_rel_close(out, ref, 1e-2, f"probe, {n_tiles} tiles")
+
+
+@pytest.mark.cuda
+def test_cuda_wgmma_rs_carried_a_fragment_is_miscompiled(wgmma_probe):
+    """The same chain with the x and y fragments loaded once and carried
+    across iterations gives wrong results from the second tile on: ptxas
+    of CUDA 12.9 reuses their registers (see the probe's note). This
+    holds the rule in sm90_common.cuh that no kernel carries a register A
+    fragment across iterations; when it fails, the toolkit no longer
+    miscompiles the pattern and the rule can be revisited."""
+    out, ref = _wgmma_rs_probe(wgmma_probe, 1, 1)
+    _assert_rel_close(out, ref, 1e-2, "carried fragments, 1 tile")
+    out, ref = _wgmma_rs_probe(wgmma_probe, 1, 3)
+    err = float((out - ref).abs().max())
+    assert err > 1e-2 * max(1.0, float(ref.abs().max())), (
+        "carried register A fragments now give right results")

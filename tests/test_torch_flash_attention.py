@@ -87,6 +87,37 @@ def test_block_attend_offsets_match_jax(qoff, koff):
 # backward
 # ---------------------------------------------------------------------------
 
+def _check_bwd_block(causal, sq, sk, qoff, koff, random_lse=False):
+    rng = np.random.default_rng(13)
+    b, h, d = 1, 2, 64
+    q, k, v = rand_qkv(rng, b, sq, sk, h, d)
+    do = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    if random_lse:
+        lse = (rng.standard_normal((b, h, sq)) + 3.0).astype(np.float32)
+    dD = rng.standard_normal((b, h, sq)).astype(np.float32)
+    scale = d ** -0.5
+    if not random_lse:
+        # The global row stats the backward gets: lse of the plain forward
+        # (-1e30 for a row that sees no key), so P <= 1.
+        _, m, l = sp._block_attend(*_t(q, k, v), qoff, koff, causal, scale)
+        lse = (m + torch.log(l.clamp_min(1e-30))).numpy()
+    tag = f"({sq},{sk},{qoff},{koff},causal={causal},random_lse={random_lse})"
+    got = _np(*sp._bwd_block_plain(*_t(q, k, v, do, lse, dD), qoff, koff,
+                                   causal, scale))
+    ref = _np(*jsp._bwd_block_jnp(*map(jnp.asarray, (q, k, v, do, lse, dD)),
+                                  qoff, koff, causal, scale))
+    for g, r, name in zip(got, ref, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g, r, **TOL, err_msg=f"{name} vs jnp {tag}")
+    if None in jfa._resolve_blocks(sq, sk, None, None):
+        return
+    kern = _np(*jfa.flash_bwd_block(q, k, v, do, lse, dD, qoff, koff,
+                                    causal=causal, scale=scale,
+                                    interpret=True))
+    for g, kk, name in zip(got, kern, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g, kk, **TOL,
+                                   err_msg=f"{name} vs kernel {tag}")
+
+
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("sq,sk,qoff,koff", [
     (128, 128, 0, 0), (128, 128, 128, 0), (128, 128, 0, 128),
@@ -102,31 +133,16 @@ def test_bwd_block_plain_matches_jax_kernels_and_jnp(causal, sq, sk, qoff,
     against JAX's ``_bwd_block_jnp`` in every case, and against the
     interpreted Pallas kernels where their blocks divide Sq and Sk
     (``_resolve_blocks``; 200 x 328 and 129 have no aligned block)."""
-    rng = np.random.default_rng(13)
-    b, h, d = 1, 2, 64
-    q, k, v = rand_qkv(rng, b, sq, sk, h, d)
-    do = rng.standard_normal((b, sq, h, d)).astype(np.float32)
-    dD = rng.standard_normal((b, h, sq)).astype(np.float32)
-    scale = d ** -0.5
-    # The global row stats the backward gets: lse of the plain forward
-    # (-1e30 for a row that sees no key), so P <= 1.
-    _, m, l = sp._block_attend(*_t(q, k, v), qoff, koff, causal, scale)
-    lse = (m + torch.log(l.clamp_min(1e-30))).numpy()
-    tag = f"({sq},{sk},{qoff},{koff},causal={causal})"
-    got = _np(*sp._bwd_block_plain(*_t(q, k, v, do, lse, dD), qoff, koff,
-                                   causal, scale))
-    ref = _np(*jsp._bwd_block_jnp(*map(jnp.asarray, (q, k, v, do, lse, dD)),
-                                  qoff, koff, causal, scale))
-    for g, r, name in zip(got, ref, ("dq", "dk", "dv")):
-        np.testing.assert_allclose(g, r, **TOL, err_msg=f"{name} vs jnp {tag}")
-    if None in jfa._resolve_blocks(sq, sk, None, None):
-        return
-    kern = _np(*jfa.flash_bwd_block(q, k, v, do, lse, dD, qoff, koff,
-                                    causal=causal, scale=scale,
-                                    interpret=True))
-    for g, kk, name in zip(got, kern, ("dq", "dk", "dv")):
-        np.testing.assert_allclose(g, kk, **TOL,
-                                   err_msg=f"{name} vs kernel {tag}")
+    _check_bwd_block(causal, sq, sk, qoff, koff)
+
+
+@pytest.mark.parametrize("qoff,koff", [(0, 0), (128, 0), (0, 128),
+                                       (256, 128)])
+def test_bwd_block_plain_matches_jax_with_random_lse(qoff, koff):
+    """The same comparison with lse drawn at random + 3, independent of the
+    forward, so P reaches e^3 > 1: the plain backward must not assume the
+    row stats came from its own forward. 128 x 128, causal."""
+    _check_bwd_block(True, 128, 128, qoff, koff, random_lse=True)
 
 
 @pytest.mark.parametrize("causal", [False, True])

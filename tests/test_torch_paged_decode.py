@@ -209,23 +209,6 @@ def test_build_runs_one_nvcc_per_source_into_the_build_dir(tmp_path,
     assert _build.build_all() == {n: 0.0 for n in names}   # built once
 
 
-def test_build_log_is_kept_beside_the_library(tmp_path, monkeypatch):
-    """The compiler's output (registers, spills) survives the process
-    that built the library: a later run that finds the library built
-    reads it from the file beside it."""
-    from horovod_tpu_torch.ops import _build
-    nvcc = _fake_nvcc(tmp_path, 'while [ "$1" != "-o" ]; do shift; done\n'
-                                'echo built > "$2"; echo Used 99 registers\n')
-    monkeypatch.setattr(_build, "nvcc", lambda: nvcc)
-    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(_build, "build_logs", {})
-    assert _build.build_log("flash_bwd") == ""
-    _build.build_all(["flash_bwd"])
-    monkeypatch.setattr(_build, "build_logs", {})           # a new process
-    assert _build.build_all(["flash_bwd"]) == {"flash_bwd": 0.0}
-    assert _build.build_log("flash_bwd").strip() == "Used 99 registers"
-
-
 def test_build_failure_and_missing_nvcc_raise(tmp_path, monkeypatch):
     from horovod_tpu_torch.ops import _build
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
