@@ -301,22 +301,6 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 using namespace hvd_sm90;
 
 constexpr int kStages = 3;
-constexpr uint32_t kTileBytes = 64 * 64 * 2;   // one swizzled bf16 tile
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x on the SFU; results below 2^-126 flush to zero.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// A dq consumer warp is done with a stage: one arrival for the warp,
-// after every lane's reads of it.
-__device__ __forceinline__ void release(uint64_t* bar, int lane) {
-  __syncwarp();
-  if (lane == 0) mbar_arrive(bar);
-}
 
 constexpr int kDqWgs = 3;                        // consumer warpgroups
 constexpr int kDqRows = 64 * kDqWgs;
@@ -373,23 +357,6 @@ __device__ __forceinline__ void dkv_fill(DkvSmem& sm, int st, int q0,
     cp_async_4(&sm.dd[st][i], dD + at, r < Sq);
   }
   cp_async_arrive(&sm.full[st]);
-}
-
-template <typename Smem>
-__device__ __forceinline__ Smem& aligned_smem(uint8_t* raw) {
-  const uintptr_t p = reinterpret_cast<uintptr_t>(raw);
-  return *reinterpret_cast<Smem*>((p + 1023) & ~uintptr_t(1023));
-}
-
-// Rounds the accumulator pairs of k16 step kk (d[8 kk .. 8 kk + 7]) to the
-// bf16 A fragment of the next product.
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
-                                       const float (&d)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[kk][i] = pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
 }
 
 // The dq kernel's products for one K/V tile: s = q k^T and dp = do v^T

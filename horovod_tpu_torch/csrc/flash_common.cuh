@@ -1,7 +1,8 @@
-// Tile machinery shared by the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu).
+// Tile machinery of the f32 FMA routes shared by the flash-attention
+// kernels (flash_fwd.cu, flash_bwd.cu); their tensor-core routes build on
+// sm90_common.cuh.
 //
-// Every kernel works on 64-row tiles of one (batch, head) slice of a
+// Every FMA kernel works on 64-row tiles of one (batch, head) slice of a
 // [B, S, H, D] tensor, staged in shared memory as f32, row-major, with a
 // padded row (ld = kDP + 1, kDP = D rounded up to 64 or 128). The odd row
 // length puts the rows that neighbouring lanes read in neighbouring banks.
@@ -170,136 +171,8 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-// ---------------------------------------------------------------------------
-// Tensor-core path: bf16 inputs, D <= 64.
-//
-// A block of 4 warps owns a 64-row tile; warp w owns rows 16 w .. 16 w + 15
-// and runs mma.sync.m16n8k16 (bf16 x bf16 -> f32). Operand tiles stay bf16
-// in shared memory with a row of kLdH = 72 elements (144 bytes): the
-// 32-bit fragment loads of a warp (rows g = lane / 4, column pairs
-// t = lane % 4) then fall in 32 distinct banks. A tile that a product reads
-// along its rows (the "col" B operand) is stored transposed.
-// Fragment layouts (PTX ISA, mma.m16n8k16): with g = lane / 4, t = lane % 4,
-//   A (16 x 16): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..),
-//                a3 = (g+8, 2t+8..);
-//   B (16 x 8):  b0 = (k 2t..2t+1, n g), b1 = (k 2t+8.., n g);
-//   C (16 x 8):  c0, c1 = (g, 2t), (g, 2t+1); c2, c3 = (g+8, 2t), (g+8, 2t+1).
-// So the C fragments of two neighbouring 8-column score tiles are, packed
-// to bf16, the A fragment of the next product over those 16 columns.
-// ---------------------------------------------------------------------------
-
-constexpr int kMmaThreads = 128;  // 4 warps x 16 rows
-constexpr int kLdH = 72;          // bf16 row of a tile in shared memory
-
+// The bf16 element type of the tensor-core routes (sm90_common.cuh).
 typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two floats -> one register of two bf16, the first in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Rows [row0, row0 + 64) of one (b, h) slice, columns [0, 64), into
-// dst[row * kLdH + col]; rows >= S and columns >= D are zero.
-__device__ __forceinline__ void copy_tile_bf16(bf16* dst, const bf16* src,
-                                               int row0, int S,
-                                               size_t row_stride, int D) {
-  for (int e = threadIdx.x; e < kTile * 8; e += kMmaThreads) {
-    const int r = e >> 3, c0 = (e & 7) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S && c0 < D)
-      v = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) *
-                                                    row_stride + c0);
-    *reinterpret_cast<uint4*>(dst + r * kLdH + c0) = v;
-  }
-}
-
-// The same tile transposed: dst[col * kLdH + row]. Neighbouring lanes take
-// neighbouring rows, so their 16-bit stores share words, not banks.
-__device__ __forceinline__ void copy_tile_bf16_t(bf16* dst, const bf16* src,
-                                                 int row0, int S,
-                                                 size_t row_stride, int D) {
-  for (int e = threadIdx.x; e < kTile * 8; e += kMmaThreads) {
-    const int r = e & (kTile - 1), c0 = (e >> 6) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S && c0 < D)
-      v = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) *
-                                                    row_stride + c0);
-    const bf16* h = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(c0 + i) * kLdH + r] = h[i];
-  }
-}
-
-// The A fragments of a warp's 16 rows (starting at `row`) of a shared tile,
-// for the 16-column chunks kk < n_kk (the rest stay zero).
-__device__ __forceinline__ void load_a_frags(uint32_t (&a)[4][4],
-                                             const bf16* tile, int row,
-                                             int n_kk, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    if (kk < n_kk) {
-      const bf16* p = tile + (row + g) * kLdH + kk * 16 + 2 * t;
-      a[kk][0] = lds32(p);
-      a[kk][1] = lds32(p + 8 * kLdH);
-      a[kk][2] = lds32(p + 8);
-      a[kk][3] = lds32(p + 8 * kLdH + 8);
-    } else {
-      a[kk][0] = a[kk][1] = a[kk][2] = a[kk][3] = 0u;
-    }
-  }
-}
-
-// acc[nt] += A . B^T over 64 columns of B (8 tiles of 8): B rows are the
-// output columns, read from a row-major shared tile.
-__device__ __forceinline__ void mma_abt(float (&acc)[8][4],
-                                        const uint32_t (&a)[4][4],
-                                        const bf16* b_tile, int n_kk, int g,
-                                        int t) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    if (kk >= n_kk) continue;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const bf16* p = b_tile + (nt * 8 + g) * kLdH + kk * 16 + 2 * t;
-      mma_16816(acc[nt], a[kk], lds32(p), lds32(p + 8));
-    }
-  }
-}
-
-// acc[nd] += S . V over the 64 rows of a score tile held as C fragments
-// s[8][4] (packed to bf16 here), V read from a transposed shared tile
-// (vt[d * kLdH + row]); output columns nd * 8 < D only.
-__device__ __forceinline__ void mma_sv(float (&acc)[8][4],
-                                       const float (&s)[8][4],
-                                       const bf16* vt, int D, int g, int t) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint32_t a[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                           pack_bf16(s[2 * j][2], s[2 * j][3]),
-                           pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                           pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-#pragma unroll
-    for (int nd = 0; nd < 8; ++nd) {
-      if (nd * 8 >= D) continue;
-      const bf16* p = vt + (nd * 8 + g) * kLdH + 16 * j + 2 * t;
-      mma_16816(acc[nd], a, lds32(p), lds32(p + 8));
-    }
-  }
-}
 
 // The launchers' common argument check: dtype 0 = bfloat16, 1 = float32.
 inline bool bad_args(int B, int H, int Sq, int Sk, int D, int dtype) {

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks: mbarriers, TMA tile loads through
 // tensor maps, shared-memory matrix descriptors and warpgroup matrix
-// products (wgmma), as PTX. Used by flash_bwd.cu.
+// products (wgmma), as PTX, and the pieces the flash kernels' tensor-core
+// routes share. Used by flash_fwd.cu and flash_bwd.cu.
 //
 // Conventions:
 //   - operand tiles are 64 rows of 64 bf16 (128 bytes a row) that TMA
@@ -14,11 +15,14 @@
 //     row 16 w + g + 8 (e / 2), column 8 j + 2 q + (e % 2), j < 8. The A
 //     operand from registers has mma.sync's m16n8k16 fragment layout over
 //     the warp's 16 rows, so d[8 kk .. 8 kk + 7] rounded to bf16 pairs is
-//     the A fragment of the next product's k16 step kk.
+//     the A fragment of the next product's k16 step kk. m64n128k16 holds
+//     d[4 j + e] the same way for j < 16; its B operand is two such tiles
+//     one after the other (128 rows: TMA writes them as one box).
 
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -236,14 +240,18 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
   "%30, %31}"
-#define HVD_WGMMA_OUT32(d)                                                    \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
-      "+f"(d[31])
+#define HVD_WGMMA_D64                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
+  "%58, %59, %60, %61, %62, %63}"
+#define HVD_WGMMA_OUT8(d, i)                                              \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define HVD_WGMMA_OUT32(d)                                                \
+  HVD_WGMMA_OUT8(d, 0), HVD_WGMMA_OUT8(d, 8), HVD_WGMMA_OUT8(d, 16),      \
+      HVD_WGMMA_OUT8(d, 24)
 
 // d (+)= A . B, m64n64k16, bf16 in, f32 accumulate; A and B from shared
 // memory, A K-major, B K-major (kTransB = 0) or MN-major (1). scale_d = 0
@@ -260,6 +268,23 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
       "}\n"
       : HVD_WGMMA_OUT32(d)
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+}
+
+// d (+)= A . B, m64n128k16, bf16 in, f32 accumulate; A and B from shared
+// memory, both K-major (B: 128 rows). scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64],
+                                              uint64_t desc_a,
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HVD_WGMMA_D64
+      ", %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HVD_WGMMA_OUT32(d), HVD_WGMMA_OUT8(d, 32), HVD_WGMMA_OUT8(d, 40),
+        HVD_WGMMA_OUT8(d, 48), HVD_WGMMA_OUT8(d, 56)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 // d += A . B, m64n64k16, A from registers (four bf16 pairs in the layout
@@ -298,7 +323,66 @@ __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
 }
 
+// Named barrier `id` (1..15; 0 is __syncthreads') over `count` threads:
+// sync waits for the count, arrive adds to it without waiting.
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void named_bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 #undef HVD_WGMMA_D32
+#undef HVD_WGMMA_D64
+#undef HVD_WGMMA_OUT8
 #undef HVD_WGMMA_OUT32
+
+// ---------------------------------------------------------------------------
+// Shared by the flash kernels' tensor-core routes
+// ---------------------------------------------------------------------------
+
+constexpr uint32_t kTileBytes = 64 * 64 * 2;   // one swizzled bf16 tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the SFU; results below 2^-126 flush to zero.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two floats -> one register of two bf16, the first in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Rounds the accumulator pairs of k16 step kk (d[8 kk .. 8 kk + 7]) to the
+// bf16 A fragment of the next product.
+template <int NK>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[NK][4],
+                                       const float (&d)[8 * NK]) {
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[kk][i] = pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+}
+
+// A consumer warp is done with a stage of a ring: one arrival for the
+// warp on the stage's empty barrier, after every lane's reads of it.
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
+// The block's dynamic shared memory as a struct aligned to 1024 bytes, the
+// period of the 128-byte swizzle; a launch asks for sizeof + 1 KB.
+template <typename Smem>
+__device__ __forceinline__ Smem& aligned_smem(uint8_t* raw) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(raw);
+  return *reinterpret_cast<Smem*>((p + 1023) & ~uintptr_t(1023));
+}
 
 }  // namespace hvd_sm90

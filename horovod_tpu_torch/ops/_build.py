@@ -41,7 +41,7 @@ _P, _I, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                    ctypes.c_longlong)
 # C signatures per library, the stream last.
 SIGNATURES = {
-    "paged_decode": {"hvd_paged_decode": [_P] * 6 + [_I] * 6 + [_F, _I, _P]},
+    "paged_decode": {"hvd_paged_decode": [_P] * 7 + [_I] * 7 + [_F, _I, _P]},
     "flash_fwd": {"hvd_flash_fwd": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P]},
     "flash_bwd": {
         "hvd_flash_bwd_dq": [_P] * 7 + [_I] * 7 + [_F, _I, _I, _P],

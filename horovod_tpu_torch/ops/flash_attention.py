@@ -41,6 +41,9 @@ from horovod_tpu_torch.ops._build import launch as _launch
 LAUNCHES: Dict[str, int] = {"paged_decode": 0, "flash_fwd": 0,
                             "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
+# Positions of a sequence one block of the paged-decode kernel takes.
+PAGED_CHUNK = 128
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -228,7 +231,16 @@ def flash_paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
 
     q ``[B, H, D]``; k/v pages ``[n_pages, page, KVH, D]`` in q's dtype;
     block_tables ``[B, n_max]`` and lengths ``[B]`` int32 on the same
-    device. Raises on anything the kernel does not take."""
+    device. Raises on anything the kernel does not take.
+
+    The kernel splits each sequence into chunks of ``PAGED_CHUNK``
+    positions, one block per (chunk, sequence, KV head), and merges the
+    chunks' partial softmax states in chunk order (two launches of one C
+    call, counted as one). The partials go to an f32 scratch
+    ``[B, H, n_chunks, D + 2]`` allocated here per call through the
+    caching allocator (no kernel runs to allocate it), so a captured
+    decode step can take the same buffer as an argument. The lengths stay
+    on the card: the grid is sized from ``n_max * page``."""
     tensors = (q, k_pages, v_pages, block_tables, lengths)
     if not all(t.is_cuda for t in tensors):
         raise ValueError("flash_paged_decode takes CUDA tensors only; "
@@ -259,9 +271,13 @@ def flash_paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
     if b == 0:
         return out
+    n_chunks = -(-n_max * page // PAGED_CHUNK)
+    part = torch.empty((b, h, n_chunks, d + 2), dtype=torch.float32,
+                       device=q.device)
     _launch("paged_decode", "hvd_paged_decode", q.device,
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            b, h, kvh, d, page, n_max, float(scale), _DTYPE_CODE[q.dtype])
+            part.data_ptr(), b, h, kvh, d, page, n_max, PAGED_CHUNK,
+            float(scale), _DTYPE_CODE[q.dtype])
     LAUNCHES["paged_decode"] += 1
     return out

@@ -185,6 +185,163 @@ def test_cuda_flash_bwd_masked_rows_and_keys_are_exact_zeros(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_fwd_many_tiles(causal):
+    """The forward over 32 K tiles a block (S = 4096, 128-key tiles): the
+    4-stage K/V ring of the tensor-core route wraps seven times. o, m, l
+    against the plain version, 1e-2 relative to the largest reference
+    value (p enters its product rounded to bf16)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    rng = np.random.default_rng(15)
+    q, k, v, _ = _cuda_case(rng, 1, 4096, 4096, 4, 64, torch.bfloat16)
+    got = fa.flash_block_attend(q, k, v, 0, 0, causal, 0.125)
+    torch.cuda.synchronize()
+    want = sp._block_attend(q.float(), k.float(), v.float(), 0, 0, causal,
+                            0.125)
+    for a, ref, what in zip(got, want, "oml"):
+        assert bool(torch.isfinite(a).all()), what
+        _assert_rel_close(a, ref, 1e-2, what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
+                                     (torch.bfloat16, 40),
+                                     (torch.float32, 64)])
+def test_cuda_flash_fwd_is_bitwise_repeatable(dtype, d):
+    """Two launches of the forward on the same inputs give bitwise-equal
+    o, m and l: every sum stays inside one block, in a fixed order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    rng = np.random.default_rng(16)
+    q, k, v, _ = _cuda_case(rng, 2, 1000, 1000, 4, d, dtype)
+    runs = [fa.flash_block_attend(q, k, v, 0, 0, True, d ** -0.5)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b, what in zip(*runs, "oml"):
+        assert torch.equal(a, b), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sq,sk,qoff,koff", [(256, 256, 32, 96),
+                                             (200, 200, 0, 100),
+                                             (129, 129, 0, 64)])
+def test_cuda_flash_fwd_masked_rows_are_exact_zeros(dtype, sq, sk, qoff,
+                                                    koff):
+    """Causal, K block partly after Q: a q row that sees no key gives
+    m = -1e30, l = 0 and o = 0 exactly; every other row has l > 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    rng = np.random.default_rng(17)
+    q, k, v, _ = _cuda_case(rng, 2, sq, sk, 3, 64, dtype)
+    o, m, l = fa.flash_block_attend(q, k, v, qoff, koff, True, 0.125)
+    torch.cuda.synchronize()
+    blind = torch.from_numpy(qoff + np.arange(sq) < koff).cuda()
+    assert bool(blind.any()) and not bool(blind.all())
+    assert bool((m[..., blind] == sp.NEG_INF).all())
+    assert bool((l[..., blind] == 0).all())
+    assert bool((o[:, blind] == 0).all())
+    assert bool((l[..., ~blind] > 0).all())
+
+
+# ---------------------------------------------------------------------------
+# the paged-decode kernel
+# ---------------------------------------------------------------------------
+
+def _paged_inputs(g, b, h, kvh, d, page, n_max, lengths, dtype):
+    """Pool of b * n_max + 1 pages, a random block table, the lengths;
+    and the table with every entry at or past a sequence's length set to
+    a page index far out of the pool."""
+    dev = torch.device("cuda")
+    n_pages = b * n_max
+    shape = (n_pages + 1, page, kvh, d)
+    kp = torch.randn(shape, generator=g, device=dev).to(dtype)
+    vp = torch.randn(shape, generator=g, device=dev).to(dtype)
+    q = torch.randn((b, h, d), generator=g, device=dev).to(dtype)
+    bt = torch.randperm(n_pages, generator=g, device=dev).reshape(
+        b, n_max).to(torch.int32)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    used = (torch.arange(n_max, device=dev)[None, :] * page
+            < ln.clamp(0, n_max * page)[:, None])
+    far = torch.where(used, bt, torch.full_like(bt, 1 << 30))
+    return q, kp, vp, bt, far, ln
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("h,kvh", [(4, 4), (8, 2), (8, 1)])   # G 1, 4, 8
+@pytest.mark.parametrize("page", [16, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_cuda_paged_decode_matches_plain_version(dtype, tol, h, kvh, page,
+                                                 d):
+    """The kernel against ``paged_attention_reference`` (tolerance as in
+    chip_smoke.py: bf16 2e-2, f32 1e-5) at lengths 0, 1, page - 1, page,
+    chunk - 1, chunk, chunk + 1, n_max * page and past it (clamped), with
+    the block-table entries past each length pointing far out of the pool,
+    which would fault if they were read. One launch counted per call; the
+    empty slot exact zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from horovod_tpu_torch.serving import kv_cache as kvc
+    chunk = fa.PAGED_CHUNK
+    n_max = -(-(chunk + 1) // page) + 2
+    n_ctx = n_max * page
+    lengths = [0, 1, page - 1, page, chunk - 1, chunk, chunk + 1, n_ctx,
+               n_ctx + 37]
+    g = torch.Generator(device="cuda").manual_seed(d + page + h)
+    q, kp, vp, bt, far, ln = _paged_inputs(g, len(lengths), h, kvh, d, page,
+                                           n_max, lengths, dtype)
+    before = fa.LAUNCHES["paged_decode"]
+    out = fa.flash_paged_decode(q, kp, vp, far, ln, d ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["paged_decode"] == before + 1
+    ref = kvc.paged_attention_reference(q, kp, vp, bt, ln, d ** -0.5)
+    assert bool((out[0] == 0).all())
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("kvh", [16, 4])
+def test_cuda_paged_decode_timed_geometry(dtype, tol, kvh):
+    """chip_smoke.py's timed geometry: B=8, H=16, D=64, page 128, n_max
+    16, lengths [1, 2048, 300, 0, 1024, 1537, 128, 777] (slot 3 empty)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from horovod_tpu_torch.serving import kv_cache as kvc
+    lengths = [1, 2048, 300, 0, 1024, 1537, 128, 777]
+    g = torch.Generator(device="cuda").manual_seed(kvh)
+    q, kp, vp, bt, far, ln = _paged_inputs(g, 8, 16, kvh, 64, 128, 16,
+                                           lengths, dtype)
+    out = fa.flash_paged_decode(q, kp, vp, far, ln, 0.125)
+    torch.cuda.synchronize()
+    ref = kvc.paged_attention_reference(q, kp, vp, bt, ln, 0.125)
+    assert bool((out[3] == 0).all())
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_paged_decode_is_bitwise_repeatable(dtype):
+    """Two calls on the same inputs give bitwise-equal outputs: the chunks
+    of a sequence merge in chunk order, with no atomics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    lengths = [2048, 777, 0, 1537]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, kp, vp, bt, _, ln = _paged_inputs(g, 4, 16, 4, 64, 128, 16, lengths,
+                                         dtype)
+    runs = [fa.flash_paged_decode(q, kp, vp, bt, ln, 0.125)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.cuda
 def test_cuda_flash_attention_grads_match_cpu():
     """The autograd.Function on the card against the same Function on the
     CPU, in f32 (1e-4: sums in another order)."""

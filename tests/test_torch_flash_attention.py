@@ -83,6 +83,45 @@ def test_block_attend_offsets_match_jax(qoff, koff):
         assert np.all(o == 0)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk,qoff,koff,d", [
+    (200, 328, 0, 0, 64),    # ragged on both sides of 64/128-row tiles
+    (256, 256, 96, 32, 64),  # offsets off the 64/128-row tiles
+    (256, 256, 32, 96, 64),  # ... with rows that see no key
+    (256, 256, 0, 0, 40),    # D not a multiple of 16
+    (200, 328, 0, 0, 40),
+])
+def test_block_attend_edge_geometries_match_jax(causal, sq, sk, qoff, koff,
+                                                d):
+    """The plain forward (what the CUDA kernel is held to on the card) at
+    the backward's edge geometries: against JAX's ``_block_attend`` in
+    every case, and against the interpreted Pallas kernel where its blocks
+    divide Sq and Sk (``_resolve_blocks``; 200 x 328 has no aligned
+    block). Rows that see no key give m = -1e30, l = 0 and o = 0
+    exactly."""
+    rng = np.random.default_rng(2)
+    q, k, v = rand_qkv(rng, b=1, sq=sq, sk=sk, h=2, d=d)
+    scale = d ** -0.5
+    tag = f"({sq},{sk},{qoff},{koff},d={d},causal={causal})"
+    got = _np(*sp._block_attend(*_t(q, k, v), qoff, koff, causal, scale))
+    ref = _np(*jsp._block_attend(*map(jnp.asarray, (q, k, v)), qoff, koff,
+                                 causal, scale))
+    for g, r, name in zip(got, ref, ("o", "m", "l")):
+        np.testing.assert_allclose(g, r, **TOL, err_msg=f"{name} vs jnp {tag}")
+    blind = qoff + np.arange(sq) < koff
+    if causal and blind.any():
+        o, m, l = got
+        assert np.all(m[..., blind] == np.float32(sp.NEG_INF))
+        assert np.all(l[..., blind] == 0) and np.all(o[:, blind] == 0)
+    if None in jfa._resolve_blocks(sq, sk, None, None):
+        return
+    kern = _np(*jfa.flash_block_attend(q, k, v, qoff, koff, causal=causal,
+                                       scale=scale, interpret=True))
+    for g, kk, name in zip(got, kern, ("o", "m", "l")):
+        np.testing.assert_allclose(g, kk, **TOL,
+                                   err_msg=f"{name} vs kernel {tag}")
+
+
 # ---------------------------------------------------------------------------
 # backward
 # ---------------------------------------------------------------------------

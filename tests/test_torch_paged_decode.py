@@ -70,6 +70,40 @@ def test_reference_matches_jax_reference_non_128_page(page, kvh):
                                rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("kvh", [1, 2])                 # GQA 8 and 4
+def test_long_sequences_over_many_chunks_match_jax_reference(kvh):
+    """Sequences that span many of the kernel's 128-position chunks on
+    16-position pages (n_max 40: 640 positions), lengths at and around the
+    chunk edges, GQA of 8 and 4 query heads per KV head, against the JAX
+    reference (the TPU kernel refuses 16-position pages)."""
+    rng = np.random.default_rng(7)
+    b, h, d, page, n_max = 6, 8, 32, 16, 40
+    q, kp, vp, bt, _ = _rand_paged(rng, b, h, kvh, d, page, n_max,
+                                   b * n_max + 2)
+    lengths = np.asarray([640, 639, 129, 128, 127, 300], np.int32)
+    np.testing.assert_allclose(_port(q, kp, vp, bt, lengths, d ** -0.5),
+                               _jax_ref(q, kp, vp, bt, lengths, d ** -0.5),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_long_sequences_gqa8_match_jax_kernel_interpret():
+    """Four 128-position pages a sequence (four of the kernel's chunks),
+    GQA of 8 query heads per KV head, against the interpreted Pallas
+    kernel and the JAX reference."""
+    rng = np.random.default_rng(8)
+    b, h, kvh, d, page, n_max = 3, 8, 1, 64, 128, 4
+    q, kp, vp, bt, _ = _rand_paged(rng, b, h, kvh, d, page, n_max,
+                                   b * n_max + 2)
+    lengths = np.asarray([512, 257, 385], np.int32)
+    args = (q, kp, vp, bt, lengths)
+    out = _port(*args, d ** -0.5)
+    kern = np.asarray(jfa.flash_paged_decode(
+        *(jnp.asarray(a) for a in args), d ** -0.5, interpret=True))
+    np.testing.assert_allclose(out, kern, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(out, _jax_ref(*args, d ** -0.5),
+                               rtol=RTOL, atol=ATOL)
+
+
 def test_empty_slot_gives_exact_zeros():
     rng = np.random.default_rng(2)
     q, kp, vp, bt, _ = _rand_paged(rng, 2, 2, 2, 128, 128, 2, 6)
