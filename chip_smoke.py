@@ -111,6 +111,7 @@ CONV_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 RESNET_B = 128
 RESNET_FWD_FLOPS = 4.1e9
 RESNET50_CONVS = 36          # 16 blocks x (conv1, conv3) + 4 projections
+RESNET50_BLOCKS = (3, 4, 6, 3)
 # Small f32 fused ResNet, card against CPU, relative to each leaf's largest
 # value: cuDNN and the CPU sum convolutions in other orders, and batch norm
 # over 32 positions in the second stage amplifies that in the gradients.
@@ -508,6 +509,15 @@ def resnet50_convs(batch: int = RESNET_B, image: int = 224):
     return out
 
 
+def resnet50_conv_count(stage: int, what: str) -> int:
+    """Launches a training step makes of a distinct 1x1 conv of
+    ``resnet50_convs``: a stage of B bottleneck blocks runs conv1 B - 1
+    times past block 0 and conv3 B times."""
+    blocks = RESNET50_BLOCKS[stage - 1]
+    return {"conv1 block 0": 1, "projection": 1, "conv1": blocks - 1,
+            "conv3": blocks}[what]
+
+
 def conv_bounds(m, k, n, dtype):
     """Least time of each kernel: inputs read once, outputs written once,
     over the card's memory rate; its products (forward 2MKN, backward
@@ -528,7 +538,14 @@ def conv_bounds(m, k, n, dtype):
     return out
 
 
-def check_conv(cb, gen, m, k, n, prologue, dtype, tag, timed=False):
+def bwd_route(cb, m, k, n, dtype, prologue) -> str:
+    """The backward's route for a shape (a tree without routes: "mma")."""
+    plan = getattr(cb, "bwd_plan", None)
+    return plan(m, k, n, dtype, prologue).route if plan else "mma"
+
+
+def check_conv(cb, gen, m, k, n, prologue, dtype, tag, timed=False,
+               time_fwd=False):
     """Both conv+BN kernels against their plain versions on the same
     inputs; each output's error against CONV_REL_TOL times its largest
     reference value (at least 1). bf16: y, dx and dw are stored in bf16
@@ -537,8 +554,10 @@ def check_conv(cb, gen, m, k, n, prologue, dtype, tag, timed=False):
     it is held to its plain version on each alone (ds1 and ds2 scaled so
     that their terms of dy_eff are as large as dy's) and then on the three
     together at training's scales. Returns {"max_abs_err": {output: (largest
-    absolute error, largest share of its limit)}} plus the times when
-    ``timed``."""
+    absolute error, largest share of its limit)}, "route": the backward's
+    route}; when ``timed`` also the backward's time, its plain version's,
+    the cuBLAS GEMMs' and the bounds, after checking that two runs give the
+    same bits (no float atomics), and the forward's with ``time_fwd``."""
     dev = torch.device("cuda")
     x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
     w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(dtype)
@@ -582,9 +601,11 @@ def check_conv(cb, gen, m, k, n, prologue, dtype, tag, timed=False):
         compare(f"conv_bn_bwd ({cot})", bwd,
                 cb.conv1x1_bn_bwd_plain(x, w, inv, shift, y, *args),
                 "dx dw dinv dshift")
-    res = {"max_abs_err": errs}
+    route = bwd_route(cb, m, k, n, dtype, prologue)
+    res = {"max_abs_err": errs, "route": route}
     log(f"conv_bn {tag} M={m} {k}->{n} {str(dtype)[6:]}"
-        f"{' prologue' if prologue else ''}: max_abs_err (share of limit) "
+        f"{' prologue' if prologue else ''} (backward: {route}): "
+        f"max_abs_err (share of limit) "
         + json.dumps({nm: f"{e:.3e} ({share:.3f})"
                       for nm, (e, share) in errs.items()}))
     if not timed:
@@ -593,25 +614,26 @@ def check_conv(cb, gen, m, k, n, prologue, dtype, tag, timed=False):
     # bwd is the last of the loop, all three cotangents
     fwd2 = cb.conv_bn_fwd(x, w, inv, shift)
     bwd2 = cb.conv_bn_bwd(x, w, inv, shift, y, dy, ds1, ds2)
-    for a, b in zip(fwd[1:] + bwd[1:], fwd2[1:] + bwd2[1:]):
+    for a, b in zip(fwd[1:] + bwd, fwd2[1:] + bwd2):
         if a is not None and not torch.equal(a, b):
             raise AssertionError(f"{tag}: two runs differ")
-    res["ms"] = {
-        "conv_bn_fwd": cuda_ms(lambda i: cb.conv_bn_fwd(x, w, inv, shift),
-                               20),
-        "conv_bn_bwd": cuda_ms(lambda i: cb.conv_bn_bwd(
-            x, w, inv, shift, y, dy, ds1, ds2), 20)}
-    res["plain_ms"] = {
-        "conv_bn_fwd": cuda_ms(lambda i: cb.conv1x1_bn_stats_plain(
-            x, w, inv, shift), 5),
-        "conv_bn_bwd": cuda_ms(lambda i: cb.conv1x1_bn_bwd_plain(
-            x, w, inv, shift, y, dy, ds1, ds2), 5)}
+    names = ("conv_bn_fwd", "conv_bn_bwd") if time_fwd else ("conv_bn_bwd",)
+    kernel = {"conv_bn_fwd": lambda i: cb.conv_bn_fwd(x, w, inv, shift),
+              "conv_bn_bwd": lambda i: cb.conv_bn_bwd(
+                  x, w, inv, shift, y, dy, ds1, ds2)}
+    plain = {"conv_bn_fwd": lambda i: cb.conv1x1_bn_stats_plain(
+                 x, w, inv, shift),
+             "conv_bn_bwd": lambda i: cb.conv1x1_bn_bwd_plain(
+                 x, w, inv, shift, y, dy, ds1, ds2)}
     # yardstick only (the port never calls it): cuBLAS on the same
     # operands, the GEMM alone — no PyTorch call computes GEMM + BN sums
-    res["gemm_ms"] = {
-        "conv_bn_fwd": cuda_ms(lambda i: x @ w, 20),
-        "conv_bn_bwd": cuda_ms(lambda i: (dy @ w.t(), x.t() @ dy), 20)}
-    res["bounds"] = conv_bounds(m, k, n, dtype)
+    gemm = {"conv_bn_fwd": lambda i: x @ w,
+            "conv_bn_bwd": lambda i: (dy @ w.t(), x.t() @ dy)}
+    res["ms"] = {nm: cuda_ms(kernel[nm], 20) for nm in names}
+    res["plain_ms"] = {nm: cuda_ms(plain[nm], 5) for nm in names}
+    res["gemm_ms"] = {nm: cuda_ms(gemm[nm], 20) for nm in names}
+    res["bounds"] = {nm: b for nm, b in conv_bounds(m, k, n, dtype).items()
+                     if nm in names}
     log(f"conv_bn {tag}: kernels " + json.dumps(
         {k_: round(v_, 4) for k_, v_ in res["ms"].items()})
         + " ms; plain " + json.dumps(
@@ -623,28 +645,61 @@ def check_conv(cb, gen, m, k, n, prologue, dtype, tag, timed=False):
 
 
 def check_conv_all(cb, gen):
-    """Every distinct 1x1 conv of ResNet-50 at 128 images (bf16), three of
-    them timed, plus an f32 ragged case (3x7x7 rows, 130 -> 70, prologue)
-    and 32 -> 576. Returns the timed cases and, for each output, its
-    largest absolute error and largest share of its limit over them."""
-    timed_tags = {(1, "conv3"): "main", (3, "conv1"): "stage3",
-                  (4, "projection"): "stage4"}
-    timed, errs = {}, []
+    """Every distinct 1x1 conv of ResNet-50 at 128 images (bf16), each
+    held to its plain version and bitwise repeatable, the backward timed at
+    all 16 and the forward at three; a ``conv_bn_bwd over a ResNet-50
+    step`` line sums each shape's time and bound times its launches a step
+    (36 in all). Then an f32 ragged case (3x7x7 rows, 130 -> 70, prologue)
+    and 32 -> 576. Returns the timed cases (the forward's under "main",
+    "stage3", "stage4"; every shape's backward under "bwd_shapes"), the
+    step sums, and for each output its largest absolute error and largest
+    share of its limit over all cases."""
+    fwd_tags = {(1, "conv3"): "main", (3, "conv1"): "stage3",
+                (4, "projection"): "stage4"}
+    timed, errs, shapes = {}, [], []
     for stage, what, m, k, n, prologue, stride in resnet50_convs():
-        key = timed_tags.get((stage, what))
-        res = check_conv(cb, gen, m, k, n, prologue, torch.bfloat16,
-                         f"stage {stage} {what}"
-                         + (f" (stride {stride})" if stride > 1 else ""),
-                         timed=key is not None)
+        key = fwd_tags.get((stage, what))
+        tag = (f"stage {stage} {what}"
+               + (f" (stride {stride})" if stride > 1 else ""))
+        res = check_conv(cb, gen, m, k, n, prologue, torch.bfloat16, tag,
+                         timed=True, time_fwd=key is not None)
         errs.append(res["max_abs_err"])
         if key:
             timed[key] = res
+        count = resnet50_conv_count(stage, what)
+        bound_ms, bound_by = res["bounds"]["conv_bn_bwd"]
+        shapes.append({"shape": tag, "m": m, "k": k, "n": n,
+                       "prologue": prologue, "route": res["route"],
+                       "launches_per_step": count,
+                       "ms": res["ms"]["conv_bn_bwd"],
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "cublas_gemms_ms": res["gemm_ms"]["conv_bn_bwd"]})
+    step_ms = sum(sh["ms"] * sh["launches_per_step"] for sh in shapes)
+    step_bound = sum(sh["bound_ms"] * sh["launches_per_step"]
+                     for sh in shapes)
+    launches = sum(sh["launches_per_step"] for sh in shapes)
+    if launches != RESNET50_CONVS:
+        raise AssertionError(f"{launches} conv launches a step, expected "
+                             f"{RESNET50_CONVS}")
+    timed["bwd_shapes"] = shapes
+    timed["bwd_step"] = {"ms": step_ms, "bound_ms": step_bound,
+                         "launches": launches}
+    log("conv_bn_bwd over a ResNet-50 step: " + json.dumps({
+        "launches": launches, "ms": round(step_ms, 4),
+        "bound_ms": round(step_bound, 4),
+        "share_of_bound": round(step_bound / step_ms, 4),
+        "routes": {r: sum(sh["launches_per_step"] for sh in shapes
+                          if sh["route"] == r)
+                   for r in sorted({sh["route"] for sh in shapes})},
+        "per_shape_ms": {sh["shape"]: round(sh["ms"], 4) for sh in shapes}}))
     errs.append(check_conv(cb, gen, 147, 130, 70, True, torch.float32,
                            "ragged")["max_abs_err"])
     errs.append(check_conv(cb, gen, 64, 32, 576, False, torch.float32,
                            "wide")["max_abs_err"])
     errs.append(check_conv(cb, gen, 64, 32, 576, True, torch.bfloat16,
                            "wide")["max_abs_err"])
+    errs.append(check_conv(cb, gen, 461, 72, 40, True, torch.bfloat16,
+                           "ragged M, narrow")["max_abs_err"])
     worst = {nm: (max(c[nm][0] for c in errs if nm in c),
                   max(c[nm][1] for c in errs if nm in c))
              for nm in dict.fromkeys(nm for c in errs for nm in c)}
@@ -663,53 +718,75 @@ PROBE_ROWS, PROBE_COLS = 131072, 1024    # bench.py's bf16 probe array
 
 def check_stream_copy(sc, gen):
     """The stream-copy kernel against its plain version (out.copy_(x)) bit
-    for bit: at the probe's shape, at ragged shapes and tiles, and on views
-    1..15 bytes off a 16-byte boundary; then its time at the probe's shape
-    beside its bound, the plain version's and ``copy_``'s (CUDA events)."""
+    for bit, in each of its variants: at the probe's shape at every tile
+    of the probe's sweep, at ragged shapes and tiles, at chunks that are
+    not a multiple of the bulk variant's shared-memory stage, and on views
+    1..15 bytes off a 16-byte boundary; then each variant's time at the
+    probe's shape beside its bound, the plain version's and ``copy_``'s
+    (CUDA events, one process, interleaved)."""
     dev = torch.device("cuda")
-    cases = [((PROBE_ROWS, PROBE_COLS), torch.bfloat16, None),
-             ((PROBE_ROWS, PROBE_COLS), torch.bfloat16, 1),
-             ((1000, 37), torch.uint8, 3), ((777, 129), torch.float32, 64),
-             ((3, 5, 7), torch.bfloat16, 1)]
+    variants = list(getattr(sc, "VARIANTS", [None]))
+
+    def copy(x, out=None, tile=None, var=None):
+        kw = {} if var is None else {"variant": var}
+        return sc.stream_copy(x, out, rows_per_cta=tile, **kw)
+
+    cases = [((PROBE_ROWS, PROBE_COLS), torch.bfloat16, t)
+             for t in (None, 1, 4, 16, 64)]
+    cases += [((1000, 37), torch.uint8, 3), ((777, 129), torch.float32, 64),
+              ((3, 5, 7), torch.bfloat16, 1), ((300, 40000), torch.uint8, 1),
+              ((4097, 1000), torch.uint8, 5)]
     err = 0.0
-    for shape, dtype, tile in cases:
-        x = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
-                          generator=gen)
-        if dtype != torch.uint8:
-            x = torch.randn(shape, device=dev, generator=gen).to(dtype)
-        got = sc.stream_copy(x, rows_per_cta=tile)
-        want = sc.stream_copy_plain(x, torch.empty_like(x))
-        torch.cuda.synchronize()
-        err = max(err, float((got.float() - want.float()).abs().max()))
-        if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
-            raise AssertionError(f"stream_copy {shape} {dtype} rows/CTA "
-                                 f"{tile}: differs from its plain version")
-    base = torch.randint(0, 256, (1 << 18,), dtype=torch.uint8, device=dev,
-                         generator=gen)
-    for so, do in ((1, 1), (3, 7), (0, 8), (16, 5)):
-        dst = torch.zeros(1 << 18, dtype=torch.uint8, device=dev)
-        xs = base[so:so + 100000].view(1000, 100)
-        sc.stream_copy(xs, dst[do:do + 100000].view(1000, 100),
-                       rows_per_cta=7)
-        torch.cuda.synchronize()
-        if not (torch.equal(dst[do:do + 100000], base[so:so + 100000])
-                and not dst[:do].any() and not dst[do + 100000:].any()):
-            raise AssertionError(f"stream_copy misaligned ({so}, {do}) "
-                                 f"differs from its plain version")
+    for var in variants:
+        for shape, dtype, tile in cases:
+            x = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                              generator=gen)
+            if dtype != torch.uint8:
+                x = torch.randn(shape, device=dev, generator=gen).to(dtype)
+            got = copy(x, tile=tile, var=var)
+            want = sc.stream_copy_plain(x, torch.empty_like(x))
+            torch.cuda.synchronize()
+            err = max(err, float((got.float() - want.float()).abs().max()))
+            if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
+                raise AssertionError(f"stream_copy {var} {shape} {dtype} "
+                                     f"rows/CTA {tile}: differs from its "
+                                     f"plain version")
+        base = torch.randint(0, 256, (1 << 18,), dtype=torch.uint8,
+                             device=dev, generator=gen)
+        for so, do in ((1, 1), (3, 7), (0, 8), (16, 5), (5, 0)):
+            dst = torch.zeros(1 << 18, dtype=torch.uint8, device=dev)
+            xs = base[so:so + 100000].view(1000, 100)
+            copy(xs, dst[do:do + 100000].view(1000, 100), tile=7, var=var)
+            torch.cuda.synchronize()
+            if not (torch.equal(dst[do:do + 100000], base[so:so + 100000])
+                    and not dst[:do].any() and not dst[do + 100000:].any()):
+                raise AssertionError(f"stream_copy {var} misaligned ({so}, "
+                                     f"{do}) differs from its plain version")
     log(f"stream_copy: bit-equal to its plain version over "
-        f"{len(cases) + 4} cases (probe shape, ragged, misaligned)")
+        f"{len(variants) * (len(cases) + 5)} cases ({len(variants)} "
+        f"variants; probe shape at every tile, ragged, misaligned)")
     x = torch.randn((PROBE_ROWS, PROBE_COLS), device=dev, generator=gen
                     ).to(torch.bfloat16)
     y = torch.empty_like(x)
     nbytes = 2 * x.numel() * x.element_size()
-    res = {"max_abs_err": err,
-           "ms": cuda_ms(lambda i: sc.stream_copy(x, y), 20),
+    lib_ms, var_ms = [], {}
+    for _ in range(2):
+        lib_ms.append(cuda_ms(lambda i: y.copy_(x), 20))
+        for var in variants:
+            var_ms.setdefault(str(var), []).append(
+                cuda_ms(lambda i: copy(x, y, var=var), 20))
+    default = str(getattr(sc, "DEFAULT_VARIANT", None))
+    res = {"max_abs_err": err, "ms": min(var_ms[default]),
            "plain_ms": cuda_ms(lambda i: sc.stream_copy_plain(x, y), 20),
-           "library_ms": cuda_ms(lambda i: y.copy_(x), 20),
-           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+           "library_ms": min(lib_ms),
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "variant_ms": {v: min(t) for v, t in var_ms.items()}}
     log(f"stream_copy bf16 [{PROBE_ROWS}, {PROBE_COLS}]: kernel "
-        f"{res['ms']:.4f} ms, bound {res['bound_ms']:.4f} ms, plain "
-        f"{res['plain_ms']:.4f} ms, copy_ {res['library_ms']:.4f} ms")
+        f"{res['ms']:.4f} ms ({default}), bound {res['bound_ms']:.4f} ms, "
+        f"plain {res['plain_ms']:.4f} ms, copy_ {res['library_ms']:.4f} ms; "
+        f"every variant, then copy_, twice: " + json.dumps(
+            {**{v: [round(t, 4) for t in ts] for v, ts in var_ms.items()},
+             "copy_": [round(t, 4) for t in lib_ms]}))
     return res
 
 
@@ -1129,6 +1206,7 @@ def train_resnet50(htt, cb, card, n_steps: int = 4):
     state, info = htt.train_loop(step, state, batches[1:], on_step=on_step)
     torch.cuda.synchronize()
     launches = dict(cb.LAUNCHES)
+    routes = dict(getattr(cb, "BWD_ROUTES", {}))
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     if info["final_step"] != n_steps + 1 or info["status"] != "completed":
         raise AssertionError(f"train_loop info {info}")
@@ -1144,6 +1222,13 @@ def train_resnet50(htt, cb, card, n_steps: int = 4):
             raise AssertionError(
                 f"{name} launched {launches[name]} times over {n_steps} "
                 f"steps of {RESNET50_CONVS} 1x1 convs")
+    # every backward launch on a wgmma route (a tree without routes, as a
+    # parent measured by tools/compare_trees.py, has none to check)
+    if routes and (routes.get("mma", 0)
+                   or sum(routes.values()) != launches["conv_bn_bwd"]):
+        raise AssertionError(f"conv_bn_bwd routes {routes}: expected all "
+                             f"{launches['conv_bn_bwd']} launches on the "
+                             f"wgmma routes")
     step_s = np.diff([t0] + stamps)
     mean_s = float(step_s.mean())
     ips = RESNET_B / mean_s
@@ -1157,6 +1242,7 @@ def train_resnet50(htt, cb, card, n_steps: int = 4):
         "peak_memory_gb": peak_gb,
         "launches": {k_: launches[k_] for k_ in ("conv_bn_fwd",
                                                   "conv_bn_bwd")},
+        "conv_bn_bwd_routes": routes,
         "sync_buckets": len(opt.buckets),
         "buckets_launched_from_hooks": sum(h for _, h in opt.launch_log),
         "card": card}
@@ -1164,6 +1250,7 @@ def train_resnet50(htt, cb, card, n_steps: int = 4):
     profile_train_step(step, state, batches[-1], card,
                        label="resnet train profile")
     htt.shutdown()
+    launches["conv_bn_bwd_routes"] = routes
     return launches
 
 
@@ -1609,6 +1696,10 @@ def main(argv) -> int:
     for name, text in _build.build_logs.items():
         for line in text.strip().splitlines():
             log(f"  [{name}] {line}")
+    # ptxas notes C75xx when it serializes or fences wgmma behind the
+    # source's back (PERF.md)
+    log("ptxas C75xx notes per library: " + json.dumps(
+        {name: text.count("(C75") for name, text in _build.build_logs.items()}))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if n_dp:
@@ -1701,7 +1792,10 @@ def main(argv) -> int:
                                          in by_out.items()},
             "ms": main_conv["ms"][name],
             "plain_ms": main_conv["plain_ms"][name],
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            **({"resnet50_step": conv_case["bwd_step"],
+                "routes": resnet_launches["conv_bn_bwd_routes"]}
+               if name == "conv_bn_bwd" else {})})
     # The stream copy: its main path is the bandwidth probe; timed at the
     # probe's shape (bf16 [131072, 1024]). The plain version is
     # out.copy_(x), and copy_ alone is the library yardstick.
@@ -1711,7 +1805,7 @@ def main(argv) -> int:
         "replaces": "bench.py:815", "launches": copy_launches,
         **{k_: copy_case[k_] for k_ in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by",
-                                        "library_ms")}})
+                                        "library_ms", "variant_ms")}})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

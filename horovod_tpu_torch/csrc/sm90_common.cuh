@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks: mbarriers, TMA tile loads through
 // tensor maps, shared-memory matrix descriptors and warpgroup matrix
 // products (wgmma), as PTX, and the pieces the flash kernels' tensor-core
-// routes share. Used by flash_fwd.cu and flash_bwd.cu.
+// routes share. Used by flash_fwd.cu, flash_bwd.cu, conv_bn_bwd.cu and
+// stream_copy.cu.
 //
 // Conventions:
 //   - operand tiles are 64 rows of 64 bf16 (128 bytes a row) that TMA
@@ -141,6 +142,81 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One box of a 2-D tensor map into shared memory; completion counted in
+// bytes on `bar`. c0 is the column, c1 the row.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// One box of shared memory to a 2-D tensor map (rows and columns past the
+// tensor are not written), in a bulk group: bulk_commit, then
+// bulk_wait_read before the box is written again.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, "
+      "%3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// The warpgroup index of this thread, as a value the compiler knows is the
+// same across the warp (so a branch on it around wgmma is not divergent).
+__device__ __forceinline__ int warpgroup_uniform() {
+  return __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 7), 0);
+}
+
+// Makes this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma operand reads, TMA and bulk copies) that follows.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Bulk copies of contiguous bytes (16-byte aligned addresses, sizes a
+// multiple of 16): global -> shared counted on `bar`, shared -> global in
+// bulk groups.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most kPending of this thread's bulk groups still read
+// shared memory.
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kPending)
+               : "memory");
+}
+
+// Waits until every bulk group of this thread has completed.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   cuuint32_t, void*, const cuuint64_t*,
                                   const cuuint64_t*, const cuuint32_t*,
@@ -179,6 +255,27 @@ inline cudaError_t encode_bshd_bf16(CUtensorMap* map, const void* base,
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidPitchValue;
+}
+
+// A tensor map over a contiguous row-major bf16 [rows, cols] matrix whose
+// box is `box_rows` rows x 64 columns, written with 128-byte swizzle (the
+// layout of one 64-row tile per 64 rows of the box). Rows >= rows and
+// columns >= cols read as zero. Needs cols % 8 == 0 (16-byte strides).
+inline cudaError_t encode_2d_bf16(CUtensorMap* map, const void* base,
+                                  long long rows, long long cols,
+                                  int box_rows) {
+  const EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -254,9 +351,10 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
       HVD_WGMMA_OUT8(d, 24)
 
 // d (+)= A . B, m64n64k16, bf16 in, f32 accumulate; A and B from shared
-// memory, A K-major, B K-major (kTransB = 0) or MN-major (1). scale_d = 0
-// overwrites d.
-template <int kTransB>
+// memory, each K-major (kTrans = 0) or MN-major (1): an MN-major A is a
+// tile whose rows run along the reduction (A^T stored row-major). scale_d
+// = 0 overwrites d.
+template <int kTransB, int kTransA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
                                          uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -264,10 +362,10 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
       ".reg .pred p;\n"
       "setp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HVD_WGMMA_D32
-      ", %32, %33, p, 1, 1, 0, %35;\n"
+      ", %32, %33, p, 1, 1, %35, %36;\n"
       "}\n"
       : HVD_WGMMA_OUT32(d)
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
 // d (+)= A . B, m64n128k16, bf16 in, f32 accumulate; A and B from shared

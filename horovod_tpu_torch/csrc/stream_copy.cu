@@ -9,88 +9,316 @@
 // Bound: bytes, and nothing else. Every byte is read once and written once
 // with no arithmetic: 2 x 256 MiB at the probe's shape (bf16 [131072,
 // 1024]) over 3.35 TB/s is 0.160 ms. What the design does about it:
-//   - each CTA moves `rows_per_cta` whole rows, one contiguous byte range;
-//     its threads move 16-byte vectors (uint4), neighbouring threads on
-//     neighbouring addresses, four vectors per thread in flight before the
-//     first store, with streaming cache hints (__ldcs/__stcs: the data is
-//     touched once and does not fit the 50 MB L2 anyway);
+//   - a persistent grid (a few blocks per SM) walks the copy in chunks of
+//     `rows_per_cta` whole rows, one contiguous byte range each: block b
+//     takes chunks b, b + grid, ...; so a chunk is the unit a block moves
+//     per step of its loop, as the TPU sweep's row block was;
+//   - bytes are always in flight. Two variants:
+//       bulk (variant 0): one thread of each block streams the chunks'
+//         16-byte-aligned bodies through a ring of shared-memory stages
+//         with bulk asynchronous copies (cp.async.bulk global -> shared on
+//         an mbarrier, shared -> global in bulk groups): a stage is
+//         reloaded as soon as its store has read it, so loads run
+//         stages - 1 pieces ahead of the stores and no register holds
+//         the data;
+//       registers (variant 1): 512 threads a block move 16-byte vectors,
+//         four each, and issue the next batch's loads before the current
+//         batch's stores, across chunk boundaries. Loads are non-coherent
+//         with a 256-byte L2 fetch and stores skip L1: of the flavours
+//         measured (plain, __ldg, the evict-first hints __ldcs/__stcs of
+//         PR 4's kernel, others) the fastest (PERF.md);
 //   - a range whose source and destination share their offset modulo 16
-//     copies a scalar head up to the first 16-byte boundary, the vector
-//     body, and a scalar tail; a range where they differ (a pointer not
-//     16-byte aligned against the other) copies byte by byte;
-//   - the TPU sweep's 512/1024/2048-row blocks are a VMEM/DMA question
-//     (a 2048-row block of 2 KiB rows would be 4 MiB, and only 64 of them
-//     would cover 132 SMs); here the sweep is over the tile each CTA moves.
-//     The TPU's "parallel"/"arbitrary" grid semantics have no meaning on
-//     Hopper: CTAs always run in parallel, in no order.
-// cp.async/TMA bulk copies are later work.
+//     copies a scalar head up to the first 16-byte boundary and a scalar
+//     tail; where they differ the whole copy goes byte by byte (no bulk
+//     copy or vector can serve it).
+// The TPU's "parallel"/"arbitrary" grid semantics have no meaning on
+// Hopper: CTAs always run in parallel, in no order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90_common.cuh"
+
 namespace {
 
-constexpr int kUnroll = 4;
+using namespace hvd_sm90;
 
-__global__ void stream_copy_kernel(const unsigned char* __restrict__ src,
-                                   unsigned char* __restrict__ dst,
-                                   long long total, long long cta_bytes) {
-  const long long start = (long long)blockIdx.x * cta_bytes;
-  const long long end = min(total, start + cta_bytes);
-  const unsigned char* s = src + start;
-  unsigned char* d = dst + start;
-  const long long len = end - start;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const uintptr_t sa = reinterpret_cast<uintptr_t>(s);
-  const uintptr_t da = reinterpret_cast<uintptr_t>(d);
-  if (((sa ^ da) & 15) != 0) {  // never co-aligned: bytes
-    for (long long i = tid; i < len; i += nt) d[i] = s[i];
+constexpr int kMaxBulkStages = 8;
+constexpr int kBulkThreads = 128;
+constexpr int kRegUnroll = 4;
+constexpr int kRegThreads = 512;
+
+struct Chunk {
+  long long start, len;  // bytes of chunk c
+};
+
+__device__ __forceinline__ Chunk chunk_of(long long c, long long total,
+                                          long long cta_bytes) {
+  const long long s = c * cta_bytes;
+  return {s, min(total, s + cta_bytes) - s};
+}
+
+// Head bytes of a chunk before its first 16-byte boundary (co-aligned
+// source and destination).
+__device__ __forceinline__ long long head_of(const unsigned char* src,
+                                             long long start, long long len) {
+  const long long h =
+      (long long)((16 - ((reinterpret_cast<uintptr_t>(src) + start) & 15)) &
+                  15);
+  return h < len ? h : len;
+}
+
+// The scalar head and tail of every chunk of this block, spread over
+// threads tid = 0 .. nt - 1.
+__device__ __forceinline__ void copy_edges(const unsigned char* src,
+                                           unsigned char* dst,
+                                           long long total,
+                                           long long cta_bytes,
+                                           long long n_chunks, int tid,
+                                           int nt) {
+  for (long long c = blockIdx.x; c < n_chunks; c += gridDim.x) {
+    const Chunk ch = chunk_of(c, total, cta_bytes);
+    const long long head = head_of(src, ch.start, ch.len);
+    const long long body_end = head + (ch.len - head) / 16 * 16;
+    for (long long i = tid; i < head; i += nt)
+      dst[ch.start + i] = src[ch.start + i];
+    for (long long i = body_end + tid; i < ch.len; i += nt)
+      dst[ch.start + i] = src[ch.start + i];
+  }
+}
+
+
+// The pieces of this block's chunk bodies, in order: piece (c, off) is
+// bytes [off, off + bytes) of chunk c's body, bytes <= piece.
+struct PieceIter {
+  const unsigned char* src;
+  long long total, cta_bytes, n_chunks, piece;
+  long long c, off, body_end, base;
+  __device__ void seek_chunk() {
+    for (; c < n_chunks; c += gridDim.x) {
+      const Chunk ch = chunk_of(c, total, cta_bytes);
+      const long long head = head_of(src, ch.start, ch.len);
+      base = ch.start;
+      off = head;
+      body_end = head + (ch.len - head) / 16 * 16;
+      if (off < body_end) return;
+    }
+  }
+  __device__ bool valid() const { return c < n_chunks; }
+  __device__ long long at() const { return base + off; }
+  __device__ uint32_t bytes() const {
+    return (uint32_t)min(piece, body_end - off);
+  }
+  __device__ void next() {
+    off += piece;
+    if (off >= body_end) {
+      c += gridDim.x;
+      seek_chunk();
+    }
+  }
+};
+
+__global__ void __launch_bounds__(kBulkThreads)
+bulk_copy_kernel(const unsigned char* __restrict__ src,
+                 unsigned char* __restrict__ dst, long long total,
+                 long long cta_bytes, long long n_chunks, int stages,
+                 int piece) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + (size_t)stages * piece);
+  if (threadIdx.x != 0) {
+    copy_edges(src, dst, total, cta_bytes, n_chunks, threadIdx.x - 1,
+               blockDim.x - 1);
     return;
   }
-  long long head = (long long)((16 - (sa & 15)) & 15);
-  if (head > len) head = len;
-  for (long long i = tid; i < head; i += nt) d[i] = s[i];
-  const long long nvec = (len - head) / 16;
-  const uint4* s4 = reinterpret_cast<const uint4*>(s + head);
-  uint4* d4 = reinterpret_cast<uint4*>(d + head);
-  for (long long i = tid; i < nvec; i += (long long)kUnroll * nt) {
-    uint4 r[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long j = i + (long long)u * nt;
-      if (j < nvec) r[u] = __ldcs(s4 + j);
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long j = i + (long long)u * nt;
-      if (j < nvec) __stcs(d4 + j, r[u]);
+  // Thread 0 streams the bodies: piece i goes through stage i % stages.
+  for (int i = 0; i < stages; ++i) mbar_init(&full[i], 1);
+  mbar_fence_init();
+  PieceIter load{src, total, cta_bytes, n_chunks, piece,
+                 (long long)blockIdx.x, 0, 0, 0};
+  load.seek_chunk();
+  long long at[kMaxBulkStages];
+  uint32_t len[kMaxBulkStages];
+  int issued = 0;
+  for (; issued < stages && load.valid(); ++issued, load.next()) {
+    at[issued] = load.at();
+    len[issued] = load.bytes();
+    mbar_arrive_expect_tx(&full[issued], len[issued]);
+    bulk_load(ring + (size_t)issued * piece, src + at[issued], len[issued],
+              &full[issued]);
+  }
+  for (int i = 0; i < issued; ++i) {
+    const int st = i % stages;
+    mbar_wait(&full[st], (i / stages) & 1);
+    bulk_store(dst + at[st], ring + (size_t)st * piece, len[st]);
+    bulk_commit();
+    // Refill the stage of piece i - 1 once its store has read it.
+    if (i >= 1 && load.valid()) {
+      bulk_wait_read<1>();
+      const int rs = (i - 1) % stages;
+      at[rs] = load.at();
+      len[rs] = load.bytes();
+      mbar_arrive_expect_tx(&full[rs], len[rs]);
+      bulk_load(ring + (size_t)rs * piece, src + at[rs], len[rs], &full[rs]);
+      ++issued;
+      load.next();
     }
   }
-  for (long long i = head + nvec * 16 + tid; i < len; i += nt) d[i] = s[i];
+  bulk_wait_all();
+}
+
+// 16 bytes from the source, read-only for the kernel (source and
+// destination do not overlap), not kept in L1, with a 256-byte L2 fetch;
+// and 16 bytes to the destination, not kept in L1.
+__device__ __forceinline__ uint4 ld_stream(const uint4* p) {
+  uint4 v;
+  asm volatile(
+      "ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ void st_stream(uint4* p, uint4 v) {
+  asm volatile(
+      "st.global.L1::no_allocate.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"l"(p),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+      : "memory");
+}
+
+// Registers: thread t of the block moves vectors t, t + nt, ... of each
+// chunk body in batches of kRegUnroll per thread; the loads of the next
+// batch (possibly of the next chunk) are issued before the stores of the
+// current one.
+struct VecPos {
+  long long c, v, nvec;
+  const uint4* s4;
+  uint4* d4;
+};
+
+__device__ __forceinline__ bool vec_seek(VecPos& p, const unsigned char* src,
+                                         unsigned char* dst, long long total,
+                                         long long cta_bytes,
+                                         long long n_chunks) {
+  for (; p.c < n_chunks; p.c += gridDim.x) {
+    const Chunk ch = chunk_of(p.c, total, cta_bytes);
+    const long long head = head_of(src, ch.start, ch.len);
+    p.nvec = (ch.len - head) / 16;
+    p.s4 = reinterpret_cast<const uint4*>(src + ch.start + head);
+    p.d4 = reinterpret_cast<uint4*>(dst + ch.start + head);
+    p.v = 0;
+    if (p.nvec > 0) return true;
+  }
+  return false;
+}
+
+__global__ void __launch_bounds__(kRegThreads)
+reg_copy_kernel(const unsigned char* __restrict__ src,
+                unsigned char* __restrict__ dst, long long total,
+                long long cta_bytes, long long n_chunks) {
+  copy_edges(src, dst, total, cta_bytes, n_chunks, threadIdx.x, blockDim.x);
+  const long long step = (long long)kRegUnroll * blockDim.x;
+  VecPos cur{(long long)blockIdx.x, 0, 0, nullptr, nullptr};
+  bool ok = vec_seek(cur, src, dst, total, cta_bytes, n_chunks);
+  uint4 r[kRegUnroll];
+#pragma unroll
+  for (int u = 0; u < kRegUnroll; ++u) {
+    const long long j = cur.v + threadIdx.x + (long long)u * blockDim.x;
+    if (ok && j < cur.nvec) r[u] = ld_stream(cur.s4 + j);
+  }
+  while (ok) {
+    VecPos nxt = cur;
+    nxt.v += step;
+    bool ok2 = true;
+    if (nxt.v >= nxt.nvec) {
+      nxt.c += gridDim.x;
+      ok2 = vec_seek(nxt, src, dst, total, cta_bytes, n_chunks);
+    }
+    uint4 rn[kRegUnroll];
+#pragma unroll
+    for (int u = 0; u < kRegUnroll; ++u) {
+      const long long j = nxt.v + threadIdx.x + (long long)u * blockDim.x;
+      if (ok2 && j < nxt.nvec) rn[u] = ld_stream(nxt.s4 + j);
+    }
+#pragma unroll
+    for (int u = 0; u < kRegUnroll; ++u) {
+      const long long j = cur.v + threadIdx.x + (long long)u * blockDim.x;
+      if (j < cur.nvec) st_stream(cur.d4 + j, r[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kRegUnroll; ++u) r[u] = rn[u];
+    cur = nxt;
+    ok = ok2;
+  }
+}
+
+// Source and destination not co-aligned: byte by byte, chunk by chunk.
+__global__ void byte_copy_kernel(const unsigned char* __restrict__ src,
+                                 unsigned char* __restrict__ dst,
+                                 long long total, long long cta_bytes,
+                                 long long n_chunks) {
+  for (long long c = blockIdx.x; c < n_chunks; c += gridDim.x) {
+    const Chunk ch = chunk_of(c, total, cta_bytes);
+    for (long long i = threadIdx.x; i < ch.len; i += blockDim.x)
+      dst[ch.start + i] = src[ch.start + i];
+  }
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || n <= 0)
+      n = 132;
+  }
+  return n;
 }
 
 }  // namespace
 
-// src, dst: [rows, row_bytes] bytes each, not overlapping. Each CTA copies
-// rows_per_cta rows. Returns cudaGetLastError() after the launch (0 on
-// success).
+// src, dst: [rows, row_bytes] bytes each, not overlapping. Each block
+// copies chunks of rows_per_cta rows per step of its loop. variant: 0 =
+// bulk asynchronous copies through `stages` shared-memory stages of
+// `piece` bytes (a multiple of 16), 1 = registers; blocks_per_sm: the
+// persistent grid (at most one block per chunk). Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int hvd_stream_copy(const void* src, void* dst, long long rows,
                                long long row_bytes, int rows_per_cta,
-                               void* stream) {
-  if (rows <= 0 || row_bytes <= 0 || rows_per_cta <= 0 || !src || !dst)
+                               int variant, int blocks_per_sm, int stages,
+                               int piece, void* stream) {
+  if (rows <= 0 || row_bytes <= 0 || rows_per_cta <= 0 || !src || !dst ||
+      variant < 0 || variant > 1 || blocks_per_sm <= 0 ||
+      blocks_per_sm > 64 ||
+      (variant == 0 && (stages < 2 || stages > kMaxBulkStages ||
+                        piece < 16 || piece % 16 ||
+                        (long long)stages * piece > 200 * 1024)))
     return (int)cudaErrorInvalidValue;
-  const long long ctas = (rows + rows_per_cta - 1) / rows_per_cta;
-  if (ctas > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const long long n_chunks = (rows + rows_per_cta - 1) / rows_per_cta;
   const long long cta_bytes = (long long)rows_per_cta * row_bytes;
-  // enough threads for kUnroll vectors each, a warp at least, 256 at most
-  long long vec_threads = (cta_bytes / 16 + kUnroll - 1) / kUnroll;
-  int threads = (int)((vec_threads + 31) / 32 * 32);
-  threads = threads < 32 ? 32 : (threads > 256 ? 256 : threads);
-  stream_copy_kernel<<<(unsigned)ctas, threads, 0,
-                       reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned char*>(src), static_cast<unsigned char*>(dst),
-      rows * row_bytes, cta_bytes);
+  const long long total = rows * row_bytes;
+  const long long grid_max = (long long)blocks_per_sm * sm_count();
+  const unsigned grid = (unsigned)(n_chunks < grid_max ? n_chunks : grid_max);
+  const unsigned char* s = static_cast<const unsigned char*>(src);
+  unsigned char* d = static_cast<unsigned char*>(dst);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (((reinterpret_cast<uintptr_t>(src) ^ reinterpret_cast<uintptr_t>(dst)) &
+       15) != 0)
+    byte_copy_kernel<<<grid, 256, 0, st>>>(s, d, total, cta_bytes, n_chunks);
+  else if (variant == 0) {
+    const size_t smem = (size_t)stages * piece + 128 + 8 * kMaxBulkStages;
+    const cudaError_t e = cudaFuncSetAttribute(
+        bulk_copy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    bulk_copy_kernel<<<grid, kBulkThreads, smem, st>>>(
+        s, d, total, cta_bytes, n_chunks, stages, piece);
+  } else
+    reg_copy_kernel<<<grid, kRegThreads, 0, st>>>(s, d, total, cta_bytes,
+                                                  n_chunks);
   return (int)cudaGetLastError();
 }
 

@@ -47,8 +47,8 @@ SIGNATURES = {
         "hvd_flash_bwd_dq": [_P] * 7 + [_I] * 7 + [_F, _I, _I, _P],
         "hvd_flash_bwd_dkv": [_P] * 8 + [_I] * 7 + [_F, _I, _I, _P]},
     "conv_bn_fwd": {"hvd_conv_bn_fwd": [_P] * 8 + [_I] * 5 + [_P]},
-    "conv_bn_bwd": {"hvd_conv_bn_bwd": [_P] * 14 + [_I] * 6 + [_P]},
-    "stream_copy": {"hvd_stream_copy": [_P, _P, _LL, _LL, _I, _P]},
+    "conv_bn_bwd": {"hvd_conv_bn_bwd": [_P] * 14 + [_I] * 10 + [_P]},
+    "stream_copy": {"hvd_stream_copy": [_P, _P, _LL, _LL] + [_I] * 5 + [_P]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -11,7 +11,12 @@ compute it with batch norm folded in:
   prologue, and the per-channel ``sum(Y)`` and ``sum(Y^2)`` of the stored
   Y from the epilogue;
 - ``conv_bn_bwd`` launches ``csrc/conv_bn_bwd.cu`` (for ``_bwd_kernel``):
-  dX, dW, d_inv and d_shift from the cotangents of all three outputs.
+  dX, dW, d_inv and d_shift from the cotangents of all three outputs, on
+  the route :func:`bwd_plan` picks before the launch: ``fused`` (bf16, K
+  and N multiples of 8, K x N small enough for a block's registers: one
+  wgmma pass over M), ``split`` (other such bf16 shapes: dX and dW as two
+  wgmma launches) or ``mma`` (f32 and the rest: PR 3's mma.sync/FMA
+  GEMMs).
 
 They take CUDA tensors only. Their plain PyTorch versions,
 :func:`conv1x1_bn_stats_plain` and :func:`conv1x1_bn_bwd_plain`, compute
@@ -21,19 +26,22 @@ tensors, and nothing else does. A CUDA tensor the kernels' gate
 (:func:`supports`) refuses raises; it never goes to the plain version.
 
 ``LAUNCHES`` counts one launch per call of each wrapper, so a run can show
-that its main path went through the kernels.
+that its main path went through the kernels; ``BWD_ROUTES`` counts the
+backward's launches per route.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from horovod_tpu_torch.ops._build import DTYPE_CODE, check_cuda, launch
 
 LAUNCHES: Dict[str, int] = {"conv_bn_fwd": 0, "conv_bn_bwd": 0}
+BWD_ROUTES: Dict[str, int] = {"fused": 0, "split": 0, "mma": 0}
+_ROUTE_CODE = {"mma": 0, "fused": 1, "split": 2}
 
 # Row tile of the kernels (kBM in csrc/conv_bn_common.cuh): one partial row
 # of column sums per tile of 128 rows.
@@ -42,11 +50,38 @@ _ROW_TILE = 128
 # waves of an H100's 132 SMs. A constant, not the card's count: the split
 # fixes the order of dW's sums.
 _DW_BLOCKS = 2 * 132
+# The wgmma routes (csrc/conv_bn_bwd.cu): 64 x 64 bf16 boxes of 8 KiB, at
+# most 4 stages in a block's 232,448 bytes of shared memory, 1 KiB to align
+# them and 56 bytes of barriers. The fused route runs at most _FUSED_CTAS
+# blocks (one per SM of an H100, a constant: the count of dW partials
+# fixes the order of their sums), each with four warpgroups: K at most 4
+# boxes (one g tile each), K x N at most 8 boxes (4 with the prologue,
+# whose d_inv/d_shift sums take the registers of a second dW tile).
+_BOX, _BOX_BYTES, _SMEM, _SMEM_FIXED, _MAX_STAGES = 64, 8192, 232448, 1080, 4
+_FUSED_CTAS = 132
+_WALK_WGS = 4
+# The split route's dW walk: slices of up to 8 boxes, at most 4 along N,
+# split over M into enough blocks for about one wave of 132 SMs.
+_SPLIT_BOXES, _SPLIT_NTS, _SPLIT_BLOCKS = 8, 4, 132
+
+
+class BwdPlan(NamedTuple):
+    """How :func:`conv_bn_bwd` runs a shape: the route, the number of dW
+    partials (``splits``), the walk's slice in 64-wide boxes (``kts`` x
+    ``nts``) and ring ``stages`` (wgmma routes), and the rows of the
+    d_inv/d_shift partials."""
+    route: str
+    splits: int
+    kts: int
+    nts: int
+    stages: int
+    part_x_rows: int
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for d in (LAUNCHES, BWD_ROUTES):
+        for k in d:
+            d[k] = 0
 
 
 def supports(cin: int, cout: int, dtype: torch.dtype) -> bool:
@@ -62,6 +97,51 @@ def supports(cin: int, cout: int, dtype: torch.dtype) -> bool:
 def _dw_splits(m: int, k: int, n: int) -> int:
     tiles = math.ceil(k / _ROW_TILE) * math.ceil(n / _ROW_TILE)
     return max(1, min(math.ceil(_DW_BLOCKS / tiles), math.ceil(m / 256)))
+
+
+def _walk_stages(kts: int, nts: int, prologue: bool, with_w: bool) -> int:
+    """Ring stages of the walk that fit shared memory (walk_smem_bytes in
+    csrc/conv_bn_bwd.cu): per stage dy_eff and y (nts boxes each), x and,
+    with the prologue, relu(pre) (kts boxes each); with g, W (kts x nts)
+    and the dX staging (kts) once."""
+    stage = (2 * nts + (2 if prologue else 1) * kts) * _BOX_BYTES
+    once = (kts * nts + kts) * _BOX_BYTES if with_w else 0
+    free = _SMEM - _SMEM_FIXED - once
+    return min(_MAX_STAGES, free // stage)
+
+
+def bwd_plan(m: int, k: int, n: int, dtype: torch.dtype,
+             prologue: bool) -> BwdPlan:
+    """The backward's route for ``[m, k] x [k, n]`` in ``dtype``, decided
+    from the shape alone (never from the card, never by catching a
+    failure): ``fused`` where the whole of K x N fits one block, ``split``
+    for the other bf16 shapes whose K and N are multiples of 8 (16-byte
+    TMA strides), ``mma`` for f32 and ragged bf16."""
+    kt, nt = math.ceil(k / _BOX), math.ceil(n / _BOX)
+    tiles = math.ceil(m / _BOX)
+    if dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0:
+        if (kt <= _WALK_WGS and kt * nt <= (4 if prologue else 8)
+                and _walk_stages(kt, nt, prologue, True) >= 2):
+            splits = min(_FUSED_CTAS, tiles)
+            return BwdPlan("fused", splits, kt, nt,
+                           _walk_stages(kt, nt, prologue, True), splits)
+        # the slice that loads the fewest boxes a row tile over all slices:
+        # dy and y once per K slice, x once per N slice
+        kts, nts = min(
+            ((a, b) for a in range(1, min(kt, _SPLIT_BOXES) + 1)
+             for b in range(1, min(nt, _SPLIT_NTS) + 1)
+             if a * b <= _SPLIT_BOXES
+             and _walk_stages(a, b, prologue, False) >= 2),
+            key=lambda ab: (math.ceil(kt / ab[0]) * 2 * nt
+                            + math.ceil(nt / ab[1]) * kt, -ab[0] * ab[1]))
+        slices = math.ceil(kt / kts) * math.ceil(nt / nts)
+        # at most one wave: a block past it would run alone after it
+        splits = max(1, min(_SPLIT_BLOCKS // slices, math.ceil(tiles / 4)))
+        return BwdPlan("split", splits, kts, nts,
+                       _walk_stages(kts, nts, prologue, False),
+                       math.ceil(m / _ROW_TILE))
+    return BwdPlan("mma", _dw_splits(m, k, n), 0, 0, 0,
+                   math.ceil(m / _ROW_TILE))
 
 
 def _gate(fn: str, x: torch.Tensor, w: torch.Tensor) -> None:
@@ -121,7 +201,9 @@ def conv_bn_bwd(x: torch.Tensor, w: torch.Tensor,
     n = w.shape[1]
     if (y.shape != (m, n) or dy.shape != (m, n) or y.dtype != x.dtype
             or dy.dtype != x.dtype or ds1.shape != (n,)
-            or ds2.shape != (n,) or not dy.is_contiguous()):
+            or ds2.shape != (n,) or not dy.is_contiguous()
+            or not y.is_contiguous() or not ds1.is_contiguous()
+            or not ds2.is_contiguous()):
         raise ValueError(
             f"conv_bn_bwd: y {tuple(y.shape)} {y.dtype}, dy "
             f"{tuple(dy.shape)} {dy.dtype}, ds1/ds2 {tuple(ds1.shape)} must "
@@ -129,11 +211,11 @@ def conv_bn_bwd(x: torch.Tensor, w: torch.Tensor,
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty((m, k), dtype=x.dtype, device=x.device)
     dw = torch.empty((k, n), dtype=w.dtype, device=x.device)
-    splits = _dw_splits(m, k, n)
-    part_w = torch.empty((splits, k, n), **f32)
+    plan = bwd_plan(m, k, n, x.dtype, prologue)
+    part_w = torch.empty((plan.splits, k, n), **f32)
     if prologue:
         dinv, dshift = torch.empty(k, **f32), torch.empty(k, **f32)
-        part_x = torch.empty((2, math.ceil(m / _ROW_TILE), k), **f32)
+        part_x = torch.empty((2, plan.part_x_rows, k), **f32)
         outs = (dinv.data_ptr(), dshift.data_ptr(), part_x.data_ptr())
     else:
         dinv = dshift = None
@@ -141,9 +223,11 @@ def conv_bn_bwd(x: torch.Tensor, w: torch.Tensor,
     launch("conv_bn_bwd", "hvd_conv_bn_bwd", x.device, x.data_ptr(),
            w.data_ptr(), *_prologue_ptrs(inv, shift), y.data_ptr(),
            dy.data_ptr(), ds1.data_ptr(), ds2.data_ptr(), dx.data_ptr(),
-           dw.data_ptr(), *outs, part_w.data_ptr(), m, k, n, splits,
-           int(prologue), DTYPE_CODE[x.dtype])
+           dw.data_ptr(), *outs, part_w.data_ptr(), m, k, n,
+           _ROUTE_CODE[plan.route], plan.splits, plan.kts, plan.nts,
+           plan.stages, int(prologue), DTYPE_CODE[x.dtype])
     LAUNCHES["conv_bn_bwd"] += 1
+    BWD_ROUTES[plan.route] += 1
     return dx, dw, dinv, dshift
 
 

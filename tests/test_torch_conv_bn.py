@@ -177,3 +177,163 @@ def test_gate_and_cuda_only_wrappers():
     with pytest.raises(ValueError, match="CUDA tensors only"):
         conv_bn.conv_bn_bwd(x, w, None, None, x, x, torch.zeros(8),
                             torch.zeros(8))
+
+
+# ---------------------------------------------------------------------------
+# the backward's spec at every distinct ResNet-50 1x1 conv, and its routing
+# ---------------------------------------------------------------------------
+
+# (K, N, prologue, stride) of each distinct 1x1 conv of ResNet-50 (stages
+# 1-4: conv1 of block 0, the projection, conv1, conv3).
+RESNET50_1X1 = [
+    (64, 64, False, 1), (64, 256, False, 1), (256, 64, False, 1),
+    (64, 256, True, 1),
+    (256, 128, False, 1), (256, 512, False, 2), (512, 128, False, 1),
+    (128, 512, True, 1),
+    (512, 256, False, 1), (512, 1024, False, 2), (1024, 256, False, 1),
+    (256, 1024, True, 1),
+    (1024, 512, False, 1), (1024, 2048, False, 2), (2048, 512, False, 1),
+    (512, 2048, True, 1),
+]
+
+
+@pytest.mark.parametrize("k,c,prologue,stride,images", [
+    (k, c, p, s, (2, 5, 5)) for k, c, p, s in RESNET50_1X1] + [
+    (64, 256, True, 1, (3, 7, 7)), (130, 72, True, 2, (3, 7, 7))],
+    ids=[f"{k}x{c}{'p' if p else ''}s{s}" for k, c, p, s in RESNET50_1X1]
+    + ["64x256p_m147", "130x72p_s2_m48"])
+def test_plain_backward_matches_jax_kernel_at_resnet50_shapes(
+        k, c, prologue, stride, images):
+    """``conv1x1_bn_bwd_plain`` (the CUDA backward's spec) against the
+    Pallas backward kernel, interpreted, reached through jax.vjp of the JAX
+    op with the same cotangents, at every distinct (K, N, prologue,
+    stride) of ResNet-50's 1x1 convs at 2 x 5 x 5 images (M = 50, or 18
+    after the stride); the last two at 3 x 7 x 7 (M = 147, or 48 after the
+    stride: not a multiple of a 64- or 128-row tile). GRAD_TOL: f32 sums
+    in other orders. dx at the rows a strided conv skips is exactly
+    zero."""
+    n, h, w = images
+    x, wt, inv, shift = _inputs(7, n, h, w, k, c, prologue)
+    rng = np.random.RandomState(k + c)
+    ho, wo = -(-h // stride), -(-w // stride)
+    dy = rng.randn(n, ho, wo, c).astype(np.float32)
+    ds1 = rng.randn(c).astype(np.float32)
+    ds2 = (rng.randn(c) * 0.01).astype(np.float32)
+    bn = [inv, shift] if prologue else []
+
+    def f(x_, wt_, *bn_):
+        return jconv_bn.conv1x1_bn_stats(x_, wt_, *(bn_ or (None, None)),
+                                         strides=(stride, stride),
+                                         interpret=True)
+
+    (jy, _, _), vjp = jax.vjp(f, *[jnp.asarray(a) for a in [x, wt] + bn])
+    jgrads = vjp((jnp.asarray(dy), jnp.asarray(ds1), jnp.asarray(ds2)))
+    xs = x[:, ::stride, ::stride, :].reshape(-1, k)
+    y = np.array(jy).reshape(-1, c)
+    got = conv_bn.conv1x1_bn_bwd_plain(
+        torch.from_numpy(xs), torch.from_numpy(wt), _t(inv), _t(shift),
+        torch.from_numpy(y), torch.from_numpy(dy.reshape(-1, c)),
+        torch.from_numpy(ds1), torch.from_numpy(ds2))
+    jdx = np.asarray(jgrads[0])
+    np.testing.assert_allclose(
+        got[0].numpy(), jdx[:, ::stride, ::stride, :].reshape(-1, k),
+        **GRAD_TOL, err_msg="dx")
+    if stride > 1:
+        mask = np.ones(jdx.shape, bool)
+        mask[:, ::stride, ::stride, :] = False
+        assert not jdx[mask].any()
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(jgrads[1]),
+                               **GRAD_TOL, err_msg="dw")
+    if prologue:
+        np.testing.assert_allclose(got[2].numpy(), np.asarray(jgrads[2]),
+                                   **GRAD_TOL, err_msg="dinv")
+        np.testing.assert_allclose(got[3].numpy(), np.asarray(jgrads[3]),
+                                   **GRAD_TOL, err_msg="dshift")
+    else:
+        assert got[2] is None and got[3] is None
+
+
+# Rows M the kernel sees for each distinct ResNet-50 1x1 conv at 128
+# images of 224^2 (after a strided projection subsamples them): 128 x 56^2
+# in stage 1 and in stage 2's first conv1, a quarter of that per stage on.
+RESNET50_ROWS = {
+    (64, 64): 401408, (64, 256): 401408, (256, 64): 401408,
+    (256, 128): 401408, (256, 512): 100352, (512, 128): 100352,
+    (128, 512): 100352, (512, 256): 100352, (512, 1024): 25088,
+    (1024, 256): 25088, (256, 1024): 25088, (1024, 512): 25088,
+    (1024, 2048): 6272, (2048, 512): 6272, (512, 2048): 6272}
+
+
+def test_bwd_plan_routes_every_resnet50_shape_to_wgmma():
+    """The backward's plan at every distinct ResNet-50 1x1 conv (bf16, 128
+    images): stage 1 and stage 2's first conv1 take the fused route (one
+    pass over M: W and dW held by a block), the rest the split route; none
+    takes the mma route. Partials: a constant 132 for the fused route, at
+    most one wave of 132 blocks for the split route, never more than the
+    row tiles; the ring of stages fits a block's 232,448 bytes with 2 to 4
+    stages."""
+    fused = {(64, 64), (64, 256), (256, 64), (256, 128)}
+    for k, c, prologue, stride in RESNET50_1X1:
+        m = RESNET50_ROWS[(k, c)]
+        plan = conv_bn.bwd_plan(m, k, c, torch.bfloat16, prologue)
+        assert plan.route == ("fused" if (k, c) in fused else "split"), \
+            (k, c)
+        tiles = -(-m // 64)
+        assert 1 <= plan.splits <= tiles
+        assert 2 <= plan.stages <= 4
+        stage = (2 * plan.nts + (2 if prologue else 1) * plan.kts) * 8192
+        once = (plan.kts * plan.nts + plan.kts) * 8192 \
+            if plan.route == "fused" else 0
+        assert 1080 + once + plan.stages * stage <= 232448
+        if plan.route == "fused":
+            assert plan.splits == 132 and plan.part_x_rows == plan.splits
+            assert (plan.kts, plan.nts) == (-(-k // 64), -(-c // 64))
+        else:
+            slices = -(-k // 64 // plan.kts) * -(-c // 64 // plan.nts)
+            assert plan.kts * plan.nts <= 8 and plan.nts <= 4
+            assert plan.splits * slices <= max(132, slices)
+            assert plan.part_x_rows == -(-m // 128)
+
+
+def test_bwd_plan_depends_on_the_shape_only(monkeypatch):
+    """The plan (and so the number and order of the partial sums, and the
+    bits of dW, d_inv and d_shift) never asks the card: with every query
+    of the CUDA runtime failing it gives the same plans."""
+    shapes = [(401408, 64, 256, True), (100352, 512, 128, False),
+              (6272, 1024, 2048, False), (147, 130, 70, True)]
+    before = [conv_bn.bwd_plan(m, k, n, torch.bfloat16, p)
+              for m, k, n, p in shapes]
+
+    def no_card(*args, **kw):
+        raise AssertionError("the plan asked the card")
+
+    for name in ("get_device_properties", "device_count", "is_available",
+                 "current_device"):
+        monkeypatch.setattr(torch.cuda, name, no_card)
+    after = [conv_bn.bwd_plan(m, k, n, torch.bfloat16, p)
+             for m, k, n, p in shapes]
+    assert after == before
+
+
+@pytest.mark.parametrize("m,k,n,dtype,prologue,route", [
+    (147, 130, 70, torch.bfloat16, True, "mma"),     # K, N not % 8
+    (461, 72, 44, torch.bfloat16, False, "mma"),     # N % 8 != 0
+    (401408, 64, 256, torch.float32, True, "mma"),   # f32: FMA kernels
+    (401408, 64, 256, torch.bfloat16, True, "fused"),
+    (461, 72, 40, torch.bfloat16, True, "fused"),    # K, N % 8 == 0
+    (461, 128, 256, torch.bfloat16, True, "split"),  # 8 boxes > 4 with it
+    (461, 128, 256, torch.bfloat16, False, "split"),  # 1 stage would fit
+    (461, 128, 128, torch.bfloat16, False, "fused"),
+    (461, 320, 64, torch.bfloat16, False, "split"),  # 5 boxes of K
+])
+def test_bwd_plan_routes_ragged_and_f32_shapes(m, k, n, dtype, prologue,
+                                               route):
+    """Ragged bf16 (K or N not a multiple of 8: TMA needs 16-byte strides)
+    and every f32 shape stay on the mma route, with PR 3's dW splits and
+    one d_inv/d_shift partial row per 128 rows; the wgmma routes take
+    what fits them."""
+    plan = conv_bn.bwd_plan(m, k, n, dtype, prologue)
+    assert plan.route == route
+    if route == "mma":
+        assert plan.splits == conv_bn._dw_splits(m, k, n)
+        assert plan.part_x_rows == -(-m // 128)

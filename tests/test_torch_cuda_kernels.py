@@ -535,6 +535,87 @@ def test_cuda_conv_bn_sums_are_deterministic():
         assert torch.equal(a, b)
 
 
+# Every distinct (K, N, prologue) of ResNet-50's 1x1 convs: stages 1 and
+# 2's first block take the fused wgmma route, the rest the split one.
+RESNET50_KN = [(64, 64, False), (64, 256, False), (256, 64, False),
+               (64, 256, True), (256, 128, False), (256, 512, False),
+               (512, 128, False), (128, 512, True), (512, 256, False),
+               (512, 1024, False), (1024, 256, False), (256, 1024, True),
+               (1024, 512, False), (1024, 2048, False), (2048, 512, False),
+               (512, 2048, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,prologue", RESNET50_KN)
+def test_cuda_conv_bn_bwd_wgmma_routes_each_cotangent(k, n, prologue):
+    """The wgmma backward at every ResNet-50 (K, N) at a reduced M (461
+    rows: 7 tiles of 64 and a ragged one), bf16: each cotangent alone
+    (scaled so that its term of dy_eff is as large as dy's) and the three
+    together against the plain version (1e-2 of the largest value: bf16
+    outputs after f32 sums in another order), two runs bit-equal, one
+    launch counted on the route bwd_plan names and none on another."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from horovod_tpu_torch.ops import conv_bn as cb
+    m = 461
+    x, w, inv, shift, dy, ds1, ds2 = _conv_case(m, k, n, prologue,
+                                                torch.bfloat16, seed=k + n)
+    route = cb.bwd_plan(m, k, n, torch.bfloat16, prologue).route
+    assert route == ("fused" if (k, n) in ((64, 64), (64, 256), (256, 64),
+                                           (256, 128)) else "split")
+    y = cb.conv_bn_fwd(x, w, inv, shift)[0]
+    zdy, zn = torch.zeros_like(dy), torch.zeros_like(ds1)
+    cots = {"dy": (dy, zn, zn), "ds1": (zdy, ds1 * 100.0, zn),
+            "ds2": (zdy, zn, ds2 * 500.0), "all": (dy, ds1, ds2)}
+    for cot, args in cots.items():
+        cb.reset_launches()
+        got = cb.conv_bn_bwd(x, w, inv, shift, y, *args)
+        torch.cuda.synchronize()
+        assert cb.BWD_ROUTES == {r: int(r == route) for r in cb.BWD_ROUTES}
+        want = cb.conv1x1_bn_bwd_plain(x, w, inv, shift, y, *args)
+        for a, ref, what in zip(got, want, "dx dw dinv dshift".split()):
+            if ref is None:
+                assert a is None, what
+                continue
+            assert a.dtype == ref.dtype and a.shape == ref.shape, what
+            _assert_rel_close(a.float(), ref.float(), 1e-2, f"{cot} {what}")
+    again = cb.conv_bn_bwd(x, w, inv, shift, y, dy, ds1, ds2)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert a is None or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,prologue,route", [
+    (461, 72, 40, True, "fused"),      # K, N multiples of 8, not of 64
+    (461, 8, 8, False, "fused"),
+    (1, 64, 64, True, "fused"),        # one row
+    (5000, 64, 256, True, "fused"),    # many tiles a block
+    (130, 520, 200, True, "split"),    # ragged boxes in every slice
+    (147, 130, 70, True, "mma"),       # K, N not multiples of 8
+])
+def test_cuda_conv_bn_bwd_routes_at_edges(m, k, n, prologue, route):
+    """Ragged shapes on each route, bf16, against the plain version (the
+    three cotangents together, 1e-2 of the largest value)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from horovod_tpu_torch.ops import conv_bn as cb
+    x, w, inv, shift, dy, ds1, ds2 = _conv_case(m, k, n, prologue,
+                                                torch.bfloat16, seed=m)
+    assert cb.bwd_plan(m, k, n, torch.bfloat16, prologue).route == route
+    y = cb.conv_bn_fwd(x, w, inv, shift)[0]
+    cb.reset_launches()
+    got = cb.conv_bn_bwd(x, w, inv, shift, y, dy, ds1, ds2)
+    torch.cuda.synchronize()
+    assert cb.BWD_ROUTES[route] == 1 and sum(cb.BWD_ROUTES.values()) == 1
+    want = cb.conv1x1_bn_bwd_plain(x, w, inv, shift, y, dy, ds1, ds2)
+    for a, ref, what in zip(got, want, "dx dw dinv dshift".split()):
+        if ref is not None:
+            _assert_rel_close(a.float(), ref.float(), 1e-2, what)
+
+
 @pytest.mark.cuda
 def test_cuda_resnet_train_step_matches_cpu():
     """A small f32 fused ResNet trained by data_parallel_train_step and
@@ -606,6 +687,31 @@ def test_cuda_stream_copy_bit_equal(dtype, shape, rows_per_cta):
     bits = torch.int16 if dtype == torch.bfloat16 else (
         torch.int32 if dtype == torch.float32 else torch.uint8)
     assert torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["bulk", "registers"])
+@pytest.mark.parametrize("shape,rows_per_cta", [
+    ((16384, 1024), 1), ((16384, 1024), 4), ((16384, 1024), 16),
+    ((16384, 1024), 64),              # the probe's tiles (bf16 rows)
+    ((300, 40000), 1),                # 80,000-byte chunks: 2.44 stages
+    ((4097, 1000), 5),                # 10,000-byte chunks, ragged last
+])
+def test_cuda_stream_copy_variants_bit_equal(variant, shape, rows_per_cta):
+    """Both variants of the stream copy equal out.copy_(x) bit for bit at
+    every tile of the probe's sweep and at chunks that are no multiple of
+    the bulk variant's 32 KiB stage."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from horovod_tpu_torch.ops import stream_copy as sc
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
+    want = sc.stream_copy_plain(x, torch.empty_like(x))
+    sc.reset_launches()
+    got = sc.stream_copy(x, rows_per_cta=rows_per_cta, variant=variant)
+    torch.cuda.synchronize()
+    assert sc.LAUNCHES["stream_copy"] == 1
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
 @pytest.mark.cuda

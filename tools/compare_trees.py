@@ -3,18 +3,27 @@
 
     git archive <parent> | tar -x -C build/parent   # on the host, first
     python3 tools/compare_trees.py build/parent      # on the card
+    python3 tools/compare_trees.py build/parent --phases conv,resnet,copy
 
 Runs, in the order parent, change, change, parent (the change is the
 checkout this script sits in), one fresh process per tree with that
 tree as its working directory and first import path, so each imports
 and builds its own ``horovod_tpu_torch``. Every tree is measured by the
-change's ``chip_smoke.py``, one yardstick for both: the paged-decode
-kernel at its timed geometry (KVH 16 and 4, ``check_kernel``) and the
-flash kernels at the flagship's training shape (``check_flash``), each
-held against its plain version first; then ``serve_flagship`` and
-``train_flagship`` (``serve:``, ``decode profile:``, ``train:`` and
-``train profile:`` lines). Each tree prints a ``KERNELS {...}`` line.
-Needs one NVIDIA GPU.
+change's ``chip_smoke.py``, one yardstick for both, in the phases asked
+for (all by default):
+  - ``flash``: the paged-decode kernel at its timed geometry (KVH 16 and
+    4, ``check_kernel``) and the flash kernels at the flagship's training
+    shape (``check_flash``), each held against its plain version first;
+  - ``serve``, ``train``: ``serve_flagship`` and ``train_flagship``
+    (``serve:``, ``decode profile:``, ``train:``, ``train profile:``);
+  - ``conv``: both conv+BN kernels at every distinct 1x1 conv of
+    ResNet-50, held to their plain versions, the backward timed at all 16
+    and summed over a step's 36 launches, the forward at three
+    (``check_conv_all``);
+  - ``resnet``: ``train_resnet50`` (``resnet train:`` and ``resnet train
+    profile:``, the device and wall step);
+  - ``copy``: the stream copy at the probe's shape (``check_stream_copy``).
+Each tree prints a ``KERNELS {...}`` line. Needs one NVIDIA GPU.
 """
 
 import importlib.util
@@ -26,7 +35,10 @@ import sys
 CHANGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def run_tree(tree: str) -> None:
+PHASES = ("flash", "serve", "train", "conv", "resnet", "copy")
+
+
+def run_tree(tree: str, phases) -> None:
     os.chdir(tree)
     sys.path.insert(0, tree)
     import torch
@@ -36,7 +48,9 @@ def run_tree(tree: str) -> None:
     spec.loader.exec_module(cs)
     import horovod_tpu_torch as htt
     from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops import conv_bn as cb
     from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import stream_copy as sc
     from horovod_tpu_torch.parallel import sequence as sq
     from horovod_tpu_torch.serving import kv_cache as kvc
 
@@ -47,25 +61,47 @@ def run_tree(tree: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     res = {"tree": os.path.basename(tree), "card": card}
-    for kvh in (16, 4):
-        r = cs.check_kernel(fa, kvc, gen, kvh=kvh, dtype=torch.bfloat16,
-                            timed=True)
-        res[f"paged_kvh{kvh}"] = {k: r[k] for k in (
-            "ms", "event_ms", "bound_ms", "library_ms")}
-    r = cs.check_flash(fa, sq, gen, b=cs.TRAIN_B, s_q=cs.TRAIN_S,
-                       s_k=cs.TRAIN_S, h=16, d=64, dtype=torch.bfloat16,
-                       timed=True)
-    res["flash"] = {"ms": r["ms"], "library_fwd_ms": r["library_fwd_ms"],
-                    "library_bwd_ms": r["library_bwd_ms"]}
+    if "flash" in phases:
+        for kvh in (16, 4):
+            r = cs.check_kernel(fa, kvc, gen, kvh=kvh, dtype=torch.bfloat16,
+                                timed=True)
+            res[f"paged_kvh{kvh}"] = {k: r[k] for k in (
+                "ms", "event_ms", "bound_ms", "library_ms")}
+        r = cs.check_flash(fa, sq, gen, b=cs.TRAIN_B, s_q=cs.TRAIN_S,
+                           s_k=cs.TRAIN_S, h=16, d=64, dtype=torch.bfloat16,
+                           timed=True)
+        res["flash"] = {"ms": r["ms"], "library_fwd_ms": r["library_fwd_ms"],
+                        "library_bwd_ms": r["library_bwd_ms"]}
+    if "conv" in phases:
+        timed, _ = cs.check_conv_all(cb, gen)
+        res["conv_main"] = {k: timed["main"][k] for k in (
+            "route", "ms", "plain_ms", "gemm_ms", "bounds")}
+        res["conv_bwd_step"] = timed["bwd_step"]
+        res["conv_bwd_ms"] = {sh["shape"]: sh["ms"]
+                              for sh in timed["bwd_shapes"]}
+    if "copy" in phases:
+        r = cs.check_stream_copy(sc, gen)
+        res["stream_copy"] = {k: r.get(k) for k in (
+            "ms", "library_ms", "bound_ms", "variant_ms")}
     cs.log("KERNELS " + json.dumps(res))
-    cs.serve_flagship(htt, fa, kvc, card)
-    cs.train_flagship(htt, fa, card)
+    if "serve" in phases:
+        cs.serve_flagship(htt, fa, kvc, card)
+    if "train" in phases:
+        cs.train_flagship(htt, fa, card)
+    if "resnet" in phases:
+        cs.train_resnet50(htt, cb, card)
     cs.log("DONE", tree)
 
 
 def main(argv) -> int:
+    phases = ",".join(PHASES)
+    if len(argv) >= 2 and argv[-2] == "--phases":
+        phases, argv = argv[-1], argv[:-2]
+    if any(p not in PHASES for p in phases.split(",")):
+        print(__doc__, file=sys.stderr)
+        return 2
     if len(argv) == 2 and argv[0] == "--tree":
-        run_tree(os.path.abspath(argv[1]))
+        run_tree(os.path.abspath(argv[1]), phases.split(","))
         return 0
     if len(argv) != 1:
         print(__doc__, file=sys.stderr)
@@ -73,7 +109,7 @@ def main(argv) -> int:
     parent = os.path.abspath(argv[0])
     for tree in (parent, CHANGE, CHANGE, parent):
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--tree", tree])
+                            "--tree", tree, "--phases", phases])
         if r.returncode:
             return r.returncode
     return 0
