@@ -649,11 +649,13 @@ def check_conv_all(cb, gen):
     held to its plain version and bitwise repeatable, the backward timed at
     all 16 and the forward at three; a ``conv_bn_bwd over a ResNet-50
     step`` line sums each shape's time and bound times its launches a step
-    (36 in all). Then an f32 ragged case (3x7x7 rows, 130 -> 70, prologue)
-    and 32 -> 576. Returns the timed cases (the forward's under "main",
-    "stage3", "stage4"; every shape's backward under "bwd_shapes"), the
-    step sums, and for each output its largest absolute error and largest
-    share of its limit over all cases."""
+    (36 in all). Then an f32 ragged case (3x7x7 rows, 130 -> 70, prologue),
+    32 -> 576 in f32 and bf16, and bf16 461 rows of 72 -> 40 with the
+    prologue (the fused route off the 64-wide boxes). Returns the timed
+    cases (the forward's under "main", "stage3", "stage4"; every shape's
+    backward under "bwd_shapes"), the step sums, and for each output its
+    largest absolute error and largest share of its limit over all
+    cases."""
     fwd_tags = {(1, "conv3"): "main", (3, "conv1"): "stage3",
                 (4, "projection"): "stage4"}
     timed, errs, shapes = {}, [], []
@@ -718,75 +720,62 @@ PROBE_ROWS, PROBE_COLS = 131072, 1024    # bench.py's bf16 probe array
 
 def check_stream_copy(sc, gen):
     """The stream-copy kernel against its plain version (out.copy_(x)) bit
-    for bit, in each of its variants: at the probe's shape at every tile
-    of the probe's sweep, at ragged shapes and tiles, at chunks that are
-    not a multiple of the bulk variant's shared-memory stage, and on views
-    1..15 bytes off a 16-byte boundary; then each variant's time at the
-    probe's shape beside its bound, the plain version's and ``copy_``'s
-    (CUDA events, one process, interleaved)."""
+    for bit: at the probe's shape at every tile of the probe's sweep, at
+    ragged shapes and tiles, at chunks of 80,000 and 5,000 bytes, and on
+    views 1..15 bytes off a 16-byte boundary; then its time at the probe's
+    shape beside its bound, the plain version's and ``copy_``'s (CUDA
+    events; kernel and ``copy_`` twice, interleaved)."""
     dev = torch.device("cuda")
-    variants = list(getattr(sc, "VARIANTS", [None]))
-
-    def copy(x, out=None, tile=None, var=None):
-        kw = {} if var is None else {"variant": var}
-        return sc.stream_copy(x, out, rows_per_cta=tile, **kw)
-
     cases = [((PROBE_ROWS, PROBE_COLS), torch.bfloat16, t)
              for t in (None, 1, 4, 16, 64)]
     cases += [((1000, 37), torch.uint8, 3), ((777, 129), torch.float32, 64),
-              ((3, 5, 7), torch.bfloat16, 1), ((300, 40000), torch.uint8, 1),
+              ((3, 5, 7), torch.bfloat16, 1), ((300, 40000), torch.uint8, 2),
               ((4097, 1000), torch.uint8, 5)]
     err = 0.0
-    for var in variants:
-        for shape, dtype, tile in cases:
-            x = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
-                              generator=gen)
-            if dtype != torch.uint8:
-                x = torch.randn(shape, device=dev, generator=gen).to(dtype)
-            got = copy(x, tile=tile, var=var)
-            want = sc.stream_copy_plain(x, torch.empty_like(x))
-            torch.cuda.synchronize()
-            err = max(err, float((got.float() - want.float()).abs().max()))
-            if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
-                raise AssertionError(f"stream_copy {var} {shape} {dtype} "
-                                     f"rows/CTA {tile}: differs from its "
-                                     f"plain version")
-        base = torch.randint(0, 256, (1 << 18,), dtype=torch.uint8,
-                             device=dev, generator=gen)
-        for so, do in ((1, 1), (3, 7), (0, 8), (16, 5), (5, 0)):
-            dst = torch.zeros(1 << 18, dtype=torch.uint8, device=dev)
-            xs = base[so:so + 100000].view(1000, 100)
-            copy(xs, dst[do:do + 100000].view(1000, 100), tile=7, var=var)
-            torch.cuda.synchronize()
-            if not (torch.equal(dst[do:do + 100000], base[so:so + 100000])
-                    and not dst[:do].any() and not dst[do + 100000:].any()):
-                raise AssertionError(f"stream_copy {var} misaligned ({so}, "
-                                     f"{do}) differs from its plain version")
+    for shape, dtype, tile in cases:
+        x = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                          generator=gen)
+        if dtype != torch.uint8:
+            x = torch.randn(shape, device=dev, generator=gen).to(dtype)
+        got = sc.stream_copy(x, rows_per_cta=tile)
+        want = sc.stream_copy_plain(x, torch.empty_like(x))
+        torch.cuda.synchronize()
+        err = max(err, float((got.float() - want.float()).abs().max()))
+        if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
+            raise AssertionError(f"stream_copy {shape} {dtype} rows/CTA "
+                                 f"{tile}: differs from its plain version")
+    base = torch.randint(0, 256, (1 << 18,), dtype=torch.uint8, device=dev,
+                         generator=gen)
+    for so, do in ((1, 1), (3, 7), (0, 8), (16, 5)):
+        dst = torch.zeros(1 << 18, dtype=torch.uint8, device=dev)
+        xs = base[so:so + 100000].view(1000, 100)
+        sc.stream_copy(xs, dst[do:do + 100000].view(1000, 100),
+                       rows_per_cta=7)
+        torch.cuda.synchronize()
+        if not (torch.equal(dst[do:do + 100000], base[so:so + 100000])
+                and not dst[:do].any() and not dst[do + 100000:].any()):
+            raise AssertionError(f"stream_copy misaligned ({so}, {do}) "
+                                 f"differs from its plain version")
     log(f"stream_copy: bit-equal to its plain version over "
-        f"{len(variants) * (len(cases) + 5)} cases ({len(variants)} "
-        f"variants; probe shape at every tile, ragged, misaligned)")
+        f"{len(cases) + 4} cases (probe shape at every tile, ragged, "
+        f"misaligned)")
     x = torch.randn((PROBE_ROWS, PROBE_COLS), device=dev, generator=gen
                     ).to(torch.bfloat16)
     y = torch.empty_like(x)
     nbytes = 2 * x.numel() * x.element_size()
-    lib_ms, var_ms = [], {}
+    kernel_ms, lib_ms = [], []
     for _ in range(2):
+        kernel_ms.append(cuda_ms(lambda i: sc.stream_copy(x, y), 20))
         lib_ms.append(cuda_ms(lambda i: y.copy_(x), 20))
-        for var in variants:
-            var_ms.setdefault(str(var), []).append(
-                cuda_ms(lambda i: copy(x, y, var=var), 20))
-    default = str(getattr(sc, "DEFAULT_VARIANT", None))
-    res = {"max_abs_err": err, "ms": min(var_ms[default]),
+    res = {"max_abs_err": err, "ms": min(kernel_ms),
            "plain_ms": cuda_ms(lambda i: sc.stream_copy_plain(x, y), 20),
            "library_ms": min(lib_ms),
-           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-           "variant_ms": {v: min(t) for v, t in var_ms.items()}}
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
     log(f"stream_copy bf16 [{PROBE_ROWS}, {PROBE_COLS}]: kernel "
-        f"{res['ms']:.4f} ms ({default}), bound {res['bound_ms']:.4f} ms, "
-        f"plain {res['plain_ms']:.4f} ms, copy_ {res['library_ms']:.4f} ms; "
-        f"every variant, then copy_, twice: " + json.dumps(
-            {**{v: [round(t, 4) for t in ts] for v, ts in var_ms.items()},
-             "copy_": [round(t, 4) for t in lib_ms]}))
+        f"{res['ms']:.4f} ms, bound {res['bound_ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms, copy_ {res['library_ms']:.4f} ms "
+        f"(kernel, copy_ twice: {[round(t, 4) for t in kernel_ms]}, "
+        f"{[round(t, 4) for t in lib_ms]})")
     return res
 
 
@@ -1805,7 +1794,7 @@ def main(argv) -> int:
         "replaces": "bench.py:815", "launches": copy_launches,
         **{k_: copy_case[k_] for k_ in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by",
-                                        "library_ms", "variant_ms")}})
+                                        "library_ms")}})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,7 @@
 // Hopper (sm_90a) building blocks: mbarriers, TMA tile loads through
 // tensor maps, shared-memory matrix descriptors and warpgroup matrix
 // products (wgmma), as PTX, and the pieces the flash kernels' tensor-core
-// routes share. Used by flash_fwd.cu, flash_bwd.cu, conv_bn_bwd.cu and
-// stream_copy.cu.
+// routes share. Used by flash_fwd.cu, flash_bwd.cu and conv_bn_bwd.cu.
 //
 // Conventions:
 //   - operand tiles are 64 rows of 64 bf16 (128 bytes a row) that TMA
@@ -174,32 +173,12 @@ __device__ __forceinline__ int warpgroup_uniform() {
 }
 
 // Makes this thread's generic-proxy writes to shared memory visible to the
-// async proxy (wgmma operand reads, TMA and bulk copies) that follows.
+// async proxy (wgmma operand reads, TMA) that follows.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Bulk copies of contiguous bytes (16-byte aligned addresses, sizes a
-// multiple of 16): global -> shared counted on `bar`, shared -> global in
-// bulk groups.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_store(void* dst, const void* src,
-                                           uint32_t bytes) {
-  asm volatile(
-      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
-          dst),
-      "r"(smem_u32(src)), "r"(bytes)
-      : "memory");
-}
-
+// Closes this thread's bulk group (its TMA stores so far).
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -210,11 +189,6 @@ template <int kPending>
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kPending)
                : "memory");
-}
-
-// Waits until every bulk group of this thread has completed.
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,

@@ -9,44 +9,34 @@
 // Bound: bytes, and nothing else. Every byte is read once and written once
 // with no arithmetic: 2 x 256 MiB at the probe's shape (bf16 [131072,
 // 1024]) over 3.35 TB/s is 0.160 ms. What the design does about it:
-//   - a persistent grid (a few blocks per SM) walks the copy in chunks of
-//     `rows_per_cta` whole rows, one contiguous byte range each: block b
-//     takes chunks b, b + grid, ...; so a chunk is the unit a block moves
-//     per step of its loop, as the TPU sweep's row block was;
-//   - bytes are always in flight. Two variants:
-//       bulk (variant 0): one thread of each block streams the chunks'
-//         16-byte-aligned bodies through a ring of shared-memory stages
-//         with bulk asynchronous copies (cp.async.bulk global -> shared on
-//         an mbarrier, shared -> global in bulk groups): a stage is
-//         reloaded as soon as its store has read it, so loads run
-//         stages - 1 pieces ahead of the stores and no register holds
-//         the data;
-//       registers (variant 1): 512 threads a block move 16-byte vectors,
-//         four each, and issue the next batch's loads before the current
-//         batch's stores, across chunk boundaries. Loads are non-coherent
-//         with a 256-byte L2 fetch and stores skip L1: of the flavours
-//         measured (plain, __ldg, the evict-first hints __ldcs/__stcs of
-//         PR 4's kernel, others) the fastest (PERF.md);
+//   - a persistent grid (at most kBlocksPerSm blocks an SM) walks the copy
+//     in chunks of `rows_per_cta` whole rows, one contiguous byte range
+//     each: block b takes chunks b, b + grid, ...; a chunk is the unit a
+//     block moves per step of its loop, as the TPU sweep's row block was;
+//   - bytes are always in flight: the threads of a block (enough for four
+//     16-byte vectors each of a chunk, 32 to 512) move the vectors and
+//     issue the next batch's loads before the current batch's stores,
+//     across chunk boundaries. Loads are
+//     non-coherent with a 256-byte L2 fetch and stores skip L1: of the
+//     flavours measured (plain, __ldg, the evict-first hints __ldcs/__stcs
+//     of PR 4's kernel, others) the fastest. A second design, one thread a
+//     block streaming cp.async.bulk copies through a ring of shared
+//     memory, measured slower at every tile and was dropped (PERF.md);
 //   - a range whose source and destination share their offset modulo 16
 //     copies a scalar head up to the first 16-byte boundary and a scalar
-//     tail; where they differ the whole copy goes byte by byte (no bulk
-//     copy or vector can serve it).
+//     tail; where they differ the whole copy goes byte by byte (no vector
+//     can serve it).
 // The TPU's "parallel"/"arbitrary" grid semantics have no meaning on
 // Hopper: CTAs always run in parallel, in no order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "sm90_common.cuh"
-
 namespace {
 
-using namespace hvd_sm90;
-
-constexpr int kMaxBulkStages = 8;
-constexpr int kBulkThreads = 128;
-constexpr int kRegUnroll = 4;
-constexpr int kRegThreads = 512;
+constexpr int kUnroll = 4;
+constexpr int kThreads = 512;
+constexpr int kBlocksPerSm = 64;
 
 struct Chunk {
   long long start, len;  // bytes of chunk c
@@ -68,104 +58,21 @@ __device__ __forceinline__ long long head_of(const unsigned char* src,
   return h < len ? h : len;
 }
 
-// The scalar head and tail of every chunk of this block, spread over
-// threads tid = 0 .. nt - 1.
+// The scalar head and tail of every chunk of this block.
 __device__ __forceinline__ void copy_edges(const unsigned char* src,
                                            unsigned char* dst,
                                            long long total,
                                            long long cta_bytes,
-                                           long long n_chunks, int tid,
-                                           int nt) {
+                                           long long n_chunks) {
   for (long long c = blockIdx.x; c < n_chunks; c += gridDim.x) {
     const Chunk ch = chunk_of(c, total, cta_bytes);
     const long long head = head_of(src, ch.start, ch.len);
     const long long body_end = head + (ch.len - head) / 16 * 16;
-    for (long long i = tid; i < head; i += nt)
+    for (long long i = threadIdx.x; i < head; i += blockDim.x)
       dst[ch.start + i] = src[ch.start + i];
-    for (long long i = body_end + tid; i < ch.len; i += nt)
+    for (long long i = body_end + threadIdx.x; i < ch.len; i += blockDim.x)
       dst[ch.start + i] = src[ch.start + i];
   }
-}
-
-
-// The pieces of this block's chunk bodies, in order: piece (c, off) is
-// bytes [off, off + bytes) of chunk c's body, bytes <= piece.
-struct PieceIter {
-  const unsigned char* src;
-  long long total, cta_bytes, n_chunks, piece;
-  long long c, off, body_end, base;
-  __device__ void seek_chunk() {
-    for (; c < n_chunks; c += gridDim.x) {
-      const Chunk ch = chunk_of(c, total, cta_bytes);
-      const long long head = head_of(src, ch.start, ch.len);
-      base = ch.start;
-      off = head;
-      body_end = head + (ch.len - head) / 16 * 16;
-      if (off < body_end) return;
-    }
-  }
-  __device__ bool valid() const { return c < n_chunks; }
-  __device__ long long at() const { return base + off; }
-  __device__ uint32_t bytes() const {
-    return (uint32_t)min(piece, body_end - off);
-  }
-  __device__ void next() {
-    off += piece;
-    if (off >= body_end) {
-      c += gridDim.x;
-      seek_chunk();
-    }
-  }
-};
-
-__global__ void __launch_bounds__(kBulkThreads)
-bulk_copy_kernel(const unsigned char* __restrict__ src,
-                 unsigned char* __restrict__ dst, long long total,
-                 long long cta_bytes, long long n_chunks, int stages,
-                 int piece) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* ring = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + (size_t)stages * piece);
-  if (threadIdx.x != 0) {
-    copy_edges(src, dst, total, cta_bytes, n_chunks, threadIdx.x - 1,
-               blockDim.x - 1);
-    return;
-  }
-  // Thread 0 streams the bodies: piece i goes through stage i % stages.
-  for (int i = 0; i < stages; ++i) mbar_init(&full[i], 1);
-  mbar_fence_init();
-  PieceIter load{src, total, cta_bytes, n_chunks, piece,
-                 (long long)blockIdx.x, 0, 0, 0};
-  load.seek_chunk();
-  long long at[kMaxBulkStages];
-  uint32_t len[kMaxBulkStages];
-  int issued = 0;
-  for (; issued < stages && load.valid(); ++issued, load.next()) {
-    at[issued] = load.at();
-    len[issued] = load.bytes();
-    mbar_arrive_expect_tx(&full[issued], len[issued]);
-    bulk_load(ring + (size_t)issued * piece, src + at[issued], len[issued],
-              &full[issued]);
-  }
-  for (int i = 0; i < issued; ++i) {
-    const int st = i % stages;
-    mbar_wait(&full[st], (i / stages) & 1);
-    bulk_store(dst + at[st], ring + (size_t)st * piece, len[st]);
-    bulk_commit();
-    // Refill the stage of piece i - 1 once its store has read it.
-    if (i >= 1 && load.valid()) {
-      bulk_wait_read<1>();
-      const int rs = (i - 1) % stages;
-      at[rs] = load.at();
-      len[rs] = load.bytes();
-      mbar_arrive_expect_tx(&full[rs], len[rs]);
-      bulk_load(ring + (size_t)rs * piece, src + at[rs], len[rs], &full[rs]);
-      ++issued;
-      load.next();
-    }
-  }
-  bulk_wait_all();
 }
 
 // 16 bytes from the source, read-only for the kernel (source and
@@ -188,10 +95,9 @@ __device__ __forceinline__ void st_stream(uint4* p, uint4 v) {
       : "memory");
 }
 
-// Registers: thread t of the block moves vectors t, t + nt, ... of each
-// chunk body in batches of kRegUnroll per thread; the loads of the next
-// batch (possibly of the next chunk) are issued before the stores of the
-// current one.
+// Thread t of the block moves vectors t, t + nt, ... of each chunk body in
+// batches of kUnroll per thread; the loads of the next batch (possibly of
+// the next chunk) are issued before the stores of the current one.
 struct VecPos {
   long long c, v, nvec;
   const uint4* s4;
@@ -214,17 +120,17 @@ __device__ __forceinline__ bool vec_seek(VecPos& p, const unsigned char* src,
   return false;
 }
 
-__global__ void __launch_bounds__(kRegThreads)
-reg_copy_kernel(const unsigned char* __restrict__ src,
+__global__ void __launch_bounds__(kThreads)
+stream_copy_kernel(const unsigned char* __restrict__ src,
                 unsigned char* __restrict__ dst, long long total,
                 long long cta_bytes, long long n_chunks) {
-  copy_edges(src, dst, total, cta_bytes, n_chunks, threadIdx.x, blockDim.x);
-  const long long step = (long long)kRegUnroll * blockDim.x;
+  copy_edges(src, dst, total, cta_bytes, n_chunks);
+  const long long step = (long long)kUnroll * blockDim.x;
   VecPos cur{(long long)blockIdx.x, 0, 0, nullptr, nullptr};
   bool ok = vec_seek(cur, src, dst, total, cta_bytes, n_chunks);
-  uint4 r[kRegUnroll];
+  uint4 r[kUnroll];
 #pragma unroll
-  for (int u = 0; u < kRegUnroll; ++u) {
+  for (int u = 0; u < kUnroll; ++u) {
     const long long j = cur.v + threadIdx.x + (long long)u * blockDim.x;
     if (ok && j < cur.nvec) r[u] = ld_stream(cur.s4 + j);
   }
@@ -236,19 +142,19 @@ reg_copy_kernel(const unsigned char* __restrict__ src,
       nxt.c += gridDim.x;
       ok2 = vec_seek(nxt, src, dst, total, cta_bytes, n_chunks);
     }
-    uint4 rn[kRegUnroll];
+    uint4 rn[kUnroll];
 #pragma unroll
-    for (int u = 0; u < kRegUnroll; ++u) {
+    for (int u = 0; u < kUnroll; ++u) {
       const long long j = nxt.v + threadIdx.x + (long long)u * blockDim.x;
       if (ok2 && j < nxt.nvec) rn[u] = ld_stream(nxt.s4 + j);
     }
 #pragma unroll
-    for (int u = 0; u < kRegUnroll; ++u) {
+    for (int u = 0; u < kUnroll; ++u) {
       const long long j = cur.v + threadIdx.x + (long long)u * blockDim.x;
       if (j < cur.nvec) st_stream(cur.d4 + j, r[u]);
     }
 #pragma unroll
-    for (int u = 0; u < kRegUnroll; ++u) r[u] = rn[u];
+    for (int u = 0; u < kUnroll; ++u) r[u] = rn[u];
     cur = nxt;
     ok = ok2;
   }
@@ -281,44 +187,31 @@ int sm_count() {
 }  // namespace
 
 // src, dst: [rows, row_bytes] bytes each, not overlapping. Each block
-// copies chunks of rows_per_cta rows per step of its loop. variant: 0 =
-// bulk asynchronous copies through `stages` shared-memory stages of
-// `piece` bytes (a multiple of 16), 1 = registers; blocks_per_sm: the
-// persistent grid (at most one block per chunk). Returns
+// copies chunks of rows_per_cta rows per step of its loop. Returns
 // cudaGetLastError() after the launch (0 on success).
 extern "C" int hvd_stream_copy(const void* src, void* dst, long long rows,
                                long long row_bytes, int rows_per_cta,
-                               int variant, int blocks_per_sm, int stages,
-                               int piece, void* stream) {
-  if (rows <= 0 || row_bytes <= 0 || rows_per_cta <= 0 || !src || !dst ||
-      variant < 0 || variant > 1 || blocks_per_sm <= 0 ||
-      blocks_per_sm > 64 ||
-      (variant == 0 && (stages < 2 || stages > kMaxBulkStages ||
-                        piece < 16 || piece % 16 ||
-                        (long long)stages * piece > 200 * 1024)))
+                               void* stream) {
+  if (rows <= 0 || row_bytes <= 0 || rows_per_cta <= 0 || !src || !dst)
     return (int)cudaErrorInvalidValue;
   const long long n_chunks = (rows + rows_per_cta - 1) / rows_per_cta;
   const long long cta_bytes = (long long)rows_per_cta * row_bytes;
-  const long long total = rows * row_bytes;
-  const long long grid_max = (long long)blocks_per_sm * sm_count();
+  const long long grid_max = (long long)kBlocksPerSm * sm_count();
   const unsigned grid = (unsigned)(n_chunks < grid_max ? n_chunks : grid_max);
+  // enough threads for kUnroll vectors each, a warp at least
+  const long long vec_threads = (cta_bytes / 16 + kUnroll - 1) / kUnroll;
+  int threads = (int)((vec_threads + 31) / 32 * 32);
+  threads = threads < 32 ? 32 : (threads > kThreads ? kThreads : threads);
   const unsigned char* s = static_cast<const unsigned char*>(src);
   unsigned char* d = static_cast<unsigned char*>(dst);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (((reinterpret_cast<uintptr_t>(src) ^ reinterpret_cast<uintptr_t>(dst)) &
        15) != 0)
-    byte_copy_kernel<<<grid, 256, 0, st>>>(s, d, total, cta_bytes, n_chunks);
-  else if (variant == 0) {
-    const size_t smem = (size_t)stages * piece + 128 + 8 * kMaxBulkStages;
-    const cudaError_t e = cudaFuncSetAttribute(
-        bulk_copy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    bulk_copy_kernel<<<grid, kBulkThreads, smem, st>>>(
-        s, d, total, cta_bytes, n_chunks, stages, piece);
-  } else
-    reg_copy_kernel<<<grid, kRegThreads, 0, st>>>(s, d, total, cta_bytes,
-                                                  n_chunks);
+    byte_copy_kernel<<<grid, 256, 0, st>>>(s, d, rows * row_bytes, cta_bytes,
+                                           n_chunks);
+  else
+    stream_copy_kernel<<<grid, threads, 0, st>>>(s, d, rows * row_bytes,
+                                                 cta_bytes, n_chunks);
   return (int)cudaGetLastError();
 }
 

@@ -48,7 +48,7 @@ SIGNATURES = {
         "hvd_flash_bwd_dkv": [_P] * 8 + [_I] * 7 + [_F, _I, _I, _P]},
     "conv_bn_fwd": {"hvd_conv_bn_fwd": [_P] * 8 + [_I] * 5 + [_P]},
     "conv_bn_bwd": {"hvd_conv_bn_bwd": [_P] * 14 + [_I] * 10 + [_P]},
-    "stream_copy": {"hvd_stream_copy": [_P, _P, _LL, _LL] + [_I] * 5 + [_P]},
+    "stream_copy": {"hvd_stream_copy": [_P, _P, _LL, _LL, _I, _P]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

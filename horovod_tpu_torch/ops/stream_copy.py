@@ -9,10 +9,7 @@ framework's own elementwise pass. The bucket epilogue of the gradient sync
 :func:`stream_copy` launches ``csrc/stream_copy.cu`` on CUDA tensors and
 takes its plain version, :func:`stream_copy_plain` (``out.copy_(x)``),
 only for CPU tensors. ``LAUNCHES`` counts one launch per kernel call, so a
-run can show that its main path went through the kernel. The kernel has
-two variants (``VARIANTS``): bulk asynchronous copies through shared
-memory, and a register loop that issues the next loads before the current
-stores; ``DEFAULT_VARIANT`` is the faster on an H100 (PERF.md).
+run can show that its main path went through the kernel.
 """
 
 from __future__ import annotations
@@ -29,14 +26,6 @@ LAUNCHES: Dict[str, int] = {"stream_copy": 0}
 # Bytes each CTA moves per step of its loop when the caller does not choose
 # its tile.
 DEFAULT_CTA_BYTES = 32 * 1024
-# variant -> (the kernel's variant code, blocks per SM of its persistent
-# grid, shared-memory stages and bytes a stage): "bulk" streams through a
-# ring of 3 x 32 KiB in 2 blocks an SM, "registers" runs blocks of 512
-# threads, up to 64 an SM (at the probe's default tile, one chunk each).
-# The settings and the default are the fastest of a sweep on an H100
-# (PERF.md).
-VARIANTS = {"bulk": (0, 2, 3, 32768), "registers": (1, 64, 0, 0)}
-DEFAULT_VARIANT = "registers"
 
 
 def reset_launches() -> None:
@@ -55,18 +44,14 @@ def _rows(x: torch.Tensor):
 
 
 def stream_copy(x: torch.Tensor, out: Optional[torch.Tensor] = None,
-                rows_per_cta: Optional[int] = None,
-                variant: str = DEFAULT_VARIANT) -> torch.Tensor:
+                rows_per_cta: Optional[int] = None) -> torch.Tensor:
     """``out = x`` (a new tensor when ``out`` is None), byte for byte.
 
     ``x`` and ``out`` must be contiguous, of one shape, dtype and device,
-    and must not overlap. On CUDA tensors the kernel (``variant``, one of
-    ``VARIANTS``) copies ``rows_per_cta`` rows of ``x`` per step of each
-    CTA's loop (default: ~32 KiB of rows) or the call raises; on CPU
-    tensors the plain version runs."""
-    if variant not in VARIANTS:
-        raise ValueError(f"stream_copy: variant must be one of "
-                         f"{sorted(VARIANTS)}, got {variant!r}")
+    and must not overlap. On CUDA tensors the kernel copies
+    ``rows_per_cta`` rows of ``x`` per step of each CTA's loop (default:
+    ~32 KiB of rows) or the call raises; on CPU tensors the plain version
+    runs."""
     if not x.is_contiguous():
         raise ValueError("stream_copy: x must be contiguous")
     if out is None:
@@ -91,25 +76,21 @@ def stream_copy(x: torch.Tensor, out: Optional[torch.Tensor] = None,
     if rows_per_cta < 1:
         raise ValueError("stream_copy: rows_per_cta must be >= 1")
     launch("stream_copy", "hvd_stream_copy", x.device, x.data_ptr(),
-           out.data_ptr(), rows, row_bytes, int(rows_per_cta),
-           *VARIANTS[variant])
+           out.data_ptr(), rows, row_bytes, int(rows_per_cta))
     LAUNCHES["stream_copy"] += 1
     return out
 
 
 def bandwidth_probe(device="cuda", rows: int = 131072, cols: int = 1024,
                     n_it: int = 8,
-                    tiles: Sequence[int] = (1, 4, 16, 64),
-                    variants: Sequence[str] = tuple(VARIANTS)) -> List[dict]:
+                    tiles: Sequence[int] = (1, 4, 16, 64)) -> List[dict]:
     """``bench.py --pallas-bandwidth`` on the card: a bf16 ``[rows, cols]``
     array of ones (256 MiB at the default, far beyond the L2), ``n_it``
     chained passes timed by CUDA events (no closing reduction timed), for
     torch's elementwise pass ``v * (v[0, 0] * 0.001 + 1)`` (a data-dependent
     scalar, as in bench.py), ``copy_``, and the stream-copy kernel at each
-    ``tiles`` rows per CTA, in each of ``variants``, ping-ponging between
-    two buffers. Each row: ms per pass and GB/s, counting the bytes read
-    plus the bytes written. The default variant's rows are named
-    ``stream_copy_rows<t>``, another's ``stream_copy_<variant>_rows<t>``.
+    ``tiles`` rows per CTA, ping-ponging between two buffers. Each row:
+    ms per pass and GB/s, counting the bytes read plus the bytes written.
     Needs a card: a CPU device raises."""
     dev = resolve_device(device)
     if dev.type != "cuda":
@@ -125,15 +106,11 @@ def bandwidth_probe(device="cuda", rows: int = 131072, cols: int = 1024,
     def copy_(v, w):
         return w.copy_(v)
 
-    def kernel(tile, variant):
-        return lambda v, w: stream_copy(v, w, rows_per_cta=tile,
-                                        variant=variant)
+    def kernel(tile):
+        return lambda v, w: stream_copy(v, w, rows_per_cta=tile)
 
     arms = [("torch_elementwise", elementwise), ("torch_copy_", copy_)]
-    for var in variants:
-        tag = "" if var == DEFAULT_VARIANT else f"{var}_"
-        arms += [(f"stream_copy_{tag}rows{t}", kernel(t, var))
-                 for t in tiles]
+    arms += [(f"stream_copy_rows{t}", kernel(t)) for t in tiles]
     out = []
     for name, fn in arms:
         def chain():

@@ -667,6 +667,10 @@ def test_cuda_resnet_train_step_matches_cpu():
     ((777, 129), 64),                 # ragged last CTA
     ((3, 5, 7), 1),
     ((1,), 1),
+    ((16384, 1024), 1), ((16384, 1024), 4),   # the probe's tiles, more
+    ((16384, 1024), 16), ((16384, 1024), 64),  # chunks than blocks
+    ((300, 10000), 2),                # chunks of 20,000 to 80,000 bytes,
+    ((4097, 1000), 5),                # ragged last chunk
 ])
 def test_cuda_stream_copy_bit_equal(dtype, shape, rows_per_cta):
     """The stream-copy kernel equals its plain version (out.copy_(x)) bit
@@ -687,31 +691,6 @@ def test_cuda_stream_copy_bit_equal(dtype, shape, rows_per_cta):
     bits = torch.int16 if dtype == torch.bfloat16 else (
         torch.int32 if dtype == torch.float32 else torch.uint8)
     assert torch.equal(got.view(bits), want.view(bits))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("variant", ["bulk", "registers"])
-@pytest.mark.parametrize("shape,rows_per_cta", [
-    ((16384, 1024), 1), ((16384, 1024), 4), ((16384, 1024), 16),
-    ((16384, 1024), 64),              # the probe's tiles (bf16 rows)
-    ((300, 40000), 1),                # 80,000-byte chunks: 2.44 stages
-    ((4097, 1000), 5),                # 10,000-byte chunks, ragged last
-])
-def test_cuda_stream_copy_variants_bit_equal(variant, shape, rows_per_cta):
-    """Both variants of the stream copy equal out.copy_(x) bit for bit at
-    every tile of the probe's sweep and at chunks that are no multiple of
-    the bulk variant's 32 KiB stage."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU")
-    from horovod_tpu_torch.ops import stream_copy as sc
-    g = torch.Generator(device="cuda").manual_seed(9)
-    x = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
-    want = sc.stream_copy_plain(x, torch.empty_like(x))
-    sc.reset_launches()
-    got = sc.stream_copy(x, rows_per_cta=rows_per_cta, variant=variant)
-    torch.cuda.synchronize()
-    assert sc.LAUNCHES["stream_copy"] == 1
-    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
 @pytest.mark.cuda
