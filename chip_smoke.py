@@ -22,8 +22,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    ``backward`` line with the same for each backward kernel and the
    pair),
    then the conv+BN forward and backward kernels at every distinct 1x1
-   conv of ResNet-50 at 128 images (three of them timed beside the cuBLAS
-   GEMM alone; plus f32 ragged and wide cases), then the stream copy bit
+   conv of ResNet-50 at 128 images (each timed beside the cuBLAS GEMMs
+   alone and summed over a ResNet-50 step; plus f32 ragged and wide
+   cases and bf16 ragged ones), then the stream copy bit
    for bit at bench.py's probe shape (bf16 [131072, 1024]), ragged and
    misaligned; then the stream copy's own path, the bandwidth probe
    (``bandwidth:`` line: ms and GB/s of torch's elementwise pass, copy_
@@ -538,14 +539,19 @@ def conv_bounds(m, k, n, dtype):
     return out
 
 
+def fwd_route(cb, m, k, n, dtype, prologue) -> str:
+    """The forward's route for a shape (a tree without routes: "mma")."""
+    plan = getattr(cb, "fwd_plan", None)
+    return plan(m, k, n, dtype, prologue).route if plan else "mma"
+
+
 def bwd_route(cb, m, k, n, dtype, prologue) -> str:
     """The backward's route for a shape (a tree without routes: "mma")."""
     plan = getattr(cb, "bwd_plan", None)
     return plan(m, k, n, dtype, prologue).route if plan else "mma"
 
 
-def check_conv(cb, gen, m, k, n, prologue, dtype, tag, timed=False,
-               time_fwd=False):
+def check_conv(cb, gen, m, k, n, prologue, dtype, tag, timed=False):
     """Both conv+BN kernels against their plain versions on the same
     inputs; each output's error against CONV_REL_TOL times its largest
     reference value (at least 1). bf16: y, dx and dw are stored in bf16
@@ -555,9 +561,12 @@ def check_conv(cb, gen, m, k, n, prologue, dtype, tag, timed=False,
     that their terms of dy_eff are as large as dy's) and then on the three
     together at training's scales. Returns {"max_abs_err": {output: (largest
     absolute error, largest share of its limit)}, "route": the backward's
-    route}; when ``timed`` also the backward's time, its plain version's,
-    the cuBLAS GEMMs' and the bounds, after checking that two runs give the
-    same bits (no float atomics), and the forward's with ``time_fwd``."""
+    route, "fwd_route": the forward's}; when ``timed`` also both kernels'
+    times by CUDA events, their plain versions', the cuBLAS GEMMs' and the
+    bounds, and the forward's device ms a call by torch.profiler (its
+    kernels alone: at the small shapes back-to-back calls by events read
+    the host's time a call), after checking that two runs give the same
+    bits (no float atomics)."""
     dev = torch.device("cuda")
     x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
     w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(dtype)
@@ -602,10 +611,11 @@ def check_conv(cb, gen, m, k, n, prologue, dtype, tag, timed=False,
                 cb.conv1x1_bn_bwd_plain(x, w, inv, shift, y, *args),
                 "dx dw dinv dshift")
     route = bwd_route(cb, m, k, n, dtype, prologue)
-    res = {"max_abs_err": errs, "route": route}
+    froute = fwd_route(cb, m, k, n, dtype, prologue)
+    res = {"max_abs_err": errs, "route": route, "fwd_route": froute}
     log(f"conv_bn {tag} M={m} {k}->{n} {str(dtype)[6:]}"
-        f"{' prologue' if prologue else ''} (backward: {route}): "
-        f"max_abs_err (share of limit) "
+        f"{' prologue' if prologue else ''} (forward: {froute}, backward: "
+        f"{route}): max_abs_err (share of limit) "
         + json.dumps({nm: f"{e:.3e} ({share:.3f})"
                       for nm, (e, share) in errs.items()}))
     if not timed:
@@ -614,10 +624,10 @@ def check_conv(cb, gen, m, k, n, prologue, dtype, tag, timed=False,
     # bwd is the last of the loop, all three cotangents
     fwd2 = cb.conv_bn_fwd(x, w, inv, shift)
     bwd2 = cb.conv_bn_bwd(x, w, inv, shift, y, dy, ds1, ds2)
-    for a, b in zip(fwd[1:] + bwd, fwd2[1:] + bwd2):
+    for a, b in zip(fwd + bwd, fwd2 + bwd2):
         if a is not None and not torch.equal(a, b):
             raise AssertionError(f"{tag}: two runs differ")
-    names = ("conv_bn_fwd", "conv_bn_bwd") if time_fwd else ("conv_bn_bwd",)
+    names = ("conv_bn_fwd", "conv_bn_bwd")
     kernel = {"conv_bn_fwd": lambda i: cb.conv_bn_fwd(x, w, inv, shift),
               "conv_bn_bwd": lambda i: cb.conv_bn_bwd(
                   x, w, inv, shift, y, dy, ds1, ds2)}
@@ -632,11 +642,13 @@ def check_conv(cb, gen, m, k, n, prologue, dtype, tag, timed=False,
     res["ms"] = {nm: cuda_ms(kernel[nm], 20) for nm in names}
     res["plain_ms"] = {nm: cuda_ms(plain[nm], 5) for nm in names}
     res["gemm_ms"] = {nm: cuda_ms(gemm[nm], 20) for nm in names}
-    res["bounds"] = {nm: b for nm, b in conv_bounds(m, k, n, dtype).items()
-                     if nm in names}
+    res["bounds"] = conv_bounds(m, k, n, dtype)
+    res["fwd_device_ms"] = call_device_ms(lambda: kernel["conv_bn_fwd"](0),
+                                          5)
     log(f"conv_bn {tag}: kernels " + json.dumps(
         {k_: round(v_, 4) for k_, v_ in res["ms"].items()})
-        + " ms; plain " + json.dumps(
+        + f" ms (forward {res['fwd_device_ms']:.4f} ms of device time)"
+        + "; plain " + json.dumps(
             {k_: round(v_, 4) for k_, v_ in res["plain_ms"].items()})
         + " ms; cuBLAS GEMM alone " + json.dumps(
             {k_: round(v_, 4) for k_, v_ in res["gemm_ms"].items()})
@@ -644,56 +656,69 @@ def check_conv(cb, gen, m, k, n, prologue, dtype, tag, timed=False,
     return res
 
 
-def check_conv_all(cb, gen):
-    """Every distinct 1x1 conv of ResNet-50 at 128 images (bf16), each
-    held to its plain version and bitwise repeatable, the backward timed at
-    all 16 and the forward at three; a ``conv_bn_bwd over a ResNet-50
-    step`` line sums each shape's time and bound times its launches a step
-    (36 in all). Then an f32 ragged case (3x7x7 rows, 130 -> 70, prologue),
-    32 -> 576 in f32 and bf16, and bf16 461 rows of 72 -> 40 with the
-    prologue (the fused route off the 64-wide boxes). Returns the timed
-    cases (the forward's under "main", "stage3", "stage4"; every shape's
-    backward under "bwd_shapes"), the step sums, and for each output its
-    largest absolute error and largest share of its limit over all
-    cases."""
-    fwd_tags = {(1, "conv3"): "main", (3, "conv1"): "stage3",
-                (4, "projection"): "stage4"}
-    timed, errs, shapes = {}, [], []
-    for stage, what, m, k, n, prologue, stride in resnet50_convs():
-        key = fwd_tags.get((stage, what))
-        tag = (f"stage {stage} {what}"
-               + (f" (stride {stride})" if stride > 1 else ""))
-        res = check_conv(cb, gen, m, k, n, prologue, torch.bfloat16, tag,
-                         timed=True, time_fwd=key is not None)
-        errs.append(res["max_abs_err"])
-        if key:
-            timed[key] = res
-        count = resnet50_conv_count(stage, what)
-        bound_ms, bound_by = res["bounds"]["conv_bn_bwd"]
-        shapes.append({"shape": tag, "m": m, "k": k, "n": n,
-                       "prologue": prologue, "route": res["route"],
-                       "launches_per_step": count,
-                       "ms": res["ms"]["conv_bn_bwd"],
-                       "bound_ms": bound_ms, "bound_by": bound_by,
-                       "cublas_gemms_ms": res["gemm_ms"]["conv_bn_bwd"]})
-    step_ms = sum(sh["ms"] * sh["launches_per_step"] for sh in shapes)
-    step_bound = sum(sh["bound_ms"] * sh["launches_per_step"]
-                     for sh in shapes)
-    launches = sum(sh["launches_per_step"] for sh in shapes)
+def conv_step(shapes, name):
+    """Log the ``<name> over a ResNet-50 step`` line: each shape's time and
+    bound times its launches a step (36 in all), launches per route, and
+    per shape ms. Returns {"ms", "bound_ms", "launches"} (and the forward's
+    "device_ms")."""
+    rows = shapes[name]
+    launches = sum(sh["launches_per_step"] for sh in rows)
     if launches != RESNET50_CONVS:
         raise AssertionError(f"{launches} conv launches a step, expected "
                              f"{RESNET50_CONVS}")
-    timed["bwd_shapes"] = shapes
-    timed["bwd_step"] = {"ms": step_ms, "bound_ms": step_bound,
-                         "launches": launches}
-    log("conv_bn_bwd over a ResNet-50 step: " + json.dumps({
-        "launches": launches, "ms": round(step_ms, 4),
-        "bound_ms": round(step_bound, 4),
-        "share_of_bound": round(step_bound / step_ms, 4),
-        "routes": {r: sum(sh["launches_per_step"] for sh in shapes
+    step = {k_: sum(sh[k_] * sh["launches_per_step"] for sh in rows)
+            for k_ in ("ms", "bound_ms", "device_ms") if k_ in rows[0]}
+    step["launches"] = launches
+    log(f"{name} over a ResNet-50 step: " + json.dumps({
+        "launches": launches,
+        **{k_: round(step[k_], 4) for k_ in ("ms", "device_ms", "bound_ms")
+           if k_ in step},
+        "share_of_bound": round(step["bound_ms"] / step["ms"], 4),
+        "routes": {r: sum(sh["launches_per_step"] for sh in rows
                           if sh["route"] == r)
-                   for r in sorted({sh["route"] for sh in shapes})},
-        "per_shape_ms": {sh["shape"]: round(sh["ms"], 4) for sh in shapes}}))
+                   for r in sorted({sh["route"] for sh in rows})},
+        "per_shape_ms": {sh["shape"]: round(sh["ms"], 4) for sh in rows}}))
+    return step
+
+
+def check_conv_all(cb, gen):
+    """Every distinct 1x1 conv of ResNet-50 at 128 images (bf16), each
+    held to its plain version and bitwise repeatable, both kernels timed at
+    all 16; a ``conv_bn_fwd over a ResNet-50 step`` and a ``conv_bn_bwd
+    over a ResNet-50 step`` line (``conv_step``). Then an f32 ragged case
+    (3x7x7 rows, 130 -> 70, prologue), 32 -> 576 in f32 and bf16, bf16 461
+    rows of 72 -> 40 with the prologue (the fused route off the 64-wide
+    boxes) and bf16 6,273 rows of 72 -> 576 with the prologue (the wgmma
+    forward off its row tiles, its K chunks and its column tiles). Returns
+    the timed cases (the stage-1 expand conv under "main"; every shape's
+    times under "fwd_shapes" and "bwd_shapes"), the step sums ("fwd_step",
+    "bwd_step"), and for each output its largest absolute error and
+    largest share of its limit over all cases."""
+    timed, errs = {}, []
+    shapes = {"conv_bn_fwd": [], "conv_bn_bwd": []}
+    for stage, what, m, k, n, prologue, stride in resnet50_convs():
+        tag = (f"stage {stage} {what}"
+               + (f" (stride {stride})" if stride > 1 else ""))
+        res = check_conv(cb, gen, m, k, n, prologue, torch.bfloat16, tag,
+                         timed=True)
+        errs.append(res["max_abs_err"])
+        if (stage, what) == (1, "conv3"):
+            timed["main"] = res
+        for name, route in (("conv_bn_fwd", res["fwd_route"]),
+                            ("conv_bn_bwd", res["route"])):
+            bound_ms, bound_by = res["bounds"][name]
+            shapes[name].append({
+                "shape": tag, "m": m, "k": k, "n": n, "prologue": prologue,
+                "route": route,
+                "launches_per_step": resnet50_conv_count(stage, what),
+                "ms": res["ms"][name], "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "cublas_gemms_ms": res["gemm_ms"][name],
+                **({"device_ms": res["fwd_device_ms"]}
+                   if name == "conv_bn_fwd" else {})})
+    for name, key in (("conv_bn_fwd", "fwd"), ("conv_bn_bwd", "bwd")):
+        timed[f"{key}_shapes"] = shapes[name]
+        timed[f"{key}_step"] = conv_step(shapes, name)
     errs.append(check_conv(cb, gen, 147, 130, 70, True, torch.float32,
                            "ragged")["max_abs_err"])
     errs.append(check_conv(cb, gen, 64, 32, 576, False, torch.float32,
@@ -702,6 +727,8 @@ def check_conv_all(cb, gen):
                            "wide")["max_abs_err"])
     errs.append(check_conv(cb, gen, 461, 72, 40, True, torch.bfloat16,
                            "ragged M, narrow")["max_abs_err"])
+    errs.append(check_conv(cb, gen, 6273, 72, 576, True, torch.bfloat16,
+                           "ragged M, K and N")["max_abs_err"])
     worst = {nm: (max(c[nm][0] for c in errs if nm in c),
                   max(c[nm][1] for c in errs if nm in c))
              for nm in dict.fromkeys(nm for c in errs for nm in c)}
@@ -1195,6 +1222,7 @@ def train_resnet50(htt, cb, card, n_steps: int = 4):
     state, info = htt.train_loop(step, state, batches[1:], on_step=on_step)
     torch.cuda.synchronize()
     launches = dict(cb.LAUNCHES)
+    fwd_routes = dict(getattr(cb, "FWD_ROUTES", {}))
     routes = dict(getattr(cb, "BWD_ROUTES", {}))
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     if info["final_step"] != n_steps + 1 or info["status"] != "completed":
@@ -1211,13 +1239,15 @@ def train_resnet50(htt, cb, card, n_steps: int = 4):
             raise AssertionError(
                 f"{name} launched {launches[name]} times over {n_steps} "
                 f"steps of {RESNET50_CONVS} 1x1 convs")
-    # every backward launch on a wgmma route (a tree without routes, as a
-    # parent measured by tools/compare_trees.py, has none to check)
-    if routes and (routes.get("mma", 0)
-                   or sum(routes.values()) != launches["conv_bn_bwd"]):
-        raise AssertionError(f"conv_bn_bwd routes {routes}: expected all "
-                             f"{launches['conv_bn_bwd']} launches on the "
-                             f"wgmma routes")
+    # every launch of both kernels on a wgmma route (a tree without
+    # routes, as a parent measured by tools/compare_trees.py, has none to
+    # check)
+    for name, rts in (("conv_bn_fwd", fwd_routes), ("conv_bn_bwd", routes)):
+        if rts and (rts.get("mma", 0)
+                    or sum(rts.values()) != launches[name]):
+            raise AssertionError(f"{name} routes {rts}: expected all "
+                                 f"{launches[name]} launches on the wgmma "
+                                 f"routes")
     step_s = np.diff([t0] + stamps)
     mean_s = float(step_s.mean())
     ips = RESNET_B / mean_s
@@ -1231,6 +1261,7 @@ def train_resnet50(htt, cb, card, n_steps: int = 4):
         "peak_memory_gb": peak_gb,
         "launches": {k_: launches[k_] for k_ in ("conv_bn_fwd",
                                                   "conv_bn_bwd")},
+        "conv_bn_fwd_routes": fwd_routes,
         "conv_bn_bwd_routes": routes,
         "sync_buckets": len(opt.buckets),
         "buckets_launched_from_hooks": sum(h for _, h in opt.launch_log),
@@ -1239,6 +1270,7 @@ def train_resnet50(htt, cb, card, n_steps: int = 4):
     profile_train_step(step, state, batches[-1], card,
                        label="resnet train profile")
     htt.shutdown()
+    launches["conv_bn_fwd_routes"] = fwd_routes
     launches["conv_bn_bwd_routes"] = routes
     return launches
 
@@ -1782,9 +1814,8 @@ def main(argv) -> int:
             "ms": main_conv["ms"][name],
             "plain_ms": main_conv["plain_ms"][name],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            **({"resnet50_step": conv_case["bwd_step"],
-                "routes": resnet_launches["conv_bn_bwd_routes"]}
-               if name == "conv_bn_bwd" else {})})
+            "resnet50_step": conv_case[f"{name[-3:]}_step"],
+            "routes": resnet_launches[f"{name}_routes"]})
     # The stream copy: its main path is the bandwidth probe; timed at the
     # probe's shape (bf16 [131072, 1024]). The plain version is
     # out.copy_(x), and copy_ alone is the library yardstick.

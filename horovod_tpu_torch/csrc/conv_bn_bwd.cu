@@ -191,34 +191,6 @@ __device__ __forceinline__ uint4 dy_eff8(uint4 dv, uint4 yv,
   return out;
 }
 
-// relu(x inv + shift) of eight consecutive columns, rounded to bf16.
-__device__ __forceinline__ uint4 relu_pre8(uint4 xv, const float* inv,
-                                           const float* shift) {
-  const float4 i0 = __ldg(reinterpret_cast<const float4*>(inv));
-  const float4 i1 = __ldg(reinterpret_cast<const float4*>(inv) + 1);
-  const float4 h0 = __ldg(reinterpret_cast<const float4*>(shift));
-  const float4 h1 = __ldg(reinterpret_cast<const float4*>(shift) + 1);
-  const float iv[8] = {i0.x, i0.y, i0.z, i0.w, i1.x, i1.y, i1.z, i1.w};
-  const float sv[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
-  const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&xv);
-  uint4 out;
-  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 xf = __bfloat1622float2(xp[i]);
-    o[i] = __floats2bfloat162_rn(
-        fmaxf(__fadd_rn(__fmul_rn(xf.x, iv[2 * i]), sv[2 * i]), 0.f),
-        fmaxf(__fadd_rn(__fmul_rn(xf.y, iv[2 * i + 1]), sv[2 * i + 1]),
-              0.f));
-  }
-  return out;
-}
-
-// Byte offset of 16-byte chunk c (8 columns) of row r in a swizzled box.
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
-}
-
 // The walk: one block's plan. Block (split, slice) walks the 64-row tiles
 // [split * tiles / splits, (split + 1) * tiles / splits) over K columns
 // [k0, k0 + 64 kts) and N columns [n0, n0 + 64 nts), slice = ks * n_slices
@@ -880,17 +852,6 @@ cudaError_t launch_walk(const CUtensorMap& tdy, const CUtensorMap& ty,
       static_cast<const float*>(ds2), static_cast<float*>(part_w),
       static_cast<float*>(part_x), p);
   return cudaGetLastError();
-}
-
-// The card's SM count: the persistent dX grid (its sums do not depend on
-// it: every partial row is one row block's).
-int sm_count() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess || n <= 0)
-    return 132;
-  return n;
 }
 
 // route 1 ("fused"): splits blocks, each a range of 64-row tiles, with the

@@ -443,4 +443,48 @@ inline cudaError_t launch_reduce(const float* part_a, TOut* out_a,
 
 inline int tiles(int n, int t) { return (n + t - 1) / t; }
 
+// The card's SM count: the grid of the persistent kernels (their sums do
+// not depend on it: every partial row is one row tile's).
+inline int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess || n <= 0)
+    return 132;
+  return n;
+}
+
+// ---------------------------------------------------------------------------
+// The wgmma routes' operand boxes: 64 rows of 64 bf16 (128 bytes a row)
+// that TMA writes with 128-byte swizzle (sm90_common.cuh).
+// ---------------------------------------------------------------------------
+
+// Byte offset of 16-byte chunk c (8 columns) of row r in a swizzled box.
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
+}
+
+// relu(x inv + shift) of eight consecutive columns, rounded to bf16.
+__device__ __forceinline__ uint4 relu_pre8(uint4 xv, const float* inv,
+                                           const float* shift) {
+  const float4 i0 = __ldg(reinterpret_cast<const float4*>(inv));
+  const float4 i1 = __ldg(reinterpret_cast<const float4*>(inv) + 1);
+  const float4 h0 = __ldg(reinterpret_cast<const float4*>(shift));
+  const float4 h1 = __ldg(reinterpret_cast<const float4*>(shift) + 1);
+  const float iv[8] = {i0.x, i0.y, i0.z, i0.w, i1.x, i1.y, i1.z, i1.w};
+  const float sv[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+  const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&xv);
+  uint4 out;
+  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 xf = __bfloat1622float2(xp[i]);
+    o[i] = __floats2bfloat162_rn(
+        fmaxf(__fadd_rn(__fmul_rn(xf.x, iv[2 * i]), sv[2 * i]), 0.f),
+        fmaxf(__fadd_rn(__fmul_rn(xf.y, iv[2 * i + 1]), sv[2 * i + 1]),
+              0.f));
+  }
+  return out;
+}
+
 }  // namespace hvd_convbn

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks: mbarriers, TMA tile loads through
 // tensor maps, shared-memory matrix descriptors and warpgroup matrix
 // products (wgmma), as PTX, and the pieces the flash kernels' tensor-core
-// routes share. Used by flash_fwd.cu, flash_bwd.cu and conv_bn_bwd.cu.
+// routes share. Used by flash_fwd.cu, flash_bwd.cu and the conv_bn kernels.
 //
 // Conventions:
 //   - operand tiles are 64 rows of 64 bf16 (128 bytes a row) that TMA
@@ -112,15 +112,25 @@ __device__ __forceinline__ uint64_t global_ns() {
   return t;
 }
 
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait();
+
 // Waits until the phase of parity `parity` has completed. A wait that
 // lasts seconds is a protocol fault (every wait here is for work inside
 // the block): it traps, so the launch fails instead of hanging the card.
+// kGmma: the warpgroup may have a wgmma group in flight here; the timeout
+// path waits for it before it traps (ptxas injects that wait otherwise and
+// notes C7517).
+template <bool kGmma = false>
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
   if (mbar_try_wait(addr, parity)) return;
   const uint64_t t0 = global_ns();
   while (!mbar_try_wait(addr, parity)) {
-    if (global_ns() - t0 > 4000000000ull) __trap();
+    if (global_ns() - t0 > 4000000000ull) {
+      if (kGmma) wgmma_wait<0>();
+      __trap();
+    }
   }
 }
 
@@ -271,6 +281,15 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
+// The same for an MN-major operand wider than 64 along MN (n128): its
+// 64-element blocks along MN are `lbo` bytes apart (LBO).
+__device__ __forceinline__ uint64_t sw128_desc_mn(const void* p,
+                                                  uint32_t lbo) {
+  const uint32_t addr = smem_u32(p);
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
 // Advance a descriptor along K by one k16 step: 32 bytes within the
 // swizzled row (K-major), or 16 rows of 128 bytes (MN-major).
 constexpr uint64_t kKMajorStep = 32 >> 4;
@@ -343,7 +362,9 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
 }
 
 // d (+)= A . B, m64n128k16, bf16 in, f32 accumulate; A and B from shared
-// memory, both K-major (B: 128 rows). scale_d = 0 overwrites d.
+// memory, A K-major, B K-major (kTransB = 0: 128 rows) or MN-major (1: two
+// 64-wide blocks, sw128_desc_mn). scale_d = 0 overwrites d.
+template <int kTransB = 0>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64],
                                               uint64_t desc_a,
                                               uint64_t desc_b, int scale_d) {
@@ -352,11 +373,11 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64],
       ".reg .pred p;\n"
       "setp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HVD_WGMMA_D64
-      ", %64, %65, p, 1, 1, 0, 0;\n"
+      ", %64, %65, p, 1, 1, 0, %67;\n"
       "}\n"
       : HVD_WGMMA_OUT32(d), HVD_WGMMA_OUT8(d, 32), HVD_WGMMA_OUT8(d, 40),
         HVD_WGMMA_OUT8(d, 48), HVD_WGMMA_OUT8(d, 56)
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
 }
 
 // d += A . B, m64n64k16, A from registers (four bf16 pairs in the layout

@@ -9,7 +9,9 @@ compute it with batch norm folded in:
 - ``conv_bn_fwd`` launches ``csrc/conv_bn_fwd.cu`` (for ``_fwd_kernel``):
   ``Y = relu(X inv + shift) . W`` with the optional normalize+ReLU
   prologue, and the per-channel ``sum(Y)`` and ``sum(Y^2)`` of the stored
-  Y from the epilogue;
+  Y from the epilogue, on the route :func:`fwd_plan` picks before the
+  launch: ``wgmma`` (bf16, K and N multiples of 8: a persistent wgmma GEMM
+  fed by TMA) or ``mma`` (f32 and the rest: PR 3's mma.sync/FMA GEMM);
 - ``conv_bn_bwd`` launches ``csrc/conv_bn_bwd.cu`` (for ``_bwd_kernel``):
   dX, dW, d_inv and d_shift from the cotangents of all three outputs, on
   the route :func:`bwd_plan` picks before the launch: ``fused`` (bf16, K
@@ -26,8 +28,8 @@ tensors, and nothing else does. A CUDA tensor the kernels' gate
 (:func:`supports`) refuses raises; it never goes to the plain version.
 
 ``LAUNCHES`` counts one launch per call of each wrapper, so a run can show
-that its main path went through the kernels; ``BWD_ROUTES`` counts the
-backward's launches per route.
+that its main path went through the kernels; ``FWD_ROUTES`` and
+``BWD_ROUTES`` count each one's launches per route.
 """
 
 from __future__ import annotations
@@ -40,11 +42,13 @@ import torch
 from horovod_tpu_torch.ops._build import DTYPE_CODE, check_cuda, launch
 
 LAUNCHES: Dict[str, int] = {"conv_bn_fwd": 0, "conv_bn_bwd": 0}
+FWD_ROUTES: Dict[str, int] = {"wgmma": 0, "mma": 0}
 BWD_ROUTES: Dict[str, int] = {"fused": 0, "split": 0, "mma": 0}
+_FWD_ROUTE_CODE = {"mma": 0, "wgmma": 1}
 _ROUTE_CODE = {"mma": 0, "fused": 1, "split": 2}
 
-# Row tile of the kernels (kBM in csrc/conv_bn_common.cuh): one partial row
-# of column sums per tile of 128 rows.
+# Row tile of PR 3's kernels, the mma routes (kBM in csrc/conv_bn_common.cuh):
+# one partial row of column sums per tile of 128 rows.
 _ROW_TILE = 128
 # The dW product splits M so that K x N tiles times splits fill about two
 # waves of an H100's 132 SMs. A constant, not the card's count: the split
@@ -65,6 +69,16 @@ _WALK_WGS = 4
 _SPLIT_BOXES, _SPLIT_NTS, _SPLIT_BLOCKS = 8, 4, 132
 
 
+class FwdPlan(NamedTuple):
+    """How :func:`conv_bn_fwd` runs a shape: the route, the output tile
+    (``tile_m`` x ``tile_n``) and the rows of the s1/s2 partials, one per
+    row tile."""
+    route: str
+    tile_m: int
+    tile_n: int
+    part_rows: int
+
+
 class BwdPlan(NamedTuple):
     """How :func:`conv_bn_bwd` runs a shape: the route, the number of dW
     partials (``splits``), the walk's slice in 64-wide boxes (``kts`` x
@@ -79,7 +93,7 @@ class BwdPlan(NamedTuple):
 
 
 def reset_launches() -> None:
-    for d in (LAUNCHES, BWD_ROUTES):
+    for d in (LAUNCHES, FWD_ROUTES, BWD_ROUTES):
         for k in d:
             d[k] = 0
 
@@ -108,6 +122,23 @@ def _walk_stages(kts: int, nts: int, prologue: bool, with_w: bool) -> int:
     once = (kts * nts + kts) * _BOX_BYTES if with_w else 0
     free = _SMEM - _SMEM_FIXED - once
     return min(_MAX_STAGES, free // stage)
+
+
+def fwd_plan(m: int, k: int, n: int, dtype: torch.dtype,
+             prologue: bool) -> FwdPlan:
+    """The forward's route for ``[m, k] x [k, n]`` in ``dtype``, decided
+    from the shape alone (never from the card, never by catching a
+    failure): ``wgmma`` for bf16 with K and N multiples of 8 (16-byte TMA
+    strides), its tile as wide as N up to 256 columns (128 x 256, 256 x
+    128 or 256 x 64: four warpgroups of 64 rows), so that x is read and
+    normalized once where N fits one tile; ``mma`` for f32 and ragged
+    bf16. The prologue runs on either route and does not change the
+    plan."""
+    if dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0:
+        tile_n = 64 if n <= 64 else 128 if n <= 128 else 256
+        tile_m = 128 if tile_n == 256 else 256
+        return FwdPlan("wgmma", tile_m, tile_n, math.ceil(m / tile_m))
+    return FwdPlan("mma", _ROW_TILE, _ROW_TILE, math.ceil(m / _ROW_TILE))
 
 
 def bwd_plan(m: int, k: int, n: int, dtype: torch.dtype,
@@ -172,16 +203,20 @@ def conv_bn_fwd(x: torch.Tensor, w: torch.Tensor,
     _gate("conv_bn_fwd", x, w)
     m, k = x.shape
     n = w.shape[1]
-    wt = w.t().contiguous()
+    plan = fwd_plan(m, k, n, x.dtype, inv is not None)
+    # the wgmma route reads W as it is; PR 3's kernel takes W^T
+    wk = w if plan.route == "wgmma" else w.t().contiguous()
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     s1, s2 = torch.empty(n, **f32), torch.empty(n, **f32)
-    part = torch.empty((2, math.ceil(m / _ROW_TILE), n), **f32)
+    part = torch.empty((2, plan.part_rows, n), **f32)
     launch("conv_bn_fwd", "hvd_conv_bn_fwd", x.device, x.data_ptr(),
-           wt.data_ptr(), *_prologue_ptrs(inv, shift), y.data_ptr(),
+           wk.data_ptr(), *_prologue_ptrs(inv, shift), y.data_ptr(),
            s1.data_ptr(), s2.data_ptr(), part.data_ptr(), m, k, n,
-           int(inv is not None), DTYPE_CODE[x.dtype])
+           int(inv is not None), _FWD_ROUTE_CODE[plan.route], plan.tile_n,
+           DTYPE_CODE[x.dtype])
     LAUNCHES["conv_bn_fwd"] += 1
+    FWD_ROUTES[plan.route] += 1
     return y, s1, s2
 
 

@@ -197,11 +197,40 @@ RESNET50_1X1 = [
 ]
 
 
-@pytest.mark.parametrize("k,c,prologue,stride,images", [
-    (k, c, p, s, (2, 5, 5)) for k, c, p, s in RESNET50_1X1] + [
-    (64, 256, True, 1, (3, 7, 7)), (130, 72, True, 2, (3, 7, 7))],
+RESNET50_CASES = dict(
+    argvalues=[(k, c, p, s, (2, 5, 5)) for k, c, p, s in RESNET50_1X1] + [
+        (64, 256, True, 1, (3, 7, 7)), (130, 72, True, 2, (3, 7, 7))],
     ids=[f"{k}x{c}{'p' if p else ''}s{s}" for k, c, p, s in RESNET50_1X1]
     + ["64x256p_m147", "130x72p_s2_m48"])
+
+
+@pytest.mark.parametrize("k,c,prologue,stride,images", **RESNET50_CASES)
+def test_plain_forward_matches_jax_kernel_at_resnet50_shapes(
+        k, c, prologue, stride, images):
+    """``conv1x1_bn_stats`` on the CPU (the CUDA forward's spec, its plain
+    version) against the Pallas forward kernel, interpreted, at every
+    distinct (K, N, prologue, stride) of ResNet-50's 1x1 convs at 2 x 5 x
+    5 images (M = 50, or 18 after the stride); the last two at 3 x 7 x 7
+    (M = 147, or 48 after the stride: off every 64- and 128-row tile, so
+    the sums must skip the rows the kernel pads). Y_TOL, S1_TOL, S2_TOL:
+    f32 sums in other orders."""
+    n, h, w = images
+    x, wt, inv, shift = _inputs(5, n, h, w, k, c, prologue)
+    jy, js1, js2 = jconv_bn.conv1x1_bn_stats(
+        _j(x), _j(wt), _j(inv), _j(shift), strides=(stride, stride),
+        interpret=True)
+    y, s1, s2 = conv_bn.conv1x1_bn_stats(_t(x), _t(wt), _t(inv), _t(shift),
+                                         strides=(stride, stride))
+    assert y.shape == jy.shape == (n, -(-h // stride), -(-w // stride), c)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **Y_TOL,
+                               err_msg="y")
+    np.testing.assert_allclose(s1.numpy(), np.asarray(js1), **S1_TOL,
+                               err_msg="s1")
+    np.testing.assert_allclose(s2.numpy(), np.asarray(js2), **S2_TOL,
+                               err_msg="s2")
+
+
+@pytest.mark.parametrize("k,c,prologue,stride,images", **RESNET50_CASES)
 def test_plain_backward_matches_jax_kernel_at_resnet50_shapes(
         k, c, prologue, stride, images):
     """``conv1x1_bn_bwd_plain`` (the CUDA backward's spec) against the
@@ -337,3 +366,76 @@ def test_bwd_plan_routes_ragged_and_f32_shapes(m, k, n, dtype, prologue,
     if route == "mma":
         assert plan.splits == conv_bn._dw_splits(m, k, n)
         assert plan.part_x_rows == -(-m // 128)
+
+
+# ---------------------------------------------------------------------------
+# the forward's routing
+# ---------------------------------------------------------------------------
+
+def test_fwd_plan_routes_every_resnet50_shape_to_wgmma():
+    """The forward's plan at every distinct ResNet-50 1x1 conv (bf16, 128
+    images): the wgmma route, its tile as wide as N up to 256 columns (so
+    that where N fits one tile x is read once), four warpgroups of 64 rows,
+    and one s1/s2 partial row per row tile."""
+    for k, c, prologue, stride in RESNET50_1X1:
+        m = RESNET50_ROWS[(k, c)]
+        plan = conv_bn.fwd_plan(m, k, c, torch.bfloat16, prologue)
+        assert plan.route == "wgmma", (k, c)
+        assert plan.tile_n == min(256, max(64, c)), (k, c)
+        assert plan.tile_m == (128 if plan.tile_n == 256 else 256)
+        assert plan.part_rows == -(-m // plan.tile_m)
+
+
+def test_fwd_plan_depends_on_the_shape_only(monkeypatch):
+    """The forward's plan (and so the number and order of its partial sums,
+    and the bits of s1 and s2) never asks the card: with every query of the
+    CUDA runtime failing it gives the same plans."""
+    shapes = [(401408, 64, 256, True), (401408, 256, 64, False),
+              (100352, 256, 128, False), (6272, 1024, 2048, False),
+              (147, 130, 70, True)]
+    before = [conv_bn.fwd_plan(m, k, n, dt, p) for m, k, n, p in shapes
+              for dt in (torch.bfloat16, torch.float32)]
+
+    def no_card(*args, **kw):
+        raise AssertionError("the plan asked the card")
+
+    for name in ("get_device_properties", "device_count", "is_available",
+                 "current_device"):
+        monkeypatch.setattr(torch.cuda, name, no_card)
+    after = [conv_bn.fwd_plan(m, k, n, dt, p) for m, k, n, p in shapes
+             for dt in (torch.bfloat16, torch.float32)]
+    assert after == before
+
+
+@pytest.mark.parametrize("m,k,n,dtype,prologue,route,tile_n", [
+    (147, 130, 70, torch.bfloat16, True, "mma", 128),    # K, N not % 8
+    (461, 72, 44, torch.bfloat16, False, "mma", 128),    # N % 8 != 0
+    (461, 36, 64, torch.bfloat16, True, "mma", 128),     # K % 8 != 0
+    (401408, 64, 256, torch.float32, True, "mma", 128),  # f32: FMAs
+    (461, 72, 40, torch.bfloat16, True, "wgmma", 64),    # K, N % 8 == 0
+    (461, 64, 72, torch.bfloat16, False, "wgmma", 128),
+    (6273, 72, 576, torch.bfloat16, True, "wgmma", 256),
+])
+def test_fwd_plan_routes_ragged_and_f32_shapes(m, k, n, dtype, prologue,
+                                               route, tile_n):
+    """Ragged bf16 (K or N not a multiple of 8: TMA needs 16-byte strides)
+    and every f32 shape stay on PR 3's mma route with one partial row per
+    128 rows; bf16 with K and N multiples of 8 takes the wgmma route at any
+    M, K and N."""
+    plan = conv_bn.fwd_plan(m, k, n, dtype, prologue)
+    assert (plan.route, plan.tile_n) == (route, tile_n)
+    assert plan.part_rows == -(-m // plan.tile_m)
+    if route == "mma":
+        assert (plan.tile_m, plan.part_rows) == (128, -(-m // 128))
+
+
+def test_forward_routes_count_nothing_on_the_cpu():
+    """On the CPU the op takes the plain forward: no launch and no route is
+    counted, and reset_launches zeroes the forward's routes too."""
+    conv_bn.FWD_ROUTES["wgmma"] += 3
+    conv_bn.reset_launches()
+    x = torch.randn(2, 4, 4, 16, dtype=torch.bfloat16)
+    conv_bn.conv1x1_bn_stats(x, torch.randn(16, 64), torch.ones(16),
+                             torch.zeros(16))
+    assert conv_bn.FWD_ROUTES == {"wgmma": 0, "mma": 0}
+    assert conv_bn.LAUNCHES == {"conv_bn_fwd": 0, "conv_bn_bwd": 0}

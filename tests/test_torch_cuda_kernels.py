@@ -616,6 +616,98 @@ def test_cuda_conv_bn_bwd_routes_at_edges(m, k, n, prologue, route):
             _assert_rel_close(a.float(), ref.float(), 1e-2, what)
 
 
+def _check_fwd(cb, x, w, inv, shift, what):
+    """The forward on the card against its plain version (1e-2 of each
+    output's largest value: y rounded once to bf16 after f32 sums in
+    another order, s1 and s2 f32 sums in another order); two runs
+    bit-equal."""
+    got = cb.conv_bn_fwd(x, w, inv, shift)
+    again = cb.conv_bn_fwd(x, w, inv, shift)
+    torch.cuda.synchronize()
+    want = cb.conv1x1_bn_stats_plain(x, w, inv, shift)
+    for a, ref, nm in zip(got, want, ("y", "s1", "s2")):
+        assert a.dtype == ref.dtype and a.shape == ref.shape, f"{what} {nm}"
+        assert bool(torch.isfinite(a).all()), f"{what} {nm}"
+        _assert_rel_close(a.float(), ref.float(), 1e-2, f"{what} {nm}")
+    for a, b in zip(got, again):
+        assert torch.equal(a, b), f"{what}: two runs differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,prologue", RESNET50_KN)
+def test_cuda_conv_bn_fwd_wgmma_route_at_resnet50_shapes(k, n, prologue):
+    """The wgmma forward at every ResNet-50 (K, N) at a reduced M (461
+    rows: off the 128- and 256-row tiles), bf16, against the plain
+    version, two runs bit-equal, one launch counted on the wgmma route and
+    none on the mma route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from horovod_tpu_torch.ops import conv_bn as cb
+    m = 461
+    x, w, inv, shift, *_ = _conv_case(m, k, n, prologue, torch.bfloat16,
+                                      seed=k + n)
+    assert cb.fwd_plan(m, k, n, torch.bfloat16, prologue).route == "wgmma"
+    cb.reset_launches()
+    cb.conv_bn_fwd(x, w, inv, shift)
+    torch.cuda.synchronize()
+    assert cb.FWD_ROUTES == {"wgmma": 1, "mma": 0}
+    assert cb.LAUNCHES["conv_bn_fwd"] == 1
+    _check_fwd(cb, x, w, inv, shift, f"{k}->{n}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,prologue", [
+    (461, 64, 256, True),      # M off the 128-row tile: masked-row sums
+    (6273, 64, 256, True),     # the same over many tiles a block
+    (6273, 128, 128, True),    # 256 x 128 tiles, M off them
+    (6273, 64, 64, True),      # 256 x 64 tiles, M off them
+    (461, 72, 256, True),      # K off the 64-wide box: guarded columns
+    (461, 72, 40, True),       # N = 40: one partial box of W and of y
+    (461, 64, 72, False),      # N = 72: 128-wide tile, 56 columns past N
+    (461, 64, 576, True),      # N = 576: a last tile 64 of 256 wide
+    (461, 512, 2048, True),    # N = 2048: 8 column tiles
+    (461, 2048, 512, False),   # K = 2048: 32 K chunks a tile
+    (1, 64, 64, True),         # one row
+    (461, 8, 8, False),        # one box narrower than 16 bytes a row
+])
+def test_cuda_conv_bn_fwd_wgmma_route_at_edges(m, k, n, prologue):
+    """Ragged shapes on the wgmma forward against the plain version, two
+    runs bit-equal. With the prologue the rows past M that TMA fills with
+    zeros would be relu(shift) . W: the sums must count them zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from horovod_tpu_torch.ops import conv_bn as cb
+    x, w, inv, shift, *_ = _conv_case(m, k, n, prologue, torch.bfloat16,
+                                      seed=m + k + n)
+    assert cb.fwd_plan(m, k, n, torch.bfloat16, prologue).route == "wgmma"
+    if prologue:
+        shift = shift.abs() + 0.5    # relu(shift) . W far from zero
+    _check_fwd(cb, x, w, inv, shift, f"M={m} {k}->{n}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,dtype", [(147, 130, 70, torch.bfloat16),
+                                         (461, 64, 256, torch.float32)])
+def test_cuda_conv_bn_fwd_mma_route_counts(m, k, n, dtype):
+    """Ragged bf16 and f32 shapes take PR 3's mma forward, counted on its
+    route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from horovod_tpu_torch.ops import conv_bn as cb
+    x, w, inv, shift, *_ = _conv_case(m, k, n, True, dtype, seed=m)
+    cb.reset_launches()
+    got = cb.conv_bn_fwd(x, w, inv, shift)
+    torch.cuda.synchronize()
+    assert cb.FWD_ROUTES == {"wgmma": 0, "mma": 1}
+    want = cb.conv1x1_bn_stats_plain(x, w, inv, shift)
+    rel = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    for a, ref, nm in zip(got, want, ("y", "s1", "s2")):
+        _assert_rel_close(a.float(), ref.float(), rel, nm)
+
+
 @pytest.mark.cuda
 def test_cuda_resnet_train_step_matches_cpu():
     """A small f32 fused ResNet trained by data_parallel_train_step and

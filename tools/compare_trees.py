@@ -17,9 +17,9 @@ for (all by default):
   - ``serve``, ``train``: ``serve_flagship`` and ``train_flagship``
     (``serve:``, ``decode profile:``, ``train:``, ``train profile:``);
   - ``conv``: both conv+BN kernels at every distinct 1x1 conv of
-    ResNet-50, held to their plain versions, the backward timed at all 16
-    and summed over a step's 36 launches, the forward at three
-    (``check_conv_all``);
+    ResNet-50, held to their plain versions, each timed at all 16 and
+    summed over a step's 36 launches (``check_conv_all``; the forward also
+    in device ms by torch.profiler);
   - ``resnet``: ``train_resnet50`` (``resnet train:`` and ``resnet train
     profile:``, the device and wall step);
   - ``copy``: the stream copy at the probe's shape (``check_stream_copy``).
@@ -75,10 +75,14 @@ def run_tree(tree: str, phases) -> None:
     if "conv" in phases:
         timed, _ = cs.check_conv_all(cb, gen)
         res["conv_main"] = {k: timed["main"][k] for k in (
-            "route", "ms", "plain_ms", "gemm_ms", "bounds")}
-        res["conv_bwd_step"] = timed["bwd_step"]
-        res["conv_bwd_ms"] = {sh["shape"]: sh["ms"]
-                              for sh in timed["bwd_shapes"]}
+            "fwd_route", "route", "ms", "fwd_device_ms", "plain_ms",
+            "gemm_ms", "bounds")}
+        for key in ("fwd", "bwd"):
+            res[f"conv_{key}_step"] = timed[f"{key}_step"]
+            res[f"conv_{key}_ms"] = {sh["shape"]: sh["ms"]
+                                     for sh in timed[f"{key}_shapes"]}
+        res["conv_fwd_device_ms"] = {sh["shape"]: sh["device_ms"]
+                                     for sh in timed["fwd_shapes"]}
     if "copy" in phases:
         r = cs.check_stream_copy(sc, gen)
         res["stream_copy"] = {k: r[k] for k in (
