@@ -2,7 +2,7 @@
 """Drives the PyTorch port (horovod_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py                      # one card
-    python3 chip_smoke.py --data-parallel 4    # the training step on 4 cards
+    python3 chip_smoke.py --data-parallel 4    # collectives and training on 4 cards
 
 Phases, each of which raises (and so exits non-zero) when it fails:
 
@@ -54,24 +54,45 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    every gradient leaf and the parameters after two SGD steps), a small
    f32 fused ResNet (logits, running statistics, every gradient leaf, the
    parameters after two SGD steps) and the tiny f32 fused step at
-   fp8_e4m3 with error feedback (losses, parameters, residual).
+   fp8_e4m3 with error feedback (losses, parameters, residual);
+6. collectives (world 1): every collective of ``ops.collectives`` and
+   ``ops.sparse`` (allgather, alltoall with and without splits,
+   reducescatter, ppermute, broadcast, an axis allreduce, the sparse
+   allreduce) through NCCL on CUDA tensors, then ``init(mesh_shape=(1,
+   1))`` and the hierarchical and two-level allreduce (also with the fp8
+   codec), each equal to its plain result.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the
 package, it exits non-zero and prints no result.
 
-``--data-parallel N`` runs only training across N cards of one host: one
-process per card joins an NCCL world through the launcher's environment
-(``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``,
-``LOCAL_RANK``), each on its rows of the global batch (8 sequences of the
-flagship, 128 ResNet-50 images, per card). The variants: the unfused
-flagship, ResNet-50 with the default buckets and with one bucket after
-the backward (HOROVOD_GRADIENT_BUCKET_BYTES=0), and the fused flagship at
-tier none and fp8_e4m3; the first two also on one card, first, as the
-yardstick. Each ``data parallel <variant>:`` line gives step ms,
-throughput, the scaling efficiency where there is a yardstick, and from
+``--data-parallel N`` runs only the collectives and training across N
+cards of one host: one process per card joins an NCCL world through the
+launcher's environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+``MASTER_PORT``, ``LOCAL_RANK``). First the collectives (``collective
+<name>:`` lines): allgather (even and uneven), alltoall (even and with
+splits), reducescatter (even and uneven), ppermute (a ring), broadcast on
+a process set and the sparse allreduce, each at a small odd size and at
+64 MiB (nccl-tests' sizes), every rank's result equal to plain torch on
+every rank's input (integer values, so sums are exact), with ms and bus
+bandwidth, and beside the even ones the ms of the one torch.distributed
+call they map to; then ``hierarchical_allreduce`` on (cross 2, local N/2) and
+``two_level_allreduce`` on (dcn 2, local N/2) equal to the flat allreduce
+at 25 MiB and 256 MiB, with ms beside the flat one's. Then training, each
+rank on its rows of the global batch (8 sequences of the flagship, 128
+ResNet-50 images, per card). The variants: the unfused flagship, ResNet-50
+with the default buckets and with one bucket after the backward
+(HOROVOD_GRADIENT_BUCKET_BYTES=0), the fused flagship at tier none and
+fp8_e4m3, and the fused flagship through the two-level tier
+(HOROVOD_DCN_VIRTUAL_SLICES=2, HOROVOD_DCN_SCHEDULE=two_level) at tier
+none and fp8_e4m3 with error feedback; the first two also on one card,
+first, as the yardstick. Each ``data parallel <variant>:`` line gives step
+ms, throughput, the scaling efficiency where there is a yardstick, from
 one profiled step the NCCL kernels' device ms and the part of it that
-overlapped compute kernels; every rank must end with the same parameters.
+overlapped compute kernels, and the schedule with its wire and DCN-stage
+bytes; every rank must end with the same parameters, a two-level variant's
+DCN stage must carry what the schedule predicts, and at tier none its
+losses must stay within FUSED_LOSS_REL_TOL of the flat variant's.
 """
 
 from __future__ import annotations
@@ -1484,6 +1505,342 @@ def fused_card_vs_cpu(htt) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the collectives: a world of one in the default run, N cards with
+# --data-parallel N
+# ---------------------------------------------------------------------------
+
+def collectives_world_one(htt, dev="cuda") -> None:
+    """Every collective of ``ops.collectives`` and ``ops.sparse`` through
+    NCCL in a world of one, on tensors of ``dev``, each against its plain
+    result exactly; then ``init(mesh_shape=(1, 1))`` with the (cross,
+    local) axes and the hierarchical and two-level allreduce at one rank
+    each (the two-level one also with the fp8 codec)."""
+    from horovod_tpu_torch.compression import WireCodec
+    from horovod_tpu_torch.ops import collectives as C
+    t0 = time.perf_counter()
+    htt.init(device=dev, mesh_shape=(1, 1),
+             axis_names=("hvd_cross", "hvd_local"))
+    try:
+        from horovod_tpu_torch.runtime import get_context
+        backend = get_context().backend
+        g = torch.Generator(device=dev).manual_seed(5)
+        x = torch.randn(7, 3, device=dev, generator=g)
+        xi = torch.randint(-9, 9, (5, 2), device=dev, generator=g,
+                           dtype=torch.int32)
+        dense, counts = htt.sparse_allreduce(
+            x[:2], torch.tensor([1, 1], device=dev), 4, average=False)
+        want_dense = torch.zeros(4, 3, device=dev)
+        want_dense[1] = x[0] + x[1]
+        codec = WireCodec("fp8_e4m3")
+        wire, scale = codec.encode(x, world=1)
+        checks = {
+            "allgather": (C.allgather(x), x),
+            "allgather_bf16": (C.allgather(x.bfloat16()), x.bfloat16()),
+            "alltoall": (C.alltoall(x), x),
+            "alltoall_splits": (C.alltoall(x, splits=[7])[0], x),
+            "reducescatter": (C.reducescatter(x, htt.Sum), x),
+            "reducescatter_int": (C.reducescatter(xi, htt.Sum), xi),
+            "reducescatter_max": (C.reducescatter(x, htt.Max), x),
+            "ppermute": (C.ppermute(x, [(0, 0)]), x),
+            "broadcast": (C.broadcast(x, 0), x),
+            "allreduce_axis_local": (C.allreduce(x, htt.Sum,
+                                                 axis="hvd_local"), x),
+            "sparse_allreduce": (dense, want_dense),
+            "sparse_counts": (counts, torch.tensor(
+                [0, 2, 0, 0], dtype=torch.int32, device=dev)),
+            "hierarchical_allreduce": (C.hierarchical_allreduce(x[:6]),
+                                       x[:6]),
+            "two_level_allreduce": (C.two_level_allreduce(
+                x, htt.Average, ici_axes=("hvd_local",),
+                dcn_axis="hvd_cross"), x),
+            "two_level_allreduce_fp8": (C.two_level_allreduce(
+                x, htt.Sum, ici_axes=("hvd_local",), dcn_axis="hvd_cross",
+                wire_codec=codec), codec.decode(wire, scale, x.dtype))}
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        bad = [name for name, (got, ref) in checks.items()
+               if got.device != ref.device or got.dtype != ref.dtype
+               or not torch.equal(got, ref)]
+    finally:
+        htt.shutdown()
+    if bad:
+        raise AssertionError(f"collectives (world 1): {bad} differ from "
+                             f"their plain results")
+    log("collectives (world 1): " + json.dumps({
+        "backend": backend, "checked_exactly": sorted(checks),
+        "seconds": round(time.perf_counter() - t0, 3)}))
+
+
+def _int_valued(gen, shape, dev, dtype=torch.float32):
+    """Integer values in [-1000, 1000), so every sum of a few ranks is
+    exact in f32 and a comparison can be exact."""
+    return torch.randint(-1000, 1000, shape, generator=gen, device=dev
+                         ).to(dtype)
+
+
+def coll_unit(big: bool, world: int) -> int:
+    """Rows a rank's share holds: 64 MiB of 1024-wide f32 rows over the
+    world, or 251 rows of 3 (a small, odd size)."""
+    return COLL_BIG_BYTES // (4 * 1024 * world) if big else 251
+
+
+def coll_splits(r, world, unit):
+    """Rank r's alltoall send counts: unequal, ``unit`` + 0, 5 or 10."""
+    return [unit + (r + d) % 3 * 5 for d in range(world)]
+
+
+def coll_case_inputs(case, r, world, big, dev):
+    """Rank r's input of one ``collective`` case, seeded by case, size and
+    rank, so that every rank can rebuild every rank's input."""
+    gen = torch.Generator(device=dev).manual_seed(
+        1000 * (COLL_CASES.index(case) + 1) + 10 * r + int(big))
+    cols, unit = (1024 if big else 3), coll_unit(big, world)
+    rows = {"allgather": unit, "allgather_uneven": unit + 37 * r,
+            "alltoall": world * unit, "reducescatter": world * unit,
+            "alltoall_splits": sum(coll_splits(r, world, unit)),
+            "reducescatter_uneven": world * unit + 3,
+            "ppermute_ring": world * unit,
+            "broadcast_process_set": world * unit}
+    if case == "sparse_allreduce":
+        nnz = unit + 11 * r
+        return (_int_valued(gen, (nnz, cols), dev),
+                torch.randint(0, 4 * unit, (nnz,), generator=gen,
+                              device=dev))
+    return _int_valued(gen, (rows[case], cols), dev)
+
+
+def coll_run(htt, case, x, r, world, unit, ps):
+    """Rank r's call of ``case`` on its input ``x``."""
+    from horovod_tpu_torch.ops import collectives as C
+    if case in ("allgather", "allgather_uneven"):
+        return C.allgather(x)
+    if case == "alltoall":
+        return C.alltoall(x)
+    if case == "alltoall_splits":
+        return C.alltoall(x, splits=coll_splits(r, world, unit))[0]
+    if case in ("reducescatter", "reducescatter_uneven"):
+        return C.reducescatter(x, htt.Sum)
+    if case == "ppermute_ring":
+        return C.ppermute(x, [(i, (i + 1) % world) for i in range(world)])
+    if case == "broadcast_process_set":
+        return C.broadcast(x, root_rank=1, process_set=ps)
+    if case == "sparse_allreduce":
+        return htt.sparse_allreduce(x[0], x[1], 4 * unit)[0]
+    raise KeyError(case)
+
+
+def coll_plain(case, xs, r, world, unit):
+    """Rank r's result of ``case`` in plain torch from every rank's
+    input."""
+    if case in ("allgather", "allgather_uneven"):
+        return torch.cat(xs)
+    if case == "alltoall":
+        return torch.cat([x.chunk(world)[r] for x in xs])
+    if case == "alltoall_splits":
+        return torch.cat([x.split(coll_splits(s, world, unit))[r]
+                          for s, x in enumerate(xs)])
+    if case in ("reducescatter", "reducescatter_uneven"):
+        total = torch.stack(xs).sum(0)
+        base, rem = divmod(total.shape[0], world)
+        return total.split([base + (1 if i < rem else 0)
+                            for i in range(world)])[r]
+    if case == "ppermute_ring":
+        return xs[(r - 1) % world]
+    if case == "broadcast_process_set":
+        return xs[1] if r in (0, 1, 2) else xs[r]
+    if case == "sparse_allreduce":
+        vals = torch.cat([v for v, _ in xs])
+        dense = vals.new_zeros((4 * unit, vals.shape[1]))
+        return dense.index_add_(0, torch.cat([i for _, i in xs]),
+                                vals) / world
+    raise KeyError(case)
+
+
+def coll_bytes(case, xs, r, world):
+    """(nccl-tests size in bytes, bus-bandwidth factor) of ``case``:
+    all-gathers count their output, reduce-scatters their input,
+    all-to-alls one rank's send buffer, the rest the tensor;
+    busbw = size / time x factor."""
+    nb = [int(x.numel() * x.element_size()) if torch.is_tensor(x)
+          else int(x[0].numel() * x[0].element_size()) for x in xs]
+    ring = (world - 1) / world
+    if case in ("allgather", "allgather_uneven", "sparse_allreduce"):
+        return sum(nb), ring
+    if case in ("alltoall", "alltoall_splits", "reducescatter",
+                "reducescatter_uneven"):
+        return nb[r], ring
+    return nb[r], 1.0
+
+
+COLL_CASES = ["allgather", "allgather_uneven", "alltoall",
+              "alltoall_splits", "reducescatter", "reducescatter_uneven",
+              "ppermute_ring", "broadcast_process_set", "sparse_allreduce"]
+COLL_BIG_BYTES = 64 << 20
+COLL_ITERS = {False: 50, True: 10}
+
+
+def coll_bare(case, x, rank, world):
+    """The one ``torch.distributed`` call an even case maps to, on the
+    default group and the same input (None for the others): what the
+    port's wrapper adds shows beside it."""
+    import torch.distributed as dist
+    if case == "allgather":
+        out = x.new_empty((world * x.shape[0],) + x.shape[1:])
+        return lambda: dist.all_gather_into_tensor(out, x)
+    if case == "alltoall":
+        out = torch.empty_like(x)
+        return lambda: dist.all_to_all_single(out, x)
+    if case == "reducescatter":
+        out = x.new_empty((x.shape[0] // world,) + x.shape[1:])
+        return lambda: dist.reduce_scatter_tensor(out, x)
+    if case == "ppermute_ring":
+        out = torch.empty_like(x)
+
+        def ring():
+            for w in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, x, (rank + 1) % world),
+                    dist.P2POp(dist.irecv, out, (rank - 1) % world)]):
+                w.wait()
+        return ring
+    return None
+
+
+def _coll_timed(fn, iters, dev):
+    """ms a call of ``fn`` over ``iters`` calls, after two untimed ones
+    (so allocator growth and lazy set-up stay out), by CUDA events."""
+    for _ in range(2):
+        fn()
+    if dev != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / iters
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def coll_rank(rank, world, port, results, device="cuda"):
+    """One rank of the collectives' N-card world. (a) every case at a
+    small ragged size and at 64 MiB against plain torch on every rank's
+    input (rebuilt from the seeds), exactly (integer values), then timed;
+    (b) ``hierarchical_allreduce`` on (cross 2, local N/2) and
+    ``two_level_allreduce`` on (dcn 2, local N/2) against the flat
+    allreduce at 25 MiB and 256 MiB, exactly, and timed. The process
+    group is made here, so each ``init`` builds its topology on it."""
+    import torch.distributed as dist
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    import horovod_tpu_torch as htt
+    from horovod_tpu_torch.ops import collectives as C
+    if device == "cuda":
+        torch.cuda.set_device(rank)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method="env://")
+    dev = device
+    try:
+        htt.init(device=device)
+        # rank 0, which reports the times, is a member; its root is rank 1
+        ps = htt.add_process_set([0, 1, 2])
+        for case in COLL_CASES:
+            line = {"world": world}
+            for big in (False, True):
+                unit = coll_unit(big, world)
+                xs = [coll_case_inputs(case, s, world, big, dev)
+                      for s in range(world)]
+                mine = xs[rank]
+                got = coll_run(htt, case, mine, rank, world, unit, ps)
+                want = coll_plain(case, xs, rank, world, unit)
+                ok = torch.tensor([float(torch.equal(got, want))],
+                                  device=dev)
+                size, factor = coll_bytes(case, xs, rank, world)
+                del got, want, xs
+                htt.barrier()
+                ms = _coll_timed(lambda: coll_run(htt, case, mine, rank,
+                                                  world, unit, ps),
+                                 COLL_ITERS[big], dev)
+                tag = "64mib" if big else "small"
+                bare = coll_bare(case, mine, rank, world)
+                if bare is not None:
+                    htt.barrier()
+                    line[f"torch_dist_ms_{tag}"] = _coll_timed(
+                        bare, COLL_ITERS[big], dev)
+                line[f"exact_{tag}"] = bool(
+                    htt.allreduce(ok, htt.Min).item() == 1.0)
+                line[f"bytes_{tag}"] = size
+                line[f"ms_{tag}"] = ms
+                line[f"busbw_gb_s_{tag}"] = size / (ms * 1e-3) * factor / 1e9
+                del mine
+            if rank == 0:
+                results.put(("collective " + case, line))
+        htt.shutdown()
+        for name, kw, fn in (
+                ("hierarchical_allreduce", {"mesh_shape": (2, world // 2)},
+                 lambda x: C.hierarchical_allreduce(x, htt.Sum)),
+                ("two_level_allreduce", {"dcn": 2},
+                 lambda x: C.two_level_allreduce(
+                     x, htt.Sum, ici_axes=("hvd_local",)))):
+            htt.init(device=device, **kw)
+            from horovod_tpu_torch.runtime import get_context
+            line = {"world": world,
+                    "mesh": get_context().topology.mesh.shape}
+            for mib in (25, 256):
+                gen = torch.Generator(device=dev).manual_seed(rank + mib)
+                x = _int_valued(gen, ((mib << 20) // 4,), dev)
+                got, flat = fn(x), htt.allreduce(x, htt.Sum)
+                ok = torch.tensor([float(torch.equal(got, flat))],
+                                  device=dev)
+                htt.barrier()
+                line[f"exact_vs_flat_{mib}mib"] = bool(
+                    htt.allreduce(ok, htt.Min).item() == 1.0)
+                line[f"ms_{mib}mib"] = _coll_timed(lambda: fn(x), 10, dev)
+                line[f"flat_ms_{mib}mib"] = _coll_timed(
+                    lambda: htt.allreduce(x, htt.Sum), 10, dev)
+                del x, got, flat
+            if rank == 0:
+                results.put(("collective " + name, line))
+            htt.shutdown()
+    finally:
+        if htt.is_initialized():
+            htt.shutdown()
+        dist.destroy_process_group()
+
+
+def collectives_n_cards(n, card, device="cuda") -> None:
+    """``coll_rank`` in ``n`` spawned processes; one ``collective
+    <name>:`` line per case, each failing the run unless exact."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = [ctx.Process(target=coll_rank, args=(r, n, port, results),
+                         kwargs={"device": device}) for r in range(n)]
+    for p in procs:
+        p.start()
+    lines = [results.get(timeout=600) for _ in range(len(COLL_CASES) + 2)]
+    for p in procs:
+        p.join(timeout=120)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"a rank of the {n}-card collectives world "
+                             f"failed: {[p.exitcode for p in procs]}")
+    for name, line in lines:
+        line["card"] = card
+        log(f"{name}: " + json.dumps(line))
+        if not all(v for k, v in line.items() if k.startswith("exact")):
+            raise AssertionError(f"{name}: a result differs from plain "
+                                 f"torch: {line}")
+
+
+# ---------------------------------------------------------------------------
 # --data-parallel N: the training step across N cards
 # ---------------------------------------------------------------------------
 
@@ -1555,6 +1912,7 @@ def dp_rank(rank, world, port, results, variants, device="cuda",
     each global batch: a warm-up step, ``n_steps`` timed steps, then one
     step under torch.profiler on rank 0 (the NCCL kernels' overlap with
     compute). Rank 0 puts each variant's numbers on ``results``."""
+    import torch.distributed as dist
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       MASTER_ADDR="localhost", MASTER_PORT=str(port),
                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
@@ -1565,11 +1923,24 @@ def dp_rank(rank, world, port, results, variants, device="cuda",
     from torch.profiler import ProfilerActivity, profile
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ctx = htt.init(device=device)
-    dev = ctx.device
+    if device == "cuda":
+        torch.cuda.set_device(rank)
+    # the process group outlives each init, so a variant with topology
+    # knobs re-inits on it
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method="env://")
+    topo = None
     for variant in variants:
         for k, v in variant.get("knobs", {}).items():
             knobs.set_override(k, v)
+        want = {k: v for k, v in variant.get("knobs", {}).items()
+                if k in TOPOLOGY_KNOBS}
+        if want != topo:
+            if htt.is_initialized():
+                htt.shutdown()
+            ctx = htt.init(device=device)
+            topo = want
+        dev = ctx.device
         state, step, batches, units, unit = dp_variant(
             htt, rank, world, dev, variant, n_steps)
         state, _ = step(state, *batches[0])                # warm-up
@@ -1594,6 +1965,9 @@ def dp_rank(rank, world, port, results, variants, device="cuda",
             state, loss = step(state, *batches[-1])
         losses.append(float(loss))
         trace = D.last_wire_trace()
+        predicted = (predicted_dcn_bytes(htt, state,
+                                         ctx.topology.local_size)
+                     if trace["schedule"] == "two_level" else 0)
         for k in variant.get("knobs", {}):
             knobs.clear_override(k)
         leaves = (list(state.params.parameters())
@@ -1616,10 +1990,16 @@ def dp_rank(rank, world, port, results, variants, device="cuda",
                 "sync_buckets": trace["n_buckets"],
                 "wire_bytes": trace["wire_bytes"],
                 "logical_bytes": trace["logical_bytes"],
+                "schedule": trace["schedule"],
+                "dcn_wire_bytes": trace["dcn_wire_bytes"],
+                "dcn_wire_bytes_predicted": predicted,
+                "mesh": ctx.topology.mesh.shape,
                 "params_equal_across_ranks": float(lo) == float(hi)})
         del state, step, batches
-        torch.cuda.empty_cache()
+        if device == "cuda":
+            torch.cuda.empty_cache()
     htt.shutdown()
+    dist.destroy_process_group()
 
 
 def run_world(world, variants, **kw):
@@ -1647,10 +2027,50 @@ def run_world(world, variants, **kw):
     return {r["variant"]: r for r in out}
 
 
+def predicted_dcn_bytes(htt, state, local: int) -> int:
+    """What the two-level schedule predicts each rank's DCN stage carries
+    over a step: per bucket and dtype, 1/local of its elements (rounded
+    up) in the wire dtype, plus a 4-byte scale on the fp8 tiers. The plan
+    is the step's own (the same knobs, leaves and sync axes)."""
+    from horovod_tpu_torch.models import transformer as tfm
+    cfg = flagship_cfg(htt.TransformerConfig, mlp_recompute=True,
+                       dp_axis="dp")
+    da = htt.distributed_apply(htt.EpilogueSGD(0.01, momentum=0.9),
+                               sync_axes=tfm.grad_sync_axes(cfg))
+    _, leaves, sync = da._sync(state.params)
+    total = 0
+    for _, idxs in sync.buckets:
+        by_dtype = {}
+        for i in idxs:
+            by_dtype[leaves[i].dtype] = (by_dtype.get(leaves[i].dtype, 0)
+                                         + leaves[i].numel())
+        for dtype, n in by_dtype.items():
+            chunk = -(-n // local)
+            codec = sync.codec
+            if codec is not None and codec.compresses(dtype):
+                total += chunk * codec.wire_itemsize + (4 if codec.scaled
+                                                        else 0)
+            else:
+                total += chunk * dtype.itemsize
+    return total
+
+
+# Knobs read by init: a variant that sets one re-inits on the world.
+TOPOLOGY_KNOBS = ("HOROVOD_DCN_VIRTUAL_SLICES", "HOROVOD_DCN_MESH",
+                  "HOROVOD_HIERARCHICAL_ALLREDUCE", "HOROVOD_TORUS_ALLREDUCE",
+                  "HOROVOD_TPU_MESH_SHAPE", "HOROVOD_TPU_MESH_AXES")
+# The two-level tier's variants: the flagship through the bucketed sync
+# (make_transformer_train_step_fused, the path that carries the wire tier;
+# the unfused step's sync is one plain allreduce per dtype, as the JAX
+# package's sync_gradients is) on (hvd_dcn 2, hvd_local N/2), against the
+# flat "fused transformer none" of the same world.
+DCN_KNOBS = {"HOROVOD_DCN_VIRTUAL_SLICES": 2,
+             "HOROVOD_DCN_SCHEDULE": "two_level"}
+
 # The --data-parallel variants: the unfused flagship and bucketed ResNet-50
 # (one card as the yardstick, then N), then, on N cards only, ResNet-50 with
-# one bucket after the backward and the fused flagship at tier none and
-# fp8_e4m3.
+# one bucket after the backward, the fused flagship at tier none and
+# fp8_e4m3, and the fused flagship through the two-level tier at both.
 DP_YARDSTICK = [
     dict(label="transformer", model="transformer"),
     dict(label="resnet bucketed", model="resnet")]
@@ -1660,7 +2080,12 @@ DP_VARIANTS = DP_YARDSTICK + [
     dict(label="fused transformer none", model="fused",
          knobs={"HOROVOD_GRADIENT_COMPRESSION": "none"}),
     dict(label="fused transformer fp8_e4m3", model="fused",
-         knobs={"HOROVOD_GRADIENT_COMPRESSION": "fp8_e4m3"})]
+         knobs={"HOROVOD_GRADIENT_COMPRESSION": "fp8_e4m3"}),
+    dict(label="fused transformer dcn2 two_level none", model="fused",
+         knobs={**DCN_KNOBS, "HOROVOD_GRADIENT_COMPRESSION": "none"}),
+    dict(label="fused transformer dcn2 two_level fp8_e4m3", model="fused",
+         knobs={**DCN_KNOBS, "HOROVOD_GRADIENT_COMPRESSION": "fp8_e4m3",
+                "HOROVOD_GRADIENT_ERROR_FEEDBACK": "1"})]
 
 
 def data_parallel(n: int, card: str, **kw) -> None:
@@ -1674,12 +2099,31 @@ def data_parallel(n: int, card: str, **kw) -> None:
                     and all(np.isfinite(x) for x in r["losses"])):
                 raise AssertionError(f"data-parallel run failed: {r}")
         line = {"n_cards": res, "card": card}
+        if "two_level" in label:
+            check_two_level_variant(label, res, many)
         if label in one:
             unit = "tokens" if "transformer" in label else "images"
             line["one_card"] = one[label]
             res["scaling_efficiency"] = res[f"{unit}_per_s"] / (
                 n * one[label][f"{unit}_per_s"])
         log(f"data parallel {label}: " + json.dumps(line))
+
+
+def check_two_level_variant(label, res, many) -> None:
+    """A two-level variant ran the tier, its DCN stage carried what the
+    schedule predicts, and at tier none its losses stay within
+    FUSED_LOSS_REL_TOL of the flat variant's in the same world."""
+    if res["schedule"] != "two_level" or res["dcn_wire_bytes"] != \
+            res["dcn_wire_bytes_predicted"] or not res["dcn_wire_bytes"]:
+        raise AssertionError(f"{label}: the tier did not run as planned: "
+                             f"{res}")
+    if label.endswith("none"):
+        flat = many["fused transformer none"]["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(res["losses"], flat))
+        res["max_rel_loss_diff_vs_flat"] = rel
+        if rel > FUSED_LOSS_REL_TOL:
+            raise AssertionError(f"{label}: losses {res['losses']} differ "
+                                 f"from the flat schedule's {flat} by {rel}")
 
 
 def main(argv) -> int:
@@ -1724,6 +2168,7 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if n_dp:
+        collectives_n_cards(n_dp, card)
         data_parallel(n_dp, card)
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1759,6 +2204,9 @@ def main(argv) -> int:
     train_card_vs_cpu(htt)
     resnet_card_vs_cpu(htt)
     fused_card_vs_cpu(htt)
+
+    # phase 6: the collectives through NCCL in a world of one
+    collectives_world_one(htt)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",

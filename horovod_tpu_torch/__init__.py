@@ -20,7 +20,13 @@ at its first launch. These paths are ported:
   (``compression``), and the optimizer-in-epilogue fused step
   (``distributed_apply``, ``make_transformer_train_step_fused``);
 - ``ops.stream_copy``, the stream-copy kernel of ``bench.py``'s bandwidth
-  probe.
+  probe;
+- Horovod's topology and collectives (``runtime.topology``,
+  ``parallel.process_sets``, ``ops.collectives``, ``ops.sparse``): the
+  named mesh (``hvd``, ``hvd_cross``, ``hvd_local``, ``hvd_dcn``) and
+  process sets on NCCL groups; allgather, alltoall, reducescatter and
+  ppermute with their uneven forms; the hierarchical (torus) and
+  two-level allreduce, and the two-level tier of the gradient sync.
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``, which takes the kernels' plain PyTorch versions.
@@ -36,10 +42,13 @@ from horovod_tpu_torch.models.transformer import (TransformerConfig,
                                                   TransformerLM,
                                                   init_params,
                                                   params_from_numpy)
-from horovod_tpu_torch.ops.collectives import (allreduce, barrier,
-                                               broadcast, grouped_allreduce)
-from horovod_tpu_torch.ops.reduce_ops import (Average, Max, Min, Product,
-                                              Sum)
+from horovod_tpu_torch.ops.collectives import (
+    allgather, allreduce, alltoall, barrier, broadcast, grouped_allreduce,
+    hierarchical_allreduce, ppermute, reducescatter, torus_allreduce,
+    two_level_allreduce)
+from horovod_tpu_torch.ops.reduce_ops import (Adasum, Average, Max, Min,
+                                              Product, ReduceOp, Sum)
+from horovod_tpu_torch.ops.sparse import sparse_allreduce
 from horovod_tpu_torch.parallel.distributed import (Compression,
                                                     DistributedApply,
                                                     DistributedOptimizer,
@@ -50,24 +59,34 @@ from horovod_tpu_torch.parallel.distributed import (Compression,
 from horovod_tpu_torch.parallel.trainer import (
     TrainState, data_parallel_train_step, make_transformer_train_step,
     make_transformer_train_step_fused, train_loop)
-from horovod_tpu_torch.runtime.context import (init, is_initialized,
-                                               local_rank, local_size, rank,
+from horovod_tpu_torch.parallel.process_sets import (
+    ProcessSet, add_process_set, get_process_set_by_id, global_process_set,
+    process_set_ids, remove_process_set)
+from horovod_tpu_torch.runtime.context import (cross_rank, cross_size, init,
+                                               is_homogeneous,
+                                               is_initialized, local_rank,
+                                               local_size, mesh, rank,
                                                shutdown, size)
 from horovod_tpu_torch.serving import (Request, ServeEngine,
                                        ServeScheduler)
 
 __version__ = "0.3.0"
 
-__all__ = ["Average", "Compression", "DistributedApply",
+__all__ = ["Adasum", "Average", "Compression", "DistributedApply",
            "DistributedOptimizer", "EpilogueAdam", "EpilogueSGD", "Max",
-           "Min", "Product", "Request", "ResNet", "ResNet101", "ResNet152",
-           "ResNet18", "ResNet34", "ResNet50", "ServeEngine",
-           "ServeScheduler", "Sum", "TrainState", "TransformerConfig",
-           "TransformerLM", "allreduce", "allreduce_gradients", "barrier",
-           "broadcast", "broadcast_parameters", "data_parallel_train_step",
-           "distributed_apply", "grouped_allreduce", "init", "init_params",
-           "is_initialized", "local_rank", "local_size",
-           "make_transformer_train_step",
-           "make_transformer_train_step_fused", "params_from_numpy", "rank",
-           "shutdown", "size", "train_loop", "variables_from_numpy",
-           "variables_to_numpy"]
+           "Min", "ProcessSet", "Product", "ReduceOp", "Request", "ResNet",
+           "ResNet101", "ResNet152", "ResNet18", "ResNet34", "ResNet50",
+           "ServeEngine", "ServeScheduler", "Sum", "TrainState",
+           "TransformerConfig", "TransformerLM", "add_process_set",
+           "allgather", "allreduce", "allreduce_gradients", "alltoall",
+           "barrier", "broadcast", "broadcast_parameters", "cross_rank",
+           "cross_size", "data_parallel_train_step", "distributed_apply",
+           "get_process_set_by_id", "global_process_set",
+           "grouped_allreduce", "hierarchical_allreduce", "init",
+           "init_params", "is_homogeneous", "is_initialized", "local_rank",
+           "local_size", "make_transformer_train_step",
+           "make_transformer_train_step_fused", "mesh", "params_from_numpy",
+           "ppermute", "process_set_ids", "rank", "reducescatter",
+           "remove_process_set", "shutdown", "size", "sparse_allreduce",
+           "torus_allreduce", "train_loop", "two_level_allreduce",
+           "variables_from_numpy", "variables_to_numpy"]

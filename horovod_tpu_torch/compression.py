@@ -7,9 +7,9 @@ codec** (:class:`WireCodec`) of the bucketed gradient sync
 (``parallel/distributed.py``): each packed bucket is cast to a wire dtype
 before its SUM and decoded after it, so the reduction moves 2x (bf16,
 fp16) or 4x (fp8) fewer bytes. The fp8 tiers scale each bucket by one
-global amax (a MAX allreduce of one f32 scalar over the ranks), sized so
-that the SUM of ``world`` ranks' quantized values cannot overflow the wire
-dtype. The tier is the ``HOROVOD_GRADIENT_COMPRESSION`` knob, or the tier
+amax shared by the ranks the SUM spans (a MAX allreduce of one f32 scalar
+over the named axes' group), sized so that the SUM of ``world`` ranks'
+quantized values cannot overflow the wire dtype. The tier is the ``HOROVOD_GRADIENT_COMPRESSION`` knob, or the tier
 a ``compression=`` argument implies.
 
 The wire dtypes are torch's: ``bfloat16``, ``float16``,
@@ -130,20 +130,21 @@ class WireCodec:
 
     def encode(self, buf: torch.Tensor, axes=(), world: int = 1
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """(wire buffer, scale) for one packed bucket. For each name in
-        ``axes`` the amax of a scaled tier is MAX-reduced over the ranks
-        (every axis of the port is the data-parallel world; pass ``()`` for
-        the local math alone); ``world`` is the rank count the wire SUM
-        spans. The scale is a 0-dim f32 tensor, or None."""
+        """(wire buffer, scale) for one packed bucket. The amax of a scaled
+        tier is MAX-reduced over the ranks of the mesh axes named in
+        ``axes`` (this rank's group along them, as ``lax.pmax`` over those
+        axes; ``hvd`` names every rank; pass ``()`` for the local math
+        alone); ``world`` is the rank count the wire SUM spans. The scale
+        is a 0-dim f32 tensor, or None."""
         if not self.compresses(buf.dtype):
             return buf, None
         if not self.scaled:
             return buf.to(self.wire_dtype), None
         amax = buf.abs().max().float().reshape(1)
         if axes:
-            import torch.distributed as dist
-            for _ in axes:
-                dist.all_reduce(amax, op=dist.ReduceOp.MAX)
+            from horovod_tpu_torch.ops import collectives
+            from horovod_tpu_torch.ops.reduce_ops import ReduceOp
+            collectives.allreduce_(amax, ReduceOp.MAX, axis=tuple(axes))
         # |sum_r q_r| <= world * amax / scale must fit the wire dtype;
         # amax == 0 (or nonfinite) keeps scale 1, so zeros stay exact
         scale = amax * (float(max(int(world), 1)) / self._wire_max)

@@ -159,3 +159,48 @@ knobs.register("HOROVOD_GRADIENT_ERROR_FEEDBACK", "auto", str,
                help="Error-feedback residual for lossy wire tiers: 'auto' "
                     "= on for fp8, off for bf16/fp16; '1' always; '0' "
                     "never. Costs one f32 copy of the gradients.")
+
+# Topology knobs (runtime/topology.py), read by ``init``; the collective
+# knobs are read at each call. The same names and defaults as the JAX
+# package's.
+knobs.register("HOROVOD_HIERARCHICAL_ALLREDUCE", False, bool,
+               help="Two-level (cross, local) topology: init builds a "
+                    "(hvd_cross, hvd_local) mesh with local = "
+                    "LOCAL_WORLD_SIZE (or a balanced factor), the axes "
+                    "of hierarchical_allreduce.")
+knobs.register("HOROVOD_HIERARCHICAL_ALLGATHER", False, bool,
+               help="allgather over several axes gathers axis by axis, "
+                    "innermost first; the result equals the flat "
+                    "gather's.")
+knobs.register("HOROVOD_TORUS_ALLREDUCE", False, bool,
+               help="Same topology as HOROVOD_HIERARCHICAL_ALLREDUCE: "
+                    "reduce-scatter over local, allreduce over cross, "
+                    "allgather over local (torus_allreduce).")
+knobs.register("HOROVOD_DCN_MESH", "", str,
+               help="Two-tier mesh shape 'dcn,local' or "
+                    "'dcn,cross,local', outermost first; the leading dim "
+                    "(>= 2) is the slow hvd_dcn tier that "
+                    "two_level_allreduce and HOROVOD_DCN_SCHEDULE key "
+                    "off. Wins over HOROVOD_DCN_VIRTUAL_SLICES.")
+knobs.register("HOROVOD_DCN_VIRTUAL_SLICES", 0, int,
+               help="Split the ranks into this many equal contiguous "
+                    "groups and build the (hvd_dcn, ...) mesh over them; "
+                    "0/1 = none. GPUs have no slices, so this (or "
+                    "HOROVOD_DCN_MESH, or init(dcn=)) is the only way "
+                    "the port gets a DCN tier.")
+knobs.register("HOROVOD_DCN_SCHEDULE", "auto", str,
+               choices=("flat", "two_level", "auto"),
+               help="Gradient-sync schedule when the sync axes cross "
+                    "hvd_dcn: 'flat' = one SUM over every axis, "
+                    "'two_level' = reduce-scatter over the other axes, "
+                    "SUM of the owned shard over hvd_dcn (the only stage "
+                    "the wire codec narrows), all-gather back; 'auto' "
+                    "resolves 'flat' in the port until NVLink and the "
+                    "network are measured on the card "
+                    "(autotune.resolve_dcn_schedule).")
+knobs.register("HOROVOD_TPU_MESH_SHAPE", "", str,
+               help="Comma-separated mesh shape, e.g. '4,2'; empty = 1D "
+                    "over all ranks.")
+knobs.register("HOROVOD_TPU_MESH_AXES", "", str,
+               help="Comma-separated axis names matching "
+                    "HOROVOD_TPU_MESH_SHAPE.")

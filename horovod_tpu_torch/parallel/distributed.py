@@ -37,12 +37,25 @@ sync has completed, so no whole-model optimizer pass remains
 (``EpilogueSGD``, ``EpilogueAdam``;
 ``trainer.make_transformer_train_step_fused``).
 
-Every axis name of this slice is the data-parallel world (the default
-process group); an empty axes tuple marks a local leaf, which is not
-synced. Not ported: the two-level DCN tier (``_resolve_tier``,
-``two_level_allreduce``, ROADMAP A.2), Adasum and
-``DistributedAdasumOptimizer`` (A.9), ``distributed_value_and_grad``, the
-wire metrics counters and the online tuner (slice 5).
+**The two-level DCN tier** (``_resolve_tier``): when a group's sync axes
+cross the ``hvd_dcn`` axis of the topology with at least one other axis
+left, the op is SUM/AVERAGE, and HOROVOD_DCN_SCHEDULE resolves
+``two_level`` (``autotune.resolve_dcn_schedule``), each bucket runs the
+three stages of ``collectives.two_level_allreduce``: reduce-scatter over
+the fast axes, SUM of the owned shard over ``hvd_dcn`` (the only stage the
+wire codec narrows, its amax shared over ``hvd_dcn`` alone, and the only
+one the error-feedback residual compensates: the residual holds this
+rank's DCN-stage error at its shard's offset, zeros elsewhere), all-gather
+back, launched asynchronously like the flat SUM. ``last_wire_trace()``
+gives the ``schedule`` and the ``dcn_wire_bytes`` that stage carried.
+
+Sync axes name the topology's axes (``runtime/topology.py``); a name the
+mesh does not have, such as a model's own data-parallel axis ``dp`` or
+``hvd`` on a multi-axis mesh, stands for every axis, i.e. the world. An
+empty axes tuple marks a local leaf, which is not synced. Not ported:
+Adasum and ``DistributedAdasumOptimizer`` (A.9),
+``distributed_value_and_grad``, the wire metrics counters and the online
+tuner (A.13).
 """
 
 from __future__ import annotations
@@ -72,6 +85,21 @@ from horovod_tpu_torch.utils import tree as tree_util
 _WORLD_AXES = ("hvd",)
 
 
+def _mesh_axes(axes) -> Tuple[str, ...]:
+    """The topology's axes that sync ``axes`` spans: names the mesh has
+    stay, any other name stands for every axis; () stays local."""
+    axes = tuple(a for a in axes if a)
+    if not axes or not context.is_initialized():
+        return axes
+    topo = context.get_context().topology
+    out: List[str] = []
+    for a in axes:
+        for n in ((a,) if a in topo.mesh.shape else topo.flat_axes):
+            if n not in out:
+                out.append(n)
+    return tuple(out)
+
+
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
@@ -96,8 +124,51 @@ def _plan_sync_buckets(gs: Sequence[torch.Tensor], axes, world: int
 
 
 def _axes_world(axes) -> int:
-    """Ranks a group's SUM spans: the world, or 1 for a local group."""
-    return context.size() if tuple(a for a in axes if a) else 1
+    """Ranks a group's SUM spans: the product of its axes' sizes, 1 for
+    a local group."""
+    axes = _mesh_axes(axes)
+    if not axes or not context.is_initialized():
+        return 1
+    return context.get_context().topology.axis_size(axes)
+
+
+def _spans_world(axes) -> bool:
+    return _axes_world(axes) == (context.size() if context.is_initialized()
+                                 else 1)
+
+
+def _tier_split(axes) -> Tuple[Tuple[str, ...], Optional[str]]:
+    """``(fast axes, dcn axis)`` of one sync-axes tuple: the DCN axis is
+    peeled off when the tuple crosses it and another axis remains."""
+    from horovod_tpu_torch.runtime.topology import DCN_AXIS
+    axes = tuple(a for a in axes if a)
+    if DCN_AXIS in axes and len(axes) > 1:
+        return tuple(a for a in axes if a != DCN_AXIS), DCN_AXIS
+    return axes, None
+
+
+def _resolve_tier(gs: Sequence[torch.Tensor], axes, op: ReduceOp,
+                  compression=None
+                  ) -> Optional[Tuple[Tuple[str, ...], str]]:
+    """``(fast axes, dcn axis)`` when this group's sync runs the two-level
+    schedule, else None: SUM/AVERAGE, axes crossing ``hvd_dcn`` with
+    another axis left, HOROVOD_DCN_SCHEDULE resolving ``two_level`` for
+    the payload, and no duck-typed per-leaf compressor (which has no wire
+    tier and stays on the flat per-leaf path)."""
+    from horovod_tpu_torch.autotune import resolve_dcn_schedule
+    if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        return None
+    ici_axes, dcn_axis = _tier_split(_mesh_axes(axes))
+    if dcn_axis is None or not ici_axes:
+        return None
+    if compr.wire_codec(compression) is None and \
+            compr.as_compressor(compression) is not compr.NoneCompressor:
+        return None
+    payload = sum(_nbytes(g) for g in gs)
+    if resolve_dcn_schedule(payload, _axes_world(ici_axes),
+                            _axes_world((dcn_axis,))) != "two_level":
+        return None
+    return ici_axes, dcn_axis
 
 
 # ---------------------------------------------------------------------------
@@ -113,15 +184,20 @@ _WIRE_TRACE = {"tier": "none", "logical_bytes": 0, "wire_bytes": 0,
 def last_wire_trace() -> dict:
     """Byte accounting of the most recent gradient sync: wire tier,
     logical (uncompressed) against wire bytes, bucket count, whether the
-    error-feedback residual was carried."""
+    error-feedback residual was carried, the schedule (flat | two_level)
+    and, under two_level, the bytes each rank's DCN stage carried (the
+    payload convention of the JAX package: what each collective's result
+    holds; the reduce-scatter and all-gather count the whole bucket)."""
     return dict(_WIRE_TRACE)
 
 
 def _record_wire_trace(tier: str, logical: int, wire: int, n_buckets: int,
-                       ef: bool) -> None:
+                       ef: bool, schedule: str = "flat",
+                       dcn_wire: int = 0) -> None:
     _WIRE_TRACE.update(tier=tier, logical_bytes=int(logical),
                        wire_bytes=int(wire), n_buckets=int(n_buckets),
-                       error_feedback=bool(ef))
+                       error_feedback=bool(ef), schedule=str(schedule),
+                       dcn_wire_bytes=int(dcn_wire))
 
 
 # ---------------------------------------------------------------------------
@@ -132,10 +208,12 @@ class _Part:
     """One dtype group of a launched bucket: what :meth:`finish` needs."""
 
     def __init__(self, slots, specs, dtype, work=None, buf=None,
-                 scale=None, ctxs=None, compressed=False):
+                 scale=None, ctxs=None, compressed=False, done_n=None):
         self.slots, self.specs, self.dtype = slots, specs, dtype
         self.work, self.buf, self.scale = work, buf, scale
         self.ctxs, self.compressed = ctxs, compressed
+        # two-level parts arrive decoded and averaged: keep done_n values
+        self.done_n = done_n
 
 
 class _PendingBucket:
@@ -144,10 +222,12 @@ class _PendingBucket:
     CUDA event recorded on the side stream after the launch (None on the
     CPU)."""
 
-    def __init__(self, n, parts, codec, post, leaf_comp, logical, wire):
+    def __init__(self, n, parts, codec, post, leaf_comp, logical, wire,
+                 dcn_wire=0, tiered=False):
         self.n, self.parts, self.codec = n, parts, codec
         self.post, self.leaf_comp = post, leaf_comp
         self.logical_bytes, self.wire_bytes = logical, wire
+        self.dcn_wire_bytes, self.tiered = dcn_wire, tiered
         self.ready: Optional[torch.cuda.Event] = None
 
     def finish(self) -> List[torch.Tensor]:
@@ -163,7 +243,9 @@ class _PendingBucket:
                 for t in (part.buf, part.scale):
                     if t is not None:
                         t.record_stream(stream)
-            if part.compressed:
+            if part.done_n is not None:
+                full = part.buf[:part.done_n]
+            elif part.compressed:
                 full = self.codec.decode(part.buf, part.scale, part.dtype,
                                          postscale=self.post)
             else:
@@ -178,25 +260,82 @@ class _PendingBucket:
         return out
 
 
+def _tier_part(buf: torch.Tensor, specs, idxs, res_leaves, tier, op,
+               world: int, codec) -> Tuple[_Part, int, int]:
+    """One dtype group of a two-level bucket: reduce-scatter over the fast
+    axes, (compensate,) encode and SUM the owned shard over the DCN axis,
+    decode with the averaging folded in, start the all-gather. Returns the
+    part and its (wire, DCN-stage) bytes. The stages before the gather are
+    ordered on the launching stream; each collective keeps its buffers
+    alive until it has completed."""
+    from horovod_tpu_torch.ops.collectives import (_all_gather,
+                                                   _reduce_scatter)
+    ctx = context.get_context()
+    ici_axes, dcn_axis = tier
+    gi, gd = ctx.axis_group(ici_axes), ctx.axis_group(dcn_axis)
+    dtype, orig = buf.dtype, buf.numel()
+    pad = (-orig) % gi.size
+    chunk = (orig + pad) // gi.size
+    compressed = codec is not None and codec.compresses(dtype)
+    stage = (chunk * codec.wire_itemsize + (4 if codec.scaled else 0)
+             if compressed else chunk * dtype.itemsize)
+    if pad:
+        buf = torch.cat([buf, buf.new_zeros(pad)])
+    shard = _reduce_scatter(buf, ReduceOp.SUM, gi)
+    off = gi.index * chunk
+    if compressed:
+        if res_leaves is not None:
+            rbuf, _ = flatten_for_fusion([res_leaves[i].to(dtype)
+                                          for i in idxs])
+            if pad:
+                rbuf = torch.cat([rbuf, rbuf.new_zeros(pad)])
+            shard.add_(rbuf[off:off + chunk])
+        wire, scale = codec.encode(shard, axes=(dcn_axis,), world=gd.size)
+        work, red = collectives.wire_sum_async(wire, axis=dcn_axis)
+        work.wait()
+        post = (1.0 / world) if (op == ReduceOp.AVERAGE and world != 1) \
+            else None
+        out = codec.decode(red, scale, dtype, postscale=post)
+        if res_leaves is not None:
+            res_full = buf.new_zeros(orig + pad)
+            res_full[off:off + chunk] = shard - codec.decode(wire, scale,
+                                                             dtype)
+            for i, r in zip(idxs, unflatten_from_fusion(res_full[:orig],
+                                                        specs)):
+                res_leaves[i].copy_(r)
+    else:
+        collectives.allreduce_async(shard, axis=dcn_axis).wait()
+        out = shard.div_(world) if (op == ReduceOp.AVERAGE
+                                    and world != 1) else shard
+        if res_leaves is not None:
+            for i in idxs:                    # lossless: nothing lost
+                res_leaves[i].zero_()
+    work, full = _all_gather(out, gi, async_op=True)
+    return (_Part(idxs, specs, dtype, work, full, done_n=orig),
+            2 * orig * dtype.itemsize + stage, stage)
+
+
 def _wire_bucket_launch(leaves: List[torch.Tensor],
                         res_leaves: Optional[List[torch.Tensor]], axes,
                         op: ReduceOp, world: int, codec, leaf_comp,
                         prescale: Optional[float] = None,
-                        batch: bool = True) -> _PendingBucket:
-    """Start one bucket's sync (the JAX ``_wire_bucket_reduce`` without its
-    ``tier=`` branch). Per dtype: pack into a fresh buffer (times
-    ``prescale``), add the residual, encode, start the wire SUM; the new
-    residual, compensated minus the decode of this rank's own wire with the
-    same global scale, is written into ``res_leaves`` in place. Dtypes the
-    codec does not narrow, and every dtype without a codec, reduce
-    uncompressed; without a codec each leaf first goes through the per-leaf
-    ``leaf_comp`` and ``batch=False`` (HOROVOD_BATCH_D2D_MEMCOPIES=0)
-    reduces leaf by leaf."""
+                        batch: bool = True, tier=None) -> _PendingBucket:
+    """Start one bucket's sync (the JAX ``_wire_bucket_reduce``). Per
+    dtype: pack into a fresh buffer (times ``prescale``), add the residual,
+    encode, start the wire SUM; the new residual, compensated minus the
+    decode of this rank's own wire with the same scale, is written into
+    ``res_leaves`` in place. Dtypes the codec does not narrow, and every
+    dtype without a codec, reduce uncompressed; without a codec each leaf
+    first goes through the per-leaf ``leaf_comp`` and ``batch=False``
+    (HOROVOD_BATCH_D2D_MEMCOPIES=0) reduces leaf by leaf. ``tier=(fast
+    axes, dcn axis)`` runs every dtype group through the two-level
+    schedule (:func:`_tier_part`) instead."""
     ef = res_leaves is not None
-    sync = bool(tuple(a for a in axes if a))
+    axes = _mesh_axes(axes)
+    sync = bool(axes)
     post = (1.0 / world) if (op == ReduceOp.AVERAGE and world != 1) else None
     parts: List[_Part] = []
-    wire_bytes = 0
+    wire_bytes = dcn_bytes = 0
     logical = sum(_nbytes(g) for g in leaves)
 
     ctxs = None
@@ -225,13 +364,21 @@ def _wire_bucket_launch(leaves: List[torch.Tensor],
             buf.mul_(prescale)
         dtype = buf.dtype
         part_ctxs = [ctxs[i] for i in idxs] if ctxs is not None else None
+        if tier is not None:
+            part, wb, db = _tier_part(buf, specs, idxs, res_leaves, tier,
+                                      op, world, codec)
+            part.ctxs = part_ctxs
+            parts.append(part)
+            wire_bytes += wb
+            dcn_bytes += db
+            continue
         if codec is not None and codec.compresses(dtype):
             if ef:
                 rbuf, _ = flatten_for_fusion(
                     [res_leaves[i].to(dtype) for i in idxs])
                 buf.add_(rbuf)
             wire, scale = codec.encode(buf, axes=axes, world=world)
-            work, red = collectives.wire_sum_async(wire)
+            work, red = collectives.wire_sum_async(wire, axis=axes)
             if ef:
                 res_buf = buf - codec.decode(wire, scale, dtype)
                 for i, r in zip(idxs, unflatten_from_fusion(res_buf, specs)):
@@ -241,7 +388,10 @@ def _wire_bucket_launch(leaves: List[torch.Tensor],
             parts.append(_Part(idxs, specs, dtype, work, red, scale,
                                part_ctxs, compressed=True))
             continue
-        work = collectives.allreduce_async(buf) if sync else None
+        work = None
+        if sync:        # the world's group is the default one
+            work = (collectives.allreduce_async(buf) if _spans_world(axes)
+                    else collectives.allreduce_async(buf, axis=axes))
         if ef:
             for i in idxs:                   # lossless: nothing lost
                 res_leaves[i].zero_()
@@ -249,7 +399,7 @@ def _wire_bucket_launch(leaves: List[torch.Tensor],
         parts.append(_Part(idxs, specs, dtype, work, buf, None, part_ctxs))
     return _PendingBucket(len(leaves), parts, codec,
                           post if sync else None, leaf_comp, logical,
-                          wire_bytes)
+                          wire_bytes, dcn_bytes, tier is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -278,14 +428,22 @@ class _GradSync:
             compr.error_feedback_enabled(self.codec)
             if error_feedback is None else bool(error_feedback))
         self.batch = bool(knobs.get("HOROVOD_BATCH_D2D_MEMCOPIES"))
-        world = context.size() if context.is_initialized() else 1
         self.buckets: List[Tuple[Tuple, List[int]]] = []
+        # sync axes -> (fast axes, dcn axis) of the two-level schedule
+        self.tiers: Dict[Tuple, Optional[Tuple[Tuple[str, ...], str]]] = {}
         for axes, idxs in groups.items():
-            plan = (_plan_sync_buckets([leaves[i] for i in idxs], axes,
-                                       world)
+            gs = [leaves[i] for i in idxs]
+            self.tiers[axes] = (_resolve_tier(gs, axes, op, compression)
+                                if axes else None)
+            plan = (_plan_sync_buckets(gs, axes, _axes_world(axes))
                     if axes else [list(range(len(idxs)))])
             self.buckets += [(axes, [idxs[j] for j in b]) for b in plan]
         self.n_leaves = len(leaves)
+
+    @property
+    def schedule(self) -> str:
+        return ("two_level" if any(t is not None for t in self.tiers.values())
+                else "flat")
 
     def launch(self, k: int, grads: List[torch.Tensor],
                residuals: Optional[List[torch.Tensor]],
@@ -294,7 +452,7 @@ class _GradSync:
         return _wire_bucket_launch(
             grads, residuals if self.ef else None, axes, self.op,
             _axes_world(axes), self.codec if axes else None,
-            self.leaf_comp, prescale, self.batch)
+            self.leaf_comp, prescale, self.batch, self.tiers[axes])
 
 
 def _on_grad_ready(launcher_ref, i: int, _param) -> None:
@@ -428,7 +586,9 @@ class _BucketLauncher:
             _record_wire_trace(codec.tier if codec is not None else "none",
                                sum(p.logical_bytes for p in pending),
                                sum(p.wire_bytes for p in pending),
-                               len(pending), self.sync.ef)
+                               len(pending), self.sync.ef,
+                               self.sync.schedule,
+                               sum(p.dcn_wire_bytes for p in pending))
             self._reset()
 
 
@@ -593,14 +753,14 @@ class DistributedOptimizer:
         self.op = check_supported(op)
         self.params = [p for group in optimizer.param_groups
                        for p in group["params"]]
-        self._sync = _GradSync(self.params, {_WORLD_AXES: list(range(
-            len(self.params)))}, self.op, compression, error_feedback)
+        self._sync = _GradSync(self.params, {_mesh_axes(_WORLD_AXES): list(
+            range(len(self.params)))}, self.op, compression, error_feedback)
         self.wire_state = (WireState([_residual_zeros(p)
                                       for p in self.params])
                            if self._sync.ef else ())
         early = resolve_bucket_bytes(
             [(tuple(p.shape), p.dtype) for p in self.params],
-            context.size() if context.is_initialized() else 1) > 0
+            _axes_world(_WORLD_AXES)) > 0
         self._launcher = _BucketLauncher(self._sync, self.params,
                                          passes=backward_passes_per_step,
                                          hooks=True, early=early)

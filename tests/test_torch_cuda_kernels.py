@@ -996,3 +996,126 @@ def test_cuda_wgmma_rs_carried_a_fragment_is_miscompiled(wgmma_probe):
     err = float((out - ref).abs().max())
     assert err > 1e-2 * max(1.0, float(ref.abs().max())), (
         "carried register A fragments now give right results")
+
+
+# ---------------------------------------------------------------------------
+# the collectives on NCCL: a world of one, and two cards where there are
+# two. Data movement, integer sums and MIN/MAX are compared exactly; the
+# f32 sums of two ranks too (a + b is the same in either order).
+# ---------------------------------------------------------------------------
+
+def _collectives_of_one(dev):
+    """Every new collective in a world of one on ``dev``, each against its
+    plain result; returns the names checked."""
+    from horovod_tpu_torch.ops import collectives as C
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(6, 3, device=dev, generator=g)
+    xi = torch.randint(-9, 9, (5, 2), device=dev, generator=g,
+                       dtype=torch.int32)
+    checks = {
+        "allgather": (C.allgather(x), x),
+        "alltoall": (C.alltoall(x), x),
+        "alltoall_splits": (C.alltoall(x, splits=[6])[0], x),
+        "reducescatter": (C.reducescatter(x, htt.Sum), x),
+        "reducescatter_uneven_int": (C.reducescatter(xi, htt.Sum), xi),
+        "reducescatter_max": (C.reducescatter(x, htt.Max), x),
+        "ppermute": (C.ppermute(x, [(0, 0)]), x),
+        "broadcast": (C.broadcast(x, 0), x),
+        "allreduce_min": (C.allreduce(x, htt.Min), x),
+        "bf16_allgather": (C.allgather(x.bfloat16()), x.bfloat16()),
+    }
+    dense, counts = htt.sparse_allreduce(x[:2], torch.tensor(
+        [1, 1], device=dev), 4, average=False)
+    want = torch.zeros(4, 3, device=dev)
+    want[1] = x[0] + x[1]
+    checks["sparse_allreduce"] = (dense, want)
+    checks["sparse_counts"] = (counts, torch.tensor(
+        [0, 2, 0, 0], dtype=torch.int32, device=dev))
+    for name, (got, ref) in checks.items():
+        assert got.device == ref.device and got.dtype == ref.dtype, name
+        assert torch.equal(got, ref), name
+    return sorted(checks)
+
+
+@pytest.mark.cuda
+def test_cuda_collectives_in_a_world_of_one():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from horovod_tpu_torch.compression import WireCodec
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.runtime import get_context
+    htt.init(mesh_shape=(1, 1), axis_names=("hvd_cross", "hvd_local"))
+    try:
+        assert get_context().backend == "nccl"
+        names = _collectives_of_one(torch.device("cuda"))
+        assert "alltoall_splits" in names
+        x = torch.randn(7, 3, device="cuda")
+        assert torch.equal(C.hierarchical_allreduce(x[:6]), x[:6])
+        two = C.two_level_allreduce(x, htt.Average, ici_axes=("hvd_local",),
+                                    dcn_axis="hvd_cross")
+        assert torch.equal(two, x)
+        fp8 = C.two_level_allreduce(x, htt.Sum, ici_axes=("hvd_local",),
+                                    dcn_axis="hvd_cross",
+                                    wire_codec=WireCodec("fp8_e4m3"))
+        codec = WireCodec("fp8_e4m3")
+        wire, scale = codec.encode(x, world=1)
+        assert torch.equal(fp8, codec.decode(wire, scale, x.dtype))
+    finally:
+        htt.shutdown()
+
+
+def _two_card_worker(rank, world, port, out):
+    import os
+    from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.ops import collectives as C
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    knobs.set_override("HOROVOD_DCN_VIRTUAL_SLICES", 2)
+    htt.init()
+    try:
+        from horovod_tpu_torch.runtime import get_context
+        dev = get_context().device
+        rows = torch.full((rank + 1, 2), float(rank), device=dev)
+        res = {"allgather": C.allgather(rows).cpu()}
+        part = torch.arange(3 * (rank + 1), device=dev,
+                            dtype=torch.float32).reshape(-1, 1) + 10 * rank
+        splits = [1, 2] if rank == 0 else [4, 2]
+        a2a, recv = C.alltoall(part, splits=splits)
+        res["alltoall"], res["recv"] = a2a.cpu(), recv
+        g = torch.Generator(device=dev).manual_seed(rank)
+        x = torch.randn(7, 3, device=dev, generator=g)
+        res["two_level"] = C.two_level_allreduce(
+            x, htt.Sum, ici_axes=("hvd_local",)).cpu()
+        res["flat"] = C.allreduce(x, htt.Sum).cpu()
+        res["x"] = x.cpu()
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        htt.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_collectives_on_two_cards(tmp_path):
+    """allgather of uneven rows, alltoall(splits=) and the two-level
+    allreduce (hvd_dcn 2 x hvd_local 1) in an NCCL world of two cards."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.multiprocessing.spawn(_two_card_worker,
+                                args=(2, port, str(tmp_path)), nprocs=2)
+    res = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    want_ag = torch.cat([torch.full((r + 1, 2), float(r)) for r in range(2)])
+    parts = [torch.arange(3 * (r + 1), dtype=torch.float32).reshape(-1, 1)
+             + 10 * r for r in range(2)]
+    sends = [parts[0].split([1, 2]), parts[1].split([4, 2])]
+    total = res[0]["x"] + res[1]["x"]
+    for r in range(2):
+        assert torch.equal(res[r]["allgather"], want_ag)
+        assert torch.equal(res[r]["alltoall"],
+                           torch.cat([sends[0][r], sends[1][r]]))
+        assert res[r]["recv"].tolist() == [[1, 4], [2, 2]][r]
+        assert torch.equal(res[r]["two_level"], total)
+        assert torch.equal(res[r]["flat"], total)

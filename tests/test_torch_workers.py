@@ -265,3 +265,190 @@ def grad_sync_worker(rank, world, port, scenarios, out_dir):
                      **out)
     finally:
         htt.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# topology, collectives, process sets and the DCN tier
+# (test_torch_topology, test_torch_collectives, test_torch_process_sets,
+# test_torch_dcn_tier): one world runs phases, each an init with its own
+# topology over a process group the worker made itself (so shutdown keeps
+# it), and each phase runs scenarios
+# ---------------------------------------------------------------------------
+
+def _np_out(t):
+    if torch.is_tensor(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
+    return np.asarray(t)
+
+
+def _rank_arg(a, rank, dtype=None):
+    """Rank ``rank``'s part of a rank-stacked array (or a per-rank list)
+    as a tensor, cast to ``dtype`` (a torch dtype name) when given."""
+    t = torch.from_numpy(np.ascontiguousarray(a[rank]))
+    return t.to(getattr(torch, dtype)) if dtype else t
+
+
+def _call_scenario(rank, sc, sets):
+    """One collective call: ``fn`` (a name in ops.collectives, or
+    ``sparse_allreduce``) on this rank's parts of ``args``, with ``kw``,
+    ``rank_kw`` (stacked per rank), ``ps`` (index into the phase's sets)
+    and ``op``/``wire_codec`` by name. ``raises``: a NotImplementedError or
+    ValueError is the result."""
+    from horovod_tpu_torch.compression import WireCodec
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.ops import sparse
+    from horovod_tpu_torch.ops.reduce_ops import ReduceOp
+    fn = (sparse.sparse_allreduce if sc["fn"] == "sparse_allreduce"
+          else getattr(C, sc["fn"]))
+    args = [_rank_arg(a, rank, sc.get("dtype")) for a in sc.get("args", ())]
+    kw = dict(sc.get("kw", {}))
+    for k, v in sc.get("rank_kw", {}).items():
+        kw[k] = v[rank]
+    if "ps" in sc:
+        kw["process_set"] = sets[sc["ps"]]
+    if "op" in kw:
+        kw["op"] = ReduceOp[kw["op"]]
+    if "wire_codec" in kw:
+        kw["wire_codec"] = WireCodec(kw["wire_codec"])
+    try:
+        out = fn(*args, **kw)
+    except (NotImplementedError, ValueError) as e:
+        if not sc.get("raises"):
+            raise
+        return {"error": np.asarray(f"{type(e).__name__}: {e}")}
+    outs = out if isinstance(out, tuple) else (out,)
+    res = {f"out{i}": _np_out(o) for i, o in enumerate(outs)}
+    if torch.is_tensor(outs[0]):
+        res["dtype"] = np.asarray(str(outs[0].dtype))
+    return res
+
+
+def _topology_scenario(rank, sc, sets):
+    """The context's queries and this rank's group along each axis tuple
+    of ``sc["axes"]``."""
+    from horovod_tpu_torch.runtime import context
+    ctx = context.get_context()
+    out = {"queries": np.asarray([htt.size(), htt.rank(), htt.local_size(),
+                                  htt.local_rank(), htt.cross_size(),
+                                  htt.cross_rank(),
+                                  int(htt.is_homogeneous())]),
+           "flat_axes": np.asarray(",".join(ctx.topology.flat_axes)),
+           "shape": np.asarray(ctx.topology.mesh.devices.shape)}
+    for axes in sc.get("axes", ()):
+        g = ctx.axis_group(tuple(axes))
+        out["members|" + ",".join(axes)] = np.asarray(g.members)
+        out["index|" + ",".join(axes)] = np.asarray(g.index)
+    return out
+
+
+class _SpyCompressor:
+    """A duck-typed per-leaf compressor that counts its calls."""
+    calls = {"compress": 0, "decompress": 0}
+
+    @staticmethod
+    def compress(t):
+        _SpyCompressor.calls["compress"] += 1
+        return t, t.dtype
+
+    @staticmethod
+    def decompress(t, ctx):
+        _SpyCompressor.calls["decompress"] += 1
+        return t.to(ctx)
+
+
+def _transform_scenario(rank, sc, sets):
+    """``allreduce_gradients(op, axis, compression)`` over one update of
+    this rank's gradients ``grads[k][rank]`` (compression ``"spy"`` is
+    :class:`_SpyCompressor`); the synced leaves, the wire trace and the
+    spy's call counts."""
+    from horovod_tpu_torch.ops.reduce_ops import ReduceOp
+    from horovod_tpu_torch.parallel import distributed as D
+    comp = sc.get("compression", "none")
+    tx = htt.allreduce_gradients(
+        op=ReduceOp[sc.get("op", "AVERAGE")], axis=tuple(sc["axis"]),
+        compression=_SpyCompressor if comp == "spy" else comp)
+    grads = {k: _rank_arg(v, rank) for k, v in sc["grads"].items()}
+    synced, _ = tx.update(grads, tx.init(grads))
+    out = {f"param|{k}": v.numpy() for k, v in synced.items()}
+    out.update(_trace_out(D.last_wire_trace()))
+    out["spy_calls"] = np.asarray([_SpyCompressor.calls["compress"],
+                                   _SpyCompressor.calls["decompress"]])
+    return out
+
+
+def _trace_out(trace):
+    return {f"trace|{k}": np.asarray(v) for k, v in trace.items()}
+
+
+def _optimizer_scenario(rank, sc, sets):
+    from horovod_tpu_torch.parallel import distributed as D
+    out = _scenario_optimizer(rank, sc)
+    out.update(_trace_out(D.last_wire_trace()))
+    return out
+
+
+_PHASE_SCENARIOS = {"call": _call_scenario, "topology": _topology_scenario,
+                    "transform": _transform_scenario,
+                    "optimizer": _optimizer_scenario}
+
+
+def phase_worker(rank, world, port, phases, out_dir):
+    """Joins a gloo world, then for each phase: sets its ``env`` (a list
+    holds one value per rank; strings are formatted with ``rank``) and
+    ``knobs``, ``init(device="cpu", **phase["init"])``, registers its
+    ``sets`` (process sets, on every rank), runs its scenarios (each
+    saved as ``<name>-rank<r>.npz``) and shuts down."""
+    import torch.distributed as dist
+    from horovod_tpu_torch.config import knobs
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        for phase in phases:
+            os.environ.update({k: str(v[rank] if isinstance(v, list)
+                                      else v).format(rank=rank)
+                               for k, v in phase.get("env", {}).items()})
+            for k, v in phase.get("knobs", {}).items():
+                knobs.set_override(k, v)
+            htt.init(device="cpu", **phase.get("init", {}))
+            try:
+                sets = [htt.add_process_set(r)
+                        for r in phase.get("sets", ())]
+                for sc in phase["scenarios"]:
+                    for k, v in sc.get("knobs", {}).items():
+                        knobs.set_override(k, v)
+                    try:
+                        out = _PHASE_SCENARIOS[sc.get("kind", "call")](
+                            rank, sc, sets)
+                    finally:
+                        for k in sc.get("knobs", {}):
+                            knobs.clear_override(k)
+                    np.savez(os.path.join(out_dir,
+                                          f"{sc['name']}-rank{rank}.npz"),
+                             **out)
+            finally:
+                htt.shutdown()
+                for k in phase.get("knobs", {}):
+                    knobs.clear_override(k)
+                for k in phase.get("env", {}):
+                    os.environ.pop(k, None)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_phases(world, phases, out_dir):
+    """Start :func:`phase_worker` in ``world`` ranks; returns ``load(name,
+    rank)``, which joins the world on first use."""
+    procs = start_world(phase_worker, world, phases, str(out_dir))
+    joined = []
+
+    def load(name, rank):
+        if not joined:
+            joined.append(True)
+            join_world(procs)
+        return np.load(os.path.join(str(out_dir), f"{name}-rank{rank}.npz"))
+
+    load.procs, load.joined = procs, joined
+    return load
