@@ -54,7 +54,18 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    every gradient leaf and the parameters after two SGD steps), a small
    f32 fused ResNet (logits, running statistics, every gradient leaf, the
    parameters after two SGD steps) and the tiny f32 fused step at
-   fp8_e4m3 with error feedback (losses, parameters, residual);
+   fp8_e4m3 with error feedback (losses, parameters, residual). Before
+   them, the resilient loop at full width and depth (``resilient
+   train:``): the flagship through ``train_loop`` and an
+   ``AsyncCheckpointer`` at interval 2, uninterrupted for 1+4 steps
+   (beside a PreemptionHandler that is never asked to stop), then
+   from a fresh state preempted at step 3 (exit code 75, the quiesce step
+   the only one committed), then a third fresh state restored and run to
+   step 5,
+   bitwise equal to the uninterrupted parameters and momentum; with the
+   snapshot's bytes, the on-path ms of a save (call to copy landed),
+   the background write s, the restore s and the share of step time
+   ``HOROVOD_CKPT_INTERVAL=auto`` would pay;
 6. collectives (world 1): every collective of ``ops.collectives`` and
    ``ops.sparse`` (allgather, alltoall with and without splits,
    reducescatter, ppermute, broadcast, an axis allreduce, the sparse
@@ -67,7 +78,8 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 package, it exits non-zero and prints no result.
 
 ``--data-parallel N`` runs only the collectives and training across N
-cards of one host: one process per card joins an NCCL world through the
+cards of one host (``--data-parallel N --resilient-only``: only the
+interrupt-and-resume check of the last paragraph): one process per card joins an NCCL world through the
 launcher's environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
 ``MASTER_PORT``, ``LOCAL_RANK``). First the collectives (``collective
 <name>:`` lines): allgather (even and uneven), alltoall (even and with
@@ -92,14 +104,25 @@ one profiled step the NCCL kernels' device ms and the part of it that
 overlapped compute kernels, and the schedule with its wire and DCN-stage
 bytes; every rank must end with the same parameters, a two-level variant's
 DCN stage must carry what the schedule predicts, and at tier none its
-losses must stay within FUSED_LOSS_REL_TOL of the flat variant's.
+losses must stay within FUSED_LOSS_REL_TOL of the flat variant's. Last,
+the resilient check on N cards (``resilient train data parallel:``): the
+fused flagship at fp8_e4m3 with error feedback through ``train_loop``,
+uninterrupted with chaos ``commit_deny`` at step 4 (step 2 must stay the
+only committed snapshot) beside a PreemptionHandler polling the store
+every step, with the times of the steps right after a save and of the
+others, preempted at step 3 (step 3 the only one committed, read after
+rank 0's rotation), and resumed by a fresh
+state: bitwise the uninterrupted parameters, momentum and residual on
+every rank, each rank's residual its own. Every N-card world forms its
+process group over a TCPStore that rank 0 binds to a port of the OS's
+choosing, and stops all ranks as soon as one fails.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import socket
+import queue
 import subprocess
 import sys
 import time
@@ -1345,6 +1368,444 @@ def resnet_card_vs_cpu(htt) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 4c: the resilient train loop at full width and depth
+# ---------------------------------------------------------------------------
+
+# Snapshots of the resilient phase go under build/ (ignored by git) and are
+# deleted when the phase ends.
+CKPT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "resilient_ckpt")
+CKPT_INTERVAL, PREEMPT_AT = 2, 3
+RESILIENT_WORLD_S = 420     # the N-card resilient world's deadline
+CKPT_BUDGET = 0.05          # HOROVOD_CKPT_OVERHEAD_BUDGET's default
+
+
+def resilient_state(htt, cfg, dev, seed: int, fused: bool):
+    """A fresh flagship state and step from the weights of ``seed``: the
+    unfused step with torch.optim.SGD, or the fused one (EpilogueSGD in
+    the bucket epilogues, the error-feedback residual per rank)."""
+    if fused:
+        return flagship_fused_step(htt, cfg, dev, seed)
+    params = htt.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    init_fn, step = htt.make_transformer_train_step(
+        cfg, lambda ps: torch.optim.SGD(ps, lr=0.01, momentum=0.9),
+        device=dev)
+    return init_fn(params), step
+
+
+def state_tensors(htt, state):
+    """``{name: tensor}`` of a flagship state: every parameter, its
+    momentum and, for the fused step with error feedback, its residual."""
+    from horovod_tpu_torch.utils import tree as tree_util
+    leaves = tree_util.tree_leaves(state.params)
+    out = {f"param{i}": t.detach() for i, t in enumerate(leaves)}
+    opt = state.opt_state
+    if isinstance(opt, torch.optim.Optimizer):
+        for i, t in enumerate(leaves):
+            out[f"momentum{i}"] = opt.state[t]["momentum_buffer"]
+    else:
+        for i, t in enumerate(tree_util.tree_leaves(opt.opt.slots[0])):
+            out[f"momentum{i}"] = t
+        residual = tree_util.tree_leaves(opt.residual) \
+            if isinstance(opt.residual, dict) else []
+        for i, t in enumerate(residual):
+            out[f"residual{i}"] = t
+    return out
+
+
+def resilient_runs(htt, fa, cfg, dev, batches, root, *, fused=False,
+                   deny=None):
+    """The interrupt-and-resume check through ``train_loop``:
+
+    1. ``len(batches)`` steps uninterrupted through an AsyncCheckpointer
+       at interval CKPT_INTERVAL (with chaos ``commit_deny`` at ``deny``:
+       that step's commit must be abandoned and the previous snapshot
+       stay the newest committed one), beside a PreemptionHandler that
+       is never asked to stop and polls the store every step, so the
+       step times show what its store calls pay while a save drains;
+    2. a fresh state, preempted at step PREEMPT_AT (chaos ``preempt_at``
+       through a PreemptionHandler): status ``preempted``, exit code 75,
+       the quiesce step committed;
+    3. a third fresh state whose ``train_loop`` restores that snapshot and
+       runs the remaining batches.
+
+    The committed steps are read after rank 0's rotation (a barrier
+    follows its last write) and must be exactly the ones expected.
+
+    Returns the uninterrupted and the resumed state's tensors (on the
+    card), the three runs' info dicts, step times and flash launches."""
+    from horovod_tpu_torch.callbacks import StepStats
+    from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.resilience import (AsyncCheckpointer,
+                                              PreemptionHandler, chaos,
+                                              list_committed_steps)
+    out = {"launches": [], "step_ms": []}
+
+    def committed(ck):
+        ck.wait()                  # rank 0: its commit and rotation
+        if htt.size() > 1:
+            htt.barrier()
+        return list_committed_steps(ck.directory)
+
+    def run(state, step, bs, ck, preemption=None):
+        stamps, saved, calls, copies, reserves = [], [], [], [], []
+        maybe_save, reserve = ck.maybe_save, ck.reserve
+
+        def timed_reserve(st):       # the pinned buffers, made once
+            t0 = time.perf_counter()
+            reserve(st)
+            reserves.append((time.perf_counter() - t0) * 1e3)
+
+        def recorded(i, st):
+            """Which steps saved (not only tried), the host ms of each
+            such call and, by events around it on the current stream, the
+            device ms of the copies it queued."""
+            t0 = time.perf_counter()
+            if dev.type == "cuda":
+                e0 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+            ok = maybe_save(i, st)
+            if ok:
+                calls.append((time.perf_counter() - t0) * 1e3)
+                if dev.type == "cuda":
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e1.record()
+                    copies.append((e0, e1))
+                saved.append(i)
+            return ok
+
+        ck.maybe_save, ck.reserve = recorded, timed_reserve
+
+        def on_step(i, st, loss):
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            if not np.isfinite(float(loss)):
+                raise AssertionError(f"non-finite loss {float(loss)} at "
+                                     f"step {i}")
+
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        state, info = htt.train_loop(step, state, bs, checkpointer=ck,
+                                     preemption=preemption,
+                                     step_stats=StepStats(), on_step=on_step)
+        launches = dict(fa.LAUNCHES)
+        if dev.type == "cuda" and min(
+                launches.get(k, 0) for k in ("flash_fwd", "flash_bwd_dq",
+                                             "flash_bwd_dkv")) \
+                < cfg.n_layers * max(len(stamps), 1):
+            raise AssertionError(f"resilient run: flash launches "
+                                 f"{launches} over {len(stamps)} steps")
+        out["launches"].append(launches)
+        out["step_ms"].append([float(x) * 1e3
+                               for x in np.diff([t0] + stamps)])
+        out.setdefault("saved_steps", []).append(saved)
+        out.setdefault("reserve_ms", []).append(reserves)
+        out.setdefault("save_call_ms", []).append(calls)
+        out.setdefault("save_copy_ms", []).append(
+            [a.elapsed_time(b) for a, b in copies])
+        return state, info
+
+    n = len(batches)
+    # 1: uninterrupted
+    if deny is not None:
+        chaos.install({"commit_deny": [deny]})
+    state, step = resilient_state(htt, cfg, dev, 0, fused)
+    ck = AsyncCheckpointer(os.path.join(root, "uninterrupted"),
+                           interval=CKPT_INTERVAL, max_to_keep=2)
+    knobs.set_override("HOROVOD_PREEMPTION_POLL_SECONDS", 0.0)
+    h = PreemptionHandler(checkpointer=ck, margin=0, install_signals=False)
+    try:
+        state, info1 = run(state, step, batches, ck, h)
+        out["uninterrupted_steps"] = committed(ck)
+    finally:
+        h.close()
+        knobs.clear_override("HOROVOD_PREEMPTION_POLL_SECONDS")
+        ck.close()
+        chaos.install(None)
+    if info1 != {"status": "completed", "exit_code": 0, "restored": False,
+                 "start_step": 0, "final_step": n}:
+        raise AssertionError(f"uninterrupted run: info {info1}")
+    # the steps right after a save carry its copy; the others (less the
+    # first, which warms up) run beside a draining write
+    after = [i for i in out["saved_steps"][0] if i < n]
+    out["after_save_ms"] = [out["step_ms"][0][i] for i in after]
+    out["other_steps_ms"] = [out["step_ms"][0][i] for i in range(1, n)
+                             if i not in after]
+    # Several ranks save at the multiples of the interval (none deferred
+    # here: two buffer sets, two saves); every save not denied commits and
+    # rotation keeps the newest two. One rank saves at step 1 and then
+    # whenever its last write has landed, which the timing decides.
+    steps = out["uninterrupted_steps"]
+    want = [s for s in range(CKPT_INTERVAL, n + 1, CKPT_INTERVAL)
+            if s != deny][-2:]
+    if (htt.size() > 1 and steps != want) or not 1 <= len(steps) <= 2:
+        raise AssertionError(
+            f"uninterrupted run (commit_deny at {deny}): committed "
+            f"{steps}, want {want if htt.size() > 1 else 'one or two'}")
+    ref = {k: t.clone() for k, t in state_tensors(htt, state).items()}
+    del state, step
+    # 2: preempted
+    chaos.install({"preempt_at": PREEMPT_AT})
+    state, step = resilient_state(htt, cfg, dev, 0, fused)
+    pre_dir = os.path.join(root, "preempted")
+    ck = AsyncCheckpointer(pre_dir, interval=CKPT_INTERVAL, max_to_keep=1)
+    h = PreemptionHandler(checkpointer=ck, margin=0, install_signals=False)
+    try:
+        state, info2 = run(state, step, batches, ck, h)
+        out["preempted_steps"] = committed(ck)
+    finally:
+        h.close()
+        chaos.install(None)
+    if info2 != {"status": "preempted", "exit_code": 75, "restored": False,
+                 "start_step": 0, "final_step": PREEMPT_AT} \
+            or out["preempted_steps"] != [PREEMPT_AT]:
+        ck.close()
+        raise AssertionError(f"preempted run: info {info2}, committed "
+                             f"{out['preempted_steps']}")
+    out["preempted_state"], out["preempted_ck"] = state, ck
+    out["step"] = step
+    # 3: restored (the caller measures on the preempted state first)
+    out["ref"] = ref
+    out["infos"] = [info1, info2]
+    return out
+
+
+def resume_run(htt, fa, cfg, dev, batches, root, res, *, fused=False):
+    """Step 3 of :func:`resilient_runs`: a fresh state restored from the
+    preempted run's snapshot, to the end of ``batches``; returns its
+    tensors and the restore's seconds (goodput's restart phase)."""
+    from horovod_tpu_torch.callbacks import StepStats
+    from horovod_tpu_torch.resilience import AsyncCheckpointer
+    state, step = resilient_state(htt, cfg, dev, 0, fused)
+    ck = AsyncCheckpointer(os.path.join(root, "preempted"),
+                           interval=CKPT_INTERVAL, max_to_keep=1)
+    before = htt.goodput_report()["phases"]["restart"]
+    fa.reset_launches()
+    try:
+        state, info3 = htt.train_loop(step, state, batches[PREEMPT_AT:],
+                                      checkpointer=ck,
+                                      step_stats=StepStats())
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        ck.close()
+    launches = dict(fa.LAUNCHES)
+    restore_s = htt.goodput_report()["phases"]["restart"] - before
+    if info3 != {"status": "completed", "exit_code": 0, "restored": True,
+                 "start_step": PREEMPT_AT, "final_step": len(batches)}:
+        raise AssertionError(f"resumed run: info {info3}")
+    got = state_tensors(htt, state)
+    diff = {k: float((got[k].double() - t.double()).abs().max())
+            for k, t in res["ref"].items() if not torch.equal(got[k], t)}
+    res["infos"].append(info3)
+    res["launches"].append(launches)
+    return got, diff, restore_s
+
+
+def snapshot_probe(ck, state, dev, n: int = 2):
+    """The on-path cost of a snapshot (from the call until the copy has
+    landed: the stream is busy with it), the copy's device time and the
+    background write (serialize, sha256, write, fsync, commit) of ``n``
+    saves of ``state``; the first may allocate its pinned buffers."""
+    rows = []
+    for i in range(n):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(1000 + i, state)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ck.wait()
+        t2 = time.perf_counter()
+        rows.append({"on_path_ms": (t1 - t0) * 1e3,
+                     "copy_device_ms": ck.last_copy_seconds * 1e3,
+                     "write_s": t2 - t1})
+    return rows
+
+
+def resilient_train(htt, fa, card, n_steps: int = 4,
+                    device="cuda") -> None:
+    """The resilient phase at full width and depth (``resilient train:``
+    line): the flagship through ``train_loop`` in an NCCL world of one,
+    uninterrupted, preempted at step PREEMPT_AT and resumed, the resumed
+    parameters and momentum bitwise equal to the uninterrupted ones;
+    snapshot bytes, on-path ms, write s, restore s and the share of step
+    time HOROVOD_CKPT_INTERVAL=auto would pay."""
+    import math
+    import shutil
+    from horovod_tpu_torch.resilience import AsyncCheckpointer
+    cfg = flagship_cfg(htt.TransformerConfig, mlp_recompute=True,
+                       dp_axis="dp")
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    ctx = htt.init(device=device)
+    dev = ctx.device
+    try:
+        gen = torch.Generator(device=dev).manual_seed(1)
+        batches = [tuple(torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S),
+                                       generator=gen, device=dev)
+                         for _ in range(2)) for _ in range(n_steps + 1)]
+        res = resilient_runs(htt, fa, cfg, dev, batches, CKPT_ROOT)
+        state, pre_ck = res.pop("preempted_state"), res.pop("preempted_ck")
+        pre_ck.close()
+        shutil.rmtree(os.path.join(CKPT_ROOT, "uninterrupted"),
+                      ignore_errors=True)
+        tensors = state_tensors(htt, state)
+        nbytes = sum(t.numel() * t.element_size() for t in tensors.values())
+        probe_ck = AsyncCheckpointer(os.path.join(CKPT_ROOT, "probe"),
+                                     interval=0, max_to_keep=1)
+        try:
+            probe = snapshot_probe(probe_ck, state, dev)
+            shard = os.path.join(probe_ck.directory, "step-0000001001",
+                                 "shard-00000.pkl")
+            shard_bytes = os.path.getsize(shard)
+        finally:
+            probe_ck.close()
+        del state, tensors, res["step"]
+        got, diff, restore_s = resume_run(htt, fa, cfg, dev, batches,
+                                          CKPT_ROOT, res)
+        n_params = sum(t.numel() for k, t in res["ref"].items()
+                       if k.startswith("param"))
+        del got
+        res.pop("ref")
+    finally:
+        htt.shutdown()
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    # a step's time without a save: the median over the first two runs
+    # (a save's copy lands in the step after it)
+    step_s = float(np.median([x for ms in res["step_ms"][:2]
+                              for x in ms])) / 1e3
+    cost_s = probe[-1]["on_path_ms"] / 1e3
+    interval = max(1, math.ceil(cost_s / (CKPT_BUDGET * step_s)))
+    line = {
+        "model": "flagship TransformerLM", "batch": TRAIN_B, "seq": TRAIN_S,
+        "optimizer": "torch.optim.SGD(0.01, momentum=0.9)",
+        "parameters": n_params, "steps": len(batches),
+        "interval": CKPT_INTERVAL, "preempt_at": PREEMPT_AT,
+        "infos": res["infos"],
+        "uninterrupted_committed": res["uninterrupted_steps"],
+        "preempted_committed": res["preempted_steps"],
+        "resumed_bitwise_equal": not diff,
+        "leaves_differing": len(diff),
+        "max_abs_diff": max(diff.values()) if diff else 0.0,
+        "snapshot_bytes": nbytes, "shard_file_bytes": shard_bytes,
+        "snapshot_probe": probe,
+        "on_path_snapshot_ms": probe[-1]["on_path_ms"],
+        "write_s": probe[-1]["write_s"], "restore_s": restore_s,
+        "step_ms": res["step_ms"], "step_ms_median": step_s * 1e3,
+        "saved_steps": res["saved_steps"], "reserve_ms": res["reserve_ms"],
+        "save_call_ms": res["save_call_ms"],
+        "save_copy_ms": res["save_copy_ms"],
+        "after_save_ms": res["after_save_ms"],
+        "other_steps_ms": res["other_steps_ms"],
+        "auto_interval": interval,
+        "auto_overhead_share": cost_s / (interval * step_s),
+        "overhead_share_per_save": cost_s / step_s,
+        "flash_launches": res["launches"], "card": card}
+    log("resilient train: " + json.dumps(line))
+    if diff:
+        raise AssertionError(
+            f"the resumed run differs from the uninterrupted one in "
+            f"{len(diff)} leaves (max abs diff {max(diff.values())})")
+
+
+def resilient_rank(rank, world, ports, results, device="cuda",
+                   n_steps: int = 4):
+    """One rank of the N-card interrupt-and-resume check: the fused
+    flagship at fp8_e4m3 with error feedback (a residual per rank). Every
+    rank writes its own shard and rank 0 commits behind the c10d-store
+    barrier; commit_deny at step 4 of the uninterrupted run leaves step 2
+    committed; the resumed run equals the uninterrupted one bitwise on
+    every rank, residuals included. Every rank puts its result on
+    ``results``."""
+    import faulthandler
+    import shutil
+    import torch.distributed as dist
+    join_store_world(rank, world, ports, device)
+    import horovod_tpu_torch as htt
+    from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.ops import flash_attention as fa
+    # a rank that hangs prints every thread's stack before the deadline
+    faulthandler.dump_traceback_later(RESILIENT_WORLD_S - 60, exit=False)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    knobs.set_override("HOROVOD_GRADIENT_COMPRESSION", "fp8_e4m3")
+    ctx = htt.init(device=device)
+    dev = ctx.device
+    root = os.path.join(CKPT_ROOT, f"world{world}")
+    try:
+        cfg = flagship_cfg(htt.TransformerConfig, mlp_recompute=True,
+                           dp_axis="dp")
+        b, s = TRAIN_B, TRAIN_S
+        gen = torch.Generator(device=dev).manual_seed(1)
+        rows = slice(rank * b, (rank + 1) * b)
+        batches = [tuple(torch.randint(0, cfg.vocab_size, (b * world, s),
+                                       generator=gen, device=dev)[rows]
+                         for _ in range(2)) for _ in range(n_steps + 1)]
+        res = resilient_runs(htt, fa, cfg, dev, batches, root, fused=True,
+                             deny=4)
+        state, pre_ck = res.pop("preempted_state"), res.pop("preempted_ck")
+        pre_ck.close()
+        del state, res["step"]
+        htt.barrier()
+        if rank == 0:
+            shutil.rmtree(os.path.join(root, "uninterrupted"),
+                          ignore_errors=True)
+        got, diff, restore_s = resume_run(htt, fa, cfg, dev, batches, root,
+                                          res, fused=True)
+        ref = res.pop("ref")
+        residual = sum(float(t.double().abs().sum()) for k, t in
+                       ref.items() if k.startswith("residual"))
+        sums = htt.allgather(torch.tensor([residual], dtype=torch.float64,
+                                          device=dev))
+        htt.barrier()
+        results.put({
+            "rank": rank, "infos": res["infos"],
+            "uninterrupted_committed": res["uninterrupted_steps"],
+            "preempted_committed": res["preempted_steps"],
+            "resumed_bitwise_equal": not diff,
+            "leaves_differing": len(diff),
+            "max_abs_diff": max(diff.values()) if diff else 0.0,
+            "residual_leaves": sum(k.startswith("residual") for k in ref),
+            "residual_abs_sum": residual,
+            "residual_sums_distinct_across_ranks":
+                len(set(sums.tolist())) == world,
+            "restore_s": restore_s, "step_ms": res["step_ms"],
+            "saved_steps": res["saved_steps"],
+            "reserve_ms": res["reserve_ms"],
+            "save_call_ms": res["save_call_ms"],
+            "save_copy_ms": res["save_copy_ms"],
+            "after_save_ms": res["after_save_ms"],
+            "other_steps_ms": res["other_steps_ms"]})
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+        htt.shutdown()
+        knobs.clear_override("HOROVOD_GRADIENT_COMPRESSION")
+        if rank == 0:
+            shutil.rmtree(root, ignore_errors=True)
+        dist.destroy_process_group()
+
+
+def resilient_world(n: int, card: str, **kw) -> None:
+    """:func:`resilient_rank` on ``n`` cards (``resilient train data
+    parallel:`` line); fails unless every rank resumed bitwise with its
+    own residual."""
+    out = sorted(spawn_world(resilient_rank, n, n, RESILIENT_WORLD_S,
+                             **kw), key=lambda r: r["rank"])
+    log("resilient train data parallel: " + json.dumps({
+        "model": "flagship TransformerLM fused", "tier": "fp8_e4m3",
+        "error_feedback": True, "n_cards": n, "batch_per_card": TRAIN_B,
+        "seq": TRAIN_S, "commit_deny": 4, "ranks": out, "card": card}))
+    for r in out:
+        if not (r["resumed_bitwise_equal"] and r["residual_leaves"]
+                and r["residual_sums_distinct_across_ranks"]):
+            raise AssertionError(f"rank {r['rank']}: the resumed run is "
+                                 f"not the uninterrupted one: {r}")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: card against CPU
 # ---------------------------------------------------------------------------
 
@@ -1724,7 +2185,7 @@ def _coll_timed(fn, iters, dev):
     return start.elapsed_time(end) / iters
 
 
-def coll_rank(rank, world, port, results, device="cuda"):
+def coll_rank(rank, world, ports, results, device="cuda"):
     """One rank of the collectives' N-card world. (a) every case at a
     small ragged size and at 64 MiB against plain torch on every rank's
     input (rebuilt from the seeds), exactly (integer values), then timed;
@@ -1733,15 +2194,9 @@ def coll_rank(rank, world, port, results, device="cuda"):
     allreduce at 25 MiB and 256 MiB, exactly, and timed. The process
     group is made here, so each ``init`` builds its topology on it."""
     import torch.distributed as dist
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
-                      MASTER_ADDR="localhost", MASTER_PORT=str(port),
-                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    join_store_world(rank, world, ports, device)
     import horovod_tpu_torch as htt
     from horovod_tpu_torch.ops import collectives as C
-    if device == "cuda":
-        torch.cuda.set_device(rank)
-    dist.init_process_group("nccl" if device == "cuda" else "gloo",
-                            init_method="env://")
     dev = device
     try:
         htt.init(device=device)
@@ -1814,24 +2269,8 @@ def coll_rank(rank, world, port, results, device="cuda"):
 def collectives_n_cards(n, card, device="cuda") -> None:
     """``coll_rank`` in ``n`` spawned processes; one ``collective
     <name>:`` line per case, each failing the run unless exact."""
-    ctx = torch.multiprocessing.get_context("spawn")
-    results = ctx.Queue()
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    procs = [ctx.Process(target=coll_rank, args=(r, n, port, results),
-                         kwargs={"device": device}) for r in range(n)]
-    for p in procs:
-        p.start()
-    lines = [results.get(timeout=600) for _ in range(len(COLL_CASES) + 2)]
-    for p in procs:
-        p.join(timeout=120)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-    if any(p.exitcode != 0 for p in procs):
-        raise AssertionError(f"a rank of the {n}-card collectives world "
-                             f"failed: {[p.exitcode for p in procs]}")
+    lines = spawn_world(coll_rank, n, len(COLL_CASES) + 2, 600,
+                        device=device)
     for name, line in lines:
         line["card"] = card
         log(f"{name}: " + json.dumps(line))
@@ -1843,6 +2282,66 @@ def collectives_n_cards(n, card, device="cuda") -> None:
 # ---------------------------------------------------------------------------
 # --data-parallel N: the training step across N cards
 # ---------------------------------------------------------------------------
+
+def join_store_world(rank, world, ports, device) -> None:
+    """Form this rank's default process group over a TCPStore that rank 0
+    binds to a port the OS picks (port 0) and hands to the others through
+    ``ports``, so no world races another process for a port; the
+    launcher's variables are set to match."""
+    import datetime
+    import torch.distributed as dist
+    timeout = datetime.timedelta(seconds=300)
+    if rank == 0:
+        store = dist.TCPStore("localhost", 0, world, True, timeout=timeout,
+                              wait_for_workers=False)
+        for _ in range(world - 1):
+            ports.put(store.port)
+    else:
+        store = dist.TCPStore("localhost", ports.get(timeout=300), world,
+                              False, timeout=timeout)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(store.port),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    if device == "cuda":
+        torch.cuda.set_device(rank)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            store=store, rank=rank, world_size=world)
+
+
+def spawn_world(target, world, n_results, deadline_s, *args, **kw):
+    """``target(rank, world, ports, results, *args, **kw)`` in ``world``
+    spawned processes; returns the ``n_results`` items they put on
+    ``results``. A rank that fails leaves the others waiting in a
+    collective, so every rank is stopped as soon as one exits non-zero
+    (or at the deadline), and the call raises."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    results, ports = ctx.Queue(), ctx.Queue()
+    procs = [ctx.Process(target=target,
+                         args=(r, world, ports, results) + args, kwargs=kw)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    out, deadline = [], time.monotonic() + deadline_s
+    try:
+        while len(out) < n_results and time.monotonic() < deadline:
+            try:
+                out.append(results.get(timeout=5))
+            except queue.Empty:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    break
+    finally:
+        for p in procs:
+            p.join(timeout=120 if len(out) == n_results else 1)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+    if len(out) < n_results or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(
+            f"a rank of the {world}-card world of {target.__name__} "
+            f"failed: exit codes {[p.exitcode for p in procs]}, "
+            f"{len(out)} of {n_results} results")
+    return out
+
 
 def nccl_overlap(prof):
     """From a profiled step's device events: the NCCL kernels' device ms,
@@ -1904,7 +2403,7 @@ def dp_variant(htt, rank, world, dev, variant, n_steps):
     return state, step, batches, b * s * world, "tokens"
 
 
-def dp_rank(rank, world, port, results, variants, device="cuda",
+def dp_rank(rank, world, ports, results, variants, device="cuda",
             n_steps=4):
     """One rank of an N-card world: each variant (``model`` transformer,
     fused or resnet, with ``knobs`` overridden while it runs) trains from
@@ -1913,9 +2412,9 @@ def dp_rank(rank, world, port, results, variants, device="cuda",
     step under torch.profiler on rank 0 (the NCCL kernels' overlap with
     compute). Rank 0 puts each variant's numbers on ``results``."""
     import torch.distributed as dist
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
-                      MASTER_ADDR="localhost", MASTER_PORT=str(port),
-                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    # the process group outlives each init, so a variant with topology
+    # knobs re-inits on it
+    join_store_world(rank, world, ports, device)
     import horovod_tpu_torch as htt
     from horovod_tpu_torch.config import knobs
     from horovod_tpu_torch.parallel import distributed as D
@@ -1923,12 +2422,6 @@ def dp_rank(rank, world, port, results, variants, device="cuda",
     from torch.profiler import ProfilerActivity, profile
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if device == "cuda":
-        torch.cuda.set_device(rank)
-    # the process group outlives each init, so a variant with topology
-    # knobs re-inits on it
-    dist.init_process_group("nccl" if device == "cuda" else "gloo",
-                            init_method="env://")
     topo = None
     for variant in variants:
         for k, v in variant.get("knobs", {}).items():
@@ -2005,25 +2498,7 @@ def dp_rank(rank, world, port, results, variants, device="cuda",
 def run_world(world, variants, **kw):
     """``dp_rank`` in ``world`` spawned processes; rank 0's results, one
     per variant."""
-    ctx = torch.multiprocessing.get_context("spawn")
-    results = ctx.Queue()
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    procs = [ctx.Process(target=dp_rank,
-                         args=(r, world, port, results, variants), kwargs=kw)
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    out = [results.get(timeout=900) for _ in variants]   # before the join
-    for p in procs:
-        p.join(timeout=120)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-    if any(p.exitcode != 0 for p in procs):
-        raise AssertionError(f"a rank of the {world}-card world failed: "
-                             f"{[p.exitcode for p in procs]}")
+    out = spawn_world(dp_rank, world, len(variants), 900, variants, **kw)
     return {r["variant"]: r for r in out}
 
 
@@ -2132,9 +2607,12 @@ def main(argv) -> int:
               "NVIDIA GPU", file=sys.stderr)
         return 2
     n_dp = 0
+    resilient_only = argv[2:] == ["--resilient-only"]
     if argv:
-        if len(argv) != 2 or argv[0] != "--data-parallel":
-            print("usage: chip_smoke.py [--data-parallel N]", file=sys.stderr)
+        if len(argv) not in (2, 3) or argv[0] != "--data-parallel" or \
+                (len(argv) == 3 and not resilient_only):
+            print("usage: chip_smoke.py [--data-parallel N "
+                  "[--resilient-only]]", file=sys.stderr)
             return 2
         n_dp = int(argv[1])
         if not 2 <= n_dp <= torch.cuda.device_count():
@@ -2168,8 +2646,10 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if n_dp:
-        collectives_n_cards(n_dp, card)
-        data_parallel(n_dp, card)
+        if not resilient_only:
+            collectives_n_cards(n_dp, card)
+            data_parallel(n_dp, card)
+        resilient_world(n_dp, card)
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -2198,6 +2678,7 @@ def main(argv) -> int:
     train_flagship_fused(htt, fa, card, unfused_losses, unfused_params)
     del unfused_params
     resnet_launches = train_resnet50(htt, cb, card)
+    resilient_train(htt, fa, card)
 
     # phase 5: card against CPU
     card_vs_cpu(htt)

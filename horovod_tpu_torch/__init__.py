@@ -26,14 +26,30 @@ at its first launch. These paths are ported:
   named mesh (``hvd``, ``hvd_cross``, ``hvd_local``, ``hvd_dcn``) and
   process sets on NCCL groups; allgather, alltoall, reducescatter and
   ppermute with their uneven forms; the hierarchical (torus) and
-  two-level allreduce, and the two-level tier of the gradient sync.
+  two-level allreduce, and the two-level tier of the gradient sync;
+- Horovod's resilient training loop (``train_loop``): crash-safe async
+  checkpoints of the live training state (``resilience``:
+  ``AsyncCheckpointer``, ``CheckpointManager``), preemption quiesce with
+  the resumable exit code 75, chaos drills and retry policies over the
+  c10d store, step stats, goodput phases (``goodput``), spans
+  (``tracing``) and straggler detection.
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``, which takes the kernels' plain PyTorch versions.
 Importing the package builds nothing.
 """
 
+from horovod_tpu_torch import goodput, resilience, tracing  # noqa: F401
+from horovod_tpu_torch.callbacks import CheckpointCallback, StepStats
+from horovod_tpu_torch.checkpoint import (CheckpointManager,
+                                          restore_checkpoint,
+                                          save_checkpoint)
 from horovod_tpu_torch.functions import broadcast_parameters
+from horovod_tpu_torch.goodput import goodput_report
+from horovod_tpu_torch.metrics import metrics_snapshot
+from horovod_tpu_torch.resilience import (RESUMABLE_EXIT_CODE,
+                                          AsyncCheckpointer,
+                                          PreemptionHandler)
 from horovod_tpu_torch.models.resnet import (ResNet, ResNet18, ResNet34,
                                              ResNet50, ResNet101, ResNet152,
                                              variables_from_numpy,
@@ -72,21 +88,27 @@ from horovod_tpu_torch.serving import (Request, ServeEngine,
 
 __version__ = "0.3.0"
 
-__all__ = ["Adasum", "Average", "Compression", "DistributedApply",
+__all__ = ["Adasum", "AsyncCheckpointer", "Average", "CheckpointCallback",
+           "CheckpointManager", "Compression", "DistributedApply",
            "DistributedOptimizer", "EpilogueAdam", "EpilogueSGD", "Max",
-           "Min", "ProcessSet", "Product", "ReduceOp", "Request", "ResNet",
+           "Min", "PreemptionHandler", "ProcessSet", "Product",
+           "RESUMABLE_EXIT_CODE", "ReduceOp", "Request", "ResNet",
            "ResNet101", "ResNet152", "ResNet18", "ResNet34", "ResNet50",
-           "ServeEngine", "ServeScheduler", "Sum", "TrainState",
+           "ServeEngine", "ServeScheduler", "StepStats", "Sum",
+           "TrainState",
            "TransformerConfig", "TransformerLM", "add_process_set",
            "allgather", "allreduce", "allreduce_gradients", "alltoall",
            "barrier", "broadcast", "broadcast_parameters", "cross_rank",
            "cross_size", "data_parallel_train_step", "distributed_apply",
-           "get_process_set_by_id", "global_process_set",
+           "get_process_set_by_id", "global_process_set", "goodput",
+           "goodput_report",
            "grouped_allreduce", "hierarchical_allreduce", "init",
            "init_params", "is_homogeneous", "is_initialized", "local_rank",
            "local_size", "make_transformer_train_step",
-           "make_transformer_train_step_fused", "mesh", "params_from_numpy",
-           "ppermute", "process_set_ids", "rank", "reducescatter",
-           "remove_process_set", "shutdown", "size", "sparse_allreduce",
-           "torus_allreduce", "train_loop", "two_level_allreduce",
+           "make_transformer_train_step_fused", "mesh", "metrics_snapshot",
+           "params_from_numpy", "ppermute", "process_set_ids", "rank",
+           "reducescatter", "remove_process_set", "resilience",
+           "restore_checkpoint", "save_checkpoint", "shutdown", "size",
+           "sparse_allreduce", "torus_allreduce", "tracing", "train_loop",
+           "two_level_allreduce",
            "variables_from_numpy", "variables_to_numpy"]

@@ -31,6 +31,16 @@ def _parse_size(v) -> int:
     return int(float(s))
 
 
+def _parse_ckpt_interval(v):
+    """Checkpoint cadence: a step count, or 'auto' (CheckFreq-style tuning
+    against the measured mean step time, resilience/async_checkpoint).
+    0 disables interval-driven saves (explicit ``save()`` still works)."""
+    s = str(v).strip().lower()
+    if s == "auto":
+        return "auto"
+    return int(float(s))
+
+
 def _parse_bucket_bytes(v):
     """Gradient bucket size: a byte size (suffixes allowed), or 'auto'
     (``autotune.resolve_bucket_bytes``)."""
@@ -75,6 +85,12 @@ class KnobRegistry:
                 f"{name}={val!r} not in allowed choices {knob.choices}")
         return val
 
+    def is_set(self, name: str) -> bool:
+        """Whether an override or the environment gives ``name`` a
+        value."""
+        self._knobs[name]
+        return name in self._overrides or bool(os.environ.get(name))
+
     def set_override(self, name: str, value: Any) -> None:
         if name not in self._knobs:
             raise KeyError(f"unknown knob {name}")
@@ -82,6 +98,9 @@ class KnobRegistry:
 
     def clear_override(self, name: str) -> None:
         self._overrides.pop(name, None)
+
+    def knobs(self) -> Dict[str, Knob]:
+        return dict(self._knobs)
 
 
 knobs = KnobRegistry()
@@ -204,3 +223,118 @@ knobs.register("HOROVOD_TPU_MESH_SHAPE", "", str,
 knobs.register("HOROVOD_TPU_MESH_AXES", "", str,
                help="Comma-separated axis names matching "
                     "HOROVOD_TPU_MESH_SHAPE.")
+
+# Resilience knobs (resilience/: async off-step-path checkpointing,
+# preemption-aware auto-resume, chaos drills), read when an
+# AsyncCheckpointer or PreemptionHandler is built and by train_loop.
+knobs.register("HOROVOD_CKPT_DIR", "", str,
+               help="Checkpoint directory of resilience.AsyncCheckpointer: "
+                    "crash-safe manifest-committed snapshots with newest-k "
+                    "rotation. Read by parallel.trainer.train_loop; empty "
+                    "disables loop-managed checkpointing.")
+knobs.register("HOROVOD_CKPT_INTERVAL", "auto", _parse_ckpt_interval,
+               help="Steps between async snapshots, or 'auto': tune the "
+                    "save frequency against the measured mean step time "
+                    "(StepStats' hvd_step_duration_seconds) so the "
+                    "on-step-path cost (the device->host copy) stays under "
+                    "HOROVOD_CKPT_OVERHEAD_BUDGET of step time. 0 disables "
+                    "interval-driven saves.")
+knobs.register("HOROVOD_CKPT_OVERHEAD_BUDGET", 0.05, float,
+               help="Ceiling of the on-path checkpoint cost as a fraction "
+                    "of step time under HOROVOD_CKPT_INTERVAL=auto.")
+knobs.register("HOROVOD_CKPT_KEEP", 3, int,
+               help="Newest-k rotation depth. Older committed snapshots "
+                    "are deleted only after the new manifest is "
+                    "committed.")
+knobs.register("HOROVOD_CKPT_FORMAT", "auto", str,
+               choices=("auto", "orbax", "pickle"),
+               help="Serialization of the snapshots: 'pickle' (one shard "
+                    "file per rank); 'auto' resolves to pickle. 'orbax' "
+                    "is the JAX package's and raises ValueError here.")
+knobs.register("HOROVOD_CKPT_COMMIT_TIMEOUT", 120.0, float,
+               help="Multi-rank commit barrier: seconds rank 0 waits for "
+                    "every rank's shard (and the others for rank 0's "
+                    "commit record) over the c10d store before the "
+                    "attempt is abandoned uncommitted.")
+knobs.register("HOROVOD_PREEMPTION_FILE", "", str,
+               help="Sentinel file watched by resilience.PreemptionHandler: "
+                    "when it appears, training quiesces at an agreed step, "
+                    "commits a final synchronous snapshot and returns the "
+                    "resumable exit code 75. Files older than the handler "
+                    "are ignored. SIGTERM/SIGINT trigger the same path.")
+knobs.register("HOROVOD_PREEMPTION_POLL_SECONDS", 1.0, float,
+               help="Poll interval of the preemption sentinel watcher.")
+knobs.register("HOROVOD_PREEMPTION_QUIESCE_MARGIN", 2, int,
+               help="Steps the first preempted rank adds to its current "
+                    "step when it publishes the agreed stop step over the "
+                    "c10d store.")
+knobs.register("HOROVOD_CHAOS_SPEC", "", str,
+               help="JSON fault-injection spec of resilience.chaos (tests "
+                    "and drills only), e.g. '{\"kill\": {\"1:17\": 9}, "
+                    "\"commit_deny\": [5], \"preempt_at\": 12}'. The "
+                    "grammar is the JAX package's. Empty disables all "
+                    "injection.")
+
+# Fault-domain knobs (resilience/faults.py), read when a site's retry
+# policy is first built.
+knobs.register("HOROVOD_FAULT_RETRY_DEADLINE", 30.0, float,
+               help="Default total retry budget in seconds per "
+                    "control-plane call site (backoff included).")
+knobs.register("HOROVOD_FAULT_RETRIES", 5, int,
+               help="Default attempt ceiling per control-plane call.")
+knobs.register("HOROVOD_FAULT_RETRY_BASE", 0.1, float,
+               help="Base backoff in seconds: attempt k waits base*2^k, "
+                    "capped at HOROVOD_FAULT_RETRY_MAX_BACKOFF, minus a "
+                    "deterministic jitter fraction.")
+knobs.register("HOROVOD_FAULT_RETRY_MAX_BACKOFF", 5.0, float,
+               help="Backoff ceiling in seconds of the default policy.")
+knobs.register("HOROVOD_FAULT_RETRY_JITTER", 0.2, float,
+               help="Deterministic jitter fraction [0,1) subtracted from "
+                    "each backoff; 0 disables jitter.")
+knobs.register("HOROVOD_FAULT_POLICIES", "", str,
+               help="JSON per-site retry-policy overrides, e.g. "
+                    "'{\"checkpoint_commit\": {\"deadline_s\": 120}}'.")
+knobs.register("HOROVOD_FAULT_PROBE_SECONDS", 5.0, float,
+               help="How often a shed optional site gets one probe "
+                    "operation through (degraded mode heals on success).")
+knobs.register("HOROVOD_FAULT_HEARTBEAT_SECONDS", 2.0, float,
+               help="Cadence of a data-service worker's heartbeat. The "
+                    "data service is not ported yet (ROADMAP A.13): "
+                    "train_loop raises when this is set.")
+knobs.register("HOROVOD_FAULT_WORKER_DEADLINE", 10.0, float,
+               help="Heartbeat age after which a data-service worker is "
+                    "declared dead. Not ported yet (ROADMAP A.13): "
+                    "train_loop raises when this is set.")
+
+# Tracing and goodput knobs (tracing/, goodput/), read at init and when
+# the recorder is enabled.
+knobs.register("HOROVOD_TRACE", False, bool,
+               help="Enable the span recorder at init: trace.span(...) "
+                    "records the train loop, checkpoint and preemption "
+                    "spans into a per-process ring buffer. Off, span() "
+                    "returns a shared no-op.")
+knobs.register("HOROVOD_TRACE_BUFFER_SPANS", 16384, int,
+               help="Capacity of the span ring buffer; the oldest spans "
+                    "fall off.")
+knobs.register("HOROVOD_TRACE_DIR", "", str,
+               help="Directory of flight recordings; empty = '.hvdtrace' "
+                    "under the working directory.")
+knobs.register("HOROVOD_TRACE_PROFILE", "", str,
+               help="Profiler capture window 'steps:N[@S]'. Not ported "
+                    "yet (ROADMAP A.13): train_loop raises when set.")
+knobs.register("HOROVOD_GOODPUT", True, bool,
+               help="Goodput accountant: every second of run wall time is "
+                    "attributed to one phase (init, compile, step_compute, "
+                    "exposed_collective, input_wait, checkpoint, restart, "
+                    "degraded, idle); goodput_report() reads it.")
+knobs.register("HOROVOD_NUMERICS", False, bool,
+               help="Numerics-health telemetry. Not ported yet (ROADMAP "
+                    "A.13): train_loop raises when set.")
+knobs.register("HOROVOD_VERIFY_STEP", "0", str,
+               choices=("0", "1", "strict"),
+               help="IR-tier step verification at train_loop start. Not "
+                    "ported yet (ROADMAP A.15): train_loop raises on 1 or "
+                    "strict.")
+knobs.register("HOROVOD_ARTIFACT_STORE", "", str,
+               help="Persistent compiled-artifact store. Not ported yet "
+                    "(ROADMAP A.13): train_loop raises when set.")

@@ -54,8 +54,7 @@ mesh does not have, such as a model's own data-parallel axis ``dp`` or
 ``hvd`` on a multi-axis mesh, stands for every axis, i.e. the world. An
 empty axes tuple marks a local leaf, which is not synced. Not ported:
 Adasum and ``DistributedAdasumOptimizer`` (A.9),
-``distributed_value_and_grad``, the wire metrics counters and the online
-tuner (A.13).
+``distributed_value_and_grad`` and the online tuner (A.13).
 """
 
 from __future__ import annotations
@@ -172,13 +171,14 @@ def _resolve_tier(gs: Sequence[torch.Tensor], axes, op: ReduceOp,
 
 
 # ---------------------------------------------------------------------------
-# wire-bytes accounting (a dict only: the hvd_grad_* metrics wait for the
-# port's metrics module, slice 5)
+# wire-bytes accounting: the last sync's trace, and the bytes of every sync
+# since train_loop last charged them to the hvd_grad_* counters
 # ---------------------------------------------------------------------------
 
 _WIRE_TRACE = {"tier": "none", "logical_bytes": 0, "wire_bytes": 0,
                "n_buckets": 0, "error_feedback": False, "schedule": "flat",
                "dcn_wire_bytes": 0}
+_UNCHARGED = {"logical_bytes": 0, "wire_bytes": 0}
 
 
 def last_wire_trace() -> dict:
@@ -198,6 +198,26 @@ def _record_wire_trace(tier: str, logical: int, wire: int, n_buckets: int,
                        wire_bytes=int(wire), n_buckets=int(n_buckets),
                        error_feedback=bool(ef), schedule=str(schedule),
                        dcn_wire_bytes=int(dcn_wire))
+    _UNCHARGED["logical_bytes"] += int(logical)
+    _UNCHARGED["wire_bytes"] += int(wire)
+
+
+def record_step_wire_metrics() -> None:
+    """Charge the gradient wire traffic of the syncs since the last call
+    to the cumulative counters (called per step by ``train_loop``). Where
+    the JAX package estimates a step's bytes from the last traced program,
+    the port counts every sync that ran, so the charge is exact."""
+    logical, wire = _UNCHARGED["logical_bytes"], _UNCHARGED["wire_bytes"]
+    if not logical:
+        return
+    _UNCHARGED.update(logical_bytes=0, wire_bytes=0)
+    from horovod_tpu_torch import metrics as M
+    M.counter("hvd_grad_wire_bytes_total",
+              "Gradient bytes actually moved by the sync collectives "
+              "(post wire compression)").inc(wire)
+    M.counter("hvd_grad_logical_bytes_total",
+              "Gradient bytes the sync collectives would move "
+              "uncompressed").inc(logical)
 
 
 # ---------------------------------------------------------------------------
@@ -623,6 +643,8 @@ class WireState(NamedTuple):
     error feedback: ``residual`` mirrors the gradient tree, each leaf this
     rank's residual with the leaf's own shape, updated in place."""
     residual: Any
+    # checkpoints write it per rank (resilience/async_checkpoint.py)
+    _per_rank_fields = ("residual",)
 
 
 def _residual_zeros(leaf: torch.Tensor) -> torch.Tensor:
@@ -811,6 +833,8 @@ class DistributedApplyState(NamedTuple):
     and the error-feedback residual tree (``()`` when none is carried)."""
     opt: EpilogueOptState
     residual: Any
+    # checkpoints write it per rank (resilience/async_checkpoint.py)
+    _per_rank_fields = ("residual",)
 
 
 class EpilogueOptimizer:

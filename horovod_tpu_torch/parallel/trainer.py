@@ -11,8 +11,12 @@ launched from the gradient hooks and the optimizer update in each
 bucket's epilogue (``DistributedApply``); ``data_parallel_train_step``
 trains any ``nn.Module`` (ResNet) through a ``DistributedOptimizer``.
 
-Not ported yet: the checkpoint, preemption, verify-step, artifact-store,
-goodput, numerics and straggler hooks of ``train_loop`` (slice 5).
+``train_loop`` is the resilient step loop of the JAX package
+(``horovod_tpu/parallel/trainer.py:203-385``): restore before step 1,
+snapshots off the step path, preemption quiesce with the resumable exit
+code, step stats, goodput phases, spans, the chaos hook and straggler
+detection. Its verify-step, artifact-store, profile-window and numerics
+hooks are not ported yet: the knobs that turn them on raise.
 """
 
 from __future__ import annotations
@@ -281,6 +285,40 @@ def data_parallel_train_step(
     return init_fn, train_step, put_batch
 
 
+def _unported_loop_knobs() -> None:
+    """Raise for a knob that turns on a train_loop hook the port does
+    not have yet: a run must never skip such a hook silently."""
+    from horovod_tpu_torch.config import knobs
+    for name, on, item in (
+            ("HOROVOD_VERIFY_STEP",
+             str(knobs.get("HOROVOD_VERIFY_STEP")) in ("1", "strict"),
+             "A.15"),
+            ("HOROVOD_ARTIFACT_STORE",
+             bool(knobs.get("HOROVOD_ARTIFACT_STORE")), "A.13"),
+            ("HOROVOD_TRACE_PROFILE",
+             bool(knobs.get("HOROVOD_TRACE_PROFILE")), "A.13"),
+            ("HOROVOD_NUMERICS", bool(knobs.get("HOROVOD_NUMERICS")),
+             "A.13")):
+        if on:
+            raise NotImplementedError(
+                f"train_loop: {name} turns on a hook that is not yet "
+                f"ported to horovod_tpu_torch (ROADMAP {item}); unset it")
+    for name in ("HOROVOD_FAULT_HEARTBEAT_SECONDS",
+                 "HOROVOD_FAULT_WORKER_DEADLINE"):
+        if knobs.is_set(name):
+            raise NotImplementedError(
+                f"train_loop: {name} tunes the data service, which is not "
+                f"yet ported to horovod_tpu_torch (ROADMAP A.13); unset it")
+    from horovod_tpu_torch.resilience import chaos
+    unported = chaos.unported_faults()
+    if unported:
+        raise NotImplementedError(
+            f"train_loop: the chaos spec drills subsystems that are not yet "
+            f"ported to horovod_tpu_torch: "
+            f"{', '.join(f'{f} (ROADMAP {i})' for f, i in unported)}; "
+            f"remove them from HOROVOD_CHAOS_SPEC")
+
+
 def train_loop(
     train_step: Callable,
     state: TrainState,
@@ -288,28 +326,150 @@ def train_loop(
     *,
     checkpointer=None,
     preemption=None,
+    step_stats=None,
     on_step: Optional[Callable[[int, Any, Any], None]] = None,
 ):
-    """Step ``train_step`` over ``batches``: ``(tokens, labels, ...)``
-    tuples are splatted into it, anything else is passed as one argument.
-    ``on_step(step, state, loss)`` runs after every step.
+    """Resilient step loop around ``train_step``: restore, step, measure,
+    snapshot off the step path, quiesce on preemption.
 
-    Returns ``(state, info)`` with ``status`` ('completed'),
-    ``exit_code`` (0), ``start_step`` and ``final_step``. Checkpointing
-    and preemption (and the loop's other hooks in the JAX package) are
-    not ported yet: passing a ``checkpointer`` or ``preemption`` raises
-    ``NotImplementedError``."""
-    if checkpointer is not None or preemption is not None:
-        raise NotImplementedError(
-            "train_loop: checkpointing and preemption are not yet ported "
-            "to horovod_tpu_torch (slice 5)")
-    step = int(state.step)
-    info = {"status": "completed", "exit_code": 0, "start_step": step}
-    for batch in batches:
-        state, loss = (train_step(state, *batch) if isinstance(batch, tuple)
-                       else train_step(state, batch))
-        step += 1
-        if on_step is not None:
-            on_step(step, state, loss)
-    info["final_step"] = step
+    - ``checkpointer`` (resilience.AsyncCheckpointer, or None): the loop
+      restores the latest committed snapshot into ``state`` before the
+      first step (the auto-resume path: tensors, modules and optimizers
+      are written in place, so gradient hooks and bound residuals keep
+      working) and calls ``maybe_save`` after every step, which blocks
+      only to issue the device->host copy. Built from
+      ``HOROVOD_CKPT_DIR`` when unset.
+    - ``preemption`` (resilience.PreemptionHandler, or None): checked
+      every step; at the agreed quiesce step the loop commits a final
+      synchronous snapshot and returns with the resumable status. When
+      unset, the process-global installed handler is used; when none is
+      installed and ``HOROVOD_PREEMPTION_FILE`` is set, one is built for
+      the duration of the loop (signal hooks included).
+    - ``step_stats`` (callbacks.StepStats, or None=create): per-step wall
+      time feeds ``hvd_step_duration_seconds``, what the auto checkpoint
+      cadence tunes against, and the straggler detector.
+    - ``on_step(step, state, loss)``: caller hook (logging, eval, ...).
+
+    Every step feeds the goodput phases (input_wait, step_compute,
+    checkpoint, restart), a ``train.step`` span, the chaos hook and, in a
+    world larger than one, the straggler detector. ``HOROVOD_VERIFY_STEP``
+    in {1, strict}, ``HOROVOD_ARTIFACT_STORE``, ``HOROVOD_TRACE_PROFILE``
+    and ``HOROVOD_NUMERICS`` raise ``NotImplementedError``: their hooks
+    are not ported yet (ROADMAP A.15, A.13). So do the data service's
+    ``HOROVOD_FAULT_HEARTBEAT_SECONDS`` and ``HOROVOD_FAULT_WORKER_DEADLINE``
+    and an armed chaos spec with a fault of a subsystem not ported yet
+    (``chaos.unported_faults``).
+
+    Returns ``(state, info)`` where ``info`` carries ``status``
+    ('completed' | 'preempted'), ``exit_code`` (0 or the resumable 75),
+    ``start_step``/``final_step``, and ``restored`` (bool). The caller
+    owns process exit: ``sys.exit(info['exit_code'])``.
+
+    Batches are ``(tokens, labels, ...)`` tuples splatted into
+    ``train_step``, or single objects passed as one argument."""
+    from horovod_tpu_torch.callbacks import StepStats
+    from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.goodput import accountant as _goodput
+    from horovod_tpu_torch.parallel.distributed import (
+        record_step_wire_metrics)
+    from horovod_tpu_torch.resilience import chaos
+    from horovod_tpu_torch.resilience.preemption import RESUMABLE_EXIT_CODE
+    from horovod_tpu_torch.tracing import spans as trace
+    from horovod_tpu_torch.tracing import straggler as _straggler
+
+    _unported_loop_knobs()
+    owned_checkpointer = False
+    if checkpointer is None:
+        ckpt_dir = knobs.get("HOROVOD_CKPT_DIR")
+        if ckpt_dir:
+            from horovod_tpu_torch.resilience import AsyncCheckpointer
+            checkpointer = AsyncCheckpointer(ckpt_dir)
+            owned_checkpointer = True
+    owned_handler = False
+    if preemption is None:
+        from horovod_tpu_torch.resilience import preemption as _preemption
+        preemption = _preemption.active_handler()
+        if preemption is None and knobs.get("HOROVOD_PREEMPTION_FILE"):
+            from horovod_tpu_torch.resilience import PreemptionHandler
+            preemption = PreemptionHandler(checkpointer=checkpointer)
+            owned_handler = True
+    stats = step_stats or StepStats()
+    info = {"status": "completed", "exit_code": 0, "restored": False}
+    step = int(state.step) if hasattr(state, "step") else 0
+    try:
+        if checkpointer is not None:
+            # Goodput: restore time is 'restart', the cost a preemption
+            # or crash charged this incarnation before step 1.
+            with _goodput.phase_scope(_goodput.RESTART):
+                restored = checkpointer.restore_latest(template=state)
+            if restored is not None:
+                step, state = restored
+                info["restored"] = True
+        info["start_step"] = step
+        # Straggler detection: from_env returns None in a world of one.
+        straggler = _straggler.active_detector() or _straggler.from_env()
+        stats.begin()
+        batch_it = iter(batches)
+        reserved = False
+        while True:
+            # Goodput: pulling the next batch is input-wait.
+            _goodput.set_phase(_goodput.INPUT_WAIT)
+            try:
+                batch = next(batch_it)
+            except StopIteration:
+                break
+            chaos.on_step(step)
+            if preemption is not None and preemption.check(step):
+                if checkpointer is not None:
+                    with _goodput.phase_scope(_goodput.CHECKPOINT), \
+                            trace.span("preemption.drain",
+                                       cat=trace.CAT_PREEMPTION,
+                                       attrs={"step": step}
+                                       if trace.enabled() else None):
+                        checkpointer.save(step, state, sync=True)
+                info["status"] = "preempted"
+                info["exit_code"] = RESUMABLE_EXIT_CODE
+                break
+            _goodput.set_phase(_goodput.STEP_COMPUTE)
+            step_span = trace.span(
+                "train.step", cat=trace.CAT_TRAIN,
+                attrs={"step": step} if trace.enabled() else None)
+            step_span.__enter__()
+            try:
+                state, loss = (train_step(state, *batch)
+                               if isinstance(batch, tuple)
+                               else train_step(state, batch))
+            finally:
+                step_span.__exit__(None, None, None)
+            step += 1
+            # Charge the step's gradient wire traffic to the counters.
+            record_step_wire_metrics()
+            # stats.end() runs while the ambient phase is still
+            # step_compute: its exposed-collective carve moves this
+            # step's handle-wait seconds out of this step's bucket.
+            row = stats.end()
+            if straggler is not None and row:
+                straggler.observe_step(row["step_time_s"])
+            if on_step is not None:
+                on_step(step, state, loss)
+            if checkpointer is not None:
+                with _goodput.phase_scope(_goodput.CHECKPOINT):
+                    if not reserved:
+                        # The snapshots' pinned buffers, made once the
+                        # first step has made the optimizer's state
+                        # (torch.optim does so lazily), so that no save
+                        # pays for them.
+                        checkpointer.reserve(state)
+                        reserved = True
+                    checkpointer.maybe_save(step, state)
+        info["final_step"] = step
+        if checkpointer is not None:
+            with _goodput.phase_scope(_goodput.CHECKPOINT):
+                checkpointer.wait()         # drain queued async writes
+    finally:
+        _goodput.set_phase(_goodput.IDLE)
+        if owned_handler:
+            preemption.close()
+        if owned_checkpointer:
+            checkpointer.close()            # joins the writer thread
     return state, info

@@ -30,8 +30,11 @@ needs them; that is safe because every rank makes the same calls in the
 same order. A group of one rank has no process group: its collectives are
 local. A group that fails to form raises.
 
-Not ported yet: the timeline, metrics and goodput hooks that the JAX
-``init`` starts (ROADMAP A.13).
+``init`` also drives the goodput accountant's ``init`` phase
+(``goodput/accountant.py``) and turns the span recorder on under
+``HOROVOD_TRACE=1`` (``tracing/spans.py``), as the JAX ``init`` does. Not
+ported yet: the timeline, the metrics server and the trace export and
+merge at ``shutdown`` (ROADMAP A.13).
 """
 
 from __future__ import annotations
@@ -243,6 +246,10 @@ def init(device="cuda", backend: Optional[str] = None,
     with _lock:
         if _context is not None:
             return _context
+        from horovod_tpu_torch.goodput import accountant as _goodput
+        from horovod_tpu_torch.tracing import spans as _spans
+        _goodput.init_begin()
+        _spans.init_from_env()
         dev = resolve_device(device)
         backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
         launched = all(k in os.environ for k in _LAUNCH_ENV)
@@ -267,6 +274,7 @@ def init(device="cuda", backend: Optional[str] = None,
         from horovod_tpu_torch.parallel import process_sets
         process_sets._attach(ctx)
         _context = ctx
+        _goodput.init_end()
         return _context
 
 

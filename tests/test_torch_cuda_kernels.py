@@ -1119,3 +1119,95 @@ def test_cuda_collectives_on_two_cards(tmp_path):
         assert res[r]["recv"].tolist() == [[1, 4], [2, 2]][r]
         assert torch.equal(res[r]["two_level"], total)
         assert torch.equal(res[r]["flat"], total)
+
+
+@pytest.mark.cuda
+def test_cuda_snapshot_after_fused_step_is_not_torn(monkeypatch):
+    """The checkpoint's device->host copy of a fused fp8 step's state
+    (parameters, momentum, error-feedback residual), issued right after
+    the step returns, must see the epilogue's updates and the residual
+    writes of the side stream (both held back here by a sleep queued on
+    the side stream before each bucket launch), and must not see the next
+    step's, which is queued right behind it: bitwise equal to clones
+    queued on the same stream at the same point."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.parallel import distributed as D
+    from horovod_tpu_torch.resilience import async_checkpoint as ac
+    real = D._GradSync.launch
+
+    def held_back(self, *args, **kw):
+        torch.cuda._sleep(50_000_000)      # tens of ms on the side stream
+        return real(self, *args, **kw)
+
+    monkeypatch.setattr(D._GradSync, "launch", held_back)
+    knobs.set_override("HOROVOD_GRADIENT_COMPRESSION", "fp8_e4m3")
+    htt.init()
+    try:
+        cfg = _cfg()
+        da = htt.distributed_apply(htt.EpilogueSGD(0.01, momentum=0.9),
+                                   sync_axes=tfm.grad_sync_axes(cfg))
+        init_fn, step = htt.make_transformer_train_step_fused(
+            cfg, da, device="cuda")
+        state = init_fn(htt.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0),
+            device="cuda"))
+        batches = _batches(3)
+        state, _ = step(state, *batches[0])
+        state, _ = step(state, *batches[1])
+        def leaves(st):
+            return [t for tree in (st.params, st.opt_state.opt.slots[0],
+                                   st.opt_state.residual)
+                    for t in tree_util.tree_leaves(tree)]
+
+        host, events = ac._snapshot(state, True)
+        ref = [t.clone() for t in leaves(state)]
+        state, _ = step(state, *batches[2])          # queued behind the copy
+        for _, end in events:
+            end.synchronize()
+        got = leaves(ac._unwrap(host))
+        assert len(got) == len(ref) == 3 * len(
+            tree_util.tree_leaves(state.params))
+        for g, r in zip(got, ref):
+            assert g.device.type == "cpu" and g.is_pinned()
+            assert torch.equal(g, r.cpu())
+    finally:
+        htt.shutdown()
+        knobs.clear_override("HOROVOD_GRADIENT_COMPRESSION")
+
+
+@pytest.mark.cuda
+def test_cuda_snapshot_buffers_are_reserved_once_and_reused(tmp_path):
+    """``reserve`` makes the pinned buffer set a rank of a world of one
+    saves into; the saves after it copy into those same buffers (no
+    pinned allocation on the step path), and each writes the state as it
+    was at its save, though the next update is queued right behind its
+    copy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from horovod_tpu_torch.resilience import async_checkpoint as ac
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = {"w": torch.randn(1024, 256, device="cuda", generator=gen),
+             "b": torch.randn(256, device="cuda",
+                              generator=gen).to(torch.bfloat16)}
+    ck = ac.AsyncCheckpointer(str(tmp_path), interval=0, max_to_keep=0)
+    want = {}
+    try:
+        ck.reserve(state)
+        ptrs = sorted(b.data_ptr() for bufs in ck._pool._sets for b in bufs)
+        assert len(ptrs) == len(state)
+        for s in (1, 2, 3):
+            want[s] = {k: v.cpu() for k, v in state.items()}
+            ck.save(s, state)
+            state["w"].add_(1.0)
+            state["b"].mul_(2.0)
+            ck.wait()
+            assert sorted(b.data_ptr() for bufs in ck._pool._sets
+                          for b in bufs) == ptrs
+        for s, w in want.items():
+            got = ac.restore_step(str(tmp_path), s)
+            assert all(torch.equal(got[k], w[k]) for k in w)
+    finally:
+        ck.close()

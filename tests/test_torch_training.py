@@ -233,7 +233,7 @@ def test_one_rank_three_steps_match_jax_one_device_mesh(np_params):
     finally:
         htt.shutdown()
     assert info == {"status": "completed", "exit_code": 0, "start_step": 0,
-                    "final_step": 3}
+                    "final_step": 3, "restored": False}
     assert state.step == 3
     np.testing.assert_allclose(losses, j_losses, **TOL)
     _assert_tree_close(state.params, j_params, what="params after 3 steps")
@@ -289,12 +289,19 @@ def test_sync_gradients_fuses_and_scales(monkeypatch):
         htt.shutdown()
 
 
-def test_train_loop_hooks_of_later_slices_raise():
+def test_train_loop_hooks_of_later_slices_raise(monkeypatch):
+    """The loop's hooks that are not ported yet raise, naming their
+    ROADMAP item, when a knob turns them on (checkpointing and preemption
+    are ported: tests/test_torch_resilience.py)."""
     state = trainer.TrainState(0, {}, None)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        htt.train_loop(lambda s, b: (s, 0.0), state, [1], checkpointer=1)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        htt.train_loop(lambda s, b: (s, 0.0), state, [1], preemption=1)
+    for knob, value, item in (("HOROVOD_VERIFY_STEP", "1", "A.15"),
+                              ("HOROVOD_ARTIFACT_STORE", "/s", "A.13"),
+                              ("HOROVOD_TRACE_PROFILE", "steps:2", "A.13"),
+                              ("HOROVOD_NUMERICS", "1", "A.13")):
+        monkeypatch.setenv(knob, value)
+        with pytest.raises(NotImplementedError, match=item):
+            htt.train_loop(lambda s, b: (s, 0.0), state, [1])
+        monkeypatch.delenv(knob)
     seen = []
     state, info = htt.train_loop(
         lambda s, b: (trainer.TrainState(s.step + 1, {}, None), b), state,

@@ -452,3 +452,130 @@ def run_phases(world, phases, out_dir):
 
     load.procs, load.joined = procs, joined
     return load
+
+
+# ---------------------------------------------------------------------------
+# the resilient train loop: interrupt, kill and resume drills
+# ---------------------------------------------------------------------------
+
+class FromCommitted:
+    """A resumable batch source: iterating it starts at the newest step
+    committed in ``directory`` (0 when none), which is the step
+    ``train_loop`` has just restored, since it restores before it
+    iterates."""
+
+    def __init__(self, batches, directory):
+        self.batches, self.directory = batches, directory
+
+    def __iter__(self):
+        from horovod_tpu_torch.resilience import latest_committed_step
+        return iter(self.batches[latest_committed_step(self.directory)
+                                 or 0:])
+
+
+def resilient_state(spec, rank):
+    """A fresh flagship state and step of ``spec``: ``model`` transformer
+    (torch.optim.SGD) or fused (EpilogueSGD in the bucket epilogues, the
+    fp8 residual per rank), from ``np_params`` (times 1 + rank: init must
+    broadcast rank 0's)."""
+    from horovod_tpu_torch.models import transformer as tfm
+    cfg = htt.TransformerConfig(**spec["cfg"])
+    params = htt.params_from_numpy(tree_util.tree_map(
+        lambda a: a * (1 + rank), spec["np_params"]), device="cpu")
+    if spec["model"] == "fused":
+        da = htt.distributed_apply(htt.EpilogueSGD(0.01, momentum=0.9),
+                                   sync_axes=tfm.grad_sync_axes(cfg))
+        init_fn, step = htt.make_transformer_train_step_fused(
+            cfg, da, device="cpu")
+    else:
+        init_fn, step = htt.make_transformer_train_step(
+            cfg, lambda ps: torch.optim.SGD(ps, lr=0.01, momentum=0.9),
+            device="cpu")
+    return init_fn(params), step
+
+
+def resilient_tensors(state):
+    """``{"param|i", "mom|i", "res|i": array}`` of a flagship state."""
+    leaves = tree_util.tree_leaves(state.params)
+    out = {f"param|{i}": t.detach().numpy().copy()
+           for i, t in enumerate(leaves)}
+    opt = state.opt_state
+    if isinstance(opt, torch.optim.Optimizer):
+        moms = [opt.state[t]["momentum_buffer"] for t in leaves]
+        res = []
+    else:
+        moms = tree_util.tree_leaves(opt.opt.slots[0])
+        res = (tree_util.tree_leaves(opt.residual)
+               if isinstance(opt.residual, dict) else [])
+    out.update({f"mom|{i}": t.numpy().copy() for i, t in enumerate(moms)})
+    out.update({f"res|{i}": t.numpy().copy() for i, t in enumerate(res)})
+    return out
+
+
+def resilient_worker(rank, world, port, spec, out_dir):
+    """Runs ``spec["phases"]`` in one gloo world, each from a fresh state
+    on this rank's rows of every global batch, through ``train_loop`` with
+    an AsyncCheckpointer over the phase's ``dir`` (``interval``): a
+    phase's ``chaos`` spec is installed while it runs, ``preempt`` adds a
+    PreemptionHandler (margin 0), ``resume`` feeds the batches from the
+    restored step on, ``hold`` (``[rank, step]``) has that rank hold every
+    free pinned buffer set from the end of that step until the next, so
+    its save there finds none. Knobs of ``spec["knobs"]`` hold throughout;
+    env ``HVD_RESUME_ATTEMPT`` is the incarnation. Each phase saves
+    ``<name>-rank<r>.npz`` (the state's tensors, the info dict as json,
+    the committed steps and the saves deferred)."""
+    import json
+    from horovod_tpu_torch import metrics as M
+    from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.resilience import (AsyncCheckpointer,
+                                              PreemptionHandler, chaos)
+    torch.set_num_threads(1)
+    os.environ["HVD_RESUME_ATTEMPT"] = str(spec.get("attempt", 0))
+    for k, v in spec.get("knobs", {}).items():
+        knobs.set_override(k, v)
+    _join_gloo(rank, world, port)
+    try:
+        b = spec["batches"][0][0].shape[0] // world
+        rows = slice(rank * b, (rank + 1) * b)
+        batches = [(t[rows], y[rows]) for t, y in spec["batches"]]
+        for ph in spec["phases"]:
+            state, step = resilient_state(spec, rank)
+            ck = AsyncCheckpointer(ph["dir"], interval=ph.get("interval", 1),
+                                   max_to_keep=ph.get("keep", 3),
+                                   commit_timeout=30)
+            handler = (PreemptionHandler(checkpointer=ck, margin=0,
+                                         install_signals=False)
+                       if ph.get("preempt") else None)
+            held = []
+
+            def on_step(i, st, loss, hold=ph.get("hold")):
+                while held:
+                    ck._pool.release(held.pop())
+                if hold is not None and hold == [rank, i]:
+                    held.extend(ck._pool.acquire()
+                                for _ in ck._pool.free_sets())
+
+            deferred = M.counter("hvd_checkpoint_deferred_total",
+                                 "maybe_save calls skipped because a write "
+                                 "was still inflight")
+            deferred0 = deferred.value
+            chaos.install(ph.get("chaos"))
+            try:
+                source = (FromCommitted(batches, ph["dir"])
+                          if ph.get("resume") else batches)
+                state, info = htt.train_loop(step, state, source,
+                                             checkpointer=ck,
+                                             preemption=handler,
+                                             on_step=on_step)
+                committed = ck.all_steps()
+            finally:
+                chaos.install(None)
+                if handler is not None:
+                    handler.close()
+                ck.close()
+            np.savez(os.path.join(out_dir, f"{ph['name']}-rank{rank}.npz"),
+                     info=json.dumps(info), committed=np.asarray(committed),
+                     deferred=deferred.value - deferred0,
+                     **resilient_tensors(state))
+    finally:
+        htt.shutdown()
