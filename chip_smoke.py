@@ -71,7 +71,13 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    reducescatter, ppermute, broadcast, an axis allreduce, the sparse
    allreduce) through NCCL on CUDA tensors, then ``init(mesh_shape=(1,
    1))`` and the hierarchical and two-level allreduce (also with the fp8
-   codec), each equal to its plain result.
+   codec), each equal to its plain result;
+7. Horovod's PyTorch API (world 1): every ``*_async`` form at a small odd
+   size and at 1 MiB, bitwise equal to its synchronous form (allgather,
+   alltoall and reducescatter also on the process set [0]), ``join()``
+   returning 0, Adasum as the identity, ``DistributedAdasumOptimizer``
+   equal to its inner SGD bit for bit, ``SyncBatchNorm`` against batch
+   norm, and the object broadcasts (``horovod api (world 1):`` line).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the
@@ -79,8 +85,9 @@ package, it exits non-zero and prints no result.
 
 ``--data-parallel N`` runs only the collectives and training across N
 cards of one host (``--data-parallel N --resilient-only``: only the
-interrupt-and-resume check of the last paragraph): one process per card joins an NCCL world through the
-launcher's environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+interrupt-and-resume check of the last paragraph; ``--api-only``: only
+the Horovod API world below): one process per card joins an NCCL world
+through the launcher's environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
 ``MASTER_PORT``, ``LOCAL_RANK``). First the collectives (``collective
 <name>:`` lines): allgather (even and uneven), alltoall (even and with
 splits), reducescatter (even and uneven), ppermute (a ring), broadcast on
@@ -104,7 +111,27 @@ one profiled step the NCCL kernels' device ms and the part of it that
 overlapped compute kernels, and the schedule with its wire and DCN-stage
 bytes; every rank must end with the same parameters, a two-level variant's
 DCN stage must carry what the schedule predicts, and at tier none its
-losses must stay within FUSED_LOSS_REL_TOL of the flat variant's. Last,
+losses must stay within FUSED_LOSS_REL_TOL of the flat variant's. Then
+Horovod's PyTorch API on N cards (``horovod api data parallel:``), one
+world running ResNet-50 (``fused_conv_bn=True``, 128 images a card) as a
+Horovod script does: each rank builds its own weights and takes one local
+SGD step, then ``broadcast_parameters`` and ``broadcast_optimizer_state``
+from rank 0 (every parameter, buffer and momentum bitwise rank 0's on
+every rank), ``broadcast_object`` and ``allgather_object``; three steps
+through ``DistributedAdasumOptimizer`` (the first one's combined delta
+against a plain f64 Adasum of the gathered local deltas) and one of
+``DistributedOptimizer(op=Adasum)``, beside three of ``op=Average``, with
+step ms, images/s and the ms of the Adasum combination alone; one Adasum
+step on (cross 2, local N/2) with rank N-1 joined against the
+active-count rule; an uneven epoch of [3, 3, 3, 2] batches through
+``grouped_allreduce_async``, ``poll``, ``synchronize`` and ``join`` (the
+last step's averages against the mean over the active ranks, ``join()``
+returning N-2, the next allreduce over everyone); ``SyncBatchNorm`` at
+128 x 56 x 56 x 256 bf16 a card against a plain batch norm over the
+gathered batch; and every ``*_async`` form at a small odd size and 64
+MiB, also on the ragged set [0, 1, 2], bitwise equal to its synchronous
+form. After every step every rank's parameters are bitwise equal, and
+each ResNet-50 step launches each conv+BN kernel at least 36 times. Last,
 the resilient check on N cards (``resilient train data parallel:``): the
 fused flagship at fp8_e4m3 with error feedback through ``train_loop``,
 uninterrupted with chaos ``commit_deny`` at step 4 (step 2 must stay the
@@ -2601,6 +2628,505 @@ def check_two_level_variant(label, res, many) -> None:
                                  f"from the flat schedule's {flat} by {rel}")
 
 
+# ---------------------------------------------------------------------------
+# Horovod's PyTorch API: phase 7 (one card) and the N-card world
+# ---------------------------------------------------------------------------
+
+API_BATCHES = [3, 3, 3, 2]      # the uneven epoch's batches per rank
+# The combined delta against a plain f64 Adasum of the gathered deltas,
+# per leaf: ADASUM_REL_TOL of the reference's largest value (f32 dot
+# products over up to 2M elements), plus two f32 ulps of the largest
+# parameter (a local delta is read as new - old after the inner step, the
+# combined one as new - old after the write-back, and each new was
+# rounded to f32).
+ADASUM_REL_TOL = 1e-4
+# Averaged gradients (an f32 sum of three ranks, divided) against the f64
+# mean, of each leaf's largest value.
+API_MEAN_REL_TOL = 1e-6
+# SyncBatchNorm (bf16 in and out, statistics in f32 as E[x^2] - mean^2)
+# against a plain f32 batch norm over the gathered batch (two-pass
+# variance): y and dx within two bf16 ulps of their largest value, the
+# running statistics within 1e-4 of theirs.
+SYNC_BN_REL_TOL = {"y": 2 ** -7, "dx": 2 ** -7, "stats": 1e-4}
+SYNC_BN_SHAPE = (RESNET_B, 56, 56, 256)   # ResNet-50's stage 1, per card
+
+
+def same_on_every_rank(C, tensors) -> bool:
+    """True when every rank holds the same bits in ``tensors``: the bytes,
+    as int32 words, equal their MIN and their MAX over the ranks (the
+    join registry is not read)."""
+    buf = torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8)
+                     for t in tensors])
+    pad = (-buf.numel()) % 4
+    if pad:
+        buf = torch.cat([buf, buf.new_zeros(pad)])
+    words = buf.view(torch.int32)
+    return bool(torch.equal(C.allreduce(words, C.ReduceOp.MIN), words)
+                and torch.equal(C.allreduce(words, C.ReduceOp.MAX), words))
+
+
+def plain_pairwise(a, b):
+    dot, na, nb = torch.dot(a, b), torch.dot(a, a), torch.dot(b, b)
+    ca = 1 - dot / (2 * na) if na > 0 else 1.0
+    cb = 1 - dot / (2 * nb) if nb > 0 else 1.0
+    return ca * a + cb * b
+
+
+def plain_adasum(rows):
+    """The XOR butterfly over the list ``rows`` (f64 vectors), plainly."""
+    vals, d = list(rows), 1
+    while d < len(vals):
+        vals = [plain_pairwise(vals[min(r, r ^ d)], vals[max(r, r ^ d)])
+                for r in range(len(vals))]
+        d *= 2
+    return vals[0]
+
+
+def api_batch(dev, step, rank, batch, image):
+    """Rank ``rank``'s synthetic images and labels of ``step``."""
+    gen = torch.Generator(device=dev).manual_seed(1000 * step + rank)
+    return (torch.rand((batch, image, image, 3), generator=gen, device=dev
+                       ).to(torch.bfloat16),
+            torch.randint(0, 1000, (batch,), generator=gen, device=dev))
+
+
+def check_launches(cb, dev, what) -> dict:
+    """Each conv+BN kernel launched at least RESNET50_CONVS times since the
+    counts were reset (on the card; the CPU takes the plain versions)."""
+    got = {k: cb.LAUNCHES[k] for k in ("conv_bn_fwd", "conv_bn_bwd")}
+    if dev.type == "cuda" and min(got.values()) < RESNET50_CONVS:
+        raise AssertionError(f"{what}: conv+BN launches {got}, expected >= "
+                             f"{RESNET50_CONVS} each")
+    return got
+
+
+def leaf_errors(got, ref, rel, floor=None):
+    """The largest |got - ref| over the leaves and its largest share of
+    each leaf's limit, ``rel`` of the leaf's largest reference value plus
+    ``floor[i]``."""
+    err = share = 0.0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        e = float((g.double() - r).abs().max())
+        lim = rel * float(r.abs().max()) + (floor[i] if floor else 0) + 1e-30
+        err, share = max(err, e), max(share, e / lim)
+    return err, share
+
+
+def api_adasum_steps(htt, C, cb, D, model, sgd, rank, world, dev, sync,
+                     batch, image, out):
+    """Three steps through DistributedAdasumOptimizer, the first held to
+    a plain f64 Adasum of the gathered local deltas; one step of
+    DistributedOptimizer(op=Adasum); three of op=Average beside them."""
+    import copy
+    params = list(model.parameters())
+    aopt = htt.DistributedAdasumOptimizer(sgd, axis="hvd")
+    step_ms, launches, local, start = [], [], None, None
+    for step in range(3):
+        x, y = api_batch(dev, 10 + step, rank, batch, image)
+        cb.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        resnet_loss(model, x, y).backward()
+        if step == 0:
+            # the local deltas: the inner step alone, then undone
+            start = [p.detach().clone() for p in params]
+            saved = copy.deepcopy(sgd.state_dict())
+            sgd.step()
+            local = [p.detach().float() - s.float()
+                     for p, s in zip(params, start)]
+            with torch.no_grad():
+                for p, s in zip(params, start):
+                    p.copy_(s)
+            sgd.load_state_dict(saved)
+            sync()
+            t0 = time.perf_counter()
+        aopt.step()
+        aopt.zero_grad()
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(check_launches(cb, dev, f"adasum step {step}"))
+        if not same_on_every_rank(C, params):
+            raise AssertionError(f"adasum step {step}: parameters differ "
+                                 f"between ranks")
+        if step == 0:
+            combined = [p.detach().float() - s.float()
+                        for p, s in zip(params, start)]
+            refs = [plain_adasum(list(C.allgather(d.reshape(1, -1)).double()))
+                    for d in local]
+            err, share = leaf_errors(
+                [c.reshape(-1) for c in combined], refs, ADASUM_REL_TOL,
+                [float(s.abs().max()) * 2 ** -22 for s in start])
+            out["adasum_step1_max_abs_err"] = err
+            out["adasum_step1_share_of_limit"] = share
+            if share > 1:
+                raise AssertionError(f"adasum step 1: combined delta off "
+                                     f"the plain f64 Adasum by {err} "
+                                     f"({share} of the limit)")
+    comb_ms = []
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        D._sync_leaves(local, ("hvd",), htt.Adasum, None)
+        sync()
+        comb_ms.append((time.perf_counter() - t0) * 1e3)
+    out.update(adasum_step_ms=step_ms, adasum_launches=launches,
+               adasum_combination_ms=comb_ms,
+               adasum_leaves=len(params))
+    # the delta optimizer leaves each rank's momentum its own
+    htt.broadcast_optimizer_state(sgd, root_rank=0)
+    for label, op, n in (("adasum_sync", htt.Adasum, 1),
+                         ("average", htt.Average, 3)):
+        dopt = htt.DistributedOptimizer(sgd, op=op)
+        ms = []
+        for step in range(n):
+            x, y = api_batch(dev, 20 + step, rank, batch, image)
+            cb.reset_launches()
+            sync()
+            t0 = time.perf_counter()
+            resnet_loss(model, x, y).backward()
+            dopt.step()
+            dopt.zero_grad()
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            check_launches(cb, dev, f"{label} step {step}")
+            if not same_on_every_rank(C, params):
+                raise AssertionError(f"{label} step {step}: parameters "
+                                     f"differ between ranks")
+        dopt._launcher.remove_hooks()
+        out[f"{label}_step_ms"] = ms
+    mean_s = float(np.mean(step_ms[1:])) / 1e3
+    out["adasum_images_per_s"] = batch * world / mean_s
+    out["average_images_per_s"] = batch * world / (
+        float(np.mean(out["average_step_ms"][1:])) / 1e3)
+
+
+def api_hierarchical_join(htt, C, model, sgd, rank, world, dev, batch,
+                          image, out):
+    """One Adasum step on (cross 2, local N/2) with rank N-1 joined: each
+    rank's local delta combined leaf by leaf by ``allreduce(op=Adasum)``,
+    held to the active-count rule computed plainly from the gathered
+    deltas, then applied."""
+    htt.shutdown()
+    ctx = htt.init(device=dev, mesh_shape=(2, world // 2))
+    if tuple(ctx.topology.flat_axes) != ("hvd_cross", "hvd_local"):
+        raise AssertionError(f"mesh {ctx.topology.flat_axes}")
+    params = list(model.parameters())
+    x, y = api_batch(dev, 30, rank, batch, image)
+    resnet_loss(model, x, y).backward()
+    start = [p.detach().clone() for p in params]
+    sgd.step()
+    sgd.zero_grad()
+    deltas = [p.detach().float() - s.float() for p, s in zip(params, start)]
+    joined = world - 1
+    if htt.join(joined) != -1:
+        raise AssertionError("join returned before every rank joined")
+    combined = [htt.allreduce(d, op=htt.Adasum) for d in deltas]
+    last = htt.join()
+    with torch.no_grad():
+        for p, s, c in zip(params, start, combined):
+            p.copy_((s.float() + c).to(p.dtype))
+    local = world // 2
+    refs = []
+    for d in deltas:
+        rows = C.allgather(d.reshape(1, -1)).double()
+        means = []
+        for g in range(2):
+            act = [r for r in range(g * local, (g + 1) * local)
+                   if r != joined]
+            means.append(rows[act].sum(0) / max(len(act), 1))
+        refs.append(plain_pairwise(means[0], means[1]))
+    err, share = leaf_errors([c.reshape(-1) for c in combined], refs,
+                             ADASUM_REL_TOL)
+    if share > 1 or last != world - 2 or not same_on_every_rank(C, params):
+        raise AssertionError(f"hierarchical adasum with rank {joined} "
+                             f"joined: err {err} ({share} of the limit), "
+                             f"join() {last}")
+    out.update(hier_join_max_abs_err=err, hier_join_share_of_limit=share,
+               hier_join_last=last, hier_mesh=ctx.topology.mesh.shape)
+    htt.shutdown()
+    htt.init(device=dev)
+
+
+def api_uneven_epoch(htt, C, cb, model, sgd, rank, world, dev, sync, batch,
+                     image, out):
+    """The uneven epoch as a Horovod script writes it: forward, backward,
+    grouped_allreduce_async of the gradients (Average), poll, synchronize,
+    SGD; the ranks out of data join before the step they lack; the
+    closing join() returns the last rank to join, and the next allreduce
+    averages over everyone."""
+    params = list(model.parameters())
+    htt.broadcast_optimizer_state(sgd, root_rank=0)   # momentum was local
+    waits, polled = [], []
+    for step in range(max(API_BATCHES)):
+        for r in range(world):
+            if API_BATCHES[r % len(API_BATCHES)] == step and \
+                    htt.join(r) != -1:
+                raise AssertionError("join returned early")
+        cb.reset_launches()
+        if API_BATCHES[rank % len(API_BATCHES)] > step:
+            x, y = api_batch(dev, 40 + step, rank, batch, image)
+            resnet_loss(model, x, y).backward()
+            check_launches(cb, dev, f"uneven epoch step {step}")
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        h = htt.grouped_allreduce_async(grads, op=htt.Average)
+        polled.append(htt.poll(h))
+        t0 = time.perf_counter()
+        avg = htt.synchronize(h)
+        waits.append((time.perf_counter() - t0) * 1e3)
+        if step == max(API_BATCHES) - 1:
+            active = [r for r in range(world)
+                      if API_BATCHES[r % len(API_BATCHES)] > step]
+            refs = [C.allgather(g.reshape(1, -1)).double()[active].mean(0)
+                    for g in grads]
+            err, share = leaf_errors([a.reshape(-1) for a in avg], refs,
+                                     API_MEAN_REL_TOL)
+            out.update(uneven_last_step_max_abs_err=err,
+                       uneven_last_step_share_of_limit=share)
+            if share > 1:
+                raise AssertionError(f"uneven epoch: averaged gradients off "
+                                     f"the mean over {active} by {err}")
+        for p, g in zip(params, avg):
+            p.grad = g
+        sgd.step()
+        sgd.zero_grad()
+        if not same_on_every_rank(C, params):
+            raise AssertionError(f"uneven epoch step {step}: parameters "
+                                 f"differ between ranks")
+    last = htt.join()
+    everyone = float(htt.allreduce(torch.tensor([float(rank)], device=dev),
+                                   htt.Average))
+    if last != world - 2 or everyone != (world - 1) / 2:
+        raise AssertionError(f"join() returned {last}, the next allreduce "
+                             f"{everyone}")
+    from horovod_tpu_torch import metrics as M
+    hist = M.get_registry().get("hvd_handle_wait_seconds")
+    out.update(uneven_join_last=last, uneven_next_average=everyone,
+               handle_wait_ms=waits, handle_polled_before_wait=polled,
+               hvd_handle_wait_seconds_sum=hist.total_sum)
+
+
+def api_sync_bn(htt, C, rank, dev, sync, shape, out):
+    """SyncBatchNorm's forward, backward and running statistics against a
+    plain f32 batch norm over the gathered batch; then its warm time
+    beside torch's batch norm of this rank's rows."""
+    gen = torch.Generator(device=dev).manual_seed(50 + rank)
+    x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(
+        torch.bfloat16).requires_grad_()
+    cot = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    bn = htt.SyncBatchNorm(shape[-1], device=dev)
+    sync()
+    t0 = time.perf_counter()
+    y = bn(x)
+    y.backward(cot)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    xf = C.allgather(x.detach()).float().requires_grad_()
+    dims = tuple(range(xf.dim() - 1))
+    mean, var = xf.mean(dims), xf.var(dims, unbiased=False)
+    yp = (xf - mean) * torch.rsqrt(var + bn.epsilon)
+    yp.backward(C.allgather(cot).float())
+    rows = slice(rank * shape[0], (rank + 1) * shape[0])
+    yp, dxp = yp.detach(), xf.grad
+    errs = {}
+    for name, got, ref in (("y", y.detach(), yp[rows]), ("dx", x.grad,
+                                                          dxp[rows]),
+                           ("mean", bn.mean, 0.1 * mean.detach()),
+                           ("var", bn.var, 0.9 + 0.1 * var.detach())):
+        e = float((got.float() - ref).abs().max())
+        lim = SYNC_BN_REL_TOL.get(name, SYNC_BN_REL_TOL["stats"]) * float(
+            ref.abs().max())
+        errs[name] = [e, e / lim]
+        if e > lim:
+            raise AssertionError(f"SyncBatchNorm {name}: {e} > {lim}")
+    # warm: three more forward+backward passes, beside torch's batch norm
+    # of this rank's rows alone (no communication) on the same bytes
+    bn2 = htt.SyncBatchNorm(shape[-1], device=dev)
+    xl = x.detach().permute(0, 3, 1, 2).requires_grad_()
+    w = torch.ones(shape[-1], device=dev, requires_grad=True)
+    warm = {"sync_bn": [], "local_batch_norm": []}
+    for name, fn in (("sync_bn", lambda: bn2(x).backward(cot)),
+                     ("local_batch_norm", lambda: torch.nn.functional.
+                      batch_norm(xl, None, None, w, None, training=True)
+                      .backward(cot.permute(0, 3, 1, 2)))):
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            warm[name].append((time.perf_counter() - t0) * 1e3)
+    out.update(sync_bn_shape=list(shape), sync_bn_fwd_bwd_ms=ms,
+               sync_bn_warm_fwd_bwd_ms=warm, sync_bn_err_and_share=errs)
+
+
+def api_async_cases(htt, rank, world, dev, sync, big_bytes, out):
+    """Every ``*_async`` collective, at a small odd size and at
+    ``big_bytes`` a rank, on integer values, bitwise equal to its
+    synchronous form; allgather, alltoall and reducescatter also on the
+    ragged set [0, 1, 2] (in a world of one, the set [0])."""
+    ps = htt.add_process_set(list(range(min(3, world))))
+    checked = []
+    for big in (False, True):
+        cols = 1024 if big else 3
+        rows = big_bytes // (4 * cols) if big else 251
+        gen = torch.Generator(device=dev).manual_seed(60 + rank + 10 * big)
+        x = _int_valued(gen, (rows, cols), dev)
+        split = [rows // world + (1 if d < rows % world else 0)
+                 for d in range(world)]
+        even = x[:rows - rows % world]
+        cases = [
+            ("allreduce", "allreduce", (x, htt.Sum), {}),
+            ("grouped_allreduce", "grouped_allreduce",
+             ([x, x[:7].double()], htt.Sum), {}),
+            ("allgather", "allgather", (x,), {}),
+            ("allgather_uneven", "allgather", (x[:rows - rank],), {}),
+            ("broadcast", "broadcast", (x, world - 1), {}),
+            ("alltoall", "alltoall", (even,), {}),
+            ("alltoall_splits", "alltoall", (x,), {"splits": split}),
+            ("reducescatter", "reducescatter", (x, htt.Sum), {}),
+            ("allgather_set012", "allgather", (x,), {"process_set": ps}),
+            ("alltoall_set012", "alltoall", (x[:rows - rows % 3],),
+             {"process_set": ps}),
+            ("reducescatter_set012", "reducescatter", (x, htt.Sum),
+             {"process_set": ps})]
+        for name, fn, args, kw in cases:
+            h = getattr(htt, fn + "_async")(*args, **kw)
+            got = htt.synchronize(h)
+            ref = getattr(htt, fn)(*args, **kw)
+            got = got if isinstance(got, (list, tuple)) else [got]
+            ref = ref if isinstance(ref, (list, tuple)) else [ref]
+            if not (htt.poll(h) and len(got) == len(ref) and all(
+                    torch.equal(g, r) for g, r in zip(got, ref))):
+                raise AssertionError(f"{name} (big={big}): the async form "
+                                     f"differs from the synchronous one")
+            checked.append(f"{name}{'_big' if big else '_small'}")
+    sync()
+    out["async_equal_to_sync"] = checked
+
+
+def api_rank(rank, world, ports, results, device="cuda", batch=RESNET_B,
+             image=224, bn_shape=SYNC_BN_SHAPE, big_bytes=COLL_BIG_BYTES):
+    """One rank of the N-card Horovod API world; rank 0 puts its numbers
+    on ``results``. Every check raises on the rank that fails it."""
+    import torch.distributed as dist
+    join_store_world(rank, world, ports, device)
+    import horovod_tpu_torch as htt
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.ops import conv_bn as cb
+    from horovod_tpu_torch.parallel import distributed as D
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = htt.init(device=device)
+    dev = ctx.device
+    sync = (torch.cuda.synchronize if dev.type == "cuda" else
+            (lambda: None))
+    out = {"world": world, "batch_per_rank": batch, "image": image}
+    t0 = time.perf_counter()
+    # 1. the start of a Horovod script: own weights, a local step, then
+    # rank 0's parameters, buffers and momentum everywhere
+    model = htt.ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                         fused_conv_bn=True, device=dev, seed=rank)
+    sgd = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    x, y = api_batch(dev, 0, rank, batch, image)
+    resnet_loss(model, x, y).backward()
+    sgd.step()
+    sgd.zero_grad()
+    htt.broadcast_parameters(model, root_rank=0)
+    htt.broadcast_optimizer_state(sgd, root_rank=0)
+    state = (list(model.parameters()) + list(model.buffers())
+             + [sgd.state[p]["momentum_buffer"] for p in model.parameters()])
+    obj = htt.broadcast_object({"epochs": 90, "from": rank}, root_rank=0)
+    counts = htt.allgather_object(API_BATCHES[rank % len(API_BATCHES)])
+    if not (same_on_every_rank(C, state) and obj == {"epochs": 90, "from": 0}
+            and counts == [API_BATCHES[r % len(API_BATCHES)]
+                           for r in range(world)]):
+        raise AssertionError(f"broadcast: state, {obj} or {counts} differ")
+    out["broadcast_tensors"] = len(state)
+    # 2. Adasum (the delta optimizer, then op=Adasum), Average beside it
+    api_adasum_steps(htt, C, cb, D, model, sgd, rank, world, dev, sync,
+                     batch, image, out)
+    # 3. hierarchical Adasum with a rank joined
+    api_hierarchical_join(htt, C, model, sgd, rank, world, dev, batch,
+                          image, out)
+    # 4. the uneven epoch on the eager API
+    api_uneven_epoch(htt, C, cb, model, sgd, rank, world, dev, sync, batch,
+                     image, out)
+    del model, sgd, state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # 5. SyncBatchNorm at ResNet-50's stage-1 shape
+    api_sync_bn(htt, C, rank, dev, sync, bn_shape, out)
+    # 6. the async forms against the synchronous ones
+    api_async_cases(htt, rank, world, dev, sync, big_bytes, out)
+    out["seconds"] = time.perf_counter() - t0
+    if rank == 0:
+        results.put(out)
+    htt.shutdown()
+    dist.destroy_process_group()
+
+
+def horovod_api_world(n, card, **kw) -> None:
+    """``api_rank`` in ``n`` spawned processes; the ``horovod api data
+    parallel:`` line."""
+    (out,) = spawn_world(api_rank, n, 1, 900, **kw)
+    out["card"] = card
+    log("horovod api data parallel: " + json.dumps(out))
+
+
+def horovod_api_world_one(htt, card, dev="cuda") -> None:
+    """Phase 7: the same API in a world of one: every ``*_async`` form
+    against its synchronous one, ``join()`` (0), Adasum (the identity),
+    DistributedAdasumOptimizer against its inner SGD, SyncBatchNorm
+    against batch norm, and the object broadcasts."""
+    t0 = time.perf_counter()
+    ctx = htt.init(device=dev)
+    try:
+        sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+        out = {"backend": ctx.backend}
+        api_async_cases(htt, 0, 1, ctx.device, sync, 1 << 20, out)
+        g = torch.Generator(device=dev).manual_seed(7)
+        x = torch.randn(5, 3, generator=g, device=dev)
+        checks = {"join": htt.join() == 0,
+                  "adasum_identity": torch.equal(
+                      htt.allreduce(x, op=htt.Adasum), x),
+                  "broadcast_object": htt.broadcast_object({"a": 1}) ==
+                  {"a": 1},
+                  "allgather_object": htt.allgather_object(3) == [3]}
+        torch.manual_seed(0)
+        models = [torch.nn.Linear(16, 4).to(dev) for _ in range(2)]
+        models[1].load_state_dict(models[0].state_dict())
+        opts = [torch.optim.SGD(m.parameters(), lr=0.1, momentum=0.9)
+                for m in models]
+        opts[1] = htt.DistributedAdasumOptimizer(opts[1], axis="hvd")
+        for _ in range(2):
+            for m, o in zip(models, opts):
+                m(x.repeat(1, 16)[:, :16]).square().sum().backward()
+                o.step()
+                o.zero_grad()
+        checks["adasum_optimizer_equals_inner"] = all(
+            torch.equal(a, b) for a, b in zip(models[0].parameters(),
+                                              models[1].parameters()))
+        htt.broadcast_optimizer_state(opts[1], 0)
+        xb = torch.randn(8, 6, 6, 32, generator=g, device=dev)
+        bn = htt.SyncBatchNorm(32, device=dev)
+        yb = bn(xb).detach()
+        ref = torch.nn.functional.batch_norm(
+            xb.permute(0, 3, 1, 2), None, None, training=True,
+            eps=bn.epsilon).permute(0, 2, 3, 1)
+        out["sync_bn_max_abs_err"] = float((yb - ref).abs().max())
+        checks["sync_bn_equals_batch_norm"] = out["sync_bn_max_abs_err"] \
+            < 1e-4
+        sync()
+    finally:
+        htt.shutdown()
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise AssertionError(f"horovod api (world 1): {bad} failed")
+    out.update(checked=sorted(checks), seconds=time.perf_counter() - t0,
+               card=card)
+    log("horovod api (world 1): " + json.dumps(out))
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an "
@@ -2608,11 +3134,12 @@ def main(argv) -> int:
         return 2
     n_dp = 0
     resilient_only = argv[2:] == ["--resilient-only"]
+    api_only = argv[2:] == ["--api-only"]
     if argv:
         if len(argv) not in (2, 3) or argv[0] != "--data-parallel" or \
-                (len(argv) == 3 and not resilient_only):
+                (len(argv) == 3 and not (resilient_only or api_only)):
             print("usage: chip_smoke.py [--data-parallel N "
-                  "[--resilient-only]]", file=sys.stderr)
+                  "[--resilient-only | --api-only]]", file=sys.stderr)
             return 2
         n_dp = int(argv[1])
         if not 2 <= n_dp <= torch.cuda.device_count():
@@ -2646,10 +3173,13 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if n_dp:
-        if not resilient_only:
+        if not (resilient_only or api_only):
             collectives_n_cards(n_dp, card)
             data_parallel(n_dp, card)
-        resilient_world(n_dp, card)
+        if not resilient_only:
+            horovod_api_world(n_dp, card)
+        if not api_only:
+            resilient_world(n_dp, card)
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -2688,6 +3218,9 @@ def main(argv) -> int:
 
     # phase 6: the collectives through NCCL in a world of one
     collectives_world_one(htt)
+
+    # phase 7: Horovod's PyTorch API in a world of one
+    horovod_api_world_one(htt, card)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",

@@ -32,7 +32,13 @@ at its first launch. These paths are ported:
   ``AsyncCheckpointer``, ``CheckpointManager``), preemption quiesce with
   the resumable exit code 75, chaos drills and retry policies over the
   c10d store, step stats, goodput phases (``goodput``), spans
-  (``tracing``) and straggler detection.
+  (``tracing``) and straggler detection;
+- Horovod's PyTorch API (``eager``): ``allreduce`` and the other
+  collectives with their ``*_async`` forms, ``synchronize`` and ``poll``,
+  ``join`` for uneven epochs, Adasum (``op=Adasum``,
+  ``DistributedAdasumOptimizer``), ``SyncBatchNorm``,
+  ``broadcast_optimizer_state``, ``broadcast_object``,
+  ``allgather_object`` and the callbacks.
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``, which takes the kernels' plain PyTorch versions.
@@ -40,11 +46,22 @@ Importing the package builds nothing.
 """
 
 from horovod_tpu_torch import goodput, resilience, tracing  # noqa: F401
-from horovod_tpu_torch.callbacks import CheckpointCallback, StepStats
+from horovod_tpu_torch.callbacks import (
+    BestModelCheckpoint, BroadcastGlobalVariablesCallback, Callback,
+    CallbackList, CheckpointCallback, LearningRateScheduleCallback,
+    LearningRateWarmupCallback, MetricAverageCallback, MetricsCallback,
+    StepStats, scaled_lr, warmup_schedule)
 from horovod_tpu_torch.checkpoint import (CheckpointManager,
                                           restore_checkpoint,
                                           save_checkpoint)
-from horovod_tpu_torch.functions import broadcast_parameters
+from horovod_tpu_torch.eager import (
+    Handle, allgather, allgather_async, allreduce, allreduce_async,
+    alltoall, alltoall_async, barrier, broadcast, broadcast_async,
+    grouped_allreduce, grouped_allreduce_async, join, poll, reducescatter,
+    reducescatter_async, synchronize)
+from horovod_tpu_torch.functions import (allgather_object, broadcast_object,
+                                         broadcast_optimizer_state,
+                                         broadcast_parameters)
 from horovod_tpu_torch.goodput import goodput_report
 from horovod_tpu_torch.metrics import metrics_snapshot
 from horovod_tpu_torch.resilience import (RESUMABLE_EXIT_CODE,
@@ -58,20 +75,16 @@ from horovod_tpu_torch.models.transformer import (TransformerConfig,
                                                   TransformerLM,
                                                   init_params,
                                                   params_from_numpy)
-from horovod_tpu_torch.ops.collectives import (
-    allgather, allreduce, alltoall, barrier, broadcast, grouped_allreduce,
-    hierarchical_allreduce, ppermute, reducescatter, torus_allreduce,
-    two_level_allreduce)
+from horovod_tpu_torch.ops.collectives import (hierarchical_allreduce,
+                                               ppermute, torus_allreduce,
+                                               two_level_allreduce)
 from horovod_tpu_torch.ops.reduce_ops import (Adasum, Average, Max, Min,
                                               Product, ReduceOp, Sum)
 from horovod_tpu_torch.ops.sparse import sparse_allreduce
-from horovod_tpu_torch.parallel.distributed import (Compression,
-                                                    DistributedApply,
-                                                    DistributedOptimizer,
-                                                    EpilogueAdam,
-                                                    EpilogueSGD,
-                                                    allreduce_gradients,
-                                                    distributed_apply)
+from horovod_tpu_torch.parallel.distributed import (
+    Compression, DistributedAdasumOptimizer, DistributedApply,
+    DistributedOptimizer, EpilogueAdam, EpilogueSGD, allreduce_gradients,
+    distributed_apply, distributed_value_and_grad)
 from horovod_tpu_torch.parallel.trainer import (
     TrainState, data_parallel_train_step, make_transformer_train_step,
     make_transformer_train_step_fused, train_loop)
@@ -85,30 +98,45 @@ from horovod_tpu_torch.runtime.context import (cross_rank, cross_size, init,
                                                shutdown, size)
 from horovod_tpu_torch.serving import (Request, ServeEngine,
                                        ServeScheduler)
+from horovod_tpu_torch.sync_batch_norm import SyncBatchNorm
 
 __version__ = "0.3.0"
 
-__all__ = ["Adasum", "AsyncCheckpointer", "Average", "CheckpointCallback",
-           "CheckpointManager", "Compression", "DistributedApply",
-           "DistributedOptimizer", "EpilogueAdam", "EpilogueSGD", "Max",
-           "Min", "PreemptionHandler", "ProcessSet", "Product",
+__all__ = ["Adasum", "AsyncCheckpointer", "Average", "BestModelCheckpoint",
+           "BroadcastGlobalVariablesCallback", "Callback",
+           "CallbackList", "CheckpointCallback",
+           "CheckpointManager", "Compression",
+           "DistributedAdasumOptimizer", "DistributedApply",
+           "DistributedOptimizer", "EpilogueAdam", "EpilogueSGD",
+           "Handle", "LearningRateScheduleCallback",
+           "LearningRateWarmupCallback", "Max",
+           "MetricAverageCallback", "MetricsCallback", "Min",
+           "PreemptionHandler", "ProcessSet", "Product",
            "RESUMABLE_EXIT_CODE", "ReduceOp", "Request", "ResNet",
-           "ResNet101", "ResNet152", "ResNet18", "ResNet34", "ResNet50",
-           "ServeEngine", "ServeScheduler", "StepStats", "Sum",
-           "TrainState",
+           "ResNet101", "ResNet152", "ResNet18", "ResNet34",
+           "ResNet50", "ServeEngine", "ServeScheduler", "StepStats",
+           "Sum", "SyncBatchNorm", "TrainState",
            "TransformerConfig", "TransformerLM", "add_process_set",
-           "allgather", "allreduce", "allreduce_gradients", "alltoall",
-           "barrier", "broadcast", "broadcast_parameters", "cross_rank",
-           "cross_size", "data_parallel_train_step", "distributed_apply",
+           "allgather", "allgather_async", "allgather_object",
+           "allreduce", "allreduce_async", "allreduce_gradients",
+           "alltoall", "alltoall_async", "barrier", "broadcast",
+           "broadcast_async", "broadcast_object",
+           "broadcast_optimizer_state", "broadcast_parameters",
+           "cross_rank", "cross_size", "data_parallel_train_step",
+           "distributed_apply", "distributed_value_and_grad",
            "get_process_set_by_id", "global_process_set", "goodput",
-           "goodput_report",
-           "grouped_allreduce", "hierarchical_allreduce", "init",
-           "init_params", "is_homogeneous", "is_initialized", "local_rank",
-           "local_size", "make_transformer_train_step",
-           "make_transformer_train_step_fused", "mesh", "metrics_snapshot",
-           "params_from_numpy", "ppermute", "process_set_ids", "rank",
-           "reducescatter", "remove_process_set", "resilience",
-           "restore_checkpoint", "save_checkpoint", "shutdown", "size",
-           "sparse_allreduce", "torus_allreduce", "tracing", "train_loop",
-           "two_level_allreduce",
-           "variables_from_numpy", "variables_to_numpy"]
+           "goodput_report", "grouped_allreduce",
+           "grouped_allreduce_async", "hierarchical_allreduce",
+           "init", "init_params", "is_homogeneous",
+           "is_initialized", "join", "local_rank", "local_size",
+           "make_transformer_train_step",
+           "make_transformer_train_step_fused", "mesh",
+           "metrics_snapshot", "params_from_numpy", "poll",
+           "ppermute", "process_set_ids", "rank", "reducescatter",
+           "reducescatter_async", "remove_process_set",
+           "resilience", "restore_checkpoint", "save_checkpoint",
+           "scaled_lr", "shutdown", "size", "sparse_allreduce",
+           "synchronize", "torus_allreduce", "tracing",
+           "train_loop", "two_level_allreduce",
+           "variables_from_numpy", "variables_to_numpy",
+           "warmup_schedule"]

@@ -1,18 +1,53 @@
-"""Training-loop callbacks of the port: the step-stats accumulator and
-the checkpoint callback.
+"""Training-loop callbacks and LR schedules of the port.
 
-The counterparts of ``horovod_tpu/callbacks.py``'s ``StepStats`` (l.165)
-and ``CheckpointCallback`` (l.249), with the ``Callback`` base.
-The other callbacks and the LR schedules (broadcast, metric average,
-warmup, best-model) wait for ROADMAP A.9.
+The counterparts of ``horovod_tpu/callbacks.py`` (the reference's
+keras/callbacks.py and _keras/callbacks.py): ``warmup_schedule`` and
+``scaled_lr``; the ``Callback`` base and ``CallbackList``;
+``BroadcastGlobalVariablesCallback``, ``MetricAverageCallback``,
+``LearningRateScheduleCallback``, ``LearningRateWarmupCallback``,
+``BestModelCheckpoint``; ``StepStats`` with ``MetricsCallback``; and
+``CheckpointCallback``. The callbacks drive a plain Python loop
+(``on_train_begin``, ``on_epoch_begin/end``, ``on_batch_end``) through a
+``logs`` dict: ``logs['state']`` is the training state (an ``nn.Module``
+or a tree of tensors), ``logs['metrics']`` the metrics, ``logs['lr']`` the
+learning rate a schedule sets.
 """
 
 from __future__ import annotations
 
+import math
 import time
-from typing import Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+from torch import nn
 
 from horovod_tpu_torch import metrics as _metrics
+
+
+def warmup_schedule(base_lr: float, warmup_steps: int,
+                    initial_multiplier: float = 1.0 / 8
+                    ) -> Callable[[Any], float]:
+    """LR warmup (ref LearningRateWarmupCallback keras/callbacks.py:98):
+    an exponential ramp from ``base_lr * initial_multiplier`` at step 0 to
+    ``base_lr`` at ``warmup_steps``, flat after."""
+    if warmup_steps <= 0:
+        return lambda step: base_lr
+
+    def schedule(step):
+        frac = min(float(step), warmup_steps) / warmup_steps
+        return base_lr * initial_multiplier ** (1.0 - frac)
+
+    return schedule
+
+
+def scaled_lr(base_lr: float, scale: Optional[float] = None) -> float:
+    """``base_lr`` scaled linearly by the world size (ref
+    DistributedOptimizer docs: lr * hvd.size())."""
+    if scale is None:
+        from horovod_tpu_torch.runtime.context import size
+        scale = size()
+    return base_lr * scale
 
 
 class Callback:
@@ -20,6 +55,137 @@ class Callback:
     def on_epoch_begin(self, epoch: int, logs: Dict) -> None: ...
     def on_batch_end(self, batch: int, logs: Dict) -> None: ...
     def on_epoch_end(self, epoch: int, logs: Dict) -> None: ...
+
+
+class CallbackList:
+    """Fires an event on every callback in order."""
+
+    def __init__(self, callbacks: List[Callback]):
+        self.callbacks = callbacks
+
+    def __getattr__(self, name):
+        def fire(*args, **kwargs):
+            for cb in self.callbacks:
+                getattr(cb, name)(*args, **kwargs)
+        return fire
+
+
+class BroadcastGlobalVariablesCallback(Callback):
+    """Rank ``root_rank``'s initial state on every rank before the first
+    step (ref keras/callbacks.py:23): ``logs['state']`` (an ``nn.Module``,
+    its buffers included, or a tree of tensors), in place, and
+    ``optimizer``'s state when one is given."""
+
+    def __init__(self, root_rank: int = 0, optimizer=None):
+        self.root_rank = root_rank
+        self.optimizer = optimizer
+
+    def on_train_begin(self, logs: Dict) -> None:
+        from horovod_tpu_torch.functions import (broadcast_optimizer_state,
+                                                 broadcast_parameters)
+        if "state" in logs:
+            logs["state"] = broadcast_parameters(logs["state"],
+                                                 self.root_rank)
+        if self.optimizer is not None:
+            broadcast_optimizer_state(self.optimizer, self.root_rank)
+
+
+class MetricAverageCallback(Callback):
+    """Each of ``logs['metrics']`` averaged over the ranks (or the members
+    of ``process_set``) at the end of an epoch (ref
+    _keras/callbacks.py:62), as a CPU f32 tensor of the metric's shape."""
+
+    def __init__(self, process_set=None):
+        self.process_set = process_set
+
+    def on_epoch_end(self, epoch: int, logs: Dict) -> None:
+        from horovod_tpu_torch.eager import allreduce
+        from horovod_tpu_torch.ops.reduce_ops import Average
+        from horovod_tpu_torch.runtime.context import get_context
+        dev = get_context().device
+        metrics = logs.get("metrics", {})
+        for k, v in list(metrics.items()):
+            t = torch.as_tensor(v, dtype=torch.float32).to(dev)
+            metrics[k] = allreduce(t, Average,
+                                   process_set=self.process_set).cpu()
+
+
+class LearningRateScheduleCallback(Callback):
+    """``logs['lr'] = initial_lr * multiplier(epoch)`` at the start of
+    each epoch in [start_epoch, end_epoch) (ref keras/callbacks.py:98)."""
+
+    def __init__(self, initial_lr: float,
+                 multiplier: Callable[[int], float],
+                 start_epoch: int = 0, end_epoch: Optional[int] = None):
+        self.initial_lr = initial_lr
+        self.multiplier = multiplier
+        self.start_epoch = start_epoch
+        self.end_epoch = end_epoch
+
+    def on_epoch_begin(self, epoch: int, logs: Dict) -> None:
+        if epoch < self.start_epoch:
+            return
+        if self.end_epoch is not None and epoch >= self.end_epoch:
+            return
+        logs["lr"] = self.initial_lr * self.multiplier(epoch)
+
+
+class LearningRateWarmupCallback(LearningRateScheduleCallback):
+    """The epoch-level warmup (ref keras/callbacks.py:131): the
+    multiplier ramps exponentially from ``initial_multiplier`` to 1 over
+    ``warmup_epochs``."""
+
+    def __init__(self, initial_lr: float, warmup_epochs: int = 5,
+                 initial_multiplier: float = 1.0 / 8):
+        def mult(epoch):
+            if epoch >= warmup_epochs:
+                return 1.0
+            frac = epoch / max(warmup_epochs, 1)
+            return initial_multiplier ** (1.0 - frac)
+        super().__init__(initial_lr, mult, 0, None)
+
+
+def _to_cpu(state: Any) -> Any:
+    if isinstance(state, nn.Module):
+        state = state.state_dict()
+    if torch.is_tensor(state):
+        return state.detach().cpu()
+    if isinstance(state, dict):
+        return {k: _to_cpu(v) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return type(state)(_to_cpu(v) for v in state)
+    return state
+
+
+class BestModelCheckpoint(Callback):
+    """Saves ``logs['state']`` to ``path`` when ``logs['metrics'][monitor]``
+    improves (``mode`` min or max), on rank 0 only (ref
+    keras/callbacks.py:161). The default ``save_fn`` is ``torch.save`` of
+    the state's tensors on the CPU (an ``nn.Module``'s ``state_dict``)."""
+
+    def __init__(self, path: str, monitor: str = "val_loss",
+                 mode: str = "min",
+                 save_fn: Optional[Callable[[str, Any], None]] = None):
+        self.path = path
+        self.monitor = monitor
+        self.sign = 1.0 if mode == "min" else -1.0
+        self.best = math.inf
+        self.save_fn = save_fn or self._default_save
+
+    @staticmethod
+    def _default_save(path: str, state: Any) -> None:
+        torch.save(_to_cpu(state), path)
+
+    def on_epoch_end(self, epoch: int, logs: Dict) -> None:
+        from horovod_tpu_torch.runtime.context import rank
+        metrics = logs.get("metrics", {})
+        if self.monitor not in metrics:
+            return
+        val = float(torch.as_tensor(metrics[self.monitor]).reshape(-1)[0])
+        if self.sign * val < self.best:
+            self.best = self.sign * val
+            if rank() == 0 and "state" in logs:
+                self.save_fn(self.path, logs["state"])
 
 
 class StepStats:
@@ -73,6 +239,27 @@ class StepStats:
         self.last = stats
         self.begin()
         return stats
+
+
+class MetricsCallback(Callback):
+    """Publishes :class:`StepStats` into the loop's logs: after every
+    batch ``logs['metrics']`` carries ``step_time_s``,
+    ``collective_fraction`` and ``bytes_reduced``, and ``history`` keeps
+    every step's row."""
+
+    def __init__(self):
+        self.stats = StepStats()
+        self.history: List[Dict[str, float]] = []
+
+    def on_epoch_begin(self, epoch: int, logs: Dict) -> None:
+        self.stats.begin()
+
+    def on_batch_end(self, batch: int, logs: Dict) -> None:
+        row = self.stats.end()
+        if not row:
+            return
+        self.history.append(row)
+        logs.setdefault("metrics", {}).update(row)
 
 
 class CheckpointCallback(Callback):

@@ -338,3 +338,19 @@ knobs.register("HOROVOD_VERIFY_STEP", "0", str,
 knobs.register("HOROVOD_ARTIFACT_STORE", "", str,
                help="Persistent compiled-artifact store. Not ported yet "
                     "(ROADMAP A.13): train_loop raises when set.")
+
+# Eager-API knobs (eager.py, stall_inspector.py), read at each handle's
+# start and wait. The same names and defaults as the JAX package's.
+knobs.register("HOROVOD_STALL_CHECK_TIME_SECONDS", 60, int,
+               help="Warn when an async collective handle is outstanding "
+                    "this long (ref stall_inspector.cc:26).")
+knobs.register("HOROVOD_STALL_SHUTDOWN_TIME_SECONDS", 0, int,
+               help="Abort the job after a stall persists this long; 0 "
+                    "disables (ref stall_inspector.cc).")
+knobs.register("HOROVOD_STALL_CHECK_DISABLE", False, bool,
+               help="Disable the stall inspector.")
+knobs.register("HOROVOD_ELASTIC", False, bool,
+               help="Elastic mode: collectives raise recoverable errors "
+                    "instead of hanging on failure. Not ported yet "
+                    "(ROADMAP A.13a): an async handle's wait() raises "
+                    "when set.")

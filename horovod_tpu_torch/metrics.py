@@ -486,9 +486,9 @@ def _hist_sum(name: str) -> float:
 def runtime_totals() -> Dict[str, float]:
     """Running totals the StepStats accumulator (callbacks.py) diffs per
     step: bytes through the dispatch layer and seconds the caller spent
-    blocked on collectives (handle waits). The port's collectives feed
-    neither counter yet (the eager coordinator's metrics wait for
-    ROADMAP A.13), so both stay 0 until they do."""
+    blocked on collectives (the ``hvd_handle_wait_seconds`` that the
+    eager API's handles observe in ``wait``). Nothing feeds the bytes
+    counter yet (the eager coordinator's metrics wait for ROADMAP A.9b)."""
     return {
         "bytes_reduced": _counter_value("hvd_bytes_reduced_total"),
         "collective_seconds": _hist_sum("hvd_handle_wait_seconds"),

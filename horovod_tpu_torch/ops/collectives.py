@@ -18,10 +18,12 @@ on a mesh that has no ``hvd`` axis. A ``process_set`` partitions the
 ranks of an ``axis`` that spans the world: for reductions and broadcast
 the members act together and every other rank keeps its own value (the
 JAX package's member group plus singletons); the shape-changing
-collectives (allgather, alltoall, reducescatter) need a size-uniform
-partition (:func:`_uniform_partition_groups`), and each rank gets its own
-group's result. A ragged set raises ``NotImplementedError`` there, as the
-JAX in-jit layer does (the host-mediated path is ROADMAP A.9).
+collectives (allgather, alltoall, reducescatter) run in this rank's group
+of the set's size-uniform partition where one exists
+(:func:`_uniform_partition_groups`), so each rank gets its own group's
+result, and otherwise (a ragged set) in the set's own group, every other
+rank keeping its own value (the JAX eager layer's host-mediated path,
+``eager.py`` l.803 and 921).
 
 **Uneven forms** (the JAX eager layer's): ``allgather`` of first dims
 that differ between ranks; ``alltoall(x, splits=)`` returning ``(out,
@@ -29,22 +31,26 @@ received_splits)``; ``reducescatter`` of rows not divisible by the group
 (the first ``rows % n`` ranks take one more row). Data movement goes as
 bytes (``uint8``), so every dtype moves on both backends.
 
-``allreduce`` supports Sum, Average (the eager default), Min, Max and
-Product with ``prescale_factor``/``postscale_factor`` (applied in the
-tensor's dtype, as in the JAX package). ``allreduce_`` and ``broadcast_``
-work in place. ``psum`` is the differentiable sum over the ranks that a
-model calls inside a step whose axis is bound (``bind_axis``): sync batch
-norm. ``allreduce_async`` and ``wire_sum_async`` start the SUMs of the
-bucketed gradient sync (``parallel/distributed.py``) and return a handle
-to wait on. Not ported: Adasum, ``join`` and the eager async handle API
-(ROADMAP A.9).
+``allreduce`` supports Sum, Average (the eager default), Min, Max,
+Product and Adasum (``ops/adasum.py``) with ``prescale_factor``/
+``postscale_factor`` (applied in the tensor's dtype, as in the JAX
+package). ``joined_ranks`` (indices along the axis) are ranks that joined
+(``eager.join``): they contribute the op's identity, and Average divides
+by the active count of each rank's group. ``allreduce_`` and
+``broadcast_`` work in place. ``psum`` is the differentiable sum over the
+ranks that a model calls inside a step whose axis is bound
+(``bind_axis``): sync batch norm. ``allreduce_async`` and
+``wire_sum_async`` start the SUMs of the bucketed gradient sync
+(``parallel/distributed.py``) and return a handle to wait on. Each
+collective of the eager API also has a ``*_start`` form returning a
+:class:`_Pending` (its ``torch.distributed`` works and the step that
+forms the result once they are done), which ``eager.py``'s handles wrap.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
-import functools
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -72,6 +78,35 @@ class _Done:
     @staticmethod
     def wait() -> bool:
         return True
+
+
+class _Pending:
+    """A started collective: ``works`` (``torch.distributed`` Work
+    objects, started with ``async_op=True``) to wait on, then ``finish()``
+    forms the result from their buffers. A collective of several
+    dependent stages runs all but its last when it starts."""
+
+    __slots__ = ("works", "finish")
+
+    def __init__(self, works, finish):
+        self.works = [w for w in works if w is not None]
+        self.finish = finish
+
+    def is_completed(self) -> bool:
+        return all(w.is_completed() for w in self.works)
+
+    def wait(self):
+        for w in self.works:
+            w.wait()
+        # some gloo works (reduce_scatter_tensor's) never report
+        # completion, even once waited on
+        self.works = []
+        return self.finish()
+
+
+def _ready(value) -> _Pending:
+    """A :class:`_Pending` whose result is already there."""
+    return _Pending((), lambda: value)
 
 
 def _scale_(x: torch.Tensor, factor: Optional[float]) -> torch.Tensor:
@@ -134,12 +169,16 @@ def _resolve_groups(process_set, axis: AxisSpec = HVD_AXIS):
 
 
 def _uniform_partition_groups(process_set, opname: str):
-    """The size-uniform partition a shape-changing collective over
-    ``process_set`` runs in, or None for the global set (the JAX
-    package's rule, l.250-303): (1) the set with registered disjoint sets
-    of its size that cover the world (seeded with this set); (2) else, for
-    an aligned contiguous set, the contiguous chunks of its size. Anything
-    else raises ``NotImplementedError``."""
+    """The partition a shape-changing collective over ``process_set``
+    runs in, or None for the global set. Where one exists it is the JAX
+    package's size-uniform partition (l.250-303): (1) the set with
+    registered disjoint sets of its size that cover the world (seeded with
+    this set); (2) else, for an aligned contiguous set, the contiguous
+    chunks of its size. Otherwise (a ragged set, which the JAX in-jit
+    layer rejects and its eager layer runs host-mediated) it is the set's
+    member group and a singleton per other rank, as for the reductions.
+    ``opname`` names the collective for the caller's errors."""
+    del opname
     if process_set is None or process_set.process_set_id == 0:
         return None
     process_set._check_registered()
@@ -163,12 +202,7 @@ def _uniform_partition_groups(process_set, opname: str):
                 and ranks[0] % k == 0:
             return [list(range(g * k, (g + 1) * k))
                     for g in range(world // k)]
-    raise NotImplementedError(
-        f"{opname} over process set {process_set.ranks} needs a "
-        f"size-uniform partition of the {world}-rank world into groups of "
-        f"{k}: neither the registered sets nor contiguous alignment give "
-        f"one (ragged sets are the host-mediated path, not ported yet). "
-        f"Register a full sibling partition instead.")
+    return process_set.axis_index_groups()
 
 
 def _frame(axis: AxisSpec, process_set) -> Group:
@@ -198,7 +232,8 @@ def _set_group(axis: AxisSpec, process_set) -> Group:
 
 def _uniform_group(axis: AxisSpec, process_set, opname: str) -> Group:
     """The group of a shape-changing collective: the axis row, or this
-    rank's group of the set's size-uniform partition."""
+    rank's group of the set's partition
+    (:func:`_uniform_partition_groups`)."""
     g = _frame(axis, process_set)
     partition = _uniform_partition_groups(process_set, opname)
     if partition is None:
@@ -206,6 +241,14 @@ def _uniform_group(axis: AxisSpec, process_set, opname: str) -> Group:
     glob = [[g.members[i] for i in grp] for grp in partition]
     mine = next(grp for grp in glob if g.members[g.index] in grp)
     return get_context().subgroup(mine, glob)
+
+
+def _outside(process_set, g: Group) -> bool:
+    """True on a rank outside a ragged ``process_set``: it keeps its own
+    value."""
+    return (g.pg is None and process_set is not None
+            and process_set.process_set_id != 0
+            and not process_set.included())
 
 
 # ---------------------------------------------------------------------------
@@ -230,47 +273,66 @@ def _from_torch_order(chunks: Sequence[torch.Tensor], g: Group):
     return out
 
 
-def _all_gather(x: torch.Tensor, g: Group, async_op: bool = False):
+def _all_gather_start(x: torch.Tensor, g: Group) -> _Pending:
     """Every member's ``x`` (same shape on each), concatenated along dim 0
-    in member order; with ``async_op`` returns ``(handle, out)``."""
+    in member order."""
     if g.pg is None:
-        out = x.clone()
-        return (_Done(), out) if async_op else out
+        return _ready(x.clone())
     src = _bytes(x)
     buf = torch.empty(g.size * src.numel(), dtype=torch.uint8,
                       device=x.device)
-    work = dist.all_gather_into_tensor(buf, src, group=g.pg,
-                                       async_op=async_op)
+    work = dist.all_gather_into_tensor(buf, src, group=g.pg, async_op=True)
+    shape = (g.size * x.shape[0],) + x.shape[1:]
+
+    def finish():
+        out = buf if g.ordered else torch.cat(
+            _from_torch_order(buf.chunk(g.size), g))
+        return out.view(x.dtype).reshape(shape)
+
+    return _Pending([work], finish)
+
+
+def _all_gather(x: torch.Tensor, g: Group, async_op: bool = False):
+    """:func:`_all_gather_start`, waited on; with ``async_op`` returns
+    ``(handle, out)``, ``out`` valid once ``handle.wait()`` returned."""
+    if not async_op:
+        return _all_gather_start(x, g).wait()
+    if g.pg is None:
+        return _Done(), x.clone()
+    p = _all_gather_start(x, g)
     if not g.ordered:
-        if async_op:
-            work.wait()
-            async_op, work = False, None
-        buf = torch.cat(_from_torch_order(buf.chunk(g.size), g))
-    out = buf.view(x.dtype).reshape((g.size * x.shape[0],) + x.shape[1:])
-    return (work, out) if async_op else out
+        return _Done(), p.wait()
+    return p.works[0], p.finish()
 
 
-def _reduce_scatter(x: torch.Tensor, op: ReduceOp, g: Group
-                    ) -> torch.Tensor:
+def _reduce_scatter_start(x: torch.Tensor, op: ReduceOp, g: Group
+                          ) -> _Pending:
     """Chunk i of dim 0 (``x.shape[0] % g.size == 0``) reduced over the
     members with ``op`` lands on member i."""
     if g.pg is None:
-        return x.clone()
+        return _ready(x.clone())
     chunks = x.chunk(g.size)
     src = x.contiguous() if g.ordered else torch.cat(
         _to_torch_order(chunks, g))
     out = torch.empty_like(chunks[0])
-    dist.reduce_scatter_tensor(out, src, op=_TORCH_OP[op], group=g.pg)
-    return out
+    work = dist.reduce_scatter_tensor(out, src, op=_TORCH_OP[op],
+                                      group=g.pg, async_op=True)
+    return _Pending([work], lambda: out)
 
 
-def _all_to_all(x: torch.Tensor, g: Group, send_rows: Sequence[int],
-                recv_rows: Sequence[int]) -> torch.Tensor:
-    """Rows ``send_rows[i]`` of ``x`` (in order) go to member i; returns
-    what arrives, ``recv_rows[i]`` rows from member i, in member order."""
+def _reduce_scatter(x: torch.Tensor, op: ReduceOp, g: Group
+                    ) -> torch.Tensor:
+    return _reduce_scatter_start(x, op, g).wait()
+
+
+def _all_to_all_start(x: torch.Tensor, g: Group, send_rows: Sequence[int],
+                      recv_rows: Sequence[int]) -> _Pending:
+    """Rows ``send_rows[i]`` of ``x`` (in order) go to member i; the
+    result is what arrives, ``recv_rows[i]`` rows from member i, in member
+    order."""
     trailing = x.shape[1:]
     if g.pg is None:
-        return x.clone()
+        return _ready(x.clone())
     row = int(np.prod(trailing, dtype=np.int64)) * x.element_size()
     src = _bytes(x)
     if not g.ordered:
@@ -279,11 +341,16 @@ def _all_to_all(x: torch.Tensor, g: Group, send_rows: Sequence[int],
     in_sizes = [r * row for r in _to_torch_order(list(send_rows), g)]
     out_sizes = [r * row for r in _to_torch_order(list(recv_rows), g)]
     buf = torch.empty(sum(out_sizes), dtype=torch.uint8, device=x.device)
-    dist.all_to_all_single(buf, src, output_split_sizes=out_sizes,
-                           input_split_sizes=in_sizes, group=g.pg)
-    if not g.ordered:
-        buf = torch.cat(_from_torch_order(list(buf.split(out_sizes)), g))
-    return buf.view(x.dtype).reshape((sum(recv_rows),) + trailing)
+    work = dist.all_to_all_single(buf, src, output_split_sizes=out_sizes,
+                                  input_split_sizes=in_sizes, group=g.pg,
+                                  async_op=True)
+
+    def finish():
+        out = buf if g.ordered else torch.cat(
+            _from_torch_order(list(buf.split(out_sizes)), g))
+        return out.view(x.dtype).reshape((sum(recv_rows),) + trailing)
+
+    return _Pending([work], finish)
 
 
 def _exchange_ints(vals: Sequence[int], g: Group, device) -> np.ndarray:
@@ -297,64 +364,130 @@ def _exchange_ints(vals: Sequence[int], g: Group, device) -> np.ndarray:
 # reductions
 # ---------------------------------------------------------------------------
 
+def _active_count(g: Group, frame: Group, joined: Sequence[int]) -> int:
+    """Members of ``g`` that did not join (``joined`` indexes ``frame``),
+    at least 1: what Average divides by."""
+    if not joined:
+        return g.size
+    out = {frame.members[j] for j in joined if 0 <= j < frame.size}
+    return max(sum(1 for m in g.members if m not in out), 1)
+
+
+def allreduce_start(tensor: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
+                    axis: AxisSpec = HVD_AXIS, process_set=None,
+                    prescale_factor: Optional[float] = None,
+                    postscale_factor: Optional[float] = None,
+                    joined_ranks: Sequence[int] = (),
+                    inplace: bool = False) -> _Pending:
+    """Start :func:`allreduce` (``inplace``: :func:`allreduce_`). Adasum
+    runs its butterfly before it returns."""
+    op = check_supported(op)
+    if inplace and op == ReduceOp.AVERAGE and not tensor.is_floating_point():
+        raise TypeError("allreduce_: Average of an integer tensor cannot "
+                        "stay in place; use allreduce")
+    frame = _frame(axis, process_set)
+    joined = tuple(int(j) for j in joined_ranks)
+    buf = tensor if inplace else tensor.clone()
+    if frame.index in joined:
+        buf.fill_(_join_neutral(op, buf.dtype))
+    _scale_(buf, prescale_factor)
+    if op == ReduceOp.ADASUM:
+        from horovod_tpu_torch.ops.adasum import adasum_allreduce
+        out = _scale_(adasum_allreduce(buf, axis, process_set, joined),
+                      postscale_factor)
+        return _ready(buf.copy_(out) if inplace else out)
+    g = _set_group(axis, process_set)
+    work = (dist.all_reduce(buf, op=_TORCH_OP[op], group=g.pg,
+                            async_op=True) if g.pg is not None else None)
+
+    def finish():
+        out = buf
+        if op == ReduceOp.AVERAGE:
+            n = _active_count(g, frame, joined)
+            out = buf.div_(n) if buf.is_floating_point() else buf / n
+        return _scale_(out, postscale_factor)
+
+    return _Pending([work], finish)
+
+
 def allreduce_(tensor: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
                axis: AxisSpec = HVD_AXIS, process_set=None,
                prescale_factor: Optional[float] = None,
-               postscale_factor: Optional[float] = None) -> torch.Tensor:
+               postscale_factor: Optional[float] = None,
+               joined_ranks: Sequence[int] = ()) -> torch.Tensor:
     """In-place allreduce of this rank's ``tensor`` over ``axis`` (and
     ``process_set``); returns it. Average divides the sum by the group's
-    size (floating-point tensors only)."""
-    op = check_supported(op)
-    if op == ReduceOp.ADASUM:
-        raise NotImplementedError(
-            "Adasum is not yet ported to horovod_tpu_torch (ROADMAP A.9)")
-    if op == ReduceOp.AVERAGE and not tensor.is_floating_point():
-        raise TypeError("allreduce_: Average of an integer tensor cannot "
-                        "stay in place; use allreduce")
-    g = _set_group(axis, process_set)
-    _scale_(tensor, prescale_factor)
-    if g.pg is not None:
-        dist.all_reduce(tensor, op=_TORCH_OP[op], group=g.pg)
-    if op == ReduceOp.AVERAGE:
-        tensor.div_(g.size)
-    return _scale_(tensor, postscale_factor)
+    active size (floating-point tensors only)."""
+    return allreduce_start(tensor, op, axis, process_set, prescale_factor,
+                           postscale_factor, joined_ranks,
+                           inplace=True).wait()
 
 
 def allreduce(tensor: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
               axis: AxisSpec = HVD_AXIS, process_set=None,
               prescale_factor: Optional[float] = None,
-              postscale_factor: Optional[float] = None) -> torch.Tensor:
+              postscale_factor: Optional[float] = None,
+              joined_ranks: Sequence[int] = ()) -> torch.Tensor:
     """Allreduce of this rank's ``tensor`` into a new tensor (the input is
     left as it was). Members of ``process_set`` get the set's reduction,
     other ranks their own value (scaled). Average of an integer tensor
     returns a floating-point result, as the JAX package's does."""
-    op = check_supported(op)
-    if op == ReduceOp.AVERAGE and not tensor.is_floating_point():
-        summed = allreduce_(tensor.clone(), ReduceOp.SUM, axis, process_set,
-                            prescale_factor)
-        out = summed / _set_group(axis, process_set).size
-        return _scale_(out, postscale_factor)
-    return allreduce_(tensor.clone(), op, axis, process_set,
-                      prescale_factor, postscale_factor)
+    return allreduce_start(tensor, op, axis, process_set, prescale_factor,
+                           postscale_factor, joined_ranks).wait()
+
+
+def grouped_allreduce_start(tensors: Sequence[torch.Tensor],
+                            op: ReduceOp = ReduceOp.AVERAGE,
+                            axis: AxisSpec = HVD_AXIS, process_set=None,
+                            prescale_factor: Optional[float] = None,
+                            postscale_factor: Optional[float] = None,
+                            joined_ranks: Sequence[int] = ()) -> _Pending:
+    """Start :func:`grouped_allreduce`: one collective per dtype buffer
+    (per tensor with HOROVOD_BATCH_D2D_MEMCOPIES=0), all in flight
+    together."""
+    from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.ops.fusion import (flatten_for_fusion,
+                                              unflatten_from_fusion)
+    tensors = list(tensors)
+    if knobs.get("HOROVOD_BATCH_D2D_MEMCOPIES") and len(tensors) > 1:
+        by_dtype: dict = {}
+        for i, x in enumerate(tensors):
+            by_dtype.setdefault(x.dtype, []).append(i)
+        groups = list(by_dtype.values())
+    else:
+        groups = [[i] for i in range(len(tensors))]
+    starts = []
+    for idxs in groups:
+        buf, specs = flatten_for_fusion([tensors[i] for i in idxs])
+        starts.append((idxs, specs, allreduce_start(
+            buf, op, axis, process_set, prescale_factor, postscale_factor,
+            joined_ranks)))
+
+    def finish():
+        out: List[torch.Tensor] = [None] * len(tensors)  # type: ignore
+        for idxs, specs, p in starts:
+            for i, v in zip(idxs, unflatten_from_fusion(p.finish(), specs)):
+                out[i] = v
+        return out
+
+    return _Pending([w for _, _, p in starts for w in p.works], finish)
 
 
 def grouped_allreduce(tensors: Sequence[torch.Tensor],
                       op: ReduceOp = ReduceOp.AVERAGE,
                       axis: AxisSpec = HVD_AXIS, process_set=None,
                       prescale_factor: Optional[float] = None,
-                      postscale_factor: Optional[float] = None
+                      postscale_factor: Optional[float] = None,
+                      joined_ranks: Sequence[int] = ()
                       ) -> List[torch.Tensor]:
     """All tensors reduced as one logical op: packed into one buffer per
-    dtype, one collective per buffer, unpacked (``ops.fusion.fuse_apply``,
-    honouring HOROVOD_BATCH_D2D_MEMCOPIES). Inputs are left as they were."""
-    from horovod_tpu_torch.config import knobs
-    from horovod_tpu_torch.ops.fusion import fuse_apply
-    fn = functools.partial(allreduce, op=op, axis=axis,
-                           process_set=process_set,
-                           prescale_factor=prescale_factor,
-                           postscale_factor=postscale_factor)
-    return fuse_apply(fn, tensors,
-                      batch=bool(knobs.get("HOROVOD_BATCH_D2D_MEMCOPIES")))
+    dtype, one collective per buffer, unpacked (``ops.fusion``'s packing,
+    honouring HOROVOD_BATCH_D2D_MEMCOPIES; Adasum then combines each
+    packed buffer as one vector, as the JAX package's does). Inputs are
+    left as they were."""
+    return grouped_allreduce_start(tensors, op, axis, process_set,
+                                   prescale_factor, postscale_factor,
+                                   joined_ranks).wait()
 
 
 def allreduce_async(buf: torch.Tensor, axis: AxisSpec = HVD_AXIS):
@@ -408,16 +541,13 @@ def wire_sum_async(wire: torch.Tensor, axis: AxisSpec = HVD_AXIS):
     return work, out.view(dtype)[:n].view(wire.shape)
 
 
-def reducescatter(tensor: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
-                  axis: AxisSpec = HVD_AXIS, process_set=None,
-                  prescale_factor: Optional[float] = None,
-                  postscale_factor: Optional[float] = None) -> torch.Tensor:
-    """Reduce over the group, then member i keeps the i-th slice of dim 0.
-    Rows not divisible by the group's size n follow the reference's rule:
-    the first ``rows % n`` members take one more row. Sum and Average run
-    one reduce-scatter (uneven chunks padded with zeros, then trimmed);
-    Min, Max and Product an allreduce and a slice, over the axis only (a
-    process set raises, as the JAX package's in-jit op does)."""
+def reducescatter_start(tensor: torch.Tensor,
+                        op: ReduceOp = ReduceOp.AVERAGE,
+                        axis: AxisSpec = HVD_AXIS, process_set=None,
+                        prescale_factor: Optional[float] = None,
+                        postscale_factor: Optional[float] = None
+                        ) -> _Pending:
+    """Start :func:`reducescatter`."""
     op = check_supported(op)
     if op == ReduceOp.ADASUM:
         raise ValueError("reducescatter does not support Adasum")
@@ -437,41 +567,55 @@ def reducescatter(tensor: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
             for r, c in enumerate(counts):
                 padded[r * width:r * width + c] = x[off:off + c]
                 off += c
-            out = _reduce_scatter(padded, ReduceOp.SUM, g)[:mine]
+            p = _reduce_scatter_start(padded, ReduceOp.SUM, g)
         else:
-            out = _reduce_scatter(x, ReduceOp.SUM, g)
-        if op == ReduceOp.AVERAGE:
-            out = out / n
-    else:
-        if g.size != _frame(axis, None).size:
-            raise NotImplementedError(
-                f"subgroup reducescatter supports SUM/AVERAGE (got {op})")
-        if g.pg is not None:
-            dist.all_reduce(x, op=_TORCH_OP[op], group=g.pg)
-        off = sum(counts[:g.index])
-        out = x[off:off + mine].clone()
-    return _scale_(out, postscale_factor)
+            p = _reduce_scatter_start(x, ReduceOp.SUM, g)
+
+        def finish():
+            out = p.finish()[:mine]
+            if op == ReduceOp.AVERAGE:
+                out = out / n
+            return _scale_(out, postscale_factor)
+
+        return _Pending(p.works, finish)
+    if g.size != _frame(axis, None).size:
+        raise NotImplementedError(
+            f"subgroup reducescatter supports SUM/AVERAGE (got {op})")
+    work = (dist.all_reduce(x, op=_TORCH_OP[op], group=g.pg, async_op=True)
+            if g.pg is not None else None)
+    off = sum(counts[:g.index])
+    return _Pending([work], lambda: _scale_(x[off:off + mine].clone(),
+                                            postscale_factor))
+
+
+def reducescatter(tensor: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
+                  axis: AxisSpec = HVD_AXIS, process_set=None,
+                  prescale_factor: Optional[float] = None,
+                  postscale_factor: Optional[float] = None) -> torch.Tensor:
+    """Reduce over the group, then member i keeps the i-th slice of dim 0.
+    Rows not divisible by the group's size n follow the reference's rule:
+    the first ``rows % n`` members take one more row. Sum and Average run
+    one reduce-scatter (uneven chunks padded with zeros, then trimmed);
+    Min, Max and Product an allreduce and a slice, over the axis only (a
+    process set raises, as the JAX package's in-jit op does)."""
+    return reducescatter_start(tensor, op, axis, process_set,
+                               prescale_factor, postscale_factor).wait()
 
 
 # ---------------------------------------------------------------------------
 # data movement
 # ---------------------------------------------------------------------------
 
-def allgather(tensor: torch.Tensor, axis: AxisSpec = HVD_AXIS,
-              process_set=None) -> torch.Tensor:
-    """Every member's ``tensor`` concatenated along dim 0, in member
-    order. First dims may differ between ranks (allgatherv): the first
-    dims are exchanged first (one small all-gather and a host sync on
-    every call), each rank's rows are padded to the largest, gathered in
-    one ``all_gather_into_tensor`` and trimmed. Trailing dims must match.
-    With HOROVOD_HIERARCHICAL_ALLGATHER and several axes, even inputs
-    gather axis by axis, innermost first (same result)."""
+def allgather_start(tensor: torch.Tensor, axis: AxisSpec = HVD_AXIS,
+                    process_set=None) -> _Pending:
+    """Start :func:`allgather`: the first dims are exchanged (a host
+    sync) before the gather starts."""
     from horovod_tpu_torch.config import knobs
     if tensor.dim() == 0:
         raise ValueError("allgather needs at least one dimension")
     g = _uniform_group(axis, process_set, "allgather")
     if g.pg is None:
-        return tensor.clone()
+        return _ready(tensor.clone())
     trailing = int(np.prod(tensor.shape[1:], dtype=np.int64))
     meta = _exchange_ints([tensor.shape[0], trailing, tensor.dim()], g,
                           tensor.device)
@@ -488,24 +632,36 @@ def allgather(tensor: torch.Tensor, axis: AxisSpec = HVD_AXIS,
             out = tensor
             for ax in reversed(axes):
                 out = _all_gather(out, get_context().axis_group(ax))
-            return out
-        return _all_gather(tensor, g)
+            return _ready(out)
+        return _all_gather_start(tensor, g)
     padded = tensor.new_zeros((maxn,) + tensor.shape[1:])
     padded[:tensor.shape[0]] = tensor
-    full = _all_gather(padded, g)
-    return torch.cat([full[r * maxn:r * maxn + c]
-                      for r, c in enumerate(rows)])
+    p = _all_gather_start(padded, g)
+
+    def finish():
+        full = p.finish()
+        return torch.cat([full[r * maxn:r * maxn + c]
+                          for r, c in enumerate(rows)])
+
+    return _Pending(p.works, finish)
 
 
-def alltoall(tensor: torch.Tensor, splits=None, axis: AxisSpec = HVD_AXIS,
-             process_set=None):
-    """All-to-all over dim 0. Without ``splits`` dim 0 splits into n equal
-    chunks (n = the group's size), chunk i goes to member i, and the
-    result is the chunks received, in member order. With ``splits`` (n
-    row counts: ``splits[i]`` rows go to member i) returns ``(out,
-    received_splits)``: every rank's send vector is exchanged first (one
-    small all-gather, read on the host), then the rows move in one uneven
-    ``all_to_all_single``; ``received_splits`` is a CPU int64 tensor."""
+def allgather(tensor: torch.Tensor, axis: AxisSpec = HVD_AXIS,
+              process_set=None) -> torch.Tensor:
+    """Every member's ``tensor`` concatenated along dim 0, in member
+    order. First dims may differ between ranks (allgatherv): the first
+    dims are exchanged first (one small all-gather and a host sync on
+    every call), each rank's rows are padded to the largest, gathered in
+    one ``all_gather_into_tensor`` and trimmed. Trailing dims must match.
+    With HOROVOD_HIERARCHICAL_ALLGATHER and several axes, even inputs
+    gather axis by axis, innermost first (same result)."""
+    return allgather_start(tensor, axis, process_set).wait()
+
+
+def alltoall_start(tensor: torch.Tensor, splits=None,
+                   axis: AxisSpec = HVD_AXIS, process_set=None) -> _Pending:
+    """Start :func:`alltoall`: with ``splits`` the send vectors are
+    exchanged (a host sync) before the rows move."""
     if tensor.dim() == 0:
         raise ValueError("alltoall needs at least one dimension")
     g = _uniform_group(axis, process_set, "alltoall")
@@ -515,7 +671,10 @@ def alltoall(tensor: torch.Tensor, splits=None, axis: AxisSpec = HVD_AXIS,
             raise ValueError(
                 f"alltoall first dim {rows} not divisible by group size {n}")
         c = rows // n
-        return _all_to_all(tensor, g, [c] * n, [c] * n)
+        return _all_to_all_start(tensor, g, [c] * n, [c] * n)
+    if _outside(process_set, g):
+        return _ready((tensor.clone(), torch.tensor([rows],
+                                                    dtype=torch.int64)))
     send = [int(s) for s in (splits.tolist() if torch.is_tensor(splits)
                              else splits)]
     if len(send) != n:
@@ -528,8 +687,22 @@ def alltoall(tensor: torch.Tensor, splits=None, axis: AxisSpec = HVD_AXIS,
             f"splits of member(s) {bad} do not sum to their first dims: "
             f"{table.tolist()}")
     recv = [int(v) for v in table[:, 1 + g.index]]
-    out = _all_to_all(tensor, g, send, recv)
-    return out, torch.tensor(recv, dtype=torch.int64)
+    p = _all_to_all_start(tensor, g, send, recv)
+    return _Pending(p.works, lambda: (p.finish(), torch.tensor(
+        recv, dtype=torch.int64)))
+
+
+def alltoall(tensor: torch.Tensor, splits=None, axis: AxisSpec = HVD_AXIS,
+             process_set=None):
+    """All-to-all over dim 0. Without ``splits`` dim 0 splits into n equal
+    chunks (n = the group's size), chunk i goes to member i, and the
+    result is the chunks received, in member order. With ``splits`` (n
+    row counts: ``splits[i]`` rows go to member i) returns ``(out,
+    received_splits)``: every rank's send vector is exchanged first (one
+    small all-gather, read on the host), then the rows move in one uneven
+    ``all_to_all_single``; ``received_splits`` is a CPU int64 tensor. A
+    rank outside a ragged process set keeps its own rows."""
+    return alltoall_start(tensor, splits, axis, process_set).wait()
 
 
 def ppermute(tensor: torch.Tensor, perm: Sequence[Tuple[int, int]],
@@ -562,10 +735,9 @@ def ppermute(tensor: torch.Tensor, perm: Sequence[Tuple[int, int]],
     return out
 
 
-def broadcast_(tensor: torch.Tensor, root_rank: int = 0,
-               axis: AxisSpec = HVD_AXIS, process_set=None) -> torch.Tensor:
-    """In place: every member's ``tensor`` becomes the root's (``root_rank``
-    indexes the axis, or the set); other ranks keep theirs. Returns it."""
+def broadcast_start(tensor: torch.Tensor, root_rank: int = 0,
+                    axis: AxisSpec = HVD_AXIS, process_set=None) -> _Pending:
+    """Start :func:`broadcast_` on ``tensor``."""
     g = _set_group(axis, process_set)
     members = (process_set.size()
                if process_set is not None and process_set.process_set_id
@@ -573,9 +745,16 @@ def broadcast_(tensor: torch.Tensor, root_rank: int = 0,
     if not 0 <= root_rank < members:
         raise ValueError(f"root_rank {root_rank} outside a group of "
                          f"{members}")
-    if g.pg is not None:
-        dist.broadcast(tensor, src=g.members[root_rank], group=g.pg)
-    return tensor
+    work = (dist.broadcast(tensor, src=g.members[root_rank], group=g.pg,
+                           async_op=True) if g.pg is not None else None)
+    return _Pending([work], lambda: tensor)
+
+
+def broadcast_(tensor: torch.Tensor, root_rank: int = 0,
+               axis: AxisSpec = HVD_AXIS, process_set=None) -> torch.Tensor:
+    """In place: every member's ``tensor`` becomes the root's (``root_rank``
+    indexes the axis, or the set); other ranks keep theirs. Returns it."""
+    return broadcast_start(tensor, root_rank, axis, process_set).wait()
 
 
 def broadcast(tensor: torch.Tensor, root_rank: int = 0,

@@ -11,7 +11,7 @@ Pytrees are the port's nested ``dict``s of tensors, walked in sorted-key
 order as ``jax.tree`` walks them (``utils.tree``).
 :func:`_plan_buckets_by_bytes` is the reverse-backward bucket schedule of
 the gradient sync (``parallel/distributed.py``). Not ported yet:
-``plan_fusion_bins`` and the native planner (ROADMAP A.9), and the bucket
+``plan_fusion_bins`` and the native planner (ROADMAP A.9b), and the bucket
 manifest of the IR verifier (A.15).
 """
 

@@ -1,9 +1,8 @@
 """Reduction-op vocabulary of the port.
 
 The names and values of ``horovod_tpu/ops/reduce_ops.py`` (the reference's
-ReduceOp enum), kept as the port's own copy. Adasum is listed so that the
-values match, but its composite is not ported yet: ``allreduce`` raises on
-it.
+ReduceOp enum), kept as the port's own copy. Adasum's composite is
+``ops/adasum.py``.
 """
 
 from __future__ import annotations

@@ -52,9 +52,16 @@ gives the ``schedule`` and the ``dcn_wire_bytes`` that stage carried.
 Sync axes name the topology's axes (``runtime/topology.py``); a name the
 mesh does not have, such as a model's own data-parallel axis ``dp`` or
 ``hvd`` on a multi-axis mesh, stands for every axis, i.e. the world. An
-empty axes tuple marks a local leaf, which is not synced. Not ported:
-Adasum and ``DistributedAdasumOptimizer`` (A.9),
-``distributed_value_and_grad`` and the online tuner (A.13).
+empty axes tuple marks a local leaf, which is not synced.
+
+**Adasum** (``op=Adasum``; ``ops/adasum.py``): as in the JAX package's
+``_sync_leaf``, each leaf is its own bucket, launched from its gradient
+hook, on an uncompressed wire (the per-leaf compressor still applies), and
+combined over each sync axis in turn; the dot products span the leaf.
+:class:`DistributedAdasumOptimizer` combines the inner optimizer's
+parameter deltas instead of the gradients (the reference's
+torch/optimizer.py:345), and :func:`distributed_value_and_grad` gives a
+loss and its synced gradients. Not ported: the online tuner (A.13).
 """
 
 from __future__ import annotations
@@ -422,6 +429,45 @@ def _wire_bucket_launch(leaves: List[torch.Tensor],
                           wire_bytes, dcn_bytes, tier is not None)
 
 
+def _sync_leaves(gs: Sequence[torch.Tensor], axes, op: ReduceOp,
+                 compression) -> List[torch.Tensor]:
+    """The JAX package's ``_sync_leaf`` over every leaf of ``gs``: through
+    the per-leaf compressor, reduced with ``op`` over each of ``axes`` in
+    turn, and back. Adasum sends the leaves of one dtype in one transfer
+    per butterfly level; its dot products stay per leaf."""
+    from horovod_tpu_torch.ops.adasum import adasum_allreduce_many
+    comp = compr.as_compressor(compression)
+    packed, ctxs = [], []
+    for g in gs:
+        c, ctx = comp.compress(g)
+        packed.append(c)
+        ctxs.append(ctx)
+    for ax in _mesh_axes(axes):
+        if op == ReduceOp.ADASUM:
+            packed = adasum_allreduce_many(packed, ax)
+        else:
+            packed = [collectives.allreduce(c, op, axis=ax) for c in packed]
+    return [comp.decompress(c, ctx) for c, ctx in zip(packed, ctxs)]
+
+
+def _adasum_bucket_launch(leaves: List[torch.Tensor], axes, leaf_comp,
+                          prescale: Optional[float] = None
+                          ) -> _PendingBucket:
+    """One bucket of an Adasum sync (:func:`_sync_leaves`), complete when
+    it returns (each butterfly level needs the last); the wire trace
+    counts its bytes uncompressed."""
+    if prescale is not None:
+        leaves = [g * prescale for g in leaves]
+    synced = _sync_leaves(leaves, axes, ReduceOp.ADASUM, leaf_comp)
+    parts = []
+    for i, s in enumerate(synced):
+        buf, specs = flatten_for_fusion([s])
+        parts.append(_Part([i], specs, s.dtype, buf=buf))
+    logical = sum(_nbytes(g) for g in leaves)
+    return _PendingBucket(len(leaves), parts, None, None,
+                          compr.NoneCompressor, logical, logical)
+
+
 # ---------------------------------------------------------------------------
 # the plan and its launches
 # ---------------------------------------------------------------------------
@@ -435,14 +481,16 @@ class _GradSync:
                  groups: Dict[Tuple, List[int]], op: ReduceOp,
                  compression, error_feedback: Optional[bool]):
         op = check_supported(op)
-        if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        if op not in (ReduceOp.SUM, ReduceOp.AVERAGE, ReduceOp.ADASUM):
             raise NotImplementedError(
-                f"gradient sync with op={op.name} is not yet ported to "
-                f"horovod_tpu_torch (Sum and Average are; Adasum: ROADMAP "
-                f"A.9)")
+                f"gradient sync with op={op.name} is not supported (Sum, "
+                f"Average and Adasum are)")
         compr.tier_for(compression)            # reject typos here
         self.op = op
-        self.codec = compr.wire_codec(compression)
+        # Adasum's wire stays uncompressed (its dot products need the
+        # values); the per-leaf compressor still applies
+        self.codec = (None if op == ReduceOp.ADASUM
+                      else compr.wire_codec(compression))
         self.leaf_comp = compr.as_compressor(compression)
         self.ef = self.codec is not None and (
             compr.error_feedback_enabled(self.codec)
@@ -455,8 +503,12 @@ class _GradSync:
             gs = [leaves[i] for i in idxs]
             self.tiers[axes] = (_resolve_tier(gs, axes, op, compression)
                                 if axes else None)
-            plan = (_plan_sync_buckets(gs, axes, _axes_world(axes))
-                    if axes else [list(range(len(idxs)))])
+            if not axes:
+                plan = [list(range(len(idxs)))]
+            elif op == ReduceOp.ADASUM:       # a leaf a bucket, reversed
+                plan = [[j] for j in reversed(range(len(idxs)))]
+            else:
+                plan = _plan_sync_buckets(gs, axes, _axes_world(axes))
             self.buckets += [(axes, [idxs[j] for j in b]) for b in plan]
         self.n_leaves = len(leaves)
 
@@ -469,6 +521,9 @@ class _GradSync:
                residuals: Optional[List[torch.Tensor]],
                prescale: Optional[float] = None) -> _PendingBucket:
         axes, _ = self.buckets[k]
+        if self.op == ReduceOp.ADASUM:
+            return _adasum_bucket_launch(grads, axes, self.leaf_comp,
+                                         prescale)
         return _wire_bucket_launch(
             grads, residuals if self.ef else None, axes, self.op,
             _axes_world(axes), self.codec if axes else None,
@@ -814,6 +869,114 @@ class DistributedOptimizer:
 
     def zero_grad(self, set_to_none: bool = True) -> None:
         self.optimizer.zero_grad(set_to_none=set_to_none)
+
+
+class DistributedAdasumOptimizer:
+    """Adasum's delta optimizer (ref torch/optimizer.py:345, its rationale
+    at :414-427; the JAX package's ``DistributedAdasumOptimizer``): each
+    rank's inner ``optimizer`` steps on its LOCAL gradients, and the
+    parameter deltas, not the gradients, are Adasum-combined over
+    ``axis`` (a name or a tuple, each axis in turn), which keeps adaptive
+    state (momentum, Adam's moments) at the local gradient's scale.
+
+    ``step()`` snapshots the parameters, runs the inner step, forms each
+    delta as new - old in f32, combines the deltas (per leaf; the leaves
+    of one dtype cross in one transfer per butterfly level) and writes old
+    + combined back into the same parameter tensors, so whatever holds them
+    by reference (hooks, a checkpointer) keeps seeing them. Every rank
+    then holds the same parameters, bit for bit; over one rank the inner
+    step stands as it is. No gradient hooks are installed."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, axis,
+                 compression=Compression.none):
+        if axis is None:
+            raise ValueError(
+                "DistributedAdasumOptimizer needs an explicit mesh axis: "
+                "the delta combination is an Adasum collective over it")
+        compr.tier_for(compression)
+        self.optimizer = optimizer
+        self.axes = axis if isinstance(axis, tuple) else (axis,)
+        self.compression = compression
+        self.params = [p for group in optimizer.param_groups
+                       for p in group["params"]]
+
+    @property
+    def param_groups(self):
+        return self.optimizer.param_groups
+
+    @property
+    def state(self):
+        return self.optimizer.state
+
+    def step(self, closure=None):
+        if _axes_world(self.axes) == 1:     # the butterfly has no level
+            return self.optimizer.step(closure)
+        with torch.no_grad():
+            start = [p.detach().clone() for p in self.params]
+        loss = self.optimizer.step(closure)
+        with torch.no_grad():
+            deltas = [p.detach().float() - s.float()
+                      for p, s in zip(self.params, start)]
+            combined = _sync_leaves(deltas, self.axes, ReduceOp.ADASUM,
+                                    self.compression)
+            for p, s, c in zip(self.params, start, combined):
+                p.copy_((s.float() + c).to(p.dtype))
+        return loss
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.optimizer.zero_grad(set_to_none=set_to_none)
+
+    def state_dict(self):
+        return self.optimizer.state_dict()
+
+    def load_state_dict(self, state_dict) -> None:
+        self.optimizer.load_state_dict(state_dict)
+
+
+def distributed_value_and_grad(loss_fn: Callable[..., Any],
+                               op: ReduceOp = ReduceOp.AVERAGE,
+                               axis: Any = None,
+                               compression=Compression.none,
+                               sync_axes: Any = None,
+                               has_aux: bool = False) -> Callable:
+    """``loss_fn(params, *args)`` and its gradients with respect to
+    ``params`` (a tensor, a list or a nested dict of tensors, or an
+    ``nn.Module``, whose gradients come as a dict by parameter name),
+    synced over ``axis`` or per leaf over ``sync_axes``: the
+    ``DistributedGradientTape`` analogue (ref tensorflow/__init__.py:1051).
+    With ``axis`` the loss is averaged over it too (detached); with only
+    ``sync_axes`` it stays this rank's. Returns ``wrapped(params, *args,
+    **kwargs) -> (value, grads)``, ``value`` a ``(loss, aux)`` pair under
+    ``has_aux``."""
+    op = check_supported(op)
+
+    def wrapped(params, *args, **kwargs):
+        out = loss_fn(params, *args, **kwargs)
+        loss, aux = (out[0], out[1]) if has_aux else (out, None)
+        tree = (dict(params.named_parameters())
+                if isinstance(params, torch.nn.Module)
+                else [params] if torch.is_tensor(params) else params)
+        treedef, leaves, groups = _groups(tree, axis or (),
+                                          sync_axes)
+        grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        if axis is not None or sync_axes is not None:
+            for axes, idxs in groups.items():
+                if axes:
+                    for i, g in zip(idxs, _sync_leaves(
+                            [grads[i] for i in idxs], axes, op,
+                            compression)):
+                        grads[i] = g
+        if axis is not None:
+            loss = collectives.allreduce(loss.detach(), ReduceOp.AVERAGE,
+                                         axis=axis)
+        out_grads = _rebuild(tree, treedef, grads)
+        if torch.is_tensor(params):
+            out_grads = out_grads[0]
+        return ((loss, aux) if has_aux else loss), out_grads
+
+    return wrapped
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,9 @@ class ProcessSet:
             sorted(int(r) for r in ranks) if ranks is not None else None)
         self.process_set_id: Optional[int] = None
         self._table: Optional["ProcessSetTable"] = None
+        # the set's own join registry (eager.join); the global set's is
+        # the Context's
+        self.joined_ranks: List[int] = []
 
     def size(self) -> int:
         self._check_registered()
@@ -111,6 +114,8 @@ class ProcessSetTable:
             ps.process_set_id = self._next_id
             self._next_id += 1
             ps._table = self
+            # a set registered again starts with an empty join registry
+            ps.joined_ranks = []
             self._by_id[ps.process_set_id] = ps
             return ps
 

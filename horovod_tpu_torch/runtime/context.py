@@ -98,6 +98,9 @@ class Context:
         self.hosts = hosts
         self.owns_group = owns_group
         self.process_set_table = None
+        # the global set's join registry (eager.join): ranks that ran out
+        # of data, in the order they joined
+        self.joined_ranks: List[int] = []
         # sorted member tuple -> process group, for every group this
         # process took part in creating (members or not)
         self._pgs: Dict[Tuple[int, ...], object] = {}

@@ -1211,3 +1211,80 @@ def test_cuda_snapshot_buffers_are_reserved_once_and_reused(tmp_path):
             assert all(torch.equal(got[k], w[k]) for k in w)
     finally:
         ck.close()
+
+
+# ---------------------------------------------------------------------------
+# Horovod's PyTorch API on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [((2048, 1000), torch.float32),
+                                         ((1000, 2048), torch.bfloat16)])
+def test_cuda_adasum_partners_get_the_same_bits(shape, dtype):
+    """Both partners of a butterfly level evaluate one expression, the
+    lower rank's vector first: rank lo's ``_combine(lo, hi, True)`` and
+    rank hi's ``_combine(hi, lo, False)`` are bitwise equal, at ResNet-50's
+    largest leaf (f32) and at a bf16 leaf, for unrelated, nearly parallel
+    and zero partners."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from horovod_tpu_torch.ops import adasum
+    g = torch.Generator(device="cuda").manual_seed(11)
+    a = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    b = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    for lo, hi in ((a, b), (a, (a.float() * 1.5 + b.float() * 1e-3).to(
+            dtype)), (a, torch.zeros_like(a))):
+        mine = adasum._combine(lo.clone(), hi.clone(), True)
+        theirs = adasum._combine(hi.clone(), lo.clone(), False)
+        assert mine.dtype == dtype and torch.equal(mine, theirs)
+
+
+@pytest.mark.cuda
+def test_cuda_poll_waits_for_the_result_event():
+    """On NCCL a work may report completion before its result can be read
+    on another stream: ``poll`` also asks the CUDA event recorded after
+    the result was formed. A large allreduce queued behind a busy stream
+    polls False until that stream gets there, then True."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    htt.init()
+    try:
+        x = torch.ones(64 << 20 >> 2, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1 << 31)             # ~1 s of a busy stream
+        h = htt.allreduce_async(x, htt.Sum)
+        assert not htt.poll(h)
+        out = htt.synchronize(h)
+        assert htt.poll(h) and torch.equal(out, x)
+    finally:
+        htt.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_adasum_optimizer_of_one_rank_is_its_inner_optimizer():
+    """In a world of one the Adasum butterfly has no level:
+    DistributedAdasumOptimizer's steps are its inner SGD's, bit for
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    htt.init()
+    try:
+        torch.manual_seed(0)
+        models = [torch.nn.Sequential(torch.nn.Linear(64, 32),
+                                      torch.nn.ReLU(),
+                                      torch.nn.Linear(32, 8)).cuda()
+                  for _ in range(2)]
+        models[1].load_state_dict(models[0].state_dict())
+        opts = [torch.optim.SGD(m.parameters(), lr=0.1, momentum=0.9)
+                for m in models]
+        opts[1] = htt.DistributedAdasumOptimizer(opts[1], axis="hvd")
+        x = torch.randn(16, 64, device="cuda")
+        for _ in range(3):
+            for m, o in zip(models, opts):
+                m(x).square().mean().backward()
+                o.step()
+                o.zero_grad()
+        for a, b in zip(models[0].parameters(), models[1].parameters()):
+            assert torch.equal(a, b)
+    finally:
+        htt.shutdown()

@@ -515,8 +515,8 @@ def test_construction_rejects_and_warns(world_of_one, monkeypatch):
     sgd = torch.optim.SGD(ps, lr=0.1)
     with pytest.raises(ValueError, match="unknown wire-compression"):
         htt.DistributedOptimizer(sgd, compression="int4")
-    with pytest.raises(NotImplementedError, match="Adasum"):
-        htt.DistributedOptimizer(sgd, op=ReduceOp.ADASUM)
+    with pytest.raises(NotImplementedError, match="Sum, Average and Adasum"):
+        htt.DistributedOptimizer(sgd, op=ReduceOp.MIN)
     with pytest.raises(TypeError):
         htt.DistributedOptimizer(sgd, bucket_bytes=1 << 20)
     with pytest.raises(ValueError, match="explicit mesh axis"):

@@ -107,10 +107,10 @@ def test_tables_equal_the_jax_package_tables(jax4):
         try:
             want = JC._uniform_partition_groups(jps, "allgather")
         except NotImplementedError:
-            with pytest.raises(NotImplementedError, match="size-uniform"):
-                C._uniform_partition_groups(ps, "allgather")
-        else:
-            assert C._uniform_partition_groups(ps, "allgather") == want
+            # a ragged set: the JAX eager layer's host-mediated path runs
+            # in the set's own group, the other ranks on their own
+            want = jps.axis_index_groups()
+        assert C._uniform_partition_groups(ps, "allgather") == want
     assert C._resolve_groups(None) == (None, None, None)
     assert C._uniform_partition_groups(None, "alltoall") is None
 
@@ -161,10 +161,8 @@ def _flat_scenarios():
                kw={"op": "SUM"}),
           dict(name="rs_01_avg", fn="reducescatter", args=[_rs()], ps=0,
                kw={"op": "AVERAGE"}),
-          dict(name="ag_ragged", fn="allgather", args=[rows], ps=5,
-               raises=True),
-          dict(name="ag_unaligned", fn="allgather", args=[rows], ps=7,
-               raises=True),
+          dict(name="ag_ragged", fn="allgather", args=[rows], ps=5),
+          dict(name="ag_unaligned", fn="allgather", args=[rows], ps=7),
           dict(name="rs_min_subgroup", fn="reducescatter", args=[_rs()],
                ps=0, kw={"op": "MIN"}, raises=True),
           dict(name="barrier_123", fn="barrier", ps=2)]
@@ -264,16 +262,29 @@ def test_collectives_over_process_sets(world, case):
 
 
 def test_ragged_and_unaligned_sets_raise_as_in_jit(world):
-    """tests/test_process_sets.py::test_injit_subgroup_ragged_still_
-    rejected and ..._unaligned_contiguous_rejected; a subgroup MIN
-    reducescatter raises as the JAX package's does."""
-    for name, kind in (("ag_ragged", "NotImplementedError"),
-                       ("ag_unaligned", "NotImplementedError"),
-                       ("rs_min_subgroup", "NotImplementedError")):
-        for r in range(W):
-            err = str(world(name, r)["error"])
-            assert err.startswith(kind), (name, err)
-    assert "size-uniform" in str(world("ag_ragged", 0)["error"])
+    """A ragged ([0, 1, 2]) or unaligned ([1, 2]) set, which the JAX
+    in-jit layer rejects (tests/test_process_sets.py::test_injit_subgroup_
+    ragged_still_rejected and ..._unaligned_contiguous_rejected), gathers
+    in the set's own group as the JAX eager layer's host-mediated path
+    does: members get the eager result, other ranks their own rows. A
+    subgroup MIN reducescatter still raises as the JAX package's in-jit
+    op does."""
+    rows = _rows()
+    try:
+        hvd.init(devices=jax.devices()[:W])
+        jsets = [hvd.add_process_set(r) for r in FLAT_SETS]
+        for name, i in (("ag_ragged", 5), ("ag_unaligned", 7)):
+            want = np.asarray(hvd.allgather(rows, process_set=jsets[i]))
+            for r in range(W):
+                got = world(name, r)["out0"]
+                np.testing.assert_array_equal(
+                    got, want if r in FLAT_SETS[i] else rows[r],
+                    err_msg=f"{name} rank {r}")
+    finally:
+        hvd.shutdown()
+    for r in range(W):
+        err = str(world("rs_min_subgroup", r)["error"])
+        assert err.startswith("NotImplementedError"), err
 
 
 def test_barrier_over_a_process_set(world):

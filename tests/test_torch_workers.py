@@ -390,7 +390,248 @@ def _optimizer_scenario(rank, sc, sets):
     return out
 
 
+def _np_outs(key, out):
+    """``{key: array}`` of one eager step's result: a tensor, a list or
+    tuple of them (``key|i``), a handle (its name) or a Python value."""
+    from horovod_tpu_torch.eager import Handle
+    if isinstance(out, (list, tuple)):
+        res = {}
+        for i, o in enumerate(out):
+            res.update(_np_outs(f"{key}|{i}", o))
+        return res
+    if isinstance(out, Handle):
+        return {key: np.asarray(out.name)}
+    return {key: _np_out(out)}
+
+
+def _eager_scenario(rank, sc, sets):
+    """A script of calls of the eager API (``horovod_tpu_torch.eager``),
+    run in order on every rank. A step is ``fn`` with this rank's parts
+    of ``args`` (``as_list``: passed as one list), ``kw`` (``op`` by
+    name), ``rank_kw`` (stacked per rank), ``ps`` (index into the phase's
+    sets) and ``ref`` (the value an earlier step saved under ``save``) as
+    the first argument; ``out`` names its result in the saved file,
+    ``raises`` makes a ValueError or NotImplementedError the result. The
+    ``fn`` ``clear_registry`` empties a join registry (the set's, or the
+    global one), ``reregister`` removes the set and registers it again."""
+    from horovod_tpu_torch import eager
+    from horovod_tpu_torch.ops.reduce_ops import ReduceOp
+    from horovod_tpu_torch.runtime import context
+    env, res = {}, {}
+    for st in sc["steps"]:
+        ps = sets[st["ps"]] if "ps" in st else None
+        if st["fn"] == "clear_registry":
+            (ps.joined_ranks if ps is not None
+             else context.get_context().joined_ranks).clear()
+            continue
+        if st["fn"] == "reregister":
+            htt.remove_process_set(ps)
+            htt.add_process_set(ps)
+            continue
+        args = [_rank_arg(a, rank, st.get("dtype"))
+                for a in st.get("args", ())]
+        if st.get("as_list"):
+            args = [args]
+        if "ref" in st:
+            args.insert(0, env[st["ref"]])
+        kw = dict(st.get("kw", {}))
+        for k, v in st.get("rank_kw", {}).items():
+            kw[k] = v[rank]
+        if "op" in kw:
+            kw["op"] = ReduceOp[kw["op"]]
+        if ps is not None:
+            kw["process_set"] = ps
+        try:
+            out = getattr(eager, st["fn"])(*args, **kw)
+        except (NotImplementedError, ValueError) as e:
+            if not st.get("raises"):
+                raise
+            out = f"{type(e).__name__}: {e}"
+        if "save" in st:
+            env[st["save"]] = out
+        if "out" in st:
+            res.update(_np_outs(st["out"], out))
+    return res
+
+
+def mlp_loss(ps, x, y):
+    """The two-layer MLP of the Adasum optimizer scenarios (numpy or
+    torch parameters ``w1``, ``b1``, ``w2``, ``b2``)."""
+    h = x @ ps["w1"] + ps["b1"]
+    h = h * (h > 0)
+    return ((h @ ps["w2"] + ps["b2"] - y) ** 2).mean()
+
+
+def _adasum_opt_scenario(rank, sc, sets):
+    """``delta``: one SGD(lr) step of DistributedAdasumOptimizer on a
+    zero parameter whose gradient is ``grads[rank]`` (the parameter is then
+    the combined delta). ``mlp``: two steps of :func:`mlp_loss` from
+    ``params`` on this rank's ``xs[rank][t]``, ``ys[rank][t]`` through
+    DistributedAdasumOptimizer and through DistributedOptimizer(op=Adasum),
+    each over SGD(lr, momentum): the parameters and momentum after."""
+    out = {}
+    p = torch.zeros(sc["grads"].shape[1], requires_grad=True)
+    opt = htt.DistributedAdasumOptimizer(torch.optim.SGD([p], lr=sc["lr"]),
+                                         axis="hvd")
+    p.grad = _rank_arg(sc["grads"], rank)
+    opt.step()
+    out["delta"] = p.detach().numpy()
+    keys = sorted(sc["params"])
+    for kind in ("delta_opt", "grad_opt"):
+        ps = {k: torch.tensor(sc["params"][k], requires_grad=True)
+              for k in keys}
+        sgd = torch.optim.SGD([ps[k] for k in keys], lr=sc["lr"],
+                              momentum=sc["momentum"])
+        opt = (htt.DistributedAdasumOptimizer(sgd, axis="hvd")
+               if kind == "delta_opt"
+               else htt.DistributedOptimizer(sgd, op=htt.Adasum))
+        for t in range(2):
+            mlp_loss(ps, torch.from_numpy(sc["xs"][rank][t]),
+                     torch.from_numpy(sc["ys"][rank][t])).backward()
+            opt.step()
+            opt.zero_grad()
+        for k in keys:
+            out[f"{kind}|param|{k}"] = ps[k].detach().numpy()
+            out[f"{kind}|momentum|{k}"] = \
+                sgd.state[ps[k]]["momentum_buffer"].numpy()
+    return out
+
+
+def _seeded_module(seed):
+    """A Linear layer and a buffer, from ``seed``."""
+    torch.manual_seed(seed)
+    m = torch.nn.Linear(3, 2)
+    m.register_buffer("stat", torch.full((2,), float(seed)))
+    return m
+
+
+def _objects_scenario(rank, sc, sets):
+    """broadcast_parameters (a tree from root 0, a module's parameters
+    and buffers from root 1), broadcast_optimizer_state of an Adam that
+    only rank 0 stepped (its lr changed too), broadcast_object from root
+    2 and allgather_object of each rank's ``batches[rank]``."""
+    import json
+    out = {}
+    tree = {"a": torch.full((3,), float(rank)),
+            "b": {"c": torch.full((2, 2), float(rank) + 0.5)}}
+    htt.broadcast_parameters(tree, root_rank=0)
+    out["tree|a"], out["tree|b|c"] = tree["a"].numpy(), tree["b"]["c"].numpy()
+    m = htt.broadcast_parameters(_seeded_module(rank), root_rank=1)
+    for k, v in m.state_dict().items():
+        out[f"module|{k}"] = v.numpy()
+    model = _seeded_module(10)
+    adam = torch.optim.Adam(model.parameters(), lr=0.1)
+    if rank == 0:
+        model(torch.ones(4, 3) * 2).square().sum().backward()
+        adam.step()
+        adam.param_groups[0]["lr"] = 0.05
+    htt.broadcast_optimizer_state(adam, root_rank=0)
+    out["opt|lr"] = np.asarray(adam.param_groups[0]["lr"])
+    for i, p in enumerate(model.parameters()):
+        for k, v in sorted(adam.state[p].items()):
+            out[f"opt|{i}|{k}"] = _np_out(v)
+    obj = htt.broadcast_object({"epoch": 3, "name": "x", "rank": rank},
+                               root_rank=2)
+    out["object"] = np.asarray(json.dumps(obj, sort_keys=True))
+    out["gathered"] = np.asarray(json.dumps(htt.allgather_object(
+        {"rank": rank, "batches": sc["batches"][rank]})))
+    return out
+
+
+def _sync_bn_scenario(rank, sc, sets):
+    """The cases of tests/test_sync_batch_norm.py on this rank's rows:
+    ``global`` (y, mean, var of ``sync_batch_norm``), ``counts``
+    (count-aware statistics of zero-padded rows), ``module``
+    (SyncBatchNorm(momentum=0.5): the train output, the running
+    statistics, the eval output) and ``grad`` (the gradients of the sums
+    over ranks of sum(y^2) and of sum(y * cot))."""
+    from horovod_tpu_torch.ops.collectives import bind_axis
+    from horovod_tpu_torch.sync_batch_norm import (SyncBatchNorm,
+                                                   sync_batch_norm,
+                                                   sync_batch_norm_stats)
+    out = {}
+    with bind_axis("hvd"):
+        y, mean, var = sync_batch_norm(_rank_arg(sc["global"], rank), "hvd")
+        out.update({"global|y": y.numpy(), "global|mean": mean.numpy(),
+                    "global|var": var.numpy()})
+        mean, var = sync_batch_norm_stats(
+            _rank_arg(sc["padded"], rank), "hvd", (0,),
+            count=sc["counts"][rank])
+        out.update({"counts|mean": mean.numpy(), "counts|var": var.numpy()})
+        for key, cot in (("grad|x", None), ("grad|xc", sc["cot"])):
+            x = _rank_arg(sc["grad"], rank).requires_grad_()
+            y, _, _ = sync_batch_norm(x, "hvd")
+            (y.square() if cot is None else y * _rank_arg(cot, rank)
+             ).sum().backward()
+            out[key] = x.grad.numpy()
+    bn = SyncBatchNorm(sc["module"].shape[-1], momentum=0.5)
+    xm = _rank_arg(sc["module"], rank)
+    with torch.no_grad():
+        out["module|y"] = bn(xm).numpy()
+        out["module|mean"] = bn.mean.numpy().copy()
+        out["module|var"] = bn.var.numpy().copy()
+        bn.eval()
+        out["module|y_eval"] = bn(xm).numpy()
+    return out
+
+
+def _callbacks_scenario(rank, sc, sets):
+    """scaled_lr; MetricAverageCallback over a metric every rank shares
+    and one that differs; BroadcastGlobalVariablesCallback with an
+    optimizer; BestModelCheckpoint (to ``dir``/best-rank<r>.pt, rank 0
+    only): a save, then no save on a worse value."""
+    import os
+    from horovod_tpu_torch import callbacks as cb
+    out = {"scaled_lr": np.asarray(cb.scaled_lr(0.1))}
+    logs = {"metrics": {"loss": 4.0, "acc": float(rank)}}
+    cb.MetricAverageCallback().on_epoch_end(0, logs)
+    out["loss"], out["acc"] = (logs["metrics"]["loss"].numpy(),
+                               logs["metrics"]["acc"].numpy())
+    m = _seeded_module(rank)
+    sgd = torch.optim.SGD(m.parameters(), lr=0.1 * (rank + 1))
+    logs = {"state": m}
+    cb.CallbackList([cb.BroadcastGlobalVariablesCallback(0, sgd)]
+                    ).on_train_begin(logs)
+    out["broadcast|weight"] = logs["state"].weight.detach().numpy()
+    out["broadcast|lr"] = np.asarray(sgd.param_groups[0]["lr"])
+    path = os.path.join(sc["dir"], f"best-rank{rank}.pt")
+    best = cb.BestModelCheckpoint(path, monitor="val_loss")
+    best.on_epoch_end(0, {"metrics": {"val_loss": 1.0}, "state": m})
+    saved = os.path.exists(path)
+    t0 = os.path.getmtime(path) if saved else None
+    best.on_epoch_end(1, {"metrics": {"val_loss": 2.0}, "state": m})
+    out["best|saved"] = np.asarray(saved)
+    out["best|unchanged"] = np.asarray(
+        not saved or os.path.getmtime(path) == t0)
+    return out
+
+
+def _value_and_grad_scenario(rank, sc, sets):
+    """distributed_value_and_grad on this rank's row of ``x``: a scalar
+    parameter synced over ``hvd`` (loss averaged too), and a dict whose
+    ``b`` stays local under ``sync_axes`` (with an aux output)."""
+    x = _rank_arg(sc["x"], rank)
+    vg = htt.distributed_value_and_grad(
+        lambda w, xs: ((xs * w) ** 2).mean(), axis="hvd")
+    loss, grad = vg(torch.tensor(2.0, requires_grad=True), x)
+    ps = {"a": torch.tensor(1.5, requires_grad=True),
+          "b": torch.tensor(-0.5, requires_grad=True)}
+    vg2 = htt.distributed_value_and_grad(
+        lambda p, xs: (((xs * p["a"] + p["b"]) ** 2).mean(), xs.sum()),
+        sync_axes={"a": ("hvd",), "b": ()}, has_aux=True)
+    (loss2, aux), grads = vg2(ps, x)
+    return {"loss": loss.detach().numpy(), "grad": grad.numpy(),
+            "loss2": loss2.detach().numpy(), "aux": aux.numpy(),
+            "grad|a": grads["a"].numpy(), "grad|b": grads["b"].numpy()}
+
+
 _PHASE_SCENARIOS = {"call": _call_scenario, "topology": _topology_scenario,
+                    "eager": _eager_scenario,
+                    "adasum_opt": _adasum_opt_scenario,
+                    "objects": _objects_scenario,
+                    "sync_bn": _sync_bn_scenario,
+                    "callbacks": _callbacks_scenario,
+                    "value_and_grad": _value_and_grad_scenario,
                     "transform": _transform_scenario,
                     "optimizer": _optimizer_scenario}
 
@@ -403,6 +644,8 @@ def phase_worker(rank, world, port, phases, out_dir):
     saved as ``<name>-rank<r>.npz``) and shuts down."""
     import torch.distributed as dist
     from horovod_tpu_torch.config import knobs
+    if world > 4:       # eight ranks share a few cores
+        torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world)
     try:
