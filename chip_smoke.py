@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py                      # one card
     python3 chip_smoke.py --data-parallel 4    # collectives and training on 4 cards
+    python3 chip_smoke.py --data-parallel 4 --launcher-only
+                                   # only phase 8's drills, on 4 cards
 
 Phases, each of which raises (and so exits non-zero) when it fails:
 
@@ -77,7 +79,23 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    alltoall and reducescatter also on the process set [0]), ``join()``
    returning 0, Adasum as the identity, ``DistributedAdasumOptimizer``
    equal to its inner SGD bit for bit, ``SyncBatchNorm`` against batch
-   norm, and the object broadcasts (``horovod api (world 1):`` line).
+   norm, and the object broadcasts (``horovod api (world 1):`` line);
+8. the launcher and elastic training (``launcher (world 1):`` line),
+   each launch through ``python -m horovod_tpu_torch.runner.launch``
+   (``hvdrun-torch``) with this file as the worker (``--worker <name>
+   <spec.json>``): ``-np 1 --auto-resume 1 --ckpt-dir D`` runs the
+   flagship at full width and depth through ``train_loop`` with an
+   AsyncCheckpointer at interval 2, preempted at step 3 by chaos
+   ``preempt_at`` (exit 75), relaunched with HVD_RESUME_ATTEMPT=1,
+   restored at step 3 and run to step 5: its parameters and momentum
+   bitwise phase 5's uninterrupted run (sha256 of every tensor), with
+   the relaunch s (exit 75 to attempt 1's first step), the process
+   start s and the restore s; then an elastic launch of one slot
+   (``--min-np 1 --max-np 1 --elastic-local``) of ResNet-50
+   (``fused_conv_bn=True``, 128 images) over 1,024 synthetic images
+   with ``TorchState(model, optimizer, sampler)`` committed every step,
+   which exits 73 once after a commit: generation 2 restores the
+   committed state bitwise and finishes the epoch, every index once.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the
@@ -142,7 +160,26 @@ rank 0's rotation), and resumed by a fresh
 state: bitwise the uninterrupted parameters, momentum and residual on
 every rank, each rank's residual its own. Every N-card world forms its
 process group over a TCPStore that rank 0 binds to a port of the OS's
-choosing, and stops all ranks as soon as one fails.
+choosing, and stops all ranks as soon as one fails. Last, the drills of
+phase 8 on N cards (``--data-parallel N --launcher-only``: only these),
+each through ``hvdrun-torch``: ``launcher data parallel:`` (``-np N
+--auto-resume 1``, the fused flagship at fp8_e4m3 with error feedback,
+uninterrupted, then preempted at step 3 and relaunched: bitwise on every
+rank, parameters, momentum and each rank's residual); ``elastic data
+parallel:`` (``--min-np 2 --max-np N --elastic-local --slots 1`` over a
+discovery script of N fake hosts, ResNet-50 at 128 images a card, an
+ElasticSampler over 16 x 512 synthetic images, ``TorchState`` committed
+every step: rank N-1 exits 1 at its fifth batch and drops its host, so
+the world goes N -> N-1 after the 5 s grace, then rank 0 drops host
+n(N-2) from the script and it goes N-1 -> N-2; every index of the epoch
+once, every rank bitwise equal after every step, each generation
+restoring its last commit bitwise, the first generation's ranks on
+distinct cards; with the recovery s, the step ms at each world size and
+the cards); and ``resize data parallel:`` (N ranks as hosts of 2, the
+fused fp8 flagship at full width and RESIZE_LAYERS layers, chaos
+``host_loss`` of host 1 at step 3: ranks 2-3 snapshot and leave, 0-1 go
+on in process on a two-rank NCCL world, bitwise a cold two-rank start
+from the committed snapshot and plan; with ``hvd_elastic_resize_seconds``).
 """
 
 from __future__ import annotations
@@ -1654,13 +1691,15 @@ def snapshot_probe(ck, state, dev, n: int = 2):
 
 
 def resilient_train(htt, fa, card, n_steps: int = 4,
-                    device="cuda") -> None:
+                    device="cuda") -> dict:
     """The resilient phase at full width and depth (``resilient train:``
     line): the flagship through ``train_loop`` in an NCCL world of one,
     uninterrupted, preempted at step PREEMPT_AT and resumed, the resumed
     parameters and momentum bitwise equal to the uninterrupted ones;
     snapshot bytes, on-path ms, write s, restore s and the share of step
-    time HOROVOD_CKPT_INTERVAL=auto would pay."""
+    time HOROVOD_CKPT_INTERVAL=auto would pay. Returns the digests of the
+    uninterrupted run's tensors (phase 8 holds the launched run to
+    them)."""
     import math
     import shutil
     from horovod_tpu_torch.resilience import AsyncCheckpointer
@@ -1696,7 +1735,7 @@ def resilient_train(htt, fa, card, n_steps: int = 4,
         n_params = sum(t.numel() for k, t in res["ref"].items()
                        if k.startswith("param"))
         del got
-        res.pop("ref")
+        ref_digests = digests(res.pop("ref"))
     finally:
         htt.shutdown()
         shutil.rmtree(CKPT_ROOT, ignore_errors=True)
@@ -1736,6 +1775,7 @@ def resilient_train(htt, fa, card, n_steps: int = 4,
         raise AssertionError(
             f"the resumed run differs from the uninterrupted one in "
             f"{len(diff)} leaves (max abs diff {max(diff.values())})")
+    return ref_digests
 
 
 def resilient_rank(rank, world, ports, results, device="cuda",
@@ -3127,19 +3167,714 @@ def horovod_api_world_one(htt, card, dev="cuda") -> None:
     log("horovod api (world 1): " + json.dumps(out))
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the launcher and elastic training (hvdrun-torch)
+# ---------------------------------------------------------------------------
+
+# The launched workers are this file itself (``chip_smoke.py --worker
+# <name> <spec.json>``), so nothing launched imports more than the port.
+HERE = os.path.dirname(os.path.abspath(__file__))
+LAUNCH_ROOT = os.path.join(HERE, "build", "launcher")
+LAUNCH_S = 300              # one launch's deadline
+# The elastic ResNet-50 drill: images per card and step, the synthetic set
+# (16 x 512 images, each made on the card from a seed of its index), the
+# fused flagship's depth in the resize drill (full width) and the step its
+# host is lost at.
+ELASTIC_IMAGES = 16 * 512
+ELASTIC_ONE_IMAGES = 8 * RESNET_B
+RESIZE_LAYERS = 4
+RESIZE_AT, RESIZE_STEPS = 3, 6
+
+
+def digests(tensors) -> dict:
+    """sha256 of every tensor's bytes (``{name: hex}``): two runs are
+    bitwise equal exactly when their digests are."""
+    import hashlib
+    out = {}
+    for k, t in sorted(tensors.items()):
+        t = t.detach().contiguous().cpu()
+        out[k] = hashlib.sha256(
+            t.view(torch.uint8).reshape(-1).numpy().tobytes()
+            if t.numel() else b"").hexdigest()
+    return out
+
+
+def launch(argv, worker, spec, tag, timeout=LAUNCH_S):
+    """Run ``hvdrun-torch <argv> -- python chip_smoke.py --worker <worker>
+    <spec>`` in its own session; its output goes to ``<tag>/launcher.log``
+    under LAUNCH_ROOT. Returns (exit code, seconds, the log's tail); every
+    process of the launch is killed at the deadline."""
+    import signal
+    d = os.path.join(LAUNCH_ROOT, tag)
+    os.makedirs(d, exist_ok=True)
+    spec = dict(spec, out=d)
+    spec_path = os.path.join(d, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch", *argv,
+           "--", sys.executable, os.path.join(HERE, "chip_smoke.py"),
+           "--worker", worker, spec_path]
+    log_path = os.path.join(d, "launcher.log")
+    t0 = time.perf_counter()
+    with open(log_path, "wb") as out:
+        p = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT,
+                             cwd=HERE, start_new_session=True)
+        try:
+            rc = p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            rc = 124
+        finally:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
+    with open(log_path, "rb") as f:
+        tail = f.read()[-4000:].decode(errors="replace")
+    return rc, time.perf_counter() - t0, tail
+
+
+def worker_records(tag, prefix=""):
+    """The JSON records the workers of a launch wrote (``<prefix>*.json``
+    under its directory), sorted by name."""
+    d = os.path.join(LAUNCH_ROOT, tag)
+    out = []
+    for name in sorted(os.listdir(d)):
+        if name.startswith(prefix) and name.endswith(".json") and \
+                name != "spec.json":
+            with open(os.path.join(d, name)) as f:
+                out.append(json.load(f))
+    return out
+
+
+def write_record(spec, name, rec) -> None:
+    path = os.path.join(spec["out"], name)
+    with open(path + ".tmp", "w") as f:
+        json.dump(rec, f)
+    os.replace(path + ".tmp", path)
+
+
+class FromCommitted:
+    """Batches from the newest step committed in ``directory`` on, which
+    is the step ``train_loop`` has just restored when it iterates."""
+
+    def __init__(self, batches, directory):
+        self.batches, self.directory = batches, directory
+
+    def __iter__(self):
+        from horovod_tpu_torch.resilience import latest_committed_step
+        return iter(self.batches[latest_committed_step(self.directory)
+                                 or 0:])
+
+
+def worker_train(spec) -> int:
+    """A launched rank of the resilient loop: the flagship (``fused``: at
+    fp8_e4m3 with error feedback) through ``train_loop`` with an
+    AsyncCheckpointer at CKPT_INTERVAL over ``spec["ckpt"]``, chaos
+    ``preempt_at`` PREEMPT_AT in the first attempt when ``preempt``;
+    feeds its rows of the same batches as ``resilient_train``/
+    ``resilient_rank``. Writes ``attempt<a>-rank<r>.json`` (info, times,
+    and on completion the digests of the parameters, momentum and
+    residual) and exits with the loop's exit code (75 when preempted)."""
+    t_entry = time.time()
+    import horovod_tpu_torch as htt
+    from horovod_tpu_torch.callbacks import StepStats
+    from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.resilience import (AsyncCheckpointer,
+                                              PreemptionHandler, chaos)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    attempt = int(os.environ["HVD_RESUME_ATTEMPT"])
+    fused = spec["fused"]
+    if fused:
+        knobs.set_override("HOROVOD_GRADIENT_COMPRESSION", "fp8_e4m3")
+    ctx = htt.init()
+    dev, rank, world = ctx.device, htt.rank(), htt.size()
+    t_init = time.time()
+    cfg = flagship_cfg(htt.TransformerConfig, mlp_recompute=True,
+                       dp_axis="dp", **spec.get("cfg", {}))
+    b, s = spec.get("batch", TRAIN_B), spec.get("seq", TRAIN_S)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = slice(rank * b, (rank + 1) * b)
+    batches = [tuple(torch.randint(0, cfg.vocab_size, (b * world, s),
+                                   generator=gen, device=dev)[rows]
+                     for _ in range(2)) for _ in range(spec["steps"])]
+    state, step = resilient_state(htt, cfg, dev, 0, fused)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t_state = time.time()
+    ck = AsyncCheckpointer(spec["ckpt"], interval=CKPT_INTERVAL,
+                           max_to_keep=2)
+    if spec.get("preempt"):
+        chaos.install({"preempt_at": PREEMPT_AT})
+    knobs.set_override("HOROVOD_PREEMPTION_POLL_SECONDS", 0.0)
+    handler = PreemptionHandler(checkpointer=ck, margin=0,
+                                install_signals=False)
+    stamps = []
+
+    def on_step(i, st, loss):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        stamps.append(time.time())
+        if not np.isfinite(float(loss)):
+            raise AssertionError(f"non-finite loss at step {i}")
+
+    before = htt.goodput_report()["phases"]["restart"]
+    fa.reset_launches()
+    try:
+        state, info = htt.train_loop(step, state,
+                                     FromCommitted(batches, ck.directory),
+                                     checkpointer=ck, preemption=handler,
+                                     step_stats=StepStats(),
+                                     on_step=on_step)
+    finally:
+        handler.close()
+        ck.close()
+        chaos.install(None)
+    rec = {"rank": rank, "world": world, "attempt": attempt, "info": info,
+           "t_entry": t_entry, "t_init": t_init, "t_state": t_state,
+           "t_first_step": stamps[0] if stamps else None,
+           "step_ms": [float(x) * 1e3 for x in np.diff(stamps)],
+           "restore_s": htt.goodput_report()["phases"]["restart"] - before,
+           "flash_launches": dict(fa.LAUNCHES), "card": ctx.device.index}
+    if info["status"] == "completed":
+        rec["digests"] = digests(state_tensors(htt, state))
+    if info["exit_code"]:
+        rec["t_exit"] = time.time()
+    write_record(spec, f"attempt{attempt}-rank{rank}.json", rec)
+    htt.shutdown()
+    return info["exit_code"]
+
+
+def elastic_image(dev, idx):
+    """The synthetic set's images and labels at ``idx``: image i is made on
+    the card from seed i (bf16 224^2, bench.py's synthetic data), so every
+    rank and generation sees the same image for an index."""
+    g = torch.Generator(device=dev)
+    xs = []
+    for i in idx:
+        g.manual_seed(int(i))
+        xs.append(torch.rand((224, 224, 3), generator=g, device=dev))
+    x = torch.stack(xs).to(torch.bfloat16)
+    return x, torch.as_tensor([int(i) % 1000 for i in idx], device=dev)
+
+
+def equal_across_ranks(htt, tensors) -> bool:
+    """True when every rank holds the same bits in ``tensors``: the
+    elementwise MAX and MIN over the ranks of their 32-bit patterns
+    agree."""
+    if htt.size() == 1:
+        return True
+    import torch.distributed as dist
+    bits = torch.cat([t.detach().reshape(-1).view(torch.int32)
+                      if t.element_size() == 4 else
+                      t.detach().reshape(-1).to(torch.float32)
+                      .view(torch.int32) for t in tensors])
+    hi, lo = bits.clone(), bits.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    return bool(torch.equal(hi, lo))
+
+
+def worker_elastic(spec) -> int:
+    """A launched elastic rank: ResNet-50 (``fused_conv_bn=True``, RESNET_B
+    images a card) through DistributedOptimizer and
+    ``data_parallel_train_step``, an ElasticSampler over ``spec["images"]``
+    synthetic images (each step records every replica's chunk, so a lost
+    rank's progress survives in its peers' snapshots), and
+    ``TorchState(model, optimizer, sampler)`` committed every step inside
+    ``elastic.run``; one epoch. ``spec["schedule"]`` = {"gen:rank:batch":
+    code}: 1 drops this rank's host from the discovery file ``spec
+    ["hosts"]`` (the host is gone) and exits before the step, 73 exits
+    after the step's commit (a respawn). ``spec["drop"]`` = {"gen:rank:
+    batch": host} drops ``host`` from the file after that commit (a
+    voluntary shrink). After each commit the ranks agree on a pending
+    topology change (a MAX over the world), so all leave at the same step.
+    Records (``gen<g>-rank<r>.jsonl``): each committed step's indices
+    (this rank's), ms, and whether every rank's parameters and momentum
+    are bitwise equal; at a generation's start the card and whether the
+    restored state is bitwise this slot's last commit."""
+    t_entry = time.time()
+    import pickle
+    import horovod_tpu_torch as htt
+    from horovod_tpu_torch import elastic
+    from horovod_tpu_torch.elastic import worker as ew
+    from horovod_tpu_torch.ops import conv_bn as cb
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = htt.init()
+    dev = ctx.device
+    g = int(os.environ["HVD_ELASTIC_GENERATION"])
+    rank, world = htt.rank(), htt.size()
+    path = os.path.join(spec["out"], f"gen{g}-rank{rank}.jsonl")
+
+    def rec(r):
+        r.update(gen=g, rank=rank, world=world, t=time.time())
+        with open(path, "a") as f:
+            f.write(json.dumps(r) + "\n")
+
+    props = torch.cuda.get_device_properties(dev) if dev.type == "cuda" \
+        else None
+    state, step, _ = resnet_step(htt, dev, seed=0)
+    model, opt = state.params, state.opt_state
+    inner = opt.optimizer
+    params = list(model.parameters())
+    sampler = elastic.ElasticSampler(dataset_size=spec["images"],
+                                     shuffle=True, seed=1)
+    est = elastic.TorchState(model=model, optimizer=opt, sampler=sampler,
+                             epoch=0)
+    rec({"type": "start", "t_entry": t_entry,
+         "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+         "card": str(getattr(props, "uuid", "cpu")),
+         "host": ew.slot_identity()[0]})
+    last_path = est._ckpt_path()
+    last = None
+    if last_path and os.path.exists(last_path):
+        with open(last_path, "rb") as f:
+            last = pickle.load(f)
+
+    def drop_host(host):
+        with open(spec["hosts"]) as f:
+            hosts = [h for h in f.read().split() if h.split(":")[0] != host]
+        with open(spec["hosts"], "w") as f:
+            f.write("\n".join(hosts) + "\n")
+
+    def agree_on_update():
+        pending = 0
+        try:
+            est.check_host_updates()
+        except elastic.HostsUpdatedInterrupt:
+            pending = 1
+        flag = htt.allreduce(torch.tensor([pending], device=dev), htt.Max)
+        if int(flag[0]):
+            raise elastic.HostsUpdatedInterrupt(skip_sync=False)
+
+    @elastic.run
+    def train(est):
+        nonlocal state
+        if g > 1:
+            # every rank now holds rank 0's restored state: on rank 0 it
+            # must be its slot's last commit, bit for bit (the model with
+            # its running statistics, and the momentum)
+            same = None
+            if rank == 0:
+                snap = last["arrays"]
+                sd = model.state_dict()
+                st = inner.state_dict()["state"]
+                same = all(torch.equal(sd[k].cpu(), snap["model"][k])
+                           for k in sd) and all(
+                    torch.equal(st[i]["momentum_buffer"].cpu(),
+                                snap["optimizer"]["state"][i]
+                                ["momentum_buffer"])
+                    for i in snap["optimizer"]["state"])
+            rec({"type": "restored", "bitwise_last_commit": same,
+                 "equal": equal_across_ranks(htt, params + [
+                     inner.state[p]["momentum_buffer"] for p in params]),
+                 "processed": len(set(sampler.processed_indices))})
+        n_batches = -(-len(sampler) // RESNET_B)
+        for b in range(n_batches):
+            key = f"{g}:{rank}:{b}"
+            code = spec.get("schedule", {}).get(key)
+            if code == 1:
+                drop_host(ew.slot_identity()[0])
+                rec({"type": "crash"})
+                os._exit(1)
+            idx = [int(i) for i in
+                   sampler.indices[b * RESNET_B:(b + 1) * RESNET_B]]
+            x, y = elastic_image(dev, idx)
+            cb.reset_launches()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, x, y)
+            loss = float(loss)
+            ms = (time.perf_counter() - t0) * 1e3
+            sampler.record_batch(b, RESNET_B)
+            equal = equal_across_ranks(htt, params + [
+                inner.state[p]["momentum_buffer"] for p in params])
+            est.save()
+            rec({"type": "step", "batch": b, "idx": idx, "step_ms": ms,
+                 "loss": loss, "equal": equal,
+                 "conv_bn_fwd": cb.LAUNCHES.get("conv_bn_fwd", 0)})
+            if code == 73:
+                rec({"type": "restart"})
+                sys.stdout.flush()
+                os._exit(73)
+            drop = spec.get("drop", {}).get(key)
+            if drop:
+                drop_host(drop)
+            agree_on_update()
+        rec({"type": "done"})
+
+    train(est)
+    htt.shutdown()
+    return 0
+
+
+def rebind_fused(htt, cfg, dev, state):
+    """The fused flagship step built on the current world for a live
+    ``state``: the step of the old world holds that world's process
+    groups (and its hooks on the parameters go with it)."""
+    import gc
+    from horovod_tpu_torch.models import transformer as tfm
+    gc.collect()
+    da = htt.distributed_apply(htt.EpilogueSGD(0.01, momentum=0.9),
+                               sync_axes=tfm.grad_sync_axes(cfg))
+    init_fn, step = htt.make_transformer_train_step_fused(cfg, da,
+                                                          device=dev)
+    fresh = init_fn(state.params)
+    return fresh._replace(step=state.step, opt_state=state.opt_state), step
+
+
+def resize_batch(cfg, dev, i, rank, world):
+    """Step ``i``'s rows of ``rank``: TRAIN_B sequences a card of a global
+    batch made on the card from seed 1000 + i."""
+    gen = torch.Generator(device=dev).manual_seed(1000 + i)
+    rows = slice(rank * TRAIN_B, (rank + 1) * TRAIN_B)
+    return tuple(torch.randint(0, cfg.vocab_size, (TRAIN_B * world,
+                                                   TRAIN_S),
+                               generator=gen, device=dev)[rows]
+                 for _ in range(2))
+
+
+def worker_resize(spec) -> int:
+    """A launched rank of the live resize: the fused flagship at
+    fp8_e4m3 with error feedback (full width, RESIZE_LAYERS layers).
+    ``live`` (4 ranks = 2 hosts of 2): chaos ``host_loss`` of host 1 at
+    RESIZE_AT (margin 0) through a ResizeCoordinator; ranks 2-3 snapshot
+    and leave, 0-1 rebuild the step on the two-rank world and go on to
+    RESIZE_STEPS. ``cold`` (2 ranks): the state restored from the
+    committed snapshot and plan (``restore_resized``), then the same
+    steps. Writes ``<mode>-rank<r>.json`` with the digests."""
+    import horovod_tpu_torch as htt
+    from horovod_tpu_torch import elastic
+    from horovod_tpu_torch import metrics as M
+    from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.resilience import AsyncCheckpointer, chaos
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    knobs.set_override("HOROVOD_GRADIENT_COMPRESSION", "fp8_e4m3")
+    knobs.set_override("HOROVOD_ELASTIC_RESIZE_MARGIN", 0)
+    ctx = htt.init()
+    dev, mode = ctx.device, spec["mode"]
+    cfg = flagship_cfg(htt.TransformerConfig, mlp_recompute=True,
+                       dp_axis="dp", n_layers=spec["layers"])
+    state, step = flagship_fused_step(htt, cfg, dev, seed=0)
+    ck = AsyncCheckpointer(spec["ckpt"], interval=0)
+    rec = {"mode": mode, "rank0": htt.rank(), "world0": htt.size()}
+    start = 0
+    try:
+        if mode == "cold":
+            start, state = elastic.restore_resized(spec["ckpt"], state)
+            rec["restored_step"] = start
+        else:
+            rc = elastic.ResizeCoordinator(checkpointer=ck, host_size=2)
+            chaos.install({"host_loss": {"host": 1, "at_step": RESIZE_AT}})
+        for i in range(start, spec["steps"]):
+            if mode == "live":
+                rc.poll(i)
+                if rc.check(i):
+                    t0 = time.perf_counter()
+                    state = rc.resize(i, state)
+                    if state is elastic.LEFT:
+                        rec.update(left_at=i, seconds=time.perf_counter()
+                                   - t0)
+                        write_record(spec, f"left-rank{rec['rank0']}.json",
+                                     rec)
+                        return 0
+                    del step
+                    state, step = rebind_fused(htt, cfg, dev, state)
+                    h = M.histogram("hvd_elastic_resize_seconds")
+                    rec.update(resized_at=i, world=htt.size(),
+                               rank=htt.rank(),
+                               resize_seconds=h.total_sum,
+                               resize_count=h.total_count,
+                               wall_s=time.perf_counter() - t0,
+                               plan=elastic.load_plan(spec["ckpt"], i)
+                               .to_json())
+            state, loss = step(state, *resize_batch(cfg, dev, i, htt.rank(),
+                                                    htt.size()))
+            if not np.isfinite(float(loss)):
+                raise AssertionError(f"non-finite loss at step {i}")
+        rec["digests"] = digests(state_tensors(htt, state))
+        rec.setdefault("rank", htt.rank())
+        write_record(spec, f"{mode}-rank{htt.rank()}.json", rec)
+    finally:
+        chaos.install(None)
+        ck.close()
+        if htt.is_initialized():
+            htt.shutdown()
+    return 0
+
+
+WORKERS = {"train": worker_train, "elastic": worker_elastic,
+           "resize": worker_resize}
+
+
+def worker_main(name, spec_path) -> int:
+    with open(spec_path) as f:
+        spec = json.load(f)
+    return WORKERS[name](spec)
+
+
+def check_launch(what, rc, tail, want=0):
+    if rc != want:
+        raise AssertionError(f"{what}: hvdrun-torch exited {rc} (want "
+                             f"{want}); its log ends:\n{tail}")
+
+
+def launched_train(n, card, ref=None, layers=None):
+    """``hvdrun-torch -np n --auto-resume 1 --ckpt-dir D``: the flagship
+    (fused at fp8 with error feedback on several cards) preempted at step
+    PREEMPT_AT by chaos ``preempt_at`` (exit 75), relaunched with
+    HVD_RESUME_ATTEMPT=1, restored at PREEMPT_AT and run to the end.
+    ``ref``: the digests the uninterrupted run must reach (rank order);
+    None runs the uninterrupted launch first. Returns the line's dict."""
+    import shutil
+    fused = n > 1
+    tag = f"train{n}"
+    ckpt = os.path.join(LAUNCH_ROOT, tag, "ckpt")
+    shutil.rmtree(os.path.join(LAUNCH_ROOT, tag), ignore_errors=True)
+    spec = {"fused": fused, "steps": 5, "ckpt": ckpt}
+    if layers:
+        spec["cfg"] = {"n_layers": layers}
+    out = {"n_cards": n, "model": "flagship TransformerLM" +
+           (" fused, fp8_e4m3, error feedback" if fused else ""),
+           "steps": 5, "interval": CKPT_INTERVAL, "preempt_at": PREEMPT_AT}
+    if ref is None:
+        rc, sec, tail = launch(["-np", str(n), "--ckpt-dir", ckpt + "-u"],
+                               "train", dict(spec, ckpt=ckpt + "-u"),
+                               tag + "/uninterrupted")
+        check_launch("uninterrupted launch", rc, tail)
+        ref = [r["digests"] for r in sorted(
+            worker_records(tag + "/uninterrupted", "attempt0"),
+            key=lambda r: r["rank"])]
+        out["uninterrupted_s"] = sec
+    rc, sec, tail = launch(["-np", str(n), "--auto-resume", "1",
+                            "--ckpt-dir", ckpt], "train",
+                           dict(spec, preempt=True), tag + "/preempted")
+    check_launch("preempted launch", rc, tail)
+    a0 = sorted(worker_records(tag + "/preempted", "attempt0"),
+                key=lambda r: r["rank"])
+    a1 = sorted(worker_records(tag + "/preempted", "attempt1"),
+                key=lambda r: r["rank"])
+    if len(a0) != n or len(a1) != n:
+        raise AssertionError(f"launch records: {len(a0)} of attempt 0, "
+                             f"{len(a1)} of attempt 1, want {n} each")
+    want0 = {"status": "preempted", "exit_code": 75, "restored": False,
+             "start_step": 0, "final_step": PREEMPT_AT}
+    want1 = {"status": "completed", "exit_code": 0, "restored": True,
+             "start_step": PREEMPT_AT, "final_step": 5}
+    ranks = []
+    for r0, r1, d in zip(a0, a1, ref):
+        diff = sorted(k for k in d if r1["digests"].get(k) != d[k])
+        ranks.append({
+            "rank": r0["rank"], "infos": [r0["info"], r1["info"]],
+            "resumed_bitwise_equal": not diff and len(d) > 0,
+            "leaves_differing": len(diff), "leaves": len(d),
+            "residual_leaves": sum(k.startswith("residual") for k in d),
+            "relaunch_s": r1["t_first_step"] - r0["t_exit"],
+            "process_start_s": r1["t_entry"] - r0["t_exit"],
+            "init_s": r1["t_init"] - r1["t_entry"],
+            "state_build_s": r1["t_state"] - r1["t_init"],
+            "restore_s": r1["restore_s"],
+            "step_ms": [r0["step_ms"], r1["step_ms"]],
+            "flash_launches": r1["flash_launches"]})
+        if r0["info"] != want0 or r1["info"] != want1 or diff or not d:
+            raise AssertionError(f"launched rank {r0['rank']}: {ranks[-1]}")
+    if n > 1:
+        res = [tuple(sorted((k, v) for k, v in d.items()
+                            if k.startswith("residual"))) for d in ref]
+        out["residuals_distinct_across_ranks"] = len(set(res)) == n
+        if not out["residuals_distinct_across_ranks"]:
+            raise AssertionError("every rank's residual is the same")
+    out.update(ranks=ranks, launch_s=sec, card=card)
+    shutil.rmtree(os.path.join(LAUNCH_ROOT, tag), ignore_errors=True)
+    return out
+
+
+def elastic_records(tag):
+    recs = []
+    d = os.path.join(LAUNCH_ROOT, tag)
+    for name in sorted(os.listdir(d)):
+        if name.endswith(".jsonl"):
+            with open(os.path.join(d, name)) as f:
+                recs += [json.loads(x) for x in f if x.strip()]
+    return sorted(recs, key=lambda r: r["t"])
+
+
+def launched_elastic(n, card, images, schedule, drop=None, grace=5.0):
+    """``hvdrun-torch --min-np 2 --max-np n --elastic-local --slots 1``
+    (one slot: ``--min-np 1 --max-np 1``) over a discovery script of
+    fake hosts n0..n{n-1}, the workers :func:`worker_elastic`. Checks that
+    every index of the epoch was processed exactly once across the
+    generations (every committed step's indices over every rank), that
+    every rank was bitwise equal after every step, that each generation
+    restored its last commit bitwise, and that the first generation's
+    ranks ran on distinct cards. Returns the line's dict."""
+    import shutil
+    tag = f"elastic{n}"
+    d = os.path.join(LAUNCH_ROOT, tag)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    hosts = os.path.join(d, "hosts.txt")
+    with open(hosts, "w") as f:
+        f.write("\n".join(f"n{i}:1" for i in range(n)) + "\n")
+    script = os.path.join(d, "discover.sh")
+    with open(script, "w") as f:
+        f.write(f"#!/bin/sh\ncat {hosts}\n")
+    os.chmod(script, 0o755)
+    spec = {"images": images, "hosts": hosts, "schedule": schedule,
+            "drop": drop or {}}
+    rc, sec, tail = launch(
+        ["--min-np", str(min(2, n)), "--max-np", str(n), "--elastic-local",
+         "--slots", "1", "--host-discovery-script", script,
+         "--elastic-state-dir", os.path.join(d, "state"),
+         "--elastic-grace-seconds", str(grace)], "elastic", spec, tag)
+    check_launch(f"elastic launch of {n}", rc, tail)
+    recs = elastic_records(tag)
+    gens = sorted({r["gen"] for r in recs})
+    steps = [r for r in recs if r["type"] == "step"]
+    counts = {}
+    for r in steps:
+        for i in r["idx"]:
+            counts[i] = counts.get(i, 0) + 1
+    starts = {(r["gen"], r["rank"]): r for r in recs if r["type"] == "start"}
+    first_step = {}
+    for r in steps:
+        first_step.setdefault(r["gen"], r["t"])
+    world_of = {g: max(r["world"] for r in recs if r["gen"] == g)
+                for g in gens}
+    crash = [r for r in recs if r["type"] in ("crash", "restart")]
+    out = {
+        "model": "ResNet-50 fused_conv_bn", "images_per_card": RESNET_B,
+        "images": images, "schedule": schedule, "drop": drop or {},
+        "grace_s": grace, "generations": len(gens),
+        "world_by_generation": [world_of[g] for g in gens],
+        "indices_exactly_once": sorted(counts) == list(range(images))
+        and set(counts.values()) == {1},
+        "indices_seen": len(counts),
+        "indices_repeated": sum(1 for v in counts.values() if v > 1),
+        "ranks_bitwise_equal_every_step": all(r["equal"] for r in steps),
+        "restored_bitwise_last_commit": [
+            r["bitwise_last_commit"] for r in recs
+            if r["type"] == "restored" and r["rank"] == 0],
+        "restored_equal_across_ranks": all(
+            r["equal"] for r in recs if r["type"] == "restored"),
+        "cards_generation_1": [starts[(1, r)]["card"]
+                               for r in range(world_of[gens[0]])],
+        "visible_generation_1": [starts[(1, r)]["visible"]
+                                 for r in range(world_of[gens[0]])],
+        "step_ms_by_world": {
+            str(w): float(np.median(ms)) if ms else None
+            for w in sorted(set(world_of.values()))
+            for ms in [[r["step_ms"] for r in steps
+                        if r["world"] == w and r["batch"]]]},
+        "recovery_s": [first_step[g] - c["t"] for c in crash
+                       for g in gens if g == c["gen"] + 1
+                       and g in first_step],
+        "conv_bn_fwd_per_step": min(r["conv_bn_fwd"] for r in steps),
+        "launch_s": sec, "card": card}
+    bad = [k for k in ("indices_exactly_once",
+                       "ranks_bitwise_equal_every_step",
+                       "restored_equal_across_ranks") if not out[k]]
+    if not all(out["restored_bitwise_last_commit"]) or \
+            len(out["restored_bitwise_last_commit"]) != len(gens) - 1:
+        bad.append("restored_bitwise_last_commit")
+    cards = out["cards_generation_1"]
+    if len(set(cards)) != len(cards) and cards[0] != "cpu":
+        bad.append("distinct cards")
+    if out["conv_bn_fwd_per_step"] < RESNET50_CONVS:
+        bad.append("conv_bn launches")
+    if bad:
+        raise AssertionError(f"elastic launch of {n}: {bad} failed: {out}")
+    shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def launched_resize(n, card):
+    """The live resize on n = 4 cards (2 hosts of 2) against a cold
+    two-rank start from the committed snapshot and plan: the survivors'
+    parameters, momentum and residual bitwise the cold start's."""
+    import shutil
+    tag = "resize"
+    d = os.path.join(LAUNCH_ROOT, tag)
+    shutil.rmtree(d, ignore_errors=True)
+    spec = {"layers": RESIZE_LAYERS, "steps": RESIZE_STEPS,
+            "ckpt": os.path.join(d, "ckpt")}
+    rc, sec, tail = launch(["-np", str(n)], "resize",
+                           dict(spec, mode="live"), tag + "/live")
+    check_launch("live resize launch", rc, tail)
+    rc, sec_cold, tail = launch(["-np", "2"], "resize",
+                                dict(spec, mode="cold"), tag + "/cold")
+    check_launch("cold two-rank launch", rc, tail)
+    live = sorted(worker_records(tag + "/live", "live"),
+                  key=lambda r: r["rank"])
+    left = worker_records(tag + "/live", "left")
+    cold = sorted(worker_records(tag + "/cold", "cold"),
+                  key=lambda r: r["rank"])
+    out = {"model": "flagship TransformerLM fused, fp8_e4m3, error "
+           f"feedback, {RESIZE_LAYERS} layers", "n_cards": n,
+           "host_size": 2, "host_loss_at": RESIZE_AT,
+           "steps": RESIZE_STEPS, "left": sorted(r["rank0"] for r in left),
+           "survivors": [{k: r.get(k) for k in (
+               "rank0", "rank", "world", "resized_at", "resize_seconds",
+               "resize_count", "wall_s")} for r in live],
+           "restored_step": [r.get("restored_step") for r in cold],
+           "launch_s": [sec, sec_cold], "card": card}
+    equal = len(live) == len(cold) == 2 and all(
+        a["digests"] == b["digests"] and a["digests"]
+        for a, b in zip(live, cold))
+    out["bitwise_equal_to_cold_start"] = equal
+    out["hvd_elastic_resize_seconds"] = [r["resize_seconds"] for r in live]
+    if not equal or out["left"] != [2, 3] or \
+            out["restored_step"] != [RESIZE_AT, RESIZE_AT]:
+        raise AssertionError(f"live resize: {out}")
+    shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def launcher_world_one(card, ref) -> None:
+    """Phase 8 (``launcher (world 1):``): the preempted flagship relaunched
+    by ``hvdrun-torch --auto-resume 1``, bitwise phase 5's uninterrupted
+    run, then an elastic run of one slot that exits 73 once, its second
+    generation restoring the committed TorchState bitwise."""
+    line = launched_train(1, card, ref=[ref])
+    line["elastic_one_slot"] = launched_elastic(
+        1, card, ELASTIC_ONE_IMAGES, schedule={"1:0:2": 73})
+    log("launcher (world 1): " + json.dumps(line))
+
+
+def launcher_worlds(n, card) -> None:
+    """The three drills on n cards: ``launcher data parallel:``,
+    ``elastic data parallel:`` (4 -> 3 on a crash, 3 -> 2 on a dropped
+    host) and ``resize data parallel:``."""
+    log("launcher data parallel: " + json.dumps(launched_train(n, card)))
+    log("elastic data parallel: " + json.dumps(launched_elastic(
+        n, card, ELASTIC_IMAGES, schedule={f"1:{n - 1}:4": 1},
+        drop={"2:0:2": f"n{n - 2}"})))
+    log("resize data parallel: " + json.dumps(launched_resize(n, card)))
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 2
+    if argv[:1] == ["--worker"] and len(argv) == 3:
+        return worker_main(argv[1], argv[2])
     n_dp = 0
     resilient_only = argv[2:] == ["--resilient-only"]
     api_only = argv[2:] == ["--api-only"]
+    launcher_only = argv[2:] == ["--launcher-only"]
     if argv:
         if len(argv) not in (2, 3) or argv[0] != "--data-parallel" or \
-                (len(argv) == 3 and not (resilient_only or api_only)):
+                (len(argv) == 3 and not (resilient_only or api_only
+                                         or launcher_only)):
             print("usage: chip_smoke.py [--data-parallel N "
-                  "[--resilient-only | --api-only]]", file=sys.stderr)
+                  "[--resilient-only | --api-only | --launcher-only]]",
+                  file=sys.stderr)
             return 2
         n_dp = int(argv[1])
         if not 2 <= n_dp <= torch.cuda.device_count():
@@ -3173,13 +3908,16 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if n_dp:
-        if not (resilient_only or api_only):
+        only = resilient_only or api_only or launcher_only
+        if not only:
             collectives_n_cards(n_dp, card)
             data_parallel(n_dp, card)
-        if not resilient_only:
+        if not only or api_only:
             horovod_api_world(n_dp, card)
-        if not api_only:
+        if not only or resilient_only:
             resilient_world(n_dp, card)
+        if not only or launcher_only:
+            launcher_worlds(n_dp, card)
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -3208,7 +3946,7 @@ def main(argv) -> int:
     train_flagship_fused(htt, fa, card, unfused_losses, unfused_params)
     del unfused_params
     resnet_launches = train_resnet50(htt, cb, card)
-    resilient_train(htt, fa, card)
+    uninterrupted = resilient_train(htt, fa, card)
 
     # phase 5: card against CPU
     card_vs_cpu(htt)
@@ -3221,6 +3959,11 @@ def main(argv) -> int:
 
     # phase 7: Horovod's PyTorch API in a world of one
     horovod_api_world_one(htt, card)
+
+    # phase 8: the launcher and elastic training in a world of one (the
+    # launched processes share the card with this one)
+    torch.cuda.empty_cache()
+    launcher_world_one(card, uninterrupted)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",

@@ -38,7 +38,13 @@ at its first launch. These paths are ported:
   ``join`` for uneven epochs, Adasum (``op=Adasum``,
   ``DistributedAdasumOptimizer``), ``SyncBatchNorm``,
   ``broadcast_optimizer_state``, ``broadcast_object``,
-  ``allgather_object`` and the callbacks.
+  ``allgather_object`` and the callbacks;
+- Horovod's launcher and elastic training: ``hvdrun-torch``
+  (``runner.launch``: one process per card, ``--auto-resume`` on exit
+  code 75, multi-host over SSH, ``--virtual`` gloo worlds), the
+  generation-respawn elastic launcher (``runner.elastic_run``),
+  ``run(fn, np=N)``, and ``elastic`` (``TorchState``, ``ElasticSampler``,
+  ``elastic.run``, the driver and the live ``ResizeCoordinator``).
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``, which takes the kernels' plain PyTorch versions.
@@ -96,11 +102,12 @@ from horovod_tpu_torch.runtime.context import (cross_rank, cross_size, init,
                                                is_initialized, local_rank,
                                                local_size, mesh, rank,
                                                shutdown, size)
+from horovod_tpu_torch.runner.interactive import run
 from horovod_tpu_torch.serving import (Request, ServeEngine,
                                        ServeScheduler)
 from horovod_tpu_torch.sync_batch_norm import SyncBatchNorm
 
-__version__ = "0.3.0"
+from horovod_tpu_torch.version import __version__  # noqa: E402
 
 __all__ = ["Adasum", "AsyncCheckpointer", "Average", "BestModelCheckpoint",
            "BroadcastGlobalVariablesCallback", "Callback",
@@ -134,7 +141,7 @@ __all__ = ["Adasum", "AsyncCheckpointer", "Average", "BestModelCheckpoint",
            "metrics_snapshot", "params_from_numpy", "poll",
            "ppermute", "process_set_ids", "rank", "reducescatter",
            "reducescatter_async", "remove_process_set",
-           "resilience", "restore_checkpoint", "save_checkpoint",
+           "resilience", "restore_checkpoint", "run", "save_checkpoint",
            "scaled_lr", "shutdown", "size", "sparse_allreduce",
            "synchronize", "torus_allreduce", "tracing",
            "train_loop", "two_level_allreduce",

@@ -299,11 +299,11 @@ knobs.register("HOROVOD_FAULT_PROBE_SECONDS", 5.0, float,
                     "operation through (degraded mode heals on success).")
 knobs.register("HOROVOD_FAULT_HEARTBEAT_SECONDS", 2.0, float,
                help="Cadence of a data-service worker's heartbeat. The "
-                    "data service is not ported yet (ROADMAP A.13): "
+                    "data service is not ported yet (ROADMAP A.13b): "
                     "train_loop raises when this is set.")
 knobs.register("HOROVOD_FAULT_WORKER_DEADLINE", 10.0, float,
                help="Heartbeat age after which a data-service worker is "
-                    "declared dead. Not ported yet (ROADMAP A.13): "
+                    "declared dead. Not ported yet (ROADMAP A.13b): "
                     "train_loop raises when this is set.")
 
 # Tracing and goodput knobs (tracing/, goodput/), read at init and when
@@ -321,7 +321,7 @@ knobs.register("HOROVOD_TRACE_DIR", "", str,
                     "under the working directory.")
 knobs.register("HOROVOD_TRACE_PROFILE", "", str,
                help="Profiler capture window 'steps:N[@S]'. Not ported "
-                    "yet (ROADMAP A.13): train_loop raises when set.")
+                    "yet (ROADMAP A.13b): train_loop raises when set.")
 knobs.register("HOROVOD_GOODPUT", True, bool,
                help="Goodput accountant: every second of run wall time is "
                     "attributed to one phase (init, compile, step_compute, "
@@ -329,7 +329,7 @@ knobs.register("HOROVOD_GOODPUT", True, bool,
                     "degraded, idle); goodput_report() reads it.")
 knobs.register("HOROVOD_NUMERICS", False, bool,
                help="Numerics-health telemetry. Not ported yet (ROADMAP "
-                    "A.13): train_loop raises when set.")
+                    "A.13b): train_loop raises when set.")
 knobs.register("HOROVOD_VERIFY_STEP", "0", str,
                choices=("0", "1", "strict"),
                help="IR-tier step verification at train_loop start. Not "
@@ -337,7 +337,7 @@ knobs.register("HOROVOD_VERIFY_STEP", "0", str,
                     "strict.")
 knobs.register("HOROVOD_ARTIFACT_STORE", "", str,
                help="Persistent compiled-artifact store. Not ported yet "
-                    "(ROADMAP A.13): train_loop raises when set.")
+                    "(ROADMAP A.13b): train_loop raises when set.")
 
 # Eager-API knobs (eager.py, stall_inspector.py), read at each handle's
 # start and wait. The same names and defaults as the JAX package's.
@@ -350,7 +350,39 @@ knobs.register("HOROVOD_STALL_SHUTDOWN_TIME_SECONDS", 0, int,
 knobs.register("HOROVOD_STALL_CHECK_DISABLE", False, bool,
                help="Disable the stall inspector.")
 knobs.register("HOROVOD_ELASTIC", False, bool,
-               help="Elastic mode: collectives raise recoverable errors "
-                    "instead of hanging on failure. Not ported yet "
-                    "(ROADMAP A.13a): an async handle's wait() raises "
-                    "when set.")
+               help="Elastic mode: a collective that fails in an async "
+                    "handle's wait() raises elastic.HorovodInternalError, "
+                    "the error elastic.run recovers from, instead of its "
+                    "own error (ref nccl_operations.h:55). The elastic "
+                    "launcher sets it for its workers.")
+
+# Launcher and elastic knobs (runner/, elastic/): the JAX package's names
+# and defaults.
+knobs.register("HOROVOD_ELASTIC_GRACE_SECONDS", 30.0, float,
+               help="Elastic launcher: how long surviving workers get to "
+                    "reach their next commit and exit voluntarily after a "
+                    "topology change before the launcher terminates them "
+                    "(the analogue of the reference's "
+                    "HOROVOD_GLOO_TIMEOUT_SECONDS worker drain window).")
+knobs.register("HOROVOD_ELASTIC_RESIZE_MARGIN", 2, int,
+               help="Live world resize (elastic/resize.py): steps between "
+                    "the resize notice and the agreed quiesce step. The "
+                    "first rank observing a host/slice loss publishes "
+                    "stop_step = its current step + this margin write-once "
+                    "on the c10d store; every rank quiesces there. Ranks "
+                    "that did not propose poll the plan key at the "
+                    "HOROVOD_PREEMPTION_POLL_SECONDS cadence, so the "
+                    "margin must exceed poll_seconds/step_time.")
+knobs.register("HOROVOD_ELASTIC_RESIZE_TIMEOUT", 60.0, float,
+               help="Live world resize: seconds a rank waits on the store's "
+                    "resize-plan agreement (and the snapshot barrier "
+                    "inside the quiesce) before abandoning the attempt; "
+                    "training then goes on on the OLD world.")
+knobs.register("HOROVOD_AUTO_RESUME", 0, int,
+               help="Max automatic restarts by the launcher when a run "
+                    "exits with the resumable status (75, preemption "
+                    "snapshot committed) or dies to a signal: the command "
+                    "is relaunched with HVD_RESUME_ATTEMPT incremented "
+                    "and restores from the latest committed checkpoint in "
+                    "HOROVOD_CKPT_DIR. 0 disables (mirror: hvdrun-torch "
+                    "--auto-resume).")

@@ -43,12 +43,23 @@ each needing the last, so ``allreduce_async(op=Adasum)`` runs it whole
 before it returns. Outstanding handles are tracked by the stall inspector
 (``stall_inspector.py``); the seconds ``wait`` blocks go to the
 ``hvd_handle_wait_seconds`` histogram.
+
+**Elastic mode.** Under ``HOROVOD_ELASTIC`` a ``torch.distributed`` work
+that fails in ``wait()`` raises ``elastic.HorovodInternalError``
+(``ops/collectives.wait_work``; ref WaitForEventsElastic
+gpu_operations.cc:98-106), the error the ``elastic.run`` wrapper
+recovers from. Every handle not yet waited on is
+kept in a registry: :func:`reset_outstanding` (the elastic reset and the
+live resize call it before the process group goes away) resolves each
+with ``elastic.ResizeInterrupt``, so its ``wait()`` raises at once
+instead of waiting on a work of a destroyed group.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+import weakref
 from typing import Any, Optional, Sequence, Union
 
 import torch
@@ -59,6 +70,10 @@ from horovod_tpu_torch.runtime.context import get_context
 
 _name_lock = threading.Lock()
 _name_counter = 0
+# handles whose wait() has not run yet (see reset_outstanding); reentrant,
+# since a handle's __del__ may run while this thread holds it
+_outstanding: "weakref.WeakSet[Handle]" = weakref.WeakSet()
+_outstanding_lock = threading.RLock()
 
 
 def _auto_name(prefix: str) -> str:
@@ -81,7 +96,7 @@ class Handle:
     returns its result, ``done()`` whether it has completed."""
 
     __slots__ = ("name", "_pending", "_value", "_error", "_event",
-                 "_formed", "_tracked")
+                 "_formed", "_tracked", "__weakref__")
 
     def __init__(self, name: str, pending: "C._Pending",
                  device: torch.device):
@@ -94,6 +109,8 @@ class Handle:
         self._formed = False
         get_stall_inspector().record_start(name)
         self._tracked = True
+        with _outstanding_lock:
+            _outstanding.add(self)
         if device.type == "cuda":
             # NCCL: waiting on a work orders the current stream after the
             # collective without blocking the host
@@ -110,6 +127,8 @@ class Handle:
                 self._error = exc
 
     def _untrack(self) -> None:
+        with _outstanding_lock:
+            _outstanding.discard(self)
         if self._tracked:
             from horovod_tpu_torch.stall_inspector import get_stall_inspector
             get_stall_inspector().record_done(self.name)
@@ -124,7 +143,6 @@ class Handle:
         return ready
 
     def wait(self) -> Any:
-        from horovod_tpu_torch.config import knobs
         from horovod_tpu_torch.tracing import spans
         t0 = time.perf_counter()
         span = spans.span(self.name, cat=spans.CAT_WAIT,
@@ -132,11 +150,6 @@ class Handle:
                           if spans.enabled() else None)
         span.__enter__()
         try:
-            if knobs.get("HOROVOD_ELASTIC"):
-                raise NotImplementedError(
-                    "HOROVOD_ELASTIC is set, but elastic recovery "
-                    "(HorovodInternalError) is not ported to "
-                    "horovod_tpu_torch yet (ROADMAP A.13a)")
             self._form()
             if self._error is not None:
                 raise self._error
@@ -153,6 +166,25 @@ class Handle:
             self._untrack()
         except Exception:
             pass
+
+
+def reset_outstanding(error: Optional[BaseException] = None) -> int:
+    """Resolve every handle not yet waited on with ``error`` (default: an
+    ``elastic.ResizeInterrupt``): its ``wait()`` raises it at once. The
+    elastic reset and the live resize call this before the process group
+    is destroyed. Returns how many handles were resolved."""
+    from horovod_tpu_torch.elastic.exceptions import ResizeInterrupt
+    if error is None:
+        error = ResizeInterrupt("the world is being reset; this collective "
+                                "was never completed")
+    with _outstanding_lock:
+        handles = list(_outstanding)
+        _outstanding.clear()
+    for h in handles:
+        h._formed = True
+        h._error = error
+        h._event = None
+    return len(handles)
 
 
 def synchronize(handle: Handle) -> Any:

@@ -9,7 +9,7 @@ checkpoint's device->host copy and restore). It is published as the
 the ``goodput`` block of ``metrics_snapshot()``, and
 :func:`goodput_report`.
 
-Not ported yet (ROADMAP A.13): ``numerics`` (the anomaly detectors) and
+Not ported yet (ROADMAP A.13b): ``numerics`` (the anomaly detectors) and
 ``ledger`` (the per-run JSONL record and the regression sentinel).
 """
 

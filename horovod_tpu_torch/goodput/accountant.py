@@ -2,7 +2,7 @@
 
 The port's copy of ``horovod_tpu/goodput/accountant.py``: the same phase
 catalog, attribution primitives and report. The run ledger that the JAX
-package marks at ``init`` waits for ROADMAP A.13.
+package marks at ``init`` waits for ROADMAP A.13b.
 
 One process-global wall-clock timeline, partitioned so that every second
 since the accountant's epoch is attributed to exactly ONE phase — the

@@ -8,7 +8,7 @@ fixed-bucket histograms (stdlib only), the snapshot the public
 The names and semantics are the JAX package's, so one dashboard reads
 both.
 
-Not ported yet (ROADMAP A.13): the HTTP server with ``/metrics`` and
+Not ported yet (ROADMAP A.13b): the HTTP server with ``/metrics`` and
 ``/healthz``, the periodic JSON dumper and the cross-rank aggregator.
 """
 
@@ -464,7 +464,7 @@ def metrics_snapshot(aggregate: bool = False) -> Dict[str, Any]:
     """Public snapshot API: every registered metric's current value as
     plain dicts, plus the ``goodput`` block while the accountant runs.
     ``aggregate`` is accepted for the JAX package's signature; the
-    cross-rank aggregator waits for ROADMAP A.13, so the snapshot is this
+    cross-rank aggregator waits for ROADMAP A.13b, so the snapshot is this
     process's alone."""
     snap = _registry.snapshot()
     from horovod_tpu_torch.goodput import accountant as _goodput

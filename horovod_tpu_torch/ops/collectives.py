@@ -71,6 +71,22 @@ _TORCH_OP = {ReduceOp.SUM: dist.ReduceOp.SUM,
              ReduceOp.PRODUCT: dist.ReduceOp.PRODUCT}
 
 
+def wait_work(work) -> None:
+    """``work.wait()`` of a ``torch.distributed`` work. Under
+    ``HOROVOD_ELASTIC`` a work that fails raises
+    ``elastic.HorovodInternalError`` (ref WaitForEventsElastic
+    gpu_operations.cc:98-106), the error ``elastic.run`` recovers from."""
+    try:
+        work.wait()
+    except Exception as exc:
+        from horovod_tpu_torch.config import knobs
+        from horovod_tpu_torch.elastic.exceptions import HorovodInternalError
+        if isinstance(exc, HorovodInternalError) or \
+                not knobs.get("HOROVOD_ELASTIC"):
+            raise
+        raise HorovodInternalError(f"collective failed: {exc}") from exc
+
+
 class _Done:
     """The handle of a collective that had nothing to do (a group of
     one)."""
@@ -97,7 +113,7 @@ class _Pending:
 
     def wait(self):
         for w in self.works:
-            w.wait()
+            wait_work(w)
         # some gloo works (reduce_scatter_tensor's) never report
         # completion, even once waited on
         self.works = []
@@ -731,7 +747,7 @@ def ppermute(tensor: torch.Tensor, perm: Sequence[Tuple[int, int]],
             ops.append(dist.P2POp(dist.irecv, out_b, g.members[s], g.pg))
     if ops:
         for work in dist.batch_isend_irecv(ops):
-            work.wait()
+            wait_work(work)
     return out
 
 

@@ -61,7 +61,7 @@ combined over each sync axis in turn; the dot products span the leaf.
 :class:`DistributedAdasumOptimizer` combines the inner optimizer's
 parameter deltas instead of the gradients (the reference's
 torch/optimizer.py:345), and :func:`distributed_value_and_grad` gives a
-loss and its synced gradients. Not ported: the online tuner (A.13).
+loss and its synced gradients. Not ported: the online tuner (A.13b).
 """
 
 from __future__ import annotations
@@ -262,7 +262,7 @@ class _PendingBucket:
         stream = None
         for part in self.parts:
             if part.work is not None:
-                part.work.wait()
+                collectives.wait_work(part.work)
             if part.buf.is_cuda:
                 # made on the side stream, read on this one: not reused
                 # before this stream is done with them
@@ -319,7 +319,7 @@ def _tier_part(buf: torch.Tensor, specs, idxs, res_leaves, tier, op,
             shard.add_(rbuf[off:off + chunk])
         wire, scale = codec.encode(shard, axes=(dcn_axis,), world=gd.size)
         work, red = collectives.wire_sum_async(wire, axis=dcn_axis)
-        work.wait()
+        collectives.wait_work(work)
         post = (1.0 / world) if (op == ReduceOp.AVERAGE and world != 1) \
             else None
         out = codec.decode(red, scale, dtype, postscale=post)

@@ -294,11 +294,11 @@ def _unported_loop_knobs() -> None:
              str(knobs.get("HOROVOD_VERIFY_STEP")) in ("1", "strict"),
              "A.15"),
             ("HOROVOD_ARTIFACT_STORE",
-             bool(knobs.get("HOROVOD_ARTIFACT_STORE")), "A.13"),
+             bool(knobs.get("HOROVOD_ARTIFACT_STORE")), "A.13b"),
             ("HOROVOD_TRACE_PROFILE",
-             bool(knobs.get("HOROVOD_TRACE_PROFILE")), "A.13"),
+             bool(knobs.get("HOROVOD_TRACE_PROFILE")), "A.13b"),
             ("HOROVOD_NUMERICS", bool(knobs.get("HOROVOD_NUMERICS")),
-             "A.13")):
+             "A.13b")):
         if on:
             raise NotImplementedError(
                 f"train_loop: {name} turns on a hook that is not yet "
@@ -308,7 +308,7 @@ def _unported_loop_knobs() -> None:
         if knobs.is_set(name):
             raise NotImplementedError(
                 f"train_loop: {name} tunes the data service, which is not "
-                f"yet ported to horovod_tpu_torch (ROADMAP A.13); unset it")
+                f"yet ported to horovod_tpu_torch (ROADMAP A.13b); unset it")
     from horovod_tpu_torch.resilience import chaos
     unported = chaos.unported_faults()
     if unported:
@@ -355,7 +355,7 @@ def train_loop(
     world larger than one, the straggler detector. ``HOROVOD_VERIFY_STEP``
     in {1, strict}, ``HOROVOD_ARTIFACT_STORE``, ``HOROVOD_TRACE_PROFILE``
     and ``HOROVOD_NUMERICS`` raise ``NotImplementedError``: their hooks
-    are not ported yet (ROADMAP A.15, A.13). So do the data service's
+    are not ported yet (ROADMAP A.15, A.13b). So do the data service's
     ``HOROVOD_FAULT_HEARTBEAT_SECONDS`` and ``HOROVOD_FAULT_WORKER_DEADLINE``
     and an armed chaos spec with a fault of a subsystem not ported yet
     (``chaos.unported_faults``).

@@ -77,10 +77,9 @@ The hooks are called from the product code paths themselves
 filesystem helpers call ``on_fs``), so what the chaos drills exercise is
 the real recovery machinery, not a simulation of it. The hooks of
 subsystems the port does not have yet (``on_store_load``,
-``on_data_request``, ``on_replica_dispatch``/``replica_slow_s``,
-``resize_notice``: the artifact store, the data service, the serving
-fleet, live resize) exist as in the JAX package and nothing calls them
-yet; ``train_loop`` raises ``NotImplementedError`` when the armed spec
+``on_data_request``, ``on_replica_dispatch``/``replica_slow_s``: the
+artifact store, the data service, the serving fleet) exist as in the JAX
+package and nothing calls them yet; ``train_loop`` raises ``NotImplementedError`` when the armed spec
 holds one of their faults (:func:`unported_faults`), so a drill is never
 skipped silently. With no spec installed every hook is a no-op costing
 one attribute read.
@@ -228,12 +227,12 @@ def active() -> Optional[ChaosSpec]:
 
 
 # Faults whose subsystem the port does not have yet, with its ROADMAP item:
-# the artifact store, the data service and live resize (A.13), the
-# serving fleet (A.11).
-_UNPORTED_FAULTS = (("store_corrupt", "A.13"), ("data_worker_kill", "A.13"),
-                    ("replica_kill", "A.11"), ("replica_slow", "A.11"),
-                    ("host_loss", "A.13"), ("slice_loss", "A.13"),
-                    ("host_return", "A.13"))
+# the artifact store and the data service (A.13b), the serving fleet
+# (A.11). host_loss, slice_loss and host_return reach the live resize
+# through ResizeCoordinator.poll (elastic/resize.py).
+_UNPORTED_FAULTS = (("store_corrupt", "A.13b"),
+                    ("data_worker_kill", "A.13b"),
+                    ("replica_kill", "A.11"), ("replica_slow", "A.11"))
 
 
 def unported_faults() -> List[Tuple[str, str]]:
@@ -246,7 +245,7 @@ def unported_faults() -> List[Tuple[str, str]]:
     out = [(name, item) for name, item in _UNPORTED_FAULTS
            if getattr(spec, name)]
     if spec.fs_transient and spec.fs_transient.get("scope") == "store":
-        out.append(("fs_transient scope store", "A.13"))
+        out.append(("fs_transient scope store", "A.13b"))
     return out
 
 
@@ -463,7 +462,7 @@ def replica_slow_s(replica_index: int, dispatched: int) -> float:
 
 
 def resize_notice(step: int) -> Optional[Dict[str, Any]]:
-    """Resize-drill hook (ResizeCoordinator.check, once per training
+    """Resize-drill hook (ResizeCoordinator.poll, once per training
     step): the pending world-change notice for this step, or None.
     Fires AT MOST ONCE per notice kind — the returned dict
     (``{"kind": "host_loss"|"slice_loss"|"host_return", "host"|"slice":

@@ -30,7 +30,7 @@ and fail loudly with a flight recording. Shed sites are probed on a
 cadence (``HOROVOD_FAULT_PROBE_SECONDS``); one success heals the site, an
 empty shed set restores ``healthy``. The state is published as the
 ``hvd_fault_domain_state`` gauge (the ``/healthz`` block that serves it
-waits for ROADMAP A.13).
+waits for ROADMAP A.13b).
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ card, as in the reference Horovod: ``size()`` is the number of processes,
 ``init`` joins the world the launcher describes (``RANK``, ``WORLD_SIZE``,
 ``MASTER_ADDR`` and ``MASTER_PORT`` in the environment, with
 ``LOCAL_RANK``/``LOCAL_WORLD_SIZE`` for the per-host view, as ``torchrun``
-sets them). Without that environment it forms a world of one on an
+and ``hvdrun-torch`` set them). Without that environment it forms a world of one on an
 in-process store, so a single process runs the same collective path. The
 backend is NCCL for a CUDA device and gloo for ``device="cpu"``. A process
 group the caller made before ``init`` is used as it is and outlives
@@ -34,7 +34,7 @@ local. A group that fails to form raises.
 (``goodput/accountant.py``) and turns the span recorder on under
 ``HOROVOD_TRACE=1`` (``tracing/spans.py``), as the JAX ``init`` does. Not
 ported yet: the timeline, the metrics server and the trace export and
-merge at ``shutdown`` (ROADMAP A.13).
+merge at ``shutdown`` (ROADMAP A.13b).
 """
 
 from __future__ import annotations
@@ -241,7 +241,10 @@ def init(device="cuda", backend: Optional[str] = None,
          dcn: Optional[int] = None) -> Context:
     """Initialize the runtime (idempotent: a second call returns the
     context of the first). ``device="cuda"`` raises without a GPU; with
-    several cards on a host, each process takes card ``LOCAL_RANK``.
+    several cards on a host, each process takes card ``LOCAL_RANK``
+    (modulo the cards it sees). ``HVD_TPU_FORCE_CPU=1`` in the environment
+    (``hvdrun-torch --virtual``) makes a ``device="cuda"`` init take the
+    CPU; that variable is the only way it does so.
     ``mesh_shape``, ``axis_names``, ``hierarchical`` and ``dcn`` shape the
     topology as in the JAX package's ``init``; every rank must pass the
     same ones."""
@@ -253,6 +256,9 @@ def init(device="cuda", backend: Optional[str] = None,
         from horovod_tpu_torch.tracing import spans as _spans
         _goodput.init_begin()
         _spans.init_from_env()
+        if os.environ.get("HVD_TPU_FORCE_CPU") == "1" and \
+                torch.device(device).type == "cuda":
+            device = "cpu"
         dev = resolve_device(device)
         backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
         launched = all(k in os.environ for k in _LAUNCH_ENV)

@@ -8,7 +8,7 @@
 - ``straggler`` : per-rank step-time skew over the c10d store: which RANK
                   is slow, exported as ``hvd_straggler_skew_seconds``.
 
-Not ported yet (ROADMAP A.13): ``merge`` (the cross-rank trace merge) and
+Not ported yet (ROADMAP A.13b): ``merge`` (the cross-rank trace merge) and
 ``profile`` (profiler capture windows).
 
 Usage::

@@ -19,7 +19,7 @@ Timestamps are ``time.perf_counter()`` microseconds relative to a
 process epoch captured at ``enable()``; the epoch's wall-clock value
 (``epoch_unix``) travels with every export so a cross-rank merge can
 shift processes onto one timeline (the merge itself waits for ROADMAP
-A.13).
+A.13b).
 
 The port's copy of ``horovod_tpu/tracing/spans.py``: the same span names,
 categories, ring buffer, Chrome-trace export and flight recording.

@@ -11,7 +11,7 @@ republished key, like the metrics snapshots). ``publish_and_check``
 reads every peer's mean, computes ``skew = max - min``, exports the
 ``hvd_straggler_skew_seconds`` gauge, and remembers the slowest rank and
 its host (``snapshot()``; the ``/healthz`` that serves it waits for
-ROADMAP A.13). Detection is symmetric: every rank computes the same view,
+ROADMAP A.13b). Detection is symmetric: every rank computes the same view,
 nobody blocks on a peer (missing keys contribute nothing).
 """
 

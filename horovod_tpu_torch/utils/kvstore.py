@@ -152,10 +152,26 @@ class DistributedKV:
                     exc_info=True)
 
 
-def distributed_kv(site: str = "kv", own_connection: bool = False):
+def root_store(store):
+    """The store under every ``PrefixStore`` layer of ``store``: the
+    namespace of the server's own keys. ``init_process_group`` prefixes
+    the default store's keys (``default_pg``, the group's name), and how
+    depends on the torch release; a key a launcher writes on the server it
+    hosts is read here."""
+    import torch.distributed as dist
+    while isinstance(store, dist.PrefixStore):
+        store = store.underlying_store
+    return store
+
+
+def distributed_kv(site: str = "kv", own_connection: bool = False,
+                   root: bool = False):
     """The default process group's store wrapped in the ``site``'s retry
     policy (resilience.faults.RetryingKV), or None in a world of one or
     without ``torch.distributed`` (there is no peer to agree with).
+
+    ``root=True`` wraps :func:`root_store` of it: the keys of the
+    launcher that hosts the store (the elastic hosts-updated mirror).
 
     ``own_connection=True`` wraps a ``clone`` of the store: a new client
     connection to the same server. A c10d client runs one operation at a
@@ -174,6 +190,8 @@ def distributed_kv(site: str = "kv", own_connection: bool = False):
             return None
         import torch.distributed as dist
         store = dist.distributed_c10d._get_default_store()
+    if root:
+        store = root_store(store)
     if own_connection:
         store = store.clone()
     return RetryingKV(DistributedKV(store), site=site)

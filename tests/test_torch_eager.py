@@ -533,13 +533,16 @@ def test_stall_inspector_warns_and_aborts_as_the_jax_package_does():
 
 def test_handle_raises_the_collectives_error_at_wait(monkeypatch):
     """An error of the collective surfaces at ``wait()``, never swallowed
-    (the handle is then done), and with HOROVOD_ELASTIC set ``wait()``
-    refuses: elastic recovery is ROADMAP A.13a. The wait histogram is a
-    private one here, so the process's metrics stay untouched."""
+    (the handle is then done), and with HOROVOD_ELASTIC set a work that
+    fails surfaces as ``elastic.HorovodInternalError``, the error
+    ``elastic.run`` recovers from (the JAX ``eager.py:218-225``), while a
+    work that succeeds still returns its result. The wait histogram is a private one here, so the
+    process's metrics stay untouched."""
     import torch
     from horovod_tpu_torch import eager
     from horovod_tpu_torch import metrics as M
     from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.elastic import HorovodInternalError
     from horovod_tpu_torch.ops.collectives import _Pending
     hist = M.MetricsRegistry().histogram("t_wait_seconds", "t")
     monkeypatch.setattr(eager, "_wait_hist", lambda: hist)
@@ -548,14 +551,27 @@ def test_handle_raises_the_collectives_error_at_wait(monkeypatch):
         raise RuntimeError("peer lost")
 
     h = eager.Handle("t/err", _Pending([], lost), torch.device("cpu"))
-    with pytest.raises(RuntimeError, match="peer lost"):
+    with pytest.raises(RuntimeError, match="peer lost") as plain:
         eager.synchronize(h)
+    assert not isinstance(plain.value, HorovodInternalError)
     assert eager.poll(h)
+    class LostWork:                 # a torch.distributed work whose peer died
+        def wait(self):
+            raise RuntimeError("peer lost")
+
     ok = eager.Handle("t/ok", _Pending([], lambda: 1), torch.device("cpu"))
     knobs.set_override("HOROVOD_ELASTIC", True)
     try:
-        with pytest.raises(NotImplementedError, match="A.13a"):
-            ok.wait()
+        failed = eager.Handle("t/err2", _Pending([LostWork()], lambda: 1),
+                              torch.device("cpu"))
+        with pytest.raises(HorovodInternalError, match="peer lost"):
+            failed.wait()
+        assert ok.wait() == 1
     finally:
         knobs.clear_override("HOROVOD_ELASTIC")
-    assert ok.wait() == 1 and hist.total_count == 3
+    unwrapped = eager.Handle("t/err3", _Pending([LostWork()], lambda: 1),
+                             torch.device("cpu"))
+    with pytest.raises(RuntimeError, match="peer lost") as plain:
+        unwrapped.wait()
+    assert not isinstance(plain.value, HorovodInternalError)
+    assert hist.total_count == 4
