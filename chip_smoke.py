@@ -5,6 +5,8 @@
     python3 chip_smoke.py --data-parallel 4    # collectives and training on 4 cards
     python3 chip_smoke.py --data-parallel 4 --launcher-only
                                    # only phase 8's drills, on 4 cards
+    python3 chip_smoke.py --data-parallel 4 --model-parallel-only
+                                   # only phase 9's configurations, on 4 cards
 
 Phases, each of which raises (and so exits non-zero) when it fails:
 
@@ -95,7 +97,17 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    (``fused_conv_bn=True``, 128 images) over 1,024 synthetic images
    with ``TorchState(model, optimizer, sampler)`` committed every step,
    which exits 73 once after a commit: generation 2 restores the
-   committed state bitwise and finishes the epoch, every index once.
+   committed state bitwise and finishes the epoch, every index once;
+9. model parallelism in a world of one (``model parallel (world 1):``):
+   the ring's per-step bodies (``ring_fwd_step``, ``ring_bwd_step``)
+   with the flash kernels over four virtual ring positions of a
+   full-width sequence (B=8, S=2048, H=16, D=64, bf16, causal: launches
+   at nonzero offsets), assembled, against ``flash_attention`` over the
+   whole sequence and its backward (FLASH_REL_TOL); then a mesh whose
+   every axis has size 1 (dp, tp, sp, ep, pp), whose step (the dense
+   flagship with tp, ring sp and pp, and the MoE one with ep and 8
+   experts, full width, MP_PARITY_LAYERS layers) equals the plain step
+   bitwise: loss and every gradient leaf.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the
@@ -180,6 +192,26 @@ fused fp8 flagship at full width and RESIZE_LAYERS layers, chaos
 ``host_loss`` of host 1 at step 3: ranks 2-3 snapshot and leave, 0-1 go
 on in process on a two-rank NCCL world, bitwise a cold two-rank start
 from the committed snapshot and plan; with ``hvd_elastic_resize_seconds``).
+Last, model parallelism on N cards (``--data-parallel N
+--model-parallel-only``: only these), one world whose ranks re-init on
+each configuration's mesh: tp N, sp N ring, sp N Ulysses, (tp 2, sp 2)
+ring, ep N with 8 experts and pp N with 4 microbatches, each of the
+flagship (no dp axis; the global batch 8 x 2048). Each ``model parallel
+<label>:`` line holds: the sharded step's loss and gathered gradients
+against the unsharded step on the same weights (rank 0 computes that
+first, keeps it on the host and frees the card) at full width and
+MP_PARITY_LAYERS layers in bf16 (MP_BF16_* limits; EP at
+MP_EP_PARITY_BATCH with capacity_factor = E, so no token drops) and at
+the narrow width in f32 (the CPU tests' tolerances); the step at full
+width and depth through ``make_transformer_train_step`` (step ms,
+tokens/s, launches, also at nonzero offsets for the ring, peak memory)
+and one profiled step's NCCL device ms, the part overlapped with compute,
+and for the ring its exchange (SendRecv) ms against its flash kernels'
+ms. Then TP serving on a (tp N) mesh (``model parallel tpN_serve:``):
+phase 3's 16 requests against the one-card engine on the same weights
+(tokens agreement, the first prefill's logits within MP_LOGIT_REL_TOL,
+decode tokens/s of both, paged-decode launches at H/N heads a card),
+and at the narrow width in f32 every token equal.
 """
 
 from __future__ import annotations
@@ -312,8 +344,8 @@ def kernel_bound_ms(q, k_pages, lengths, n_ctx) -> float:
     return max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
 
 
-def check_kernel(fa, kvc, gen, *, kvh, dtype, timed):
-    b, h, d, page, n_max = 8, 16, 64, 128, 16
+def check_kernel(fa, kvc, gen, *, kvh, dtype, timed, h=16):
+    b, d, page, n_max = 8, 64, 128, 16
     lengths = [1, 2048, 300, 0, 1024, 1537, 128, 777]     # slot 3 is empty
     copies = 4 if timed else 1
     q, pools, bt, ln = paged_case(gen, b=b, h=h, kvh=kvh, d=d, page=page,
@@ -3857,6 +3889,591 @@ def launcher_worlds(n, card) -> None:
     log("resize data parallel: " + json.dumps(launched_resize(n, card)))
 
 
+# ---------------------------------------------------------------------------
+# phase 9: model parallelism (tensor, sequence, expert, pipeline; serving)
+# ---------------------------------------------------------------------------
+
+# Full-width bf16 parity of a sharded step against the unsharded one on
+# the same weights: the sharded step sums in another order (a psum of
+# bf16 partial products, softmax blocks merged in f32), so the loss may
+# move by this share of itself and each gradient leaf by this share of
+# its largest value.
+MP_BF16_LOSS_REL_TOL = 5e-3
+MP_BF16_GRAD_REL_TOL = 5e-2
+# f32 at the narrow width: tests/test_torch_model_parallel.py's (the JAX
+# file's) tolerances, EP's looser ones where experts are sharded
+MP_F32_TOL = {"loss_rtol": 1e-5, "grad_atol": 2e-4, "grad_rtol": 2e-3}
+MP_F32_TOL_EP = {"loss_rtol": 1e-4, "grad_atol": 5e-4, "grad_rtol": 2e-3}
+MP_PARITY_LAYERS = 4        # depth of the full-width parity step
+# the EP parity batch: the no-drop capacity rule (capacity_factor = E)
+# makes the unsharded dispatch [T, E, T]; at 8 x 2048 tokens that is 8.6
+# GB a tensor
+MP_EP_PARITY_BATCH = (4, 512)
+MP_NARROW = dict(vocab_size=64, d_model=32, n_heads=4, head_dim=8,
+                 n_layers=4, d_ff=64, max_seq=32, remat=False)
+MP_NARROW_BATCH = (8, 16)
+MP_LOGIT_REL_TOL = 5e-2     # bf16 TP serving logits, share of max |logit|
+MP_PROFILED_STEPS = 3       # steps profiled one by one after the timed ones
+MP_CONFIGS = [
+    dict(label="tp4", mesh=(4,), axes=("tp",), cfg=dict(tp_axis="tp")),
+    dict(label="sp4_ring", mesh=(4,), axes=("sp",),
+         cfg=dict(sp_axis="sp", attention="ring")),
+    dict(label="sp4_ulysses", mesh=(4,), axes=("sp",),
+         cfg=dict(sp_axis="sp", attention="ulysses")),
+    dict(label="tp2_sp2_ring", mesh=(2, 2), axes=("tp", "sp"),
+         cfg=dict(tp_axis="tp", sp_axis="sp", attention="ring")),
+    dict(label="ep4", mesh=(4,), axes=("ep",),
+         cfg=dict(ep_axis="ep", num_experts=8)),
+    dict(label="pp4", mesh=(4,), axes=("pp",),
+         cfg=dict(pp_axis="pp", n_microbatches=4)),
+]
+PLAIN_AXES = dict(dp_axis=None, tp_axis=None, sp_axis=None, ep_axis=None,
+                  pp_axis=None)
+
+
+def dev_sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mp_loss_grads(htt, cfg, params, tokens, labels):
+    """The step's loss and synced gradients of ``cfg`` on this rank's
+    shards (the trainer's step without the update), gathered to the
+    global tree: (loss, [f32 CPU gradient leaves])."""
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.ops import collectives
+    from horovod_tpu_torch.parallel import trainer
+    from horovod_tpu_torch.utils import tree as tree_util
+    leaves, treedef = tree_util.tree_flatten(params)
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    params = tree_util.tree_unflatten(treedef, leaves)
+    with collectives.bind_axis(*tfm.mesh_axes(cfg)):
+        loss = tfm.loss_fn(cfg, params, tokens, labels)
+        grads = torch.autograd.grad(loss, leaves)
+        grads = trainer.sync_gradients(
+            tree_util.tree_unflatten(treedef, list(grads)),
+            tfm.grad_sync_axes(cfg), trainer.mesh_world(cfg))
+    if tfm.mesh_axes(cfg):
+        grads = tfm.gather_params(cfg, grads)
+    return float(loss.detach()), [g.float().cpu() for g in
+                                  tree_util.tree_leaves(grads)]
+
+
+def mp_batch(cfg, b, s, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                          device=dev) for _ in range(2)]
+
+
+def mp_parity(htt, fa, rank, cfg, dev, b, s, f32_tol=None):
+    """The sharded step against the unsharded one on the same weights and
+    batch: rank 0 computes the unsharded loss and gradients first, keeps
+    them on the host and frees the card; then every rank runs its shard.
+    bf16: MP_BF16_* limits; f32: ``f32_tol`` (np.allclose-style). Returns
+    rank 0's errors and the kernel launches of the sharded step."""
+    import dataclasses
+    from horovod_tpu_torch.models import transformer as tfm
+    plain = dataclasses.replace(cfg, **PLAIN_AXES)
+    params = htt.init_params(
+        plain, torch.Generator(device=dev).manual_seed(3), device=dev)
+    tokens, labels = mp_batch(cfg, b, s, dev, 4)
+    ref = None
+    if rank == 0:
+        ref = mp_loss_grads(htt, plain, params, tokens, labels)
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+    htt.barrier()
+    fa.reset_launches()
+    loss, grads = mp_loss_grads(
+        htt, cfg, tfm.shard_params(cfg, params),
+        tfm.shard_batch(cfg, tokens), tfm.shard_batch(cfg, labels))
+    dev_sync(dev)
+    launches, offsets = dict(fa.LAUNCHES), dict(fa.OFFSET_LAUNCHES)
+    del params
+    out = {"batch": [b, s], "n_layers": cfg.n_layers,
+           "dtype": str(cfg.dtype)[6:],
+           "launches": {k: launches[k] for k in
+                        ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
+           "offset_launches": offsets}
+    if rank != 0:
+        return out
+    ref_loss, ref_grads = ref
+    if not np.isfinite(loss) or not all(bool(torch.isfinite(g).all())
+                                        for g in grads):
+        raise AssertionError(f"{cfg}: non-finite sharded loss or grads")
+    out["loss"], out["ref_loss"] = loss, ref_loss
+    out["loss_rel_err"] = abs(loss - ref_loss) / abs(ref_loss)
+    worst = 0.0
+    for i, (g, r) in enumerate(zip(grads, ref_grads)):
+        if g.shape != r.shape:
+            raise AssertionError(f"gradient leaf {i}: {tuple(g.shape)} "
+                                 f"against {tuple(r.shape)}")
+        if f32_tol is None:
+            share = float((g - r).abs().max()) / max(
+                float(r.abs().max()), 1e-30) / MP_BF16_GRAD_REL_TOL
+        else:
+            share = float(((g - r).abs() / (f32_tol["grad_atol"]
+                                            + f32_tol["grad_rtol"]
+                                            * r.abs())).max())
+        worst = max(worst, share)
+    out["grad_worst_share_of_limit"] = worst
+    loss_lim = (MP_BF16_LOSS_REL_TOL if f32_tol is None
+                else f32_tol["loss_rtol"])
+    if out["loss_rel_err"] > loss_lim or worst > 1.0:
+        raise AssertionError(f"sharded step disagrees with the unsharded "
+                             f"one: {out}")
+    return out
+
+
+def mp_profile(step, state, batch, dev):
+    """One step profiled on rank 0: the NCCL kernels' device ms and their
+    overlap with compute, and the point-to-point (SendRecv) part against
+    the flash kernels' ms. An NCCL kernel runs from its launch until its
+    peers arrive, so its ms also holds the other ranks' lag."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, *batch)
+        dev_sync(dev)
+    out = nccl_overlap(prof)
+    p2p = flash = 0.0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = ev.time_range.end - ev.time_range.start
+        if "SendRecv" in ev.name:
+            p2p += us
+        elif "flash_" in ev.name:
+            flash += us
+    out.update(p2p_ms=p2p / 1e3, flash_kernels_ms=flash / 1e3)
+    return state, out
+
+
+def mp_timed(htt, fa, rank, cfg, dev, n_steps):
+    """The configuration at full width and depth through
+    make_transformer_train_step (SGD with momentum): a warm-up step,
+    ``n_steps`` timed steps with the launch counts zeroed just before,
+    then MP_PROFILED_STEPS steps, each profiled alone on rank 0."""
+    import dataclasses
+    from horovod_tpu_torch.models import transformer as tfm
+    plain = dataclasses.replace(cfg, **PLAIN_AXES)
+    params = tfm.shard_params(cfg, htt.init_params(
+        plain, torch.Generator(device=dev).manual_seed(0), device=dev))
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    init_fn, step = htt.make_transformer_train_step(
+        cfg, lambda ps: torch.optim.SGD(ps, lr=0.01, momentum=0.9),
+        device=dev)
+    state = init_fn(params)
+    batches = [[tfm.shard_batch(cfg, t) for t in
+                mp_batch(cfg, TRAIN_B, TRAIN_S, dev, 10 + i)]
+               for i in range(n_steps + 1 + MP_PROFILED_STEPS)]
+    state, loss = step(state, *batches[0])
+    warm = float(loss)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    htt.barrier()
+    fa.reset_launches()
+    losses, stamps = [], []
+    t0 = time.perf_counter()
+    for batch in batches[1:n_steps + 1]:
+        state, loss = step(state, *batch)
+        losses.append(float(loss))                       # synchronizes
+        stamps.append(time.perf_counter())
+    launches, offsets = dict(fa.LAUNCHES), dict(fa.OFFSET_LAUNCHES)
+    profs = []
+    for batch in batches[n_steps + 1:]:
+        htt.barrier()
+        if rank == 0:
+            state, prof = mp_profile(step, state, batch, dev)
+            profs.append(prof)
+        else:
+            state, _ = step(state, *batch)
+    if not all(np.isfinite(x) for x in [warm] + losses):
+        raise AssertionError(f"non-finite loss: {[warm] + losses}")
+    step_s = np.diff([t0] + stamps)
+    out = {"step_ms": [float(x) * 1e3 for x in step_s],
+           "step_ms_mean": float(step_s.mean()) * 1e3,
+           "tokens_per_s": TRAIN_B * TRAIN_S / float(step_s.mean()),
+           "losses": [warm] + losses,
+           "launches": {k: launches[k] for k in
+                        ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
+           "offset_launches": offsets,
+           "peak_memory_gb": (torch.cuda.max_memory_allocated() / 2 ** 30
+                              if torch.device(dev).type == "cuda"
+                              else None)}
+    if profs:
+        out["profiled_steps"] = profs
+        if cfg.sp_axis and cfg.attention == "ring":
+            out["ring_exchange_ms_per_step"] = [p["p2p_ms"] for p in profs]
+            out["ring_kernels_ms_per_step"] = [p["flash_kernels_ms"]
+                                               for p in profs]
+    return out
+
+
+def mp_check_launches(label, cfg, res) -> None:
+    """Every configuration's step ran the three flash kernels; a ring's
+    also at nonzero offsets."""
+    for part in ("parity", "timed"):
+        got = res[part]
+        if min(got["launches"].values()) < 1:
+            raise AssertionError(f"{label} {part}: a flash kernel was not "
+                                 f"launched: {got['launches']}")
+        if cfg.get("attention") == "ring" and \
+                min(got["offset_launches"].values()) < 1:
+            raise AssertionError(f"{label} {part}: no flash launch at a "
+                                 f"nonzero offset: {got['offset_launches']}")
+
+
+def mp_serve_requests(vocab, n=16, new_tokens=32, seed=0, lo=64,
+                      hi=1024):
+    """Phase 3's traffic: ``n`` requests of ``lo``-``hi`` prompt tokens,
+    ``new_tokens`` each."""
+    from horovod_tpu_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(
+        0, vocab, int(rng.integers(lo, hi + 1))).astype(np.int32),
+        max_new_tokens=new_tokens) for i in range(n)]
+
+
+def mp_engine_run(eng, make_reqs, dev, fa):
+    """The scheduler over fresh ``make_reqs()`` (a scheduler stamps its
+    requests): ({rid: tokens}, wall s, decode tokens, paged-decode
+    launches)."""
+    from horovod_tpu_torch.serving import ServeScheduler
+    reqs = make_reqs()
+    fa.reset_launches()
+    dev_sync(dev)
+    t0 = time.perf_counter()
+    sched = ServeScheduler(eng, mode="continuous",
+                           device=torch.device(dev).type)
+    done = sched.run(reqs)
+    dev_sync(dev)
+    wall = time.perf_counter() - t0
+    if any(r.error for r in done):
+        raise AssertionError([r.error for r in done if r.error])
+    return ({r.rid: list(r.tokens) for r in done}, wall,
+            sched.stats()["generated_tokens"], fa.LAUNCHES["paged_decode"])
+
+
+def mp_forced_logits(eng, make_reqs, forced):
+    """Teacher-forced replay: each request's prompt prefilled, then its
+    ``forced[rid]`` tokens fed one a decode step, whatever the engine
+    would pick, the engine's slots filled at a time. {rid: f32 CPU logits
+    [len(forced[rid]), V]}: row 0 the prefill's, row p the decode step's
+    that took ``forced[rid][p - 1]``, so row p predicts token p."""
+    reqs = make_reqs()
+    out = {}
+    for lo in range(0, len(reqs), eng.slots):
+        batch = reqs[lo:lo + eng.slots]
+        slots = []
+        for r in batch:
+            slot = eng.reserve(r.prompt.size + len(forced[r.rid]))
+            eng.prefill(slot, r.prompt)
+            slots.append(slot)
+            out[r.rid] = [eng.last_logits.float().cpu()]
+        for t in range(max(len(forced[r.rid]) for r in batch) - 1):
+            tokens = np.zeros((eng.slots,), np.int32)
+            active = np.zeros((eng.slots,), bool)
+            for slot, r in zip(slots, batch):
+                if t + 1 < len(forced[r.rid]):
+                    tokens[slot], active[slot] = forced[r.rid][t], True
+            eng.decode_step(tokens, active)
+            logits = eng.last_logits.float().cpu()
+            for slot, r in zip(slots, batch):
+                if active[slot]:
+                    out[r.rid].append(logits[slot])
+        for slot in slots:
+            eng.release(slot)
+    return {rid: torch.stack(rows) for rid, rows in out.items()}
+
+
+def mp_serve(htt, fa, rank, cfg, dev, make_reqs, exact):
+    """TP serving against the one-card engine on the same weights: rank 0
+    serves ``make_reqs()`` alone first, then replays the one-card tokens
+    teacher-forced (kept on the host); then every rank's TP engine does
+    both. Gates: the forced replay's logits at every prefill and decode
+    position within MP_LOGIT_REL_TOL of the one-card row's largest
+    (``exact``, f32: LOGIT_TOL, and every token equal), and each request
+    whose free-running tokens part from one card's parts at a near tie:
+    one card's logits of the two tokens within that same limit."""
+    import dataclasses
+    from horovod_tpu_torch.serving import ServeEngine
+    plain = dataclasses.replace(cfg, **PLAIN_AXES)
+    params = htt.init_params(
+        plain, torch.Generator(device=dev).manual_seed(0), device=dev)
+    ref = r_forced = None
+    if rank == 0:
+        eng = ServeEngine(plain, params, device=dev)
+        ref = mp_engine_run(eng, make_reqs, dev, fa)
+        r_forced = mp_forced_logits(eng, make_reqs, ref[0])
+        del eng
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+    r_toks = htt.broadcast_object(ref[0] if rank == 0 else None, 0)
+    eng = ServeEngine(cfg, params, device=dev)
+    del params
+    toks, wall, gen, launches = mp_engine_run(eng, make_reqs, dev, fa)
+    forced = mp_forced_logits(eng, make_reqs, r_toks)
+    out = {"tp": eng.stats()["tp"], "kv_heads_per_card": eng.k_pages.shape[3],
+           "requests": len(toks), "wall_s": wall,
+           "decode_tokens_per_s": gen / wall,
+           "paged_decode_launches": launches}
+    if launches < cfg.n_layers:
+        raise AssertionError(f"paged_decode launched {launches} times")
+    if rank != 0:
+        return out
+    _, r_wall, r_gen, _ = ref
+    lim = LOGIT_TOL if exact else MP_LOGIT_REL_TOL
+    worst, argmax_equal, divergences = 0.0, 0, []
+    for rid, r_rows in r_forced.items():
+        rows = forced[rid]
+        err = (rows - r_rows).abs().amax(dim=-1)
+        scale = 1.0 if exact else r_rows.abs().amax(dim=-1)
+        worst = max(worst, float((err / scale).max()))
+        argmax_equal += int((rows.argmax(-1) == r_rows.argmax(-1)).sum())
+        part = next((p for p, (a, b) in enumerate(zip(toks[rid],
+                                                      r_toks[rid]))
+                     if a != b), None)
+        if part is not None:
+            row = r_rows[part]
+            gap = float(row[r_toks[rid][part]] - row[toks[rid][part]])
+            divergences.append({
+                "rid": rid, "position": part, "one_card_gap": gap,
+                "limit": lim * (1.0 if exact else float(row.abs().max())),
+                "forced_max_abs_err": float(err[part])})
+    n_pos = sum(r.shape[0] for r in r_forced.values())
+    first, r_first = forced[0][0], r_forced[0][0]      # request 0's prefill
+    same = sum(toks[k] == r_toks[k] for k in r_toks)
+    pos = [sum(a == b for a, b in zip(toks[k], r_toks[k])) for k in r_toks]
+    out.update(
+        first_logits_max_abs_err=float((first - r_first).abs().max()),
+        first_logits_max_abs=float(r_first.abs().max()),
+        forced_positions=n_pos,
+        forced_logits_max_err=worst,
+        forced_logits_limit=lim,
+        forced_argmax_equal_share=argmax_equal / n_pos,
+        requests_with_equal_tokens=same,
+        equal_token_share=sum(pos) / sum(len(t) for t in r_toks.values()),
+        divergences=divergences,
+        one_card_decode_tokens_per_s=r_gen / r_wall)
+    if worst > lim or any(d["one_card_gap"] > d["limit"]
+                          for d in divergences) or \
+            (exact and same != len(r_toks)):
+        raise AssertionError(f"TP serving disagrees with one card: {out}")
+    return out
+
+
+def mp_rank(rank, world, ports, results, configs, device="cuda", n_steps=3,
+            serve=True):
+    """One rank of the N-card model-parallel world: each configuration on
+    its mesh (``init(mesh_shape=, axis_names=)`` on the same process
+    group), then TP serving on a (tp N) mesh; rank 0 puts one result per
+    configuration on ``results``."""
+    import dataclasses
+    import torch.distributed as dist
+    join_store_world(rank, world, ports, device)
+    import horovod_tpu_torch as htt
+    from horovod_tpu_torch.ops import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for c in configs:
+        ctx = htt.init(device=device, mesh_shape=c["mesh"],
+                       axis_names=c["axes"])
+        dev = ctx.device
+        cfg = flagship_cfg(htt.TransformerConfig, mlp_recompute=True,
+                           **c["cfg"])
+        pcfg = dataclasses.replace(cfg, n_layers=MP_PARITY_LAYERS)
+        b, s = TRAIN_B, TRAIN_S
+        ncfg = htt.TransformerConfig(**{**MP_NARROW, **PLAIN_AXES,
+                                        **c["cfg"]}, dtype=torch.float32)
+        tol = MP_F32_TOL
+        if cfg.num_experts:
+            # no token dropped: the sharded capacity rule sees T / ep
+            # tokens, the unsharded one T
+            pcfg = dataclasses.replace(pcfg, capacity_factor=float(
+                cfg.num_experts), moe_aux_weight=0.0)
+            b, s = MP_EP_PARITY_BATCH
+            ncfg = dataclasses.replace(ncfg, num_experts=4,
+                                       capacity_factor=4.0,
+                                       moe_aux_weight=0.0)
+            tol = MP_F32_TOL_EP
+        res = {"label": c["label"], "mesh": dict(zip(c["axes"], c["mesh"])),
+               "parity": mp_parity(htt, fa, rank, pcfg, dev, b, s),
+               "narrow_f32": mp_parity(htt, fa, rank, ncfg, dev,
+                                       *MP_NARROW_BATCH, f32_tol=tol),
+               "timed": mp_timed(htt, fa, rank, cfg, dev, n_steps)}
+        mp_check_launches(c["label"], c["cfg"], res)
+        htt.shutdown()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        if rank == 0:
+            results.put(res)
+    if serve:
+        ctx = htt.init(device=device, mesh_shape=(world,), axis_names=("tp",))
+        dev = ctx.device
+        cfg = flagship_cfg(htt.TransformerConfig, tp_axis="tp")
+        ncfg = htt.TransformerConfig(**{**MP_NARROW, **PLAIN_AXES,
+                                        "tp_axis": "tp"},
+                                     dtype=torch.float32)
+        res = {"label": f"tp{world}_serve",
+               "serve": mp_serve(
+                   htt, fa, rank, cfg, dev,
+                   lambda: mp_serve_requests(cfg.vocab_size), False),
+               "narrow_f32": mp_serve(
+                   htt, fa, rank, ncfg, dev,
+                   lambda: mp_serve_requests(ncfg.vocab_size, 6, 8, seed=1,
+                                             lo=4, hi=20), True)}
+        htt.shutdown()
+        if rank == 0:
+            results.put(res)
+    dist.destroy_process_group()
+
+
+def model_parallel_world(n, card, configs=None, **kw) -> None:
+    """Every model-parallel configuration on ``n`` cards, one ``model
+    parallel <label>:`` line each."""
+    configs = MP_CONFIGS if configs is None else configs
+    serve = kw.get("serve", True)
+    out = spawn_world(mp_rank, n, len(configs) + int(serve), 1500, configs,
+                      **kw)
+    for res in out:
+        log(f"model parallel {res['label']}: " + json.dumps(
+            {**res, "card": card}))
+
+
+def ring_virtual_positions(htt, fa, sq, dev="cuda", n=4):
+    """The ring's per-step bodies with the kernels over ``n`` virtual ring
+    positions of a full-width sequence (B=8, S=2048, H=16, D=64, bf16,
+    causal), assembled, against flash_attention over the whole sequence
+    and its backward."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    b, s_all, h, d = TRAIN_B, TRAIN_S, 16, 64
+    q, k, v, do = (torch.randn((b, s_all, h, d), generator=gen, device=dev
+                               ).to(torch.bfloat16) for _ in range(4))
+    s = s_all // n
+    scale = d ** -0.5
+    blk = [slice(i * s, (i + 1) * s) for i in range(n)]
+    kb = [k[:, x].contiguous() for x in blk]
+    vb = [v[:, x].contiguous() for x in blk]
+
+    def ring_pass():
+        outs, lses = [], []
+        for my in range(n):
+            qb = q[:, blk[my]].contiguous()
+            acc = torch.zeros(qb.shape, dtype=torch.float32, device=dev)
+            m = torch.full(qb.shape[:3], float("-inf"), device=dev)
+            l = torch.zeros(qb.shape[:3], device=dev)
+            for t in range(n):
+                src = (my - t) % n
+                acc, m, l = sq.ring_fwd_step(qb, kb[src], vb[src], my * s,
+                                             src * s, True, scale, acc, m, l)
+            outs.append((acc / l.clamp_min(1e-30)[..., None]).to(q.dtype))
+            lses.append((m + torch.log(l.clamp_min(1e-30))).transpose(1, 2)
+                        .contiguous())
+        o = torch.cat(outs, dim=1)
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=dev)
+        dkv = torch.zeros((2,) + k.shape, dtype=torch.float32, device=dev)
+        for my in range(n):
+            qb, dob = q[:, blk[my]].contiguous(), do[:, blk[my]].contiguous()
+            dD = (dob.float() * o[:, blk[my]].float()).sum(-1).transpose(
+                1, 2).contiguous()
+            dqb = torch.zeros(qb.shape, dtype=torch.float32, device=dev)
+            for src in range(n):
+                acc = torch.zeros((2,) + kb[src].shape, dtype=torch.float32,
+                                  device=dev)
+                sq.ring_bwd_step(qb, kb[src], vb[src], dob, lses[my], dD,
+                                 my * s, src * s, True, scale, dqb, acc)
+                dkv[:, :, blk[src]] += acc
+            dq[:, blk[my]] = dqb
+        return o, dq, dkv
+
+    def flash_pass():
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+        ref = fa.flash_attention(qg, kg, vg, True, scale)
+        return (ref.detach(),) + torch.autograd.grad(ref, (qg, kg, vg), do)
+
+    def timed(fn):
+        fn()                                     # warm-up
+        dev_sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        dev_sync(dev)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    fa.reset_launches()
+    (o, dq, dkv), ring_ms = timed(ring_pass)
+    launches, offsets = dict(fa.LAUNCHES), dict(fa.OFFSET_LAUNCHES)
+    (ref, rq, rk, rv), flash_ms = timed(flash_pass)
+    errs = {}
+    for name, got, want in (("o", o, ref), ("dq", dq, rq),
+                            ("dk", dkv[0], rk), ("dv", dkv[1], rv)):
+        e = float((got.float() - want.float()).abs().max())
+        lim = FLASH_REL_TOL[torch.bfloat16] * max(
+            1.0, float(want.float().abs().max()))
+        if not e <= lim:
+            raise AssertionError(f"ring body over {n} virtual positions: "
+                                 f"{name} {e} > {lim}")
+        errs[name] = e
+    if min(offsets.values()) < 1:
+        raise AssertionError(f"no launch at a nonzero offset: {offsets}")
+    return {"positions": n, "shape": [b, s_all, h, d], "max_abs_err": errs,
+            "launches": launches, "offset_launches": offsets,
+            "ring_wall_ms": ring_ms, "flash_wall_ms": flash_ms}
+
+
+def mesh_of_ones(htt, fa, dev="cuda"):
+    """A step on a mesh whose every axis has size 1 (dp, tp, sp, ep, pp)
+    against the plain step (every axis None) on the same weights and
+    batch, at full width and MP_PARITY_LAYERS layers: the dense model
+    (tp, sp ring, pp) and the MoE one (ep, 8 experts); loss and every
+    gradient leaf bitwise equal."""
+    import dataclasses
+    htt.init(device=dev, mesh_shape=(1, 1, 1, 1, 1),
+             axis_names=("dp", "tp", "sp", "ep", "pp"))
+    out = {}
+    try:
+        for label, kw, (b, s) in (
+                ("dense", dict(dp_axis="dp", tp_axis="tp", sp_axis="sp",
+                               attention="ring", pp_axis="pp"),
+                 (TRAIN_B, TRAIN_S)),
+                ("moe", dict(dp_axis="dp", ep_axis="ep", num_experts=8),
+                 MP_EP_PARITY_BATCH)):
+            cfg = flagship_cfg(htt.TransformerConfig, mlp_recompute=True,
+                               n_layers=MP_PARITY_LAYERS, **kw)
+            plain = dataclasses.replace(cfg, **PLAIN_AXES)
+            params = htt.init_params(
+                plain, torch.Generator(device=dev).manual_seed(3),
+                device=dev)
+            tokens, labels = mp_batch(cfg, b, s, dev, 4)
+            ref = mp_loss_grads(htt, plain, params, tokens, labels)
+            got = mp_loss_grads(htt, cfg, params, tokens, labels)
+            equal = ref[0] == got[0] and all(
+                torch.equal(a, c) for a, c in zip(ref[1], got[1]))
+            if not equal:
+                worst = max(float((a - c).abs().max())
+                            for a, c in zip(ref[1], got[1]))
+                raise AssertionError(
+                    f"mesh of ones ({label}) differs from the plain step: "
+                    f"loss {got[0]} vs {ref[0]}, worst grad diff {worst}")
+            out[label] = {"loss": got[0], "bitwise_equal": True,
+                          "leaves": len(got[1])}
+            del params
+    finally:
+        htt.shutdown()
+    return out
+
+
+def model_parallel_world_one(htt, fa, sq, card, dev="cuda") -> None:
+    """Phase 9 on one card: the ring's per-step body over virtual ring
+    positions with the kernels, and the mesh whose axes all have size 1
+    (``model parallel (world 1):`` line)."""
+    line = {"ring_virtual_positions": ring_virtual_positions(htt, fa, sq,
+                                                             dev),
+            "mesh_of_ones": mesh_of_ones(htt, fa, dev), "card": card}
+    log("model parallel (world 1): " + json.dumps(line))
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an "
@@ -3868,13 +4485,14 @@ def main(argv) -> int:
     resilient_only = argv[2:] == ["--resilient-only"]
     api_only = argv[2:] == ["--api-only"]
     launcher_only = argv[2:] == ["--launcher-only"]
+    mp_only = argv[2:] == ["--model-parallel-only"]
     if argv:
         if len(argv) not in (2, 3) or argv[0] != "--data-parallel" or \
                 (len(argv) == 3 and not (resilient_only or api_only
-                                         or launcher_only)):
+                                         or launcher_only or mp_only)):
             print("usage: chip_smoke.py [--data-parallel N "
-                  "[--resilient-only | --api-only | --launcher-only]]",
-                  file=sys.stderr)
+                  "[--resilient-only | --api-only | --launcher-only | "
+                  "--model-parallel-only]]", file=sys.stderr)
             return 2
         n_dp = int(argv[1])
         if not 2 <= n_dp <= torch.cuda.device_count():
@@ -3908,7 +4526,7 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if n_dp:
-        only = resilient_only or api_only or launcher_only
+        only = resilient_only or api_only or launcher_only or mp_only
         if not only:
             collectives_n_cards(n_dp, card)
             data_parallel(n_dp, card)
@@ -3918,6 +4536,8 @@ def main(argv) -> int:
             resilient_world(n_dp, card)
         if not only or launcher_only:
             launcher_worlds(n_dp, card)
+        if not only or mp_only:
+            model_parallel_world(n_dp, card)
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -3931,6 +4551,9 @@ def main(argv) -> int:
     errs.append(check_kernel(fa, kvc, gen, kvh=4, dtype=torch.bfloat16,
                              timed=True)["max_abs_err"])
     check_kernel(fa, kvc, gen, kvh=16, dtype=torch.float32, timed=False)
+    # a card's heads under TP serving at tp4 (--data-parallel 4)
+    errs.append(check_kernel(fa, kvc, gen, h=4, kvh=4, dtype=torch.bfloat16,
+                             timed=False)["max_abs_err"])
     flash_case, flash_errs = check_flash_all(fa, sq, gen)
     conv_case, conv_errs = check_conv_all(cb, gen)
     copy_case = check_stream_copy(sc, gen)
@@ -3964,6 +4587,10 @@ def main(argv) -> int:
     # launched processes share the card with this one)
     torch.cuda.empty_cache()
     launcher_world_one(card, uninterrupted)
+
+    # phase 9: model parallelism in a world of one
+    torch.cuda.empty_cache()
+    model_parallel_world_one(htt, fa, sq, card)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",

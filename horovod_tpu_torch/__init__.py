@@ -44,7 +44,14 @@ at its first launch. These paths are ported:
   code 75, multi-host over SSH, ``--virtual`` gloo worlds), the
   generation-respawn elastic launcher (``runner.elastic_run``),
   ``run(fn, np=N)``, and ``elastic`` (``TorchState``, ``ElasticSampler``,
-  ``elastic.run``, the driver and the live ``ResizeCoordinator``).
+  ``elastic.run``, the driver and the live ``ResizeCoordinator``);
+- the flagship's model parallelism on any mesh of its axes: tensor
+  (``parallel.tensor_parallel``), sequence (ring and Ulysses attention,
+  ``parallel.sequence``), expert (``parallel.moe``) and pipeline
+  (``parallel.pipeline``) parallelism over per-axis differentiable
+  collectives (``ops.collectives.bind_axis``, ``psum``, ``all_gather``,
+  ``all_to_all``, ``ppermute``), ``models.transformer.shard_params`` and
+  ``gather_params``, and tensor-parallel serving.
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``, which takes the kernels' plain PyTorch versions.

@@ -17,7 +17,10 @@ package computes them outside any Pallas kernel too. The last chunk is
 narrower when the block does not divide the vocabulary; the JAX package
 pads it with columns masked to -inf, which contribute nothing either way.
 
-Only the unsharded vocabulary (``tp_axis=None``) is ported.
+With ``tp_axis`` each rank streams its own vocab shard; the per-token
+(max, sum-exp, target) triples combine over tp with one pmax and two
+psums, and the backward recomputes each chunk's logits against the
+rank's own max (the global shift enters through the psum's cotangents).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from horovod_tpu_torch.config import knobs
+from horovod_tpu_torch.ops import collectives
 
 
 def default_block() -> int:
@@ -131,20 +135,26 @@ def blockwise_cross_entropy(x: torch.Tensor, head_local: torch.Tensor,
                             block: Optional[int] = None) -> torch.Tensor:
     """Per-token CE loss, streaming the LM head in vocab chunks.
 
-    x ``[.., D]`` hidden states; head_local ``[D, V]``; labels ``[..]``
-    int ids. Returns per-token f32 losses of labels' shape, with no
-    ``[.., V]`` intermediate in forward or backward. ``block`` defaults to
-    HOROVOD_CE_BLOCK_VOCAB."""
-    if tp_axis:
-        raise NotImplementedError(
-            f"tp_axis={tp_axis!r}: the vocab-sharded cross-entropy is not "
-            f"yet ported to horovod_tpu_torch")
+    x ``[.., D]`` hidden states; head_local ``[D, V_local]`` (the full
+    head when ``tp_axis`` is None, this rank's vocab shard otherwise);
+    labels ``[..]`` GLOBAL int ids. Returns per-token f32 losses of
+    labels' shape, with no ``[.., V]`` intermediate in forward or
+    backward. ``block`` defaults to HOROVOD_CE_BLOCK_VOCAB."""
     if block is None:
         block = default_block()
-    block = max(1, min(int(block), head_local.shape[-1]))
+    v_local = head_local.shape[-1]
+    block = max(1, min(int(block), v_local))
     shape = labels.shape
     x2 = x.reshape(-1, x.shape[-1])
     l2 = labels.reshape(-1).long()
+    if tp_axis:
+        l2 = l2 - collectives.axis_index(tp_axis) * v_local
     m, se, tgt = _LseParts.apply(x2, head_local, l2, block)
+    if tp_axis:
+        # the shift cancels in lse - target: off the AD path, as pmax is
+        m_g = collectives.pmax(m, tp_axis)
+        se = collectives.psum(se * torch.exp(m - m_g), tp_axis)
+        tgt = collectives.psum(tgt, tp_axis)
+        m = m_g
     loss = torch.log(se) + m - tgt
     return loss.reshape(shape)

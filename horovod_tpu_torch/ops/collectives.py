@@ -37,21 +37,32 @@ Product and Adasum (``ops/adasum.py``) with ``prescale_factor``/
 package). ``joined_ranks`` (indices along the axis) are ranks that joined
 (``eager.join``): they contribute the op's identity, and Average divides
 by the active count of each rank's group. ``allreduce_`` and
-``broadcast_`` work in place. ``psum`` is the differentiable sum over the
-ranks that a model calls inside a step whose axis is bound
-(``bind_axis``): sync batch norm. ``allreduce_async`` and
+``broadcast_`` work in place. ``allreduce_async`` and
 ``wire_sum_async`` start the SUMs of the bucketed gradient sync
 (``parallel/distributed.py``) and return a handle to wait on. Each
 collective of the eager API also has a ``*_start`` form returning a
 :class:`_Pending` (its ``torch.distributed`` works and the step that
 forms the result once they are done), which ``eager.py``'s handles wrap.
+
+**Inside a step** a model names the axes ``shard_map`` binds in the JAX
+package; here :func:`bind_axis` binds them, and :func:`psum`,
+:func:`pmean`, :func:`pmax`, :func:`all_gather`, :func:`all_to_all`,
+:func:`axis_index` and :func:`axis_size` run on the bound axis's group
+(the JAX package's ``lax`` collectives under ``check_vma=False``): the
+backward of ``psum`` is a ``psum`` of the cotangents over the same group,
+of ``all_gather`` a reduce-scatter, of ``all_to_all`` the all-to-all with
+split and concat swapped, and of :func:`ppermute` the inverse
+permutation; ``pmax`` has none. Every rank must issue the same
+collectives in the same order, in the backward too: a model keeps
+rank-dependent choices in tensors (masks), never in Python branches
+around a collective.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -160,10 +171,10 @@ def axis_rank(axis: AxisSpec = HVD_AXIS) -> int:
 
 
 def axis_size(axis: AxisSpec = HVD_AXIS) -> int:
-    """Ranks along ``axis``; inside a step that binds ``axis`` with
-    :func:`bind_axis`, the ranks :func:`psum` sums over."""
+    """Ranks along ``axis``; for a name bound with :func:`bind_axis`, the
+    ranks :func:`psum` sums over (``lax.axis_size``)."""
     if isinstance(axis, str) and axis in _bound_axes.get():
-        return get_context().size
+        axis = mesh_axis(axis)
     return get_context().topology.axis_size(axis)
 
 
@@ -721,34 +732,69 @@ def alltoall(tensor: torch.Tensor, splits=None, axis: AxisSpec = HVD_AXIS,
     return alltoall_start(tensor, splits, axis, process_set).wait()
 
 
-def ppermute(tensor: torch.Tensor, perm: Sequence[Tuple[int, int]],
-             axis: str = HVD_AXIS) -> torch.Tensor:
-    """Point-to-point permutation along ``axis``: for each ``(src, dst)``
-    pair (indices along the axis) member dst receives member src's
-    tensor; a member no pair sends to receives zeros (``lax.ppermute``).
-    Every pair of this rank goes in one ``batch_isend_irecv``; a self pair
-    is a local copy."""
-    g = get_context().axis_group(axis)
+def _check_perm(perm, n: int) -> List[Tuple[int, int]]:
     perm = [(int(s), int(d)) for s, d in perm]
     srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
     if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts) or any(
-            not (0 <= v < g.size) for v in srcs + dsts):
+            not (0 <= v < n) for v in srcs + dsts):
         raise ValueError(f"ppermute needs a partial permutation of "
-                         f"range({g.size}); got {perm}")
-    out = torch.zeros_like(tensor)
+                         f"range({n}); got {perm}")
+    return perm
+
+
+def ppermute_start(tensor: torch.Tensor, perm: Sequence[Tuple[int, int]],
+                   axis: AxisSpec = HVD_AXIS, tag: int = 0) -> _Pending:
+    """Start :func:`ppermute` (not differentiable): every send and receive
+    of this rank goes in one ``batch_isend_irecv``; the result is valid
+    once the handle is waited on. A ring over the whole axis has every
+    member in that first point-to-point call, which NCCL asks of a
+    group. ``tag`` tells apart (on gloo) exchanges in flight together
+    between the same ranks."""
+    g = get_context().axis_group(axis)
+    perm = _check_perm(perm, g.size)
+    out = torch.zeros_like(tensor, memory_format=torch.contiguous_format)
     ops = []
     src_b, out_b = _bytes(tensor), out.view(-1).view(torch.uint8)
     for s, d in perm:
         if s == d == g.index:
             out.copy_(tensor)
         elif s == g.index:
-            ops.append(dist.P2POp(dist.isend, src_b, g.members[d], g.pg))
+            ops.append(dist.P2POp(dist.isend, src_b, g.members[d], g.pg,
+                                  tag=tag))
         elif d == g.index:
-            ops.append(dist.P2POp(dist.irecv, out_b, g.members[s], g.pg))
-    if ops:
-        for work in dist.batch_isend_irecv(ops):
-            wait_work(work)
-    return out
+            ops.append(dist.P2POp(dist.irecv, out_b, g.members[s], g.pg,
+                                  tag=tag))
+    works = dist.batch_isend_irecv(ops) if ops else []
+    return _Pending(works, lambda: out)
+
+
+class _PPermute(torch.autograd.Function):
+    """The backward of a permutation is the inverse permutation of the
+    cotangents (``lax.ppermute``'s transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, perm, axis):
+        ctx.perm, ctx.axis = perm, axis
+        return ppermute_start(x, perm, axis).wait()
+
+    @staticmethod
+    def backward(ctx, dy):
+        inv = [(d, s) for s, d in ctx.perm]
+        return ppermute_start(dy, inv, ctx.axis).wait(), None, None
+
+
+def ppermute(tensor: torch.Tensor, perm: Sequence[Tuple[int, int]],
+             axis: AxisSpec = HVD_AXIS) -> torch.Tensor:
+    """Point-to-point permutation along ``axis``: for each ``(src, dst)``
+    pair (indices along the axis) member dst receives member src's
+    tensor; a member no pair sends to receives zeros (``lax.ppermute``).
+    Every pair of this rank goes in one ``batch_isend_irecv``; a self pair
+    is a local copy. Differentiable: the backward sends the cotangents
+    back along the inverse permutation. Inside a step, pass
+    ``mesh_axis(name)`` for a bound axis name."""
+    g = get_context().axis_group(axis)
+    perm = _check_perm(perm, g.size)
+    return _PPermute.apply(tensor, perm, axis)
 
 
 def broadcast_start(tensor: torch.Tensor, root_rank: int = 0,
@@ -900,51 +946,192 @@ def two_level_allreduce(tensor: torch.Tensor, op: ReduceOp = ReduceOp.SUM,
     return _scale_(out, postscale_factor)
 
 
+
+
 # ---------------------------------------------------------------------------
 # named axes inside a step (the JAX package's shard_map-bound axis names)
 # ---------------------------------------------------------------------------
 
-_bound_axes: contextvars.ContextVar[Tuple[str, ...]] = contextvars.ContextVar(
-    "horovod_tpu_torch_bound_axes", default=())
+_bound_axes: contextvars.ContextVar[Dict[str, bool]] = contextvars.ContextVar(
+    "horovod_tpu_torch_bound_axes", default={})
 
 
 @contextlib.contextmanager
-def bind_axis(name: str):
-    """Within the block, :func:`psum` over ``name`` sums over every rank
-    of the world (what ``shard_map`` binding the data-parallel axis does
-    in the JAX package)."""
-    token = _bound_axes.set(_bound_axes.get() + (name,))
+def bind_axis(*names: str):
+    """Within the block the axis ``names`` are bound, as ``shard_map``
+    binds its mesh's axis names in the JAX package: :func:`psum`,
+    :func:`pmax`, :func:`pmean`, :func:`all_gather`, :func:`all_to_all`,
+    :func:`axis_index` and :func:`axis_size` take them. A name the mesh
+    has stands for that axis (this rank's row along it); any other name
+    stands for every rank (a data-parallel axis name on the default
+    ``hvd`` mesh, as ``parallel/distributed.py`` reads sync axes)."""
+    bound = dict(_bound_axes.get())
+    bound.update((n, True) for n in names if n)
+    token = _bound_axes.set(bound)
     try:
         yield
     finally:
         _bound_axes.reset(token)
 
 
-class _AllreduceSum(torch.autograd.Function):
-    """Differentiable sum over the ranks: the backward is the sum of the
-    cotangents over the ranks (the transpose of ``psum``)."""
-
-    @staticmethod
-    def forward(ctx, x):
-        out = x.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g, op=dist.ReduceOp.SUM)
-        return g
+def axis_of(name: str) -> AxisSpec:
+    """The mesh axis a model's axis name stands for: the mesh's axis of
+    that name, or every rank (``hvd``) for a name the mesh lacks."""
+    return name if name in get_context().topology.mesh.shape else HVD_AXIS
 
 
-def psum(x: torch.Tensor, axis_name: str) -> torch.Tensor:
-    """Differentiable sum of ``x`` over the ranks of the bound axis
-    ``axis_name``; raises when the axis is not bound (as ``lax.psum``
-    does outside ``shard_map``)."""
+def mesh_axis(axis_name: str) -> AxisSpec:
+    """:func:`axis_of` the bound name ``axis_name``; raises ``NameError``
+    when it is not bound (as ``lax.psum`` does outside ``shard_map``)."""
     if axis_name not in _bound_axes.get():
         raise NameError(f"unbound axis name: {axis_name!r} (bind it with "
                         f"collectives.bind_axis, or "
                         f"data_parallel_train_step(bind_axis=True))")
-    if get_context().size == 1:
+    return axis_of(axis_name)
+
+
+def _bound_group(axis_name: str) -> Group:
+    axis = mesh_axis(axis_name)
+    return get_context().axis_group(axis)
+
+
+def axis_index(axis_name: str) -> int:
+    """This rank's index along the bound axis ``axis_name``
+    (``lax.axis_index``)."""
+    return _bound_group(axis_name).index
+
+
+def bound_axis_size(axis_name: str) -> int:
+    """Ranks along the bound axis ``axis_name`` (``lax.axis_size``);
+    raises ``NameError`` when it is not bound, unlike :func:`axis_size`,
+    which also reads the mesh."""
+    return _bound_group(axis_name).size
+
+
+def _contig_clone(x: torch.Tensor) -> torch.Tensor:
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _all_reduce_sum(x: torch.Tensor, g: Group) -> torch.Tensor:
+    out = _contig_clone(x)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=g.pg)
+    return out
+
+
+class _Psum(torch.autograd.Function):
+    """Sum over one group; the backward sums the cotangents over the same
+    group (``lax.psum``'s transpose under ``check_vma=False``)."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return _all_reduce_sum(x, g)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _all_reduce_sum(dy, ctx.g), None
+
+
+def psum(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """Differentiable sum of ``x`` over the ranks of the bound axis
+    ``axis_name`` (its group, in forward and backward); raises
+    ``NameError`` when the axis is not bound."""
+    g = _bound_group(axis_name)
+    return x if g.pg is None else _Psum.apply(x, g)
+
+
+def pmean(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """Differentiable mean over the bound axis ``axis_name``."""
+    return psum(x, axis_name) / _bound_group(axis_name).size
+
+
+def pmax(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """Maximum over the bound axis ``axis_name``, without a gradient (the
+    JAX package takes it on ``stop_gradient`` values only)."""
+    g = _bound_group(axis_name)
+    out = _contig_clone(x.detach())
+    if g.pg is not None:
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=g.pg)
+    return out
+
+
+def _gather_dim(x: torch.Tensor, g: Group, dim: int) -> torch.Tensor:
+    """Every member's ``x`` concatenated along ``dim`` in member order."""
+    out = _all_gather(_contig_clone(x.movedim(dim, 0)), g)
+    return out.movedim(0, dim)
+
+
+def _scatter_sum_dim(x: torch.Tensor, g: Group, dim: int) -> torch.Tensor:
+    """Chunk i of ``dim`` summed over the members lands on member i."""
+    out = _reduce_scatter(_contig_clone(x.movedim(dim, 0)), ReduceOp.SUM, g)
+    return out.movedim(0, dim)
+
+
+class _AllGather(torch.autograd.Function):
+    """Tiled all-gather along ``dim``; the backward is a reduce-scatter
+    (sum) along it."""
+
+    @staticmethod
+    def forward(ctx, x, g, dim):
+        ctx.g, ctx.dim = g, dim
+        return _gather_dim(x, g, dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _scatter_sum_dim(dy, ctx.g, ctx.dim), None, None
+
+
+def all_gather(x: torch.Tensor, axis_name: str, axis: int = 0,
+               tiled: bool = True) -> torch.Tensor:
+    """Differentiable ``lax.all_gather(x, axis_name, axis=axis,
+    tiled=True)`` over the bound axis: the members' ``x`` concatenated
+    along ``axis`` in their order. Only the tiled form is ported."""
+    if not tiled:
+        raise NotImplementedError("all_gather: only tiled=True is ported")
+    g = _bound_group(axis_name)
+    if g.pg is None:
         return x
-    return _AllreduceSum.apply(x)
+    return _AllGather.apply(x, g, axis % x.dim())
+
+
+def _a2a_dims(x: torch.Tensor, g: Group, split: int,
+              concat: int) -> torch.Tensor:
+    """Tiled all-to-all: chunk j of ``split`` goes to member j, and the
+    chunks received are concatenated along ``concat`` in member order."""
+    n = g.size
+    if x.shape[split] % n:
+        raise ValueError(f"all_to_all: dim {split} of {tuple(x.shape)} "
+                         f"does not split over {n} ranks")
+    xs = x.movedim(split, 0)
+    xs = xs.reshape((n, xs.shape[0] // n) + tuple(xs.shape[1:]))
+    recv = _all_to_all_start(xs.contiguous(), g, [1] * n, [1] * n).wait()
+    return torch.cat([b.movedim(0, split) for b in recv.unbind(0)],
+                     dim=concat)
+
+
+class _AllToAll(torch.autograd.Function):
+    """Tiled all-to-all; the backward is the all-to-all with ``split``
+    and ``concat`` swapped."""
+
+    @staticmethod
+    def forward(ctx, x, g, split, concat):
+        ctx.g, ctx.split, ctx.concat = g, split, concat
+        return _a2a_dims(x, g, split, concat)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _a2a_dims(dy, ctx.g, ctx.concat, ctx.split), None, None, None
+
+
+def all_to_all(x: torch.Tensor, axis_name: str, split_axis: int,
+               concat_axis: int, tiled: bool = True) -> torch.Tensor:
+    """Differentiable ``lax.all_to_all(x, axis_name, split_axis,
+    concat_axis, tiled=True)`` over the bound axis. Only the tiled form
+    is ported (for ``split_axis == concat_axis`` with that dim equal to
+    the axis size, the untiled form gives the same tensor)."""
+    if not tiled:
+        raise NotImplementedError("all_to_all: only tiled=True is ported")
+    g = _bound_group(axis_name)
+    if g.pg is None:
+        return x
+    return _AllToAll.apply(x, g, split_axis % x.dim(), concat_axis % x.dim())

@@ -25,7 +25,9 @@ and whose backward is the two backward kernels, as the JAX package's
 ``custom_vjp`` is.
 
 ``LAUNCHES`` counts launches per kernel, so a run can show that its main
-path went through the kernels.
+path went through the kernels; ``OFFSET_LAUNCHES`` counts the flash
+launches among them at a nonzero global offset (ring attention's blocks
+past the first).
 """
 
 from __future__ import annotations
@@ -40,14 +42,23 @@ from horovod_tpu_torch.ops._build import launch as _launch
 
 LAUNCHES: Dict[str, int] = {"paged_decode": 0, "flash_fwd": 0,
                             "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+OFFSET_LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
+                                   "flash_bwd_dkv": 0}
 
 # Positions of a sequence one block of the paged-decode kernel takes.
 PAGED_CHUNK = 128
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, OFFSET_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _count(name: str, q_offset: int, k_offset: int) -> None:
+    LAUNCHES[name] += 1
+    if q_offset or k_offset:
+        OFFSET_LAUNCHES[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -106,7 +117,7 @@ def flash_block_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             m.data_ptr(), l.data_ptr(), b, h, s_q, s_k, d, int(q_offset),
             int(k_offset), float(scale), int(bool(causal)),
             _DTYPE_CODE[q.dtype])
-    LAUNCHES["flash_fwd"] += 1
+    _count("flash_fwd", q_offset, k_offset)
     return o, m, l
 
 
@@ -145,10 +156,10 @@ def flash_bwd_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            lse.data_ptr(), dD.data_ptr())
     _launch("flash_bwd", "hvd_flash_bwd_dq", q.device, *ins, dq.data_ptr(),
             *tail)
-    LAUNCHES["flash_bwd_dq"] += 1
+    _count("flash_bwd_dq", q_offset, k_offset)
     _launch("flash_bwd", "hvd_flash_bwd_dkv", q.device, *ins, dk.data_ptr(),
             dv.data_ptr(), *tail)
-    LAUNCHES["flash_bwd_dkv"] += 1
+    _count("flash_bwd_dkv", q_offset, k_offset)
     return dq, dk, dv
 
 

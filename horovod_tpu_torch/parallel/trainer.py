@@ -1,15 +1,17 @@
-"""Data-parallel trainers: the port's "DistributedOptimizer loop".
+"""Trainers: the port's "DistributedOptimizer loop".
 
-The counterpart of ``horovod_tpu/parallel/trainer.py`` for ``dp_axis``
-alone. One step is: forward and backward on this rank's rows of the
-global batch (Horovod's convention: each rank feeds its own shard), the
-gradient sync (one fused allreduce per dtype over the default process
-group, NCCL on the card, then 1/W), and the optimizer update in place.
-``make_transformer_train_step`` trains the flagship TransformerLM;
-``make_transformer_train_step_fused`` trains it with the bucketed sync
-launched from the gradient hooks and the optimizer update in each
-bucket's epilogue (``DistributedApply``); ``data_parallel_train_step``
-trains any ``nn.Module`` (ResNet) through a ``DistributedOptimizer``.
+The counterpart of ``horovod_tpu/parallel/trainer.py``. One step is:
+forward and backward on this rank's block of the global batch (Horovod's
+convention: each rank feeds its own shard), the gradient sync (one fused
+allreduce per (axes, dtype) and axis over that axis's process group,
+NCCL on the card, then 1/W), and the optimizer update in place.
+``make_transformer_train_step`` trains the flagship TransformerLM on any
+mesh of its axes (data, tensor, sequence, expert and pipeline
+parallelism); ``make_transformer_train_step_fused`` trains it
+data-parallel with the bucketed sync launched from the gradient hooks
+and the optimizer update in each bucket's epilogue (``DistributedApply``);
+``data_parallel_train_step`` trains any ``nn.Module`` (ResNet) through a
+``DistributedOptimizer``.
 
 ``train_loop`` is the resilient step loop of the JAX package
 (``horovod_tpu/parallel/trainer.py:203-385``): restore before step 1,
@@ -44,19 +46,23 @@ class TrainState(NamedTuple):
 
 
 def sync_gradients(grads: Any, sync_axes: Any, world: int) -> Any:
-    """Sum each gradient leaf over its sync axes and scale by 1/W.
+    """Sum each gradient leaf once over the group of each of its sync
+    axes, then scale by 1/W (the JAX ``sync_gradients``: a psum per axis).
 
-    Leaves that share an axes tuple sync as ONE fused allreduce per dtype
-    (the fusion buffer of the reference): per step the collective count
-    is the number of (axes group, dtype) pairs, not of parameters. Every
-    axis of this slice is the data-parallel world, the default process
-    group. The scale is skipped at W = 1. The reduction runs in place on
-    the packed buffer (or, unbatched, on the gradient itself)."""
+    Leaves that share an axes tuple sync as ONE fused allreduce per
+    (axes, dtype) and axis (the fusion buffer of the reference): per step
+    the collective count is the number of (axes group, dtype) pairs times
+    their axes, not the number of parameters. The scale is skipped at
+    W = 1. The reduction runs in place on the packed buffer (or,
+    unbatched, on the gradient itself). An axis name the mesh lacks
+    stands for every rank (``collectives.axis_of``)."""
 
     def make_fn(axes):
+        mesh = [collectives.axis_of(a) for a in axes]
+
         def one(buf):
-            for _ in axes:
-                buf = collectives.allreduce_(buf, ReduceOp.SUM)
+            for ax in mesh:
+                buf = collectives.allreduce_(buf, ReduceOp.SUM, ax)
             return buf.mul_(1.0 / world) if world != 1 else buf
         return one
 
@@ -69,67 +75,95 @@ def _as_tokens(x, device: torch.device) -> torch.Tensor:
     return x.to(device=device, dtype=torch.long)
 
 
+def mesh_world(cfg: tfm.TransformerConfig) -> int:
+    """W of the 1/W scale: the product of the sizes of the configuration's
+    mesh axes (1 without any)."""
+    axes = tfm.mesh_axes(cfg)
+    if not axes:
+        return 1
+    topo = context.get_context().topology
+    return int(np.prod([topo.axis_size(collectives.axis_of(a)) for a in axes]))
+
+
+def _broadcast_replicas(cfg: tfm.TransformerConfig, params) -> None:
+    """Make every leaf equal over the axes it is replicated on: each is
+    broadcast from the first rank along its sync axes (ranks on different
+    tp, ep or pp shards hold different leaves)."""
+    sync = tree_util.tree_leaves(tfm.grad_sync_axes(cfg))
+    with torch.no_grad():
+        for t, axes in zip(tree_util.tree_leaves(params), sync):
+            if axes:
+                collectives.broadcast_(
+                    t.data, 0, tuple(collectives.axis_of(a) for a in axes))
+
+
 def make_transformer_train_step(
     cfg: tfm.TransformerConfig,
     make_optimizer: Callable[[list], torch.optim.Optimizer],
     *,
     device="cuda",
 ) -> Tuple[Callable, Callable]:
-    """Build ``(init_fn, train_step)`` for the flagship TransformerLM.
+    """Build ``(init_fn, train_step)`` for the flagship TransformerLM on
+    the runtime's mesh (the JAX ``make_transformer_train_step``).
 
-    - ``init_fn(params) -> TrainState``: takes a port parameter tree (from
-      ``init_params`` or ``params_from_numpy``) on ``device``, broadcasts
-      every leaf from rank 0 in place (so all ranks start equal), makes the
-      leaves require grad, and builds the optimizer with
-      ``make_optimizer(leaves)`` (leaves in sorted-key tree order).
+    - ``init_fn(params) -> TrainState``: takes this rank's parameter
+      shard (``shard_params`` of a global tree from ``init_params`` or
+      ``params_from_numpy``) on ``device``, broadcasts every leaf in
+      place from the first rank of the axes it is replicated on (so all
+      replicas start equal), makes the leaves require grad, and builds
+      the optimizer with ``make_optimizer(leaves)`` (leaves in sorted-key
+      tree order).
     - ``train_step(state, tokens, labels) -> (state, loss)``: tokens and
-      labels are this rank's rows ``[B/W, S]`` of the global batch (numpy
-      or tensors); the returned loss is the global mean over all ranks'
-      tokens, an f32 scalar on ``device``.
+      labels are this rank's block of the global batch (``shard_batch``;
+      for data parallelism alone, its rows ``[B/W, S]``), numpy or
+      tensors; the step binds the configuration's axes, sums each
+      gradient over its replicated axes' groups and scales by 1/W (W the
+      product of the mesh axes), and updates in place. The loss is the
+      global mean over every token, an f32 scalar on ``device``.
 
     ``torch.optim.SGD(leaves, lr=0.01, momentum=0.9)`` is
     ``optax.sgd(0.01, momentum=0.9)`` term for term: both keep
     ``trace = g + 0.9 * trace`` (the first step's trace is g) and apply
-    ``p -= 0.01 * trace``. The update runs in place.
+    ``p -= 0.01 * trace``.
 
-    With ``cfg.dp_axis`` set the runtime must be initialized
-    (``horovod_tpu_torch.init``), and the world is every rank; with
-    ``dp_axis=None`` the step runs alone, with no collective."""
+    With any mesh axis set the runtime must be initialized
+    (``horovod_tpu_torch.init``, with ``mesh_shape``/``axis_names``
+    naming the axes when there are several); a data-parallel axis alone
+    may be absent from the mesh and then spans every rank. With every
+    axis None the step runs alone, with no collective."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     sync = tfm.grad_sync_axes(cfg)
-
-    def world() -> int:
-        return context.size() if cfg.dp_axis else 1
+    axes = tfm.mesh_axes(cfg)
 
     def init_fn(params) -> TrainState:
         leaves = tree_util.tree_leaves(params)
         if any(t.device != dev for t in leaves):
             raise ValueError(f"init_fn: every parameter must be on {dev}")
-        if cfg.dp_axis:
-            broadcast_parameters(params, root_rank=0)
+        if axes:
+            tfm.check_mesh(cfg)
+            _broadcast_replicas(cfg, params)
         for t in leaves:
             t.requires_grad_(True)
         return TrainState(0, params, make_optimizer(leaves))
 
     def train_step(state: TrainState, tokens, labels
                    ) -> Tuple[TrainState, torch.Tensor]:
-        w = world()
+        w = mesh_world(cfg)
         tokens, labels = _as_tokens(tokens, dev), _as_tokens(labels, dev)
         leaves, treedef = tree_util.tree_flatten(state.params)
-        loss = tfm.loss_fn(cfg, state.params, tokens, labels)
-        grads = torch.autograd.grad(loss, leaves)
-        grads = sync_gradients(tree_util.tree_unflatten(treedef, list(grads)),
-                               sync, w)
+        with collectives.bind_axis(*axes):
+            loss = tfm.loss_fn(cfg, state.params, tokens, labels)
+            grads = torch.autograd.grad(loss, leaves)
+            grads = sync_gradients(
+                tree_util.tree_unflatten(treedef, list(grads)), sync, w)
         for p, g in zip(leaves, tree_util.tree_leaves(grads)):
             p.grad = g
         state.opt_state.step()
         state.opt_state.zero_grad(set_to_none=True)
-        loss = loss.detach()
-        if w != 1:
-            loss = collectives.allreduce_(loss, ReduceOp.AVERAGE)
-        return TrainState(state.step + 1, state.params, state.opt_state), loss
+        return (TrainState(state.step + 1, state.params, state.opt_state),
+                loss.detach())
 
     return init_fn, train_step
 
@@ -151,9 +185,17 @@ def make_transformer_train_step_fused(
     hooks launch each bucket of the reverse sorted-key leaf list (the JAX
     package's order, so the plans and the fp8 scales are the reference's)
     once its gradients are complete, and the update of each bucket runs in
-    place as soon as its sync completes. The loss is averaged over the
-    ranks. The error-feedback residual rides ``state.opt_state``."""
+    place as soon as its sync completes. The step binds ``dp_axis``, so
+    the loss is the global mean, as in :func:`make_transformer_train_step`.
+    The error-feedback residual rides ``state.opt_state``."""
     from horovod_tpu_torch.parallel.distributed import DistributedApply
+    others = [a for a in tfm.mesh_axes(cfg) if a != cfg.dp_axis]
+    if others:
+        raise NotImplementedError(
+            f"make_transformer_train_step_fused: axes {others} (tensor, "
+            f"sequence, expert or pipeline parallelism) are not ported to "
+            f"the fused step (ROADMAP A.12c); use make_transformer_train_"
+            f"step, which takes every mesh axis")
     if not isinstance(apply_opt, DistributedApply):
         raise TypeError(
             "make_transformer_train_step_fused needs a DistributedApply "
@@ -163,9 +205,6 @@ def make_transformer_train_step_fused(
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     attached = {}
-
-    def world() -> int:
-        return context.size() if cfg.dp_axis else 1
 
     def init_fn(params) -> TrainState:
         leaves = tree_util.tree_leaves(params)
@@ -192,16 +231,14 @@ def make_transformer_train_step_fused(
         launcher.bind(None, tree_util.tree_leaves(state.opt_state.residual)
                       if launcher.sync.ef else None)
         tokens, labels = _as_tokens(tokens, dev), _as_tokens(labels, dev)
-        loss = tfm.loss_fn(cfg, state.params, tokens, labels)
-        loss.backward()
+        with collectives.bind_axis(cfg.dp_axis):
+            loss = tfm.loss_fn(cfg, state.params, tokens, labels)
+            loss.backward()
         params, opt_state = apply_opt.apply_attached(launcher, state.params,
                                                      state.opt_state)
         for p in leaves:
             p.grad = None
-        loss = loss.detach()
-        if world() != 1:
-            loss = collectives.allreduce_(loss, ReduceOp.AVERAGE)
-        return TrainState(state.step + 1, params, opt_state), loss
+        return TrainState(state.step + 1, params, opt_state), loss.detach()
 
     return init_fn, train_step
 

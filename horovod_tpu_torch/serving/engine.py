@@ -17,8 +17,16 @@ PyTorch runs eagerly, so there is no AOT build and no artifact store:
 ``stats()`` keeps ``builds = 0`` and ``store_outcomes = {}`` so its keys
 match the JAX engine's. The layer ``lax.scan`` becomes a Python loop
 over the stacked layer leaves, and the page pool is updated in place.
-Tensor parallelism, speculative decoding and ``load_for_serving`` come in
-later slices.
+
+Tensor parallelism (``cfg.tp_axis``): one engine per rank of the mesh's
+``tp`` axis (``init(mesh_shape=..., axis_names=...)``), each holding its
+shard of the parameters (``param_specs``) and a page pool of its
+``n_heads / tp`` KV heads (the JAX engine's ``kv_spec = P(None, None,
+None, tp, None)``). The step bodies run with ``tp`` bound: the
+row-parallel projections psum over it and the logits are all-gathered,
+so every rank picks the same greedy token. Every rank must run the same
+scheduler on the same requests. Speculative decoding and
+``load_for_serving`` come in later slices.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch
 
 from horovod_tpu_torch.config import knobs
 from horovod_tpu_torch.models import transformer as tfm
+from horovod_tpu_torch.ops import collectives
 from horovod_tpu_torch.parallel import tensor_parallel as tp_lib
 from horovod_tpu_torch.serving import kv_cache as kvc
 from horovod_tpu_torch.utils.device import resolve_device
@@ -61,12 +70,7 @@ def _check_cfg(cfg: tfm.TransformerConfig) -> None:
             "serving supports the dense TP/DP transformer only; got "
             f"axes {unsupported or 'none'}, num_experts="
             f"{cfg.num_experts}. Build a serving TransformerConfig with "
-            "sp/ep/pp axes None.")
-    if cfg.tp_axis:
-        raise ValueError(
-            f"tp_axis={cfg.tp_axis!r}: tensor-parallel serving is not yet "
-            f"ported to horovod_tpu_torch; build the config with "
-            f"tp_axis=None")
+            "sp/ep/pp axes None (TP via tp_axis is supported).")
 
 
 def _check_draft(spec: str) -> None:
@@ -112,8 +116,12 @@ def _mlp(cfg, lp, x):
 
 
 def _gather_logits(cfg, x, head):
-    """[.., D] hidden -> full-vocab f32 logits (computed in cfg.dtype)."""
-    return (x @ head.to(cfg.dtype)).float()
+    """[.., D] hidden -> full-vocab f32 logits (computed in cfg.dtype; the
+    tp shards gathered)."""
+    logits = (x @ head.to(cfg.dtype)).float()
+    if cfg.tp_axis:
+        logits = collectives.all_gather(logits, cfg.tp_axis, axis=-1)
+    return logits
 
 
 def _layer(params: Dict[str, Any], i: int) -> Dict[str, torch.Tensor]:
@@ -211,7 +219,9 @@ def _prefill_body(cfg: tfm.TransformerConfig, params: Any,
 # ---------------------------------------------------------------------------
 
 class ServeEngine:
-    """Paged-cache inference engine on one device.
+    """Paged-cache inference engine on one device (one rank of the tp
+    axis under tensor parallelism, with the GLOBAL parameters given:
+    each rank keeps its shard).
 
     Owns the page pools, the host-side allocator and block tables, and
     the two step bodies; the continuous-batching policy lives in
@@ -252,8 +262,14 @@ class ServeEngine:
             knobs.get("HOROVOD_SERVE_DRAFT") if draft is None else draft)
         _check_draft(self.draft_spec)
 
+        tp = cfg.tp_axis
+        self.tp_size = (collectives.get_context().topology.axis_size(
+            collectives.axis_of(tp)) if tp else 1)
+        if cfg.n_heads % self.tp_size:
+            raise ValueError(f"n_heads={cfg.n_heads} not divisible by tp="
+                             f"{self.tp_size}")
         self.pool = kvc.PagePool(cfg.n_layers, pool_pages, self.page,
-                                 cfg.n_heads, cfg.head_dim,
+                                 cfg.n_heads // self.tp_size, cfg.head_dim,
                                  dtype=cfg.dtype, device=self.device)
         self.allocator = kvc.PageAllocator(pool_pages)
         self.tables = kvc.BlockTables(self.slots, self.n_max_pages,
@@ -276,13 +292,25 @@ class ServeEngine:
             self.pool.nbytes() / 2 ** 20, self.buckets)
 
     def _place(self, params: Any) -> Any:
+        def tensors(tree):
+            if isinstance(tree, dict):
+                return {k: tensors(v) for k, v in tree.items()}
+            return torch.as_tensor(tree)
+
         def place(tree, name=""):
             if isinstance(tree, dict):
                 return {k: place(v, k) for k, v in tree.items()}
-            t = torch.as_tensor(tree)
-            dt = self.cfg.dtype if name in _CAST_AT_USE else t.dtype
-            return t.to(device=self.device, dtype=dt)
+            dt = self.cfg.dtype if name in _CAST_AT_USE else tree.dtype
+            return tree.to(device=self.device, dtype=dt)
+
+        params = tensors(params)
+        if self.cfg.tp_axis:
+            params = tfm.shard_params(self.cfg, params)
         return place(params)
+
+    def _bound(self):
+        """The tp axis bound around a step body (nothing without TP)."""
+        return collectives.bind_axis(*(a for a in (self.cfg.tp_axis,) if a))
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -369,10 +397,11 @@ class ServeEngine:
         bucket = self.bucket_for(n_real)
         chunk = np.zeros((bucket,), np.int32)
         chunk[:n_real] = prompt[start:start + n_real]
-        tok, self.last_logits = _prefill_body(
-            self.cfg, self.params, self.k_pages, self.v_pages,
-            self._tensor(self.tables.tables[slot]), start, n_real,
-            self._tensor(chunk))
+        with self._bound():
+            tok, self.last_logits = _prefill_body(
+                self.cfg, self.params, self.k_pages, self.v_pages,
+                self._tensor(self.tables.tables[slot]), start, n_real,
+                self._tensor(chunk))
         start += n_real
         if start < prompt.size:
             return start, None
@@ -407,10 +436,11 @@ class ServeEngine:
             ln_np = ln_np.copy()
             bt_np[~active] = self.pool.scratch_page
             ln_np[~active] = 0
-        nxt, self.last_logits = _decode_body(
-            self.cfg, self.params, self.k_pages, self.v_pages,
-            self._tensor(bt_np), self._tensor(ln_np),
-            self._tensor(np.asarray(tokens, np.int32)))
+        with self._bound():
+            nxt, self.last_logits = _decode_body(
+                self.cfg, self.params, self.k_pages, self.v_pages,
+                self._tensor(bt_np), self._tensor(ln_np),
+                self._tensor(np.asarray(tokens, np.int32)))
         self.tables.lengths[active] += 1
         return nxt.cpu().numpy()
 
@@ -443,5 +473,5 @@ class ServeEngine:
             "spec_k": 0,
             "builds": self.builds,
             "store_outcomes": dict(self.store_outcomes),
-            "tp": 1,
+            "tp": self.tp_size,
         }

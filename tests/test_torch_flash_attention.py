@@ -227,10 +227,12 @@ def test_local_attention_keeps_dtype_and_matches_dense():
 
 
 def test_sequence_parallel_attention_is_not_ported():
+    """Ring and Ulysses attention are ported (tests/test_torch_sequence.py)
+    and, as inside the JAX package's shard_map, need their axis bound."""
     q = torch.zeros(1, 8, 2, 16)
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NameError, match="unbound axis"):
         sp.ring_attention(q, q, q, "sp")
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NameError, match="unbound axis"):
         sp.ulysses_attention(q, q, q, "sp")
 
 

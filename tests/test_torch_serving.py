@@ -348,7 +348,8 @@ def test_engine_rejects_what_the_slice_does_not_serve(jparams):
     params = params_from_numpy(_np_tree(jparams), "cpu")
     with pytest.raises(ValueError, match="dense TP/DP"):
         ServeEngine(_cfg(sp_axis="sp"), params, device="cpu")
-    with pytest.raises(ValueError, match="not yet ported"):
+    # tensor parallelism is served, on the runtime's mesh
+    with pytest.raises(RuntimeError, match="not been initialized"):
         ServeEngine(_cfg(tp_axis="tp"), params, device="cpu")
     with pytest.raises(ValueError, match="not yet ported"):
         ServeEngine(_cfg(), params, device="cpu", draft="ngram:3")

@@ -115,7 +115,8 @@ def test_blockwise_ce_default_block_reads_the_knob(monkeypatch):
     assert ce.default_block() == 1024
     monkeypatch.setenv("HOROVOD_CE_BLOCK_VOCAB", "0")
     assert ce.default_block() == 0 == jce.default_block()
-    with pytest.raises(NotImplementedError, match="tp_axis"):
+    # the vocab-sharded form is ported; its axis must be bound
+    with pytest.raises(NameError, match="unbound axis"):
         ce.blockwise_cross_entropy(torch.zeros(2, 4), torch.zeros(4, 8),
                                    torch.zeros(2, dtype=torch.long), "tp")
 
@@ -173,14 +174,14 @@ def test_logits_and_wrapper_match_jax(np_params):
 
 
 def test_later_slices_raise_not_implemented(np_params):
+    """Every mesh axis is ported (tests/test_torch_model_parallel.py); as
+    inside the JAX package's shard_map, every axis of the configuration,
+    the data axis included, must be bound."""
     params = htt.params_from_numpy(np_params, device="cpu")
     tokens = torch.zeros(1, 8, dtype=torch.long)
-    for kw, what in ((dict(tp_axis="tp"), "slice 3"),
-                     (dict(sp_axis="sp"), "slice 4"),
-                     (dict(ep_axis="ep"), "slice 4"),
-                     (dict(pp_axis="pp"), "slice 4"),
-                     (dict(num_experts=2), "slice 4")):
-        with pytest.raises(NotImplementedError, match=what):
+    for kw in (dict(dp_axis="dp"), dict(tp_axis="tp"), dict(sp_axis="sp"),
+               dict(ep_axis="ep"), dict(pp_axis="pp")):
+        with pytest.raises(NameError, match="unbound axis"):
             tfm.loss_fn(_cfg(**kw), params, tokens, tokens)
     with pytest.raises(ValueError, match="max_seq"):
         tfm.forward(_cfg(max_seq=4), params, tokens)
@@ -271,9 +272,9 @@ def test_sync_gradients_fuses_and_scales(monkeypatch):
         calls = []
         real = trainer.collectives.allreduce_
 
-        def counting(buf, op):
+        def counting(buf, op, *axis):
             calls.append(tuple(buf.shape))
-            return real(buf, op)
+            return real(buf, op, *axis)
 
         monkeypatch.setattr(trainer.collectives, "allreduce_", counting)
         out = trainer.sync_gradients(grads, axes, world=4)

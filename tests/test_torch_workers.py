@@ -625,6 +625,202 @@ def _value_and_grad_scenario(rank, sc, sets):
             "grad|a": grads["a"].numpy(), "grad|b": grads["b"].numpy()}
 
 
+# ---------------------------------------------------------------------------
+# model parallelism: scenarios on a mesh (init(mesh_shape=, axis_names=))
+# ---------------------------------------------------------------------------
+
+def _shard_dim(x, axis, dim):
+    """This rank's block of ``x`` along ``dim`` by its index along the
+    mesh ``axis`` (a name or a tuple)."""
+    from horovod_tpu_torch.ops import collectives
+    n, i = collectives.axis_size(axis), collectives.axis_rank(axis)
+    blk = x.shape[dim] // n
+    return x.narrow(dim, i * blk, blk).contiguous()
+
+
+def _mp_grads_scenario(rank, sc, sets):
+    """The flagship's loss and synced gradients on this rank's shards
+    (``cfg`` port config, ``params`` global numpy tree, ``tokens`` and
+    ``labels`` the global batch), the gradients gathered back to the
+    global tree (``g|<i>`` in sorted-key leaf order)."""
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.ops import collectives
+    from horovod_tpu_torch.parallel import trainer
+    cfg = sc["cfg"]
+    params = tfm.shard_params(cfg, htt.params_from_numpy(sc["params"],
+                                                         device="cpu"))
+    leaves, treedef = tree_util.tree_flatten(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    tokens = tfm.shard_batch(cfg, sc["tokens"]).long()
+    labels = tfm.shard_batch(cfg, sc["labels"]).long()
+    with collectives.bind_axis(*tfm.mesh_axes(cfg)):
+        loss = tfm.loss_fn(cfg, params, tokens, labels)
+        grads = torch.autograd.grad(loss, leaves)
+        grads = trainer.sync_gradients(
+            tree_util.tree_unflatten(treedef, list(grads)),
+            tfm.grad_sync_axes(cfg), trainer.mesh_world(cfg))
+    full = tree_util.tree_leaves(tfm.gather_params(cfg, grads))
+    out = {"loss": loss.detach().numpy()}
+    out.update({f"g|{i}": g.numpy() for i, g in enumerate(full)})
+    return out
+
+
+def _mp_train_scenario(rank, sc, sets):
+    """``steps`` steps of make_transformer_train_step on the mesh with
+    Adam(``lr``) from the global ``params``; the losses and the final
+    parameters gathered."""
+    from horovod_tpu_torch.models import transformer as tfm
+    cfg = sc["cfg"]
+    init_fn, step = htt.make_transformer_train_step(
+        cfg, lambda ps: torch.optim.Adam(ps, lr=sc["lr"]), device="cpu")
+    state = init_fn(tfm.shard_params(
+        cfg, htt.params_from_numpy(sc["params"], device="cpu")))
+    tokens = tfm.shard_batch(cfg, sc["tokens"])
+    labels = tfm.shard_batch(cfg, sc["labels"])
+    losses = []
+    for _ in range(sc["steps"]):
+        state, loss = step(state, tokens, labels)
+        losses.append(float(loss))
+    full = tree_util.tree_leaves(tfm.gather_params(cfg, state.params))
+    out = {"losses": np.asarray(losses), "step": np.asarray(state.step)}
+    out.update({f"p|{i}": p.numpy() for i, p in enumerate(full)})
+    return out
+
+
+def _ad_collectives_scenario(rank, sc, sets):
+    """Each differentiable collective over the bound axes of ``axes`` on
+    this rank's row ``x[rank]``: its output and the gradient of
+    ``sum(out * ct[rank])`` (``ct`` a cotangent of the output's shape)."""
+    from horovod_tpu_torch.ops import collectives as C
+    out = {}
+    for op in sc["ops"]:
+        name, ax = op["name"], op["axis"]
+        x = torch.from_numpy(np.ascontiguousarray(op["x"][rank])
+                             ).requires_grad_(True)
+        with C.bind_axis(*sc["axes"]):
+            if name == "psum":
+                y = C.psum(x, ax)
+            elif name == "pmean":
+                y = C.pmean(x, ax)
+            elif name == "pmax":
+                y = C.pmax(x, ax) + 0 * x
+            elif name == "all_gather":
+                y = C.all_gather(x, ax, axis=op["dim"])
+            elif name == "all_to_all":
+                y = C.all_to_all(x, ax, op["split"], op["concat"])
+            elif name == "ppermute":
+                y = C.ppermute(x, op["perm"], C.mesh_axis(ax))
+            elif name == "axis_index":
+                y = x * (1 + C.axis_index(ax)) + C.axis_size(ax)
+            ct = torch.from_numpy(np.ascontiguousarray(op["ct"][rank]))
+            (g,) = torch.autograd.grad((y * ct).sum(), x)
+        out[f"{op['tag']}|out"] = y.detach().numpy()
+        out[f"{op['tag']}|grad"] = g.numpy()
+    return out
+
+
+def _sync_scenario(rank, sc, sets):
+    """trainer.sync_gradients of this rank's row of each leaf of
+    ``grads`` over ``sync`` (axis tuples) with ``world``; and the same
+    unbound (the names are mesh axes)."""
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.parallel import trainer
+    grads = {k: torch.from_numpy(np.ascontiguousarray(v[rank]))
+             for k, v in sc["grads"].items()}
+    with C.bind_axis(*sc["axes"]):
+        bound = trainer.sync_gradients({k: v.clone() for k, v in
+                                        grads.items()}, sc["sync"],
+                                       sc["world"])
+    free = trainer.sync_gradients(grads, sc["sync"], sc["world"])
+    out = {f"bound|{k}": v.numpy() for k, v in bound.items()}
+    out.update({f"free|{k}": v.numpy() for k, v in free.items()})
+    return out
+
+
+def _attention_scenario(rank, sc, sets):
+    """Ring or Ulysses attention alone on this rank's sequence block of
+    the global q, k, v ``[B, S, H, D]`` over the bound ``sp``; the output
+    and q/k/v gradients of ``sum(out * dout)`` (this rank's blocks)."""
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.parallel import sequence as sq
+    fn = {"ring": sq.ring_attention, "ulysses": sq.ulysses_attention}
+    out = {}
+    with C.bind_axis("sp"):
+        for case in sc["cases"]:
+            q, k, v, do = (_shard_dim(torch.from_numpy(case[n]), "sp", 1)
+                           for n in ("q", "k", "v", "do"))
+            q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+            o = fn[case["impl"]](q, k, v, "sp", causal=case["causal"])
+            dq, dk, dv = torch.autograd.grad((o * do).sum(), (q, k, v))
+            for n, t in (("o", o), ("dq", dq), ("dk", dk), ("dv", dv)):
+                out[f"{case['tag']}|{n}"] = t.detach().numpy()
+    return out
+
+
+def _moe_scenario(rank, sc, sets):
+    """moe_ffn alone over the bound ``ep`` (of ``axes``): this rank's
+    rows of ``x`` along the batch axes, the router replicated, its
+    experts' w_in/w_out; the output, the aux loss and the gradients of
+    ``sum(out * ct) + aux`` (w_in/w_out gradients gathered over ep, the
+    router's summed over the batch axes)."""
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.parallel import moe
+    batch_axes = tuple(sc["batch_axes"])
+    x = _shard_dim(torch.from_numpy(sc["x"]), batch_axes, 0)
+    ct = _shard_dim(torch.from_numpy(sc["ct"]), batch_axes, 0)
+    router = torch.from_numpy(sc["router"])
+    w_in = _shard_dim(torch.from_numpy(sc["w_in"]), "ep", 0)
+    w_out = _shard_dim(torch.from_numpy(sc["w_out"]), "ep", 0)
+    ts = [t.requires_grad_(True) for t in (x, router, w_in, w_out)]
+    with C.bind_axis(*sc["axes"]):
+        y, metrics = moe.moe_ffn(*ts, ep_axis="ep",
+                                 capacity_factor=sc["capacity_factor"])
+        grads = torch.autograd.grad((y * ct).sum() + metrics.aux_loss, ts)
+    return {"out": y.detach().numpy(), "aux": metrics.aux_loss.detach()
+            .numpy(), "dropped": metrics.dropped_fraction.numpy(),
+            **{f"d|{n}": g.numpy() for n, g in
+               zip(("x", "router", "w_in", "w_out"), grads)}}
+
+
+def _pipeline_scenario(rank, sc, sets):
+    """pipeline_apply alone over the bound ``pp``: stage s applies
+    ``tanh(mb @ w[s])`` (w ``[pp, D, D]`` sharded over pp) to ``x``
+    ``[M, mb, D]``; the outputs and the gradients of ``sum(out * ct)``
+    with respect to x and this rank's stage weight."""
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.parallel import pipeline
+    x = torch.from_numpy(sc["x"]).requires_grad_(True)
+    w = _shard_dim(torch.from_numpy(sc["w"]), "pp", 0)[0].requires_grad_(
+        True)
+    with C.bind_axis("pp"):
+        y = pipeline.pipeline_apply(lambda mb: torch.tanh(mb @ w), x, "pp")
+        dx, dw = torch.autograd.grad((y * torch.from_numpy(sc["ct"])).sum(),
+                                     (x, w))
+    return {"out": y.detach().numpy(), "dx": dx.numpy(), "dw": dw.numpy()}
+
+
+def _serve_tp_scenario(rank, sc, sets):
+    """A tensor-parallel ServeEngine (global ``params``) and a
+    ServeScheduler over ``prompts``: every request's tokens (``t|<rid>``)
+    and the engine's first prefill logits."""
+    from horovod_tpu_torch import Request, ServeEngine, ServeScheduler
+    eng = ServeEngine(sc["cfg"], sc["params"], device="cpu",
+                      **sc["engine"])
+    slot = eng.reserve(len(sc["prompts"][0]) + 1)
+    eng.prefill(slot, np.asarray(sc["prompts"][0], np.int32))
+    first = eng.last_logits.numpy().copy()
+    eng.release(slot)
+    reqs = [Request(rid=i, prompt=np.asarray(p, np.int32),
+                    max_new_tokens=sc["new_tokens"])
+            for i, p in enumerate(sc["prompts"])]
+    done = ServeScheduler(eng, queue_deadline=0.0, device="cpu").run(reqs)
+    out = {f"t|{r.rid}": np.asarray(r.tokens) for r in done}
+    out.update(first_logits=first, tp=np.asarray(eng.stats()["tp"]),
+               kv_heads=np.asarray(eng.k_pages.shape[3]))
+    return out
+
+
 _PHASE_SCENARIOS = {"call": _call_scenario, "topology": _topology_scenario,
                     "eager": _eager_scenario,
                     "adasum_opt": _adasum_opt_scenario,
@@ -633,13 +829,22 @@ _PHASE_SCENARIOS = {"call": _call_scenario, "topology": _topology_scenario,
                     "callbacks": _callbacks_scenario,
                     "value_and_grad": _value_and_grad_scenario,
                     "transform": _transform_scenario,
-                    "optimizer": _optimizer_scenario}
+                    "optimizer": _optimizer_scenario,
+                    "mp_grads": _mp_grads_scenario,
+                    "mp_train": _mp_train_scenario,
+                    "ad_collectives": _ad_collectives_scenario,
+                    "sync": _sync_scenario,
+                    "attention": _attention_scenario,
+                    "moe": _moe_scenario,
+                    "pipeline": _pipeline_scenario,
+                    "serve_tp": _serve_tp_scenario}
 
 
 def phase_worker(rank, world, port, phases, out_dir):
     """Joins a gloo world, then for each phase: sets its ``env`` (a list
     holds one value per rank; strings are formatted with ``rank``) and
-    ``knobs``, ``init(device="cpu", **phase["init"])``, registers its
+    ``knobs`` (and ``threads``: torch's intra-op threads),
+    ``init(device="cpu", **phase["init"])``, registers its
     ``sets`` (process sets, on every rank), runs its scenarios (each
     saved as ``<name>-rank<r>.npz``) and shuts down."""
     import torch.distributed as dist
@@ -650,6 +855,8 @@ def phase_worker(rank, world, port, phases, out_dir):
                             rank=rank, world_size=world)
     try:
         for phase in phases:
+            if phase.get("threads"):
+                torch.set_num_threads(phase["threads"])
             os.environ.update({k: str(v[rank] if isinstance(v, list)
                                       else v).format(rank=rank)
                                for k, v in phase.get("env", {}).items()})
@@ -681,10 +888,24 @@ def phase_worker(rank, world, port, phases, out_dir):
         dist.destroy_process_group()
 
 
+def _phase_file_worker(rank, world, port, path, out_dir):
+    import pickle
+    with open(path, "rb") as f:
+        phases = pickle.load(f)
+    phase_worker(rank, world, port, phases, out_dir)
+
+
 def run_phases(world, phases, out_dir):
     """Start :func:`phase_worker` in ``world`` ranks; returns ``load(name,
-    rank)``, which joins the world on first use."""
-    procs = start_world(phase_worker, world, phases, str(out_dir))
+    rank)``, which joins the world on first use. The phases reach the
+    ranks through a file in ``out_dir``: a spawned process reads its
+    arguments only once it has imported torch, so arguments larger than
+    a pipe's buffer would start the ranks one after another."""
+    import pickle
+    path = os.path.join(str(out_dir), "phases.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(phases, f)
+    procs = start_world(_phase_file_worker, world, path, str(out_dir))
     joined = []
 
     def load(name, rank):
