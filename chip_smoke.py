@@ -7,6 +7,8 @@
                                    # only phase 8's drills, on 4 cards
     python3 chip_smoke.py --data-parallel 4 --model-parallel-only
                                    # only phase 9's configurations, on 4 cards
+    python3 chip_smoke.py --data-parallel 4 --control-plane-only
+                                   # only phase 10's checks, on 4 cards
 
 Phases, each of which raises (and so exits non-zero) when it fails:
 
@@ -107,7 +109,21 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    every axis has size 1 (dp, tp, sp, ep, pp), whose step (the dense
    flagship with tp, ring sp and pp, and the MoE one with ep and 8
    experts, full width, MP_PARITY_LAYERS layers) equals the plain step
-   bitwise: loss and every gradient leaf.
+   bitwise: loss and every gradient leaf;
+10. the control plane in a world of one (``native core:`` and ``control
+    plane (world 1):`` lines): the native core's status (built with g++),
+    then ResNet-50 (``fused_conv_bn=True``, 128 images) for CP_STEPS SGD
+    steps with each of its 161 gradients summed by ``allreduce_async``
+    from its post-accumulate hook and then synchronized (reference
+    Horovod's torch idiom, through the fusion-cycle coordinator's cycle
+    thread), bitwise equal to the same steps through
+    ``DistributedOptimizer``; cycles, bins, tensors and plan-cache hits
+    per step; the sync of one step's gradients timed through the
+    coordinator, through it at HOROVOD_FUSION_THRESHOLD=0 (one bin per
+    tensor) and by the direct path (one started allreduce per
+    tensor), with the host ms of a cycle and of a bin's dispatch; and a
+    burst of integer-valued tensors of the gradients' shapes, exact, with
+    its timeline (which must load with json).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the
@@ -211,7 +227,17 @@ ms. Then TP serving on a (tp N) mesh (``model parallel tpN_serve:``):
 phase 3's 16 requests against the one-card engine on the same weights
 (tokens agreement, the first prefill's logits within MP_LOGIT_REL_TOL,
 decode tokens/s of both, paged-decode launches at H/N heads a card),
-and at the narrow width in f32 every token equal.
+and at the narrow width in f32 every token equal. Last, the control
+plane on N cards (``--data-parallel N --control-plane-only``: only this;
+``control plane data parallel:`` line), where the coordinator dispatches
+deterministically with the divergence check: phase 10's ResNet-50 steps,
+every rank's parameters bitwise every other's and within PARAM_REL_TOL
+of the ``DistributedOptimizer`` steps (another packing sums in another
+order); the three syncs timed; the integer burst exact with its
+timeline; the check's ms per flush at HOROVOD_DIVERGENCE_CHECK_EVERY=1
+and once its interval has widened; and the drill: rank 1 enqueues a
+tensor no other rank does, and every rank raises DivergenceError naming
+it within HOROVOD_DIVERGENCE_TIMEOUT=CP_DIV_TIMEOUT seconds.
 """
 
 from __future__ import annotations
@@ -4474,6 +4500,513 @@ def model_parallel_world_one(htt, fa, sq, card, dev="cuda") -> None:
     log("model parallel (world 1): " + json.dumps(line))
 
 
+# ---------------------------------------------------------------------------
+# phase 10: Horovod's control plane (the fusion-cycle coordinator)
+# ---------------------------------------------------------------------------
+
+CP_STEPS = 2                # ResNet-50 SGD steps through each sync path
+CP_STEP_ROUNDS = 3          # timed steps of each sync path, in turns
+CP_SYNC_ITERS = 5           # timed syncs of a step's gradients, per path
+CP_DIV_FLUSHES = 64         # one-tensor flushes of the cadence probe
+CP_DIV_TIMEOUT = 10         # HOROVOD_DIVERGENCE_TIMEOUT of the drill
+CP_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "control_plane")
+
+
+def cp_hooked_sync(htt, params):
+    """Reference Horovod's torch idiom through the coordinator: each
+    gradient is handed to ``allreduce_async`` from its post-accumulate
+    hook as the backward makes it; ``sync()`` then synchronizes every
+    handle into its gradient. Returns ``(sync, hook handles)``."""
+    handles = {}
+
+    def hook(i):
+        def fn(p):
+            handles[i] = htt.allreduce_async(p.grad, op=htt.Average,
+                                             name=f"grad.{i}")
+        return fn
+
+    hooks = [p.register_post_accumulate_grad_hook(hook(i))
+             for i, p in enumerate(params)]
+
+    def sync():
+        for i, p in enumerate(params):
+            p.grad.copy_(htt.synchronize(handles.pop(i)))
+
+    return sync, hooks
+
+
+def cp_direct_hooks(C, params):
+    """The direct path from the same hooks (``allreduce_async`` as it was
+    before the coordinator): each gradient's allreduce starts
+    (``collectives.allreduce_start``) as its hook fires; ``sync()`` waits
+    for each into its gradient. Returns ``(sync, hook handles)``."""
+    started = {}
+
+    def hook(i):
+        def fn(p):
+            started[i] = C.allreduce_start(p.grad, C.ReduceOp.AVERAGE)
+        return fn
+
+    hooks = [p.register_post_accumulate_grad_hook(hook(i))
+             for i, p in enumerate(params)]
+
+    def sync():
+        for i, p in enumerate(params):
+            p.grad.copy_(started.pop(i).wait())
+
+    return sync, hooks
+
+
+def cp_step_times(htt, C, model, sgd, params, rank, dev, sync, batch, image,
+                  out):
+    """The ms of a ResNet-50 SGD step (forward, backward, sync, update) by
+    the path of its gradient sync, CP_STEP_ROUNDS steps each in turns
+    after a warm-up round (median and all): ``allreduce_async`` from the
+    gradient hooks through the coordinator, the direct allreduce from
+    the same hooks, and ``DistributedOptimizer``; in a world of one also
+    the coordinator without its cycle thread (a flush at the threshold and
+    at the first wait, as with several ranks, less the check)."""
+    from horovod_tpu_torch.ops.coordinator import Coordinator
+    from horovod_tpu_torch.runtime.context import get_context
+    ctx = get_context()
+
+    def hooked(make):
+        def install():
+            hsync, hooks = make()
+            return sgd, hsync, lambda: [h.remove() for h in hooks]
+        return install
+
+    def dopt():
+        opt = htt.DistributedOptimizer(sgd, op=htt.Average)
+        return opt, None, opt._launcher.remove_hooks
+
+    paths = {"coordinator": hooked(lambda: cp_hooked_sync(htt, params)),
+             "direct": hooked(lambda: cp_direct_hooks(C, params)),
+             "distributed_optimizer": dopt}
+    if ctx.size == 1:
+        def no_thread():
+            own = Coordinator(ctx, start_thread=False)
+            own.deterministic = True
+            saved, ctx.coordinator = ctx.coordinator, own
+            opt, hsync, remove = paths["coordinator"]()
+
+            def undo():
+                remove()
+                own.shutdown()
+                ctx.coordinator = saved
+            return opt, hsync, undo
+        paths["coordinator_no_thread"] = no_thread
+    ms = {k: [] for k in paths}
+    for rnd in range(CP_STEP_ROUNDS + 1):
+        x, y = api_batch(dev, 60 + rnd, rank, batch, image)
+        for label, install in paths.items():
+            opt, hsync, remove = install()
+            try:
+                sync()
+                t0 = time.perf_counter()
+                resnet_loss(model, x, y).backward()
+                if hsync is not None:
+                    hsync()
+                opt.step()
+                sync()
+                if rnd:
+                    ms[label].append((time.perf_counter() - t0) * 1e3)
+            finally:
+                remove()
+                sgd.zero_grad()
+    out["step_ms_by_path"] = {k: float(np.median(v)) for k, v in ms.items()}
+    out["step_ms_by_path_all"] = ms
+
+
+def cp_plan_times(sizes, out, reps=200):
+    """The host us of one bin plan of the step's gradient sizes at the
+    default threshold, native (``csrc/core.cc``) against the Python
+    planner (median of ``reps`` calls each, in turns); both must give the
+    same bins."""
+    from horovod_tpu_torch import native
+    from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.ops.fusion import _plan_fusion_bins_py
+    thr = int(knobs.get("HOROVOD_FUSION_THRESHOLD"))
+    if native.plan_fusion_bins(sizes, thr) != _plan_fusion_bins_py(sizes,
+                                                                    thr):
+        raise AssertionError("native and Python planners disagree")
+    us = {"native": [], "python": []}
+    for _ in range(reps):
+        for label, fn in (("native", native.plan_fusion_bins),
+                          ("python", _plan_fusion_bins_py)):
+            t0 = time.perf_counter()
+            fn(sizes, thr)
+            us[label].append((time.perf_counter() - t0) * 1e6)
+    out["plan_us"] = {k: float(np.median(v)) for k, v in us.items()}
+    out["plan_sizes"] = len(sizes)
+
+
+def cp_counts(ctx):
+    """(cycles, bins, tensors, cache hits, cache misses) so far."""
+    c = ctx.coordinator
+    if c is None:
+        return (0, 0, 0, 0, 0)
+    return (c.stats.cycles, c.stats.dispatched_programs, c.stats.tensors,
+            c.cache.hits, c.cache.misses)
+
+
+def cp_hist(name):
+    """(sum, count) of a histogram of the metrics registry."""
+    from horovod_tpu_torch import metrics as M
+    m = M.get_registry().get(name)
+    return (m.total_sum, m.total_count) if m is not None else (0.0, 0)
+
+
+def cp_resnet_steps(htt, C, cb, rank, world, dev, sync, batch, image, out):
+    """CP_STEPS SGD steps of ResNet-50 (``fused_conv_bn=True``) through
+    the coordinator (``cp_hooked_sync``) beside the same steps through
+    ``DistributedOptimizer`` from the same weights. In a world of one the
+    two runs go on independently and must stay bitwise equal. On several
+    cards the second model takes the first's parameters, buffers and
+    momentum before each step, so the steps differ only by the sync:
+    another packing sums in another order, and bf16 compute would spread
+    a last-bit difference through later steps. There each step's synced
+    gradients must agree within API_MEAN_REL_TOL, and its new parameters
+    within PARAM_REL_TOL, of each leaf's largest value; every rank's
+    parameters must be bitwise every other's. Each step is timed by the
+    host clock after a synchronize (forward, backward, sync and update;
+    the DistributedOptimizer step likewise). Returns the coordinator's
+    model's parameters, with the gradients of one more backward."""
+    import copy
+    from horovod_tpu_torch.runtime.context import get_context
+    ctx = get_context()
+    models = [htt.ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                           fused_conv_bn=True, device=dev, seed=3)
+              for _ in range(2)]
+    params = [list(m.parameters()) for m in models]
+    sgds = [torch.optim.SGD(ps, lr=0.01, momentum=0.9) for ps in params]
+    dopt = htt.DistributedOptimizer(sgds[1], op=htt.Average)
+    hsync, hooks = cp_hooked_sync(htt, params[0])
+    per_step, step_ms, dopt_ms = [], [], []
+    for step in range(CP_STEPS):
+        x, y = api_batch(dev, 40 + step, rank, batch, image)
+        if world > 1 and step:
+            with torch.no_grad():
+                for a, b in zip(models[0].state_dict().values(),
+                                models[1].state_dict().values()):
+                    b.copy_(a)
+            # a copy: load_state_dict would share the momentum tensors
+            sgds[1].load_state_dict(copy.deepcopy(sgds[0].state_dict()))
+        before = cp_counts(ctx)
+        cb.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        resnet_loss(models[0], x, y).backward()
+        hsync()
+        sgds[0].step()
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        check_launches(cb, dev, f"control plane step {step}")
+        after = cp_counts(ctx)
+        per_step.append(dict(zip(
+            ("cycles", "bins", "tensors", "cache_hits", "cache_misses"),
+            (a - b for a, b in zip(after, before)))))
+        sync()
+        t0 = time.perf_counter()
+        resnet_loss(models[1], x, y).backward()
+        dopt.step()
+        sync()
+        dopt_ms.append((time.perf_counter() - t0) * 1e3)
+        if not same_on_every_rank(C, params[0]):
+            raise AssertionError(f"control plane step {step}: parameters "
+                                 f"differ between ranks")
+        if world == 1:
+            if not all(torch.equal(a, b) for a, b in zip(*params)):
+                raise AssertionError(
+                    f"control plane step {step}: parameters differ from "
+                    f"DistributedOptimizer's")
+            out["bitwise_equal_to_distributed_optimizer"] = step + 1
+        else:
+            for what, got, ref, rel in (
+                    ("grad", [p.grad for p in params[0]],
+                     [p.grad for p in params[1]], API_MEAN_REL_TOL),
+                    ("param", params[0], params[1], PARAM_REL_TOL)):
+                err, share = leaf_errors(got, [r.double() for r in ref], rel)
+                out[f"step{step}_{what}_max_abs_err_vs_dopt"] = err
+                out[f"step{step}_{what}_share_of_limit"] = share
+                if share > 1:
+                    raise AssertionError(
+                        f"control plane step {step}: {what}s off "
+                        f"DistributedOptimizer's by {err} ({share} of the "
+                        f"limit)")
+        sgds[0].zero_grad()
+        dopt.zero_grad()
+    for h in hooks:
+        h.remove()
+    dopt._launcher.remove_hooks()
+    out.update(per_step=per_step, step_ms=step_ms,
+               distributed_optimizer_step_ms=dopt_ms,
+               gradient_tensors=len(params[0]),
+               gradient_bytes=sum(p.numel() * p.element_size()
+                                  for p in params[0]))
+    del models[1], params[1], dopt
+    cp_step_times(htt, C, models[0], sgds[0], params[0], rank, dev, sync,
+                  batch, image, out)
+    cp_plan_times([p.numel() * p.element_size() * world
+                   for p in params[0]], out)
+    # one more backward leaves gradients for the timed syncs
+    x, y = api_batch(dev, 50, rank, batch, image)
+    resnet_loss(models[0], x, y).backward()
+    del sgds
+    return params[0]
+
+
+def cp_sync_times(htt, C, knobs, grads, sync, out):
+    """The sync of one step's gradients, timed three ways in turns
+    (CP_SYNC_ITERS each, median ms): through the coordinator (every
+    gradient ``allreduce_async``, then synchronized), through it with
+    HOROVOD_FUSION_THRESHOLD=0 (one bin per tensor), and the direct
+    path (one started allreduce per tensor, then waited). With the host
+    ms of a cycle (plan plus dispatch), of a bin's dispatch, and of the
+    enqueue loop (in a world of several ranks its threshold flushes run
+    inside it)."""
+    enqueue_ms = []
+
+    def coord():
+        t0 = time.perf_counter()
+        hs = [htt.allreduce_async(g, op=htt.Average, name=f"t.{i}")
+              for i, g in enumerate(grads)]
+        enqueue_ms.append((time.perf_counter() - t0) * 1e3)
+        for h in hs:
+            htt.synchronize(h)
+
+    def direct():
+        for p in [C.allreduce_start(g, C.ReduceOp.AVERAGE) for g in grads]:
+            p.wait()
+
+    def zero():
+        knobs.set_override("HOROVOD_FUSION_THRESHOLD", 0)
+        try:
+            coord()
+        finally:
+            knobs.clear_override("HOROVOD_FUSION_THRESHOLD")
+
+    ms = {"coordinator": [], "coordinator_threshold_0": [], "direct": []}
+    cyc = {"coordinator": [0.0, 0], "coordinator_threshold_0": [0.0, 0]}
+    disp = [0.0, 0]
+    for it in range(CP_SYNC_ITERS + 1):
+        for label, fn in (("coordinator", coord),
+                          ("coordinator_threshold_0", zero),
+                          ("direct", direct)):
+            c0, d0 = cp_hist("hvd_cycle_duration_seconds"), \
+                cp_hist("hvd_dispatch_seconds")
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            dt = (time.perf_counter() - t0) * 1e3
+            if it == 0:
+                continue            # warm-up: plans built, groups formed
+            ms[label].append(dt)
+            c1, d1 = cp_hist("hvd_cycle_duration_seconds"), \
+                cp_hist("hvd_dispatch_seconds")
+            if label in cyc:
+                cyc[label][0] += c1[0] - c0[0]
+                cyc[label][1] += c1[1] - c0[1]
+            if label == "coordinator":
+                disp[0] += d1[0] - d0[0]
+                disp[1] += d1[1] - d0[1]
+    # every iteration appends coord()'s then zero()'s enqueue loop; keep
+    # the timed iterations' default-threshold ones
+    out["coordinator_enqueue_ms"] = float(np.median(enqueue_ms[2::2]))
+    out["sync_ms"] = {k: float(np.median(v)) for k, v in ms.items()}
+    out["sync_ms_all"] = ms
+    out["cycles_per_sync"] = {k: v[1] / CP_SYNC_ITERS for k, v in cyc.items()}
+    out["cycle_host_ms"] = {k: (v[0] / v[1] * 1e3 if v[1] else None)
+                            for k, v in cyc.items()}
+    out["bin_dispatch_host_ms"] = disp[0] / disp[1] * 1e3 if disp[1] \
+        else None
+
+
+def cp_int_burst(htt, rank, world, dev, shapes, out):
+    """The step's gradient shapes as a burst of integer-valued tensors
+    (each rank's from its own seed), Sum through the coordinator, exact
+    against the plain sum of every rank's inputs; the timeline of that
+    burst, which must load with json."""
+    path = os.path.join(CP_ROOT, f"timeline-rank{rank}.json")
+    os.makedirs(CP_ROOT, exist_ok=True)
+    htt.start_timeline(path)
+    try:
+        mine = []
+        hs = []
+        for i, shp in enumerate(shapes):
+            g = torch.Generator(device=dev).manual_seed(7000 + 1000 * rank + i)
+            x = _int_valued(g, shp, dev)
+            mine.append(x)
+            hs.append(htt.allreduce_async(x, op=htt.Sum, name=f"int.{i}"))
+        got = [htt.synchronize(h) for h in hs]
+    finally:
+        htt.stop_timeline()
+    for i, shp in enumerate(shapes):
+        want = torch.zeros(shp, device=dev)
+        for r in range(world):
+            g = torch.Generator(device=dev).manual_seed(7000 + 1000 * r + i)
+            want += _int_valued(g, shp, dev)
+        if not torch.equal(got[i], want):
+            raise AssertionError(f"integer burst tensor {i} {tuple(shp)}: "
+                                 f"the coordinator's sum is not exact")
+    events = json.load(open(path))
+    cats = {e.get("cat") for e in events if isinstance(e, dict)}
+    if not {"QUEUE", "DISPATCH"} <= cats:
+        raise AssertionError(f"timeline {path}: categories {cats}")
+    out["int_burst_exact"] = len(shapes)
+    out["timeline_events"] = len(events)
+
+
+def cp_divergence(htt, rank, world, knobs, dev, out):
+    """The check's cost per flush (CP_DIV_FLUSHES one-tensor flushes at
+    HOROVOD_DIVERGENCE_CHECK_EVERY=1: the first three, each an exchange,
+    and the last 16 once the interval has widened), then two drills, in
+    each of which rank 1 enqueues a tensor the others never do and every
+    rank must raise DivergenceError naming it within CP_DIV_TIMEOUT
+    seconds: at the widened interval, on the flush after a check (the
+    others dispatch it unchecked and wait in its allreduce; rank 1 then
+    enters that allreduce, so the world goes on), and on a fresh
+    coordinator, where every rank checks."""
+    from horovod_tpu_torch.ops.divergence import DivergenceError
+    from horovod_tpu_torch.runtime.context import get_context
+    ctx = get_context()
+    small = torch.ones(256, device=dev)
+    htt.synchronize(htt.allreduce_async(small, name="div.probe"))
+    chk = ctx.coordinator.divergence_checker
+    orig, rows = chk.observe, []
+
+    def timed(idx, entries):
+        t0 = time.perf_counter()
+        orig(idx, entries)
+        rows.append(((time.perf_counter() - t0) * 1e3,
+                     chk.effective_interval, chk.checks))
+
+    chk.observe = timed
+    try:
+        for _ in range(CP_DIV_FLUSHES):
+            htt.synchronize(htt.allreduce_async(small, name="div.probe"))
+    finally:
+        chk.observe = orig
+    out["divergence_check_ms_per_flush"] = {
+        "interval_1": float(np.mean([r[0] for r in rows[:3]])),
+        "widened": float(np.mean([r[0] for r in rows[-16:]])),
+        "widened_interval": rows[-1][1], "checks": rows[-1][2],
+        "flushes": len(rows)}
+    knobs.set_override("HOROVOD_DIVERGENCE_TIMEOUT", CP_DIV_TIMEOUT)
+    while chk._since_check != 0:        # to the flush after a check
+        htt.synchronize(htt.allreduce_async(small, name="div.probe"))
+    interval = chk.effective_interval
+    t0 = time.perf_counter()
+    try:
+        if rank == 1:
+            htt.allreduce_async(small, name="cp.late")
+        htt.synchronize(htt.allreduce_async(small, name="div.probe"))
+        raise AssertionError("a divergent enqueue at a widened interval "
+                             "raised nothing")
+    except DivergenceError as e:
+        msg, secs = str(e), time.perf_counter() - t0
+    finally:
+        if rank == 1:           # the others' allreduce is in flight
+            htt.allreduce(small, name="cp.release")
+    if "cp.late" not in msg or secs >= CP_DIV_TIMEOUT:
+        raise AssertionError(f"widened divergence drill: {secs:.1f} s, {msg}")
+    out["divergence_drill_widened"] = {"interval": interval, "seconds": secs,
+                                       "message": msg[:200]}
+    # the drill on a fresh coordinator (a fresh key prefix)
+    ctx.coordinator.shutdown()
+    ctx.coordinator = None
+    t0 = time.perf_counter()
+    try:
+        if rank == 1:
+            htt.allreduce_async(small, name="cp.extra")
+        htt.synchronize(htt.allreduce_async(small, name="cp.shared"))
+        raise AssertionError("a divergent enqueue raised nothing")
+    except DivergenceError as e:
+        msg, secs = str(e), time.perf_counter() - t0
+    finally:
+        knobs.clear_override("HOROVOD_DIVERGENCE_TIMEOUT")
+        ctx.coordinator.shutdown()
+        ctx.coordinator = None
+    if "cp.extra" not in msg or secs >= CP_DIV_TIMEOUT:
+        raise AssertionError(f"divergence drill: {secs:.1f} s, {msg}")
+    out["divergence_drill"] = {"seconds": secs, "message": msg[:160]}
+
+
+def control_plane_rank(rank, world, ports, results, device="cuda",
+                       batch=RESNET_B, image=224):
+    """One rank of the N-card control-plane world (deterministic dispatch
+    with the divergence check); rank 0 puts its numbers on ``results``."""
+    import torch.distributed as dist
+    join_store_world(rank, world, ports, device)
+    import horovod_tpu_torch as htt
+    from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.ops import conv_bn as cb
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = htt.init(device=device)
+    dev = ctx.device
+    sync = (torch.cuda.synchronize if dev.type == "cuda" else
+            (lambda: None))
+    out = {"world": world, "batch_per_rank": batch, "image": image}
+    t0 = time.perf_counter()
+    params = cp_resnet_steps(htt, C, cb, rank, world, dev, sync, batch,
+                             image, out)
+    out["deterministic"] = ctx.coordinator.deterministic
+    cp_sync_times(htt, C, knobs, [p.grad for p in params], sync, out)
+    cp_int_burst(htt, rank, world, dev, [tuple(p.shape) for p in params],
+                 out)
+    del params
+    cp_divergence(htt, rank, world, knobs, dev, out)
+    out["seconds"] = time.perf_counter() - t0
+    if rank == 0:
+        results.put(out)
+    htt.shutdown()
+    dist.destroy_process_group()
+
+
+def control_plane_world(n, card, **kw) -> None:
+    """``control_plane_rank`` in ``n`` spawned processes; the ``control
+    plane data parallel:`` line."""
+    (out,) = spawn_world(control_plane_rank, n, 1, 900, **kw)
+    out["card"] = card
+    log("control plane data parallel: " + json.dumps(out))
+
+
+def control_plane_world_one(htt, cb, card, dev="cuda", batch=RESNET_B,
+                            image=224) -> None:
+    """Phase 10 in a world of one (the coordinator's cycle thread): the
+    native core's status, ResNet-50 through ``allreduce_async`` from the
+    gradient hooks bitwise equal to ``DistributedOptimizer``, the three
+    syncs timed, and the integer burst with its timeline (``control
+    plane (world 1):`` line)."""
+    from horovod_tpu_torch import native
+    from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.ops import collectives as C
+    status = native.status()
+    log("native core: " + json.dumps(status))
+    if not status["available"]:
+        raise AssertionError(f"native core: {status['build_error']}")
+    t0 = time.perf_counter()
+    ctx = htt.init(device=dev)
+    try:
+        sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+        out = {"backend": ctx.backend}
+        params = cp_resnet_steps(htt, C, cb, 0, 1, ctx.device, sync, batch,
+                                 image, out)
+        out["cycle_thread"] = ctx.coordinator._thread is not None
+        cp_sync_times(htt, C, knobs, [p.grad for p in params], sync, out)
+        cp_int_burst(htt, 0, 1, ctx.device, [tuple(p.shape)
+                                             for p in params], out)
+        del params
+    finally:
+        htt.shutdown()
+    out.update(seconds=time.perf_counter() - t0, card=card)
+    log("control plane (world 1): " + json.dumps(out))
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an "
@@ -4486,13 +5019,16 @@ def main(argv) -> int:
     api_only = argv[2:] == ["--api-only"]
     launcher_only = argv[2:] == ["--launcher-only"]
     mp_only = argv[2:] == ["--model-parallel-only"]
+    cp_only = argv[2:] == ["--control-plane-only"]
     if argv:
         if len(argv) not in (2, 3) or argv[0] != "--data-parallel" or \
                 (len(argv) == 3 and not (resilient_only or api_only
-                                         or launcher_only or mp_only)):
+                                         or launcher_only or mp_only
+                                         or cp_only)):
             print("usage: chip_smoke.py [--data-parallel N "
                   "[--resilient-only | --api-only | --launcher-only | "
-                  "--model-parallel-only]]", file=sys.stderr)
+                  "--model-parallel-only | --control-plane-only]]",
+                  file=sys.stderr)
             return 2
         n_dp = int(argv[1])
         if not 2 <= n_dp <= torch.cuda.device_count():
@@ -4526,7 +5062,8 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if n_dp:
-        only = resilient_only or api_only or launcher_only or mp_only
+        only = (resilient_only or api_only or launcher_only or mp_only
+                or cp_only)
         if not only:
             collectives_n_cards(n_dp, card)
             data_parallel(n_dp, card)
@@ -4538,6 +5075,8 @@ def main(argv) -> int:
             launcher_worlds(n_dp, card)
         if not only or mp_only:
             model_parallel_world(n_dp, card)
+        if not only or cp_only:
+            control_plane_world(n_dp, card)
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -4591,6 +5130,10 @@ def main(argv) -> int:
     # phase 9: model parallelism in a world of one
     torch.cuda.empty_cache()
     model_parallel_world_one(htt, fa, sq, card)
+
+    # phase 10: the control plane (the coordinator's cycle thread)
+    torch.cuda.empty_cache()
+    control_plane_world_one(htt, cb, card)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",

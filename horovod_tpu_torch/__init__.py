@@ -34,7 +34,13 @@ at its first launch. These paths are ported:
   c10d store, step stats, goodput phases (``goodput``), spans
   (``tracing``) and straggler detection;
 - Horovod's PyTorch API (``eager``): ``allreduce`` and the other
-  collectives with their ``*_async`` forms, ``synchronize`` and ``poll``,
+  collectives with their ``*_async`` forms, fused across calls by the
+  control plane's fusion-cycle coordinator (``ops.coordinator``, with its
+  plan cache and, in a world of several ranks, the cross-rank divergence
+  check of ``ops.divergence``), the DLPack frontend bridge (numpy and
+  other frameworks' arrays in and out), the Chrome-trace timeline
+  (``start_timeline``, ``HOROVOD_TIMELINE``) and the native C++ core
+  (``native``, built with g++ at first use), ``synchronize`` and ``poll``,
   ``join`` for uneven epochs, Adasum (``op=Adasum``,
   ``DistributedAdasumOptimizer``), ``SyncBatchNorm``,
   ``broadcast_optimizer_state``, ``broadcast_object``,
@@ -113,6 +119,7 @@ from horovod_tpu_torch.runner.interactive import run
 from horovod_tpu_torch.serving import (Request, ServeEngine,
                                        ServeScheduler)
 from horovod_tpu_torch.sync_batch_norm import SyncBatchNorm
+from horovod_tpu_torch.timeline import start_timeline, stop_timeline
 
 from horovod_tpu_torch.version import __version__  # noqa: E402
 
@@ -150,7 +157,7 @@ __all__ = ["Adasum", "AsyncCheckpointer", "Average", "BestModelCheckpoint",
            "reducescatter_async", "remove_process_set",
            "resilience", "restore_checkpoint", "run", "save_checkpoint",
            "scaled_lr", "shutdown", "size", "sparse_allreduce",
-           "synchronize", "torus_allreduce", "tracing",
+           "start_timeline", "stop_timeline", "synchronize", "torus_allreduce", "tracing",
            "train_loop", "two_level_allreduce",
            "variables_from_numpy", "variables_to_numpy",
            "warmup_schedule"]

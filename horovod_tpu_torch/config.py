@@ -31,6 +31,26 @@ def _parse_size(v) -> int:
     return int(float(s))
 
 
+def _parse_fusion_threshold(v):
+    """Fusion threshold: a plain byte size, or the per-axis form
+    'local:64MB,cross:8MB' for hierarchical meshes, where the fast local
+    axis and the slow cross axis want different bin capacities. Returns an
+    int (uniform) or a {'local': int, 'cross': int} dict."""
+    s = str(v)
+    if ":" not in s:
+        return _parse_size(s)
+    out = {}
+    for part in s.split(","):
+        kind, _, size = part.partition(":")
+        kind = kind.strip().lower()
+        if kind not in ("local", "cross"):
+            raise ValueError(
+                f"per-axis fusion threshold keys must be local/cross, "
+                f"got {kind!r} in {s!r}")
+        out[kind] = _parse_size(size)
+    return out
+
+
 def _parse_ckpt_interval(v):
     """Checkpoint cadence: a step count, or 'auto' (CheckFreq-style tuning
     against the measured mean step time, resilience/async_checkpoint).
@@ -329,7 +349,8 @@ knobs.register("HOROVOD_GOODPUT", True, bool,
                     "degraded, idle); goodput_report() reads it.")
 knobs.register("HOROVOD_NUMERICS", False, bool,
                help="Numerics-health telemetry. Not ported yet (ROADMAP "
-                    "A.13b): train_loop raises when set.")
+                    "A.13b): train_loop and the eager coordinator raise "
+                    "when it is set.")
 knobs.register("HOROVOD_VERIFY_STEP", "0", str,
                choices=("0", "1", "strict"),
                help="IR-tier step verification at train_loop start. Not "
@@ -337,7 +358,8 @@ knobs.register("HOROVOD_VERIFY_STEP", "0", str,
                     "strict.")
 knobs.register("HOROVOD_ARTIFACT_STORE", "", str,
                help="Persistent compiled-artifact store. Not ported yet "
-                    "(ROADMAP A.13b): train_loop raises when set.")
+                    "(ROADMAP A.13b): train_loop and the eager coordinator "
+                    "raise when it is set.")
 
 # Eager-API knobs (eager.py, stall_inspector.py), read at each handle's
 # start and wait. The same names and defaults as the JAX package's.
@@ -355,6 +377,77 @@ knobs.register("HOROVOD_ELASTIC", False, bool,
                     "the error elastic.run recovers from, instead of its "
                     "own error (ref nccl_operations.h:55). The elastic "
                     "launcher sets it for its workers.")
+
+# Control-plane knobs (ops/coordinator.py, ops/divergence.py,
+# timeline.py, native/): the JAX package's names, defaults and parsers.
+# The coordinator reads them at each enqueue and cycle.
+knobs.register("HOROVOD_FUSION_THRESHOLD", 128 * 1024 * 1024,
+               _parse_fusion_threshold,
+               help="Bin capacity of the coordinator's fusion cycle in "
+                    "bytes, counted as the JAX package counts them: a "
+                    "tensor's rank-stacked size (world x one rank's). "
+                    "Accepts size suffixes ('64MB') and, on hierarchical "
+                    "meshes, the per-axis form 'local:64MB,cross:8MB'. In "
+                    "a world of several ranks the queue also flushes when "
+                    "its bytes reach this (floored at 4 KiB).")
+knobs.register("HOROVOD_FUSION_THRESHOLD_CROSS", 0, _parse_size,
+               help="Bin capacity for collectives whose traffic crosses "
+                    "the slow outer mesh axis; 0 falls back to "
+                    "HOROVOD_FUSION_THRESHOLD.")
+knobs.register("HOROVOD_CYCLE_TIME", 1.0, float,
+               help="Batching window in ms of the coordinator's cycle "
+                    "thread (a world of one): the time it waits after the "
+                    "first enqueue before it drains the queue.")
+knobs.register("HOROVOD_CACHE_CAPACITY", 1024, int,
+               help="Entries of the coordinator's LRU of fused plans (ref "
+                    "global_state.h:89); an eviction frees the plan's "
+                    "fusion buffers.")
+knobs.register("HOROVOD_DISABLE_GROUP_FUSION", False, bool,
+               help="Keep registered groups (grouped_allreduce_async) from "
+                    "fusing with other tensors (ref controller.cc:214-238).")
+knobs.register("HOROVOD_ENABLE_ASYNC_COMPLETION", True, bool,
+               help="A coordinator handle resolves at dispatch, ordered on "
+                    "the stream (wait() then waits for the bin's CUDA "
+                    "event); 0 makes the cycle wait for the event before it "
+                    "resolves the handles (ref gpu_operations.cc:93-115).")
+knobs.register("HOROVOD_NUM_STREAMS", 1, int,
+               help="CUDA streams the coordinator's bins go on, bin i on "
+                    "stream i mod N. Bins are always issued from the "
+                    "cycle's thread in plan order, so every rank issues its "
+                    "collectives in one order.")
+knobs.register("HOROVOD_TIMELINE", "", str,
+               help="Path of the Chrome-trace timeline that init starts "
+                    "(and shutdown ends); 'DYNAMIC' waits for "
+                    "start_timeline() (ref timeline.cc, "
+                    "operations.cc:1073-1105).")
+knobs.register("HOROVOD_TIMELINE_MARK_CYCLES", False, bool,
+               help="Mark coordinator cycles in the timeline.")
+knobs.register("HOROVOD_DIVERGENCE_CHECK_EVERY", 1, int,
+               help="A world of several ranks: verify every K-th flush that "
+                    "all ranks enqueued the identical collective sequence "
+                    "(a digest exchange over the c10d store); 0 disables. "
+                    "The base interval: after 3 clean checks in a row the "
+                    "interval doubles, up to "
+                    "HOROVOD_DIVERGENCE_CHECK_MAX_INTERVAL; an unseen "
+                    "request or a requeued group snaps it back. Must be "
+                    "the same on every rank (the cadence is part of the "
+                    "digest).")
+knobs.register("HOROVOD_DIVERGENCE_CHECK_MAX_INTERVAL", 64, int,
+               help="Ceiling of the widened divergence-check interval; "
+                    "must be the same on every rank.")
+knobs.register("HOROVOD_DIVERGENCE_TIMEOUT", 300, int,
+               help="Seconds a flush check waits for its peers before it "
+                    "raises DivergenceError (stall warnings name the "
+                    "lagging ranks every HOROVOD_STALL_CHECK_TIME_SECONDS).")
+knobs.register("HOROVOD_TPU_NATIVE", True, bool,
+               help="Use the native C++ core (csrc/core.cc: fusion planner, "
+                    "timeline writer, segment pack), built with g++ at first "
+                    "use; a failed build raises. 0 selects the Python "
+                    "planner and writer.")
+knobs.register("HOROVOD_AUTOTUNE", False, bool,
+               help="The online tuner of the fusion threshold and cycle "
+                    "time. Not ported yet (ROADMAP A.13b): the coordinator "
+                    "raises when it is set.")
 
 # Launcher and elastic knobs (runner/, elastic/): the JAX package's names
 # and defaults.

@@ -28,6 +28,8 @@ logger = get_logger("horovod_tpu_torch.metrics")
 # multi-second stalls, the range the cycle/wait paths actually produce.
 DURATION_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
                     0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
+# Count buckets (bins per cycle and the like).
+COUNT_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0)
 
 
 def _fmt(v: float) -> str:
@@ -485,11 +487,43 @@ def _hist_sum(name: str) -> float:
 
 def runtime_totals() -> Dict[str, float]:
     """Running totals the StepStats accumulator (callbacks.py) diffs per
-    step: bytes through the dispatch layer and seconds the caller spent
-    blocked on collectives (the ``hvd_handle_wait_seconds`` that the
-    eager API's handles observe in ``wait``). Nothing feeds the bytes
-    counter yet (the eager coordinator's metrics wait for ROADMAP A.9b)."""
+    step: bytes through the eager coordinator's fused dispatch
+    (``hvd_bytes_reduced_total``) and seconds the caller spent blocked on
+    collectives (the ``hvd_handle_wait_seconds`` that the eager API's
+    handles observe in ``wait``)."""
     return {
         "bytes_reduced": _counter_value("hvd_bytes_reduced_total"),
         "collective_seconds": _hist_sum("hvd_handle_wait_seconds"),
     }
+
+
+# ---------------------------------------------------------------------------
+# default collectors: state read at scrape time
+# ---------------------------------------------------------------------------
+
+_default_collectors_installed = False
+_install_lock = threading.Lock()
+
+
+def _install_default_collectors() -> None:
+    """The gauges read when the metrics are scraped (``init`` installs
+    them once): the coordinator's queued bytes."""
+    global _default_collectors_installed
+    with _install_lock:
+        if _default_collectors_installed:
+            return
+        _default_collectors_installed = True
+
+    g_queued = gauge(
+        "hvd_queued_bytes",
+        "Bytes waiting in the coordinator's tensor queue for the next "
+        "cycle (world x one rank's; allgathers and alltoalls left out)")
+
+    def _collect_queued():
+        from horovod_tpu_torch.runtime import context as _ctx_mod
+        ctx = _ctx_mod._context
+        coord = getattr(ctx, "coordinator", None) if ctx is not None \
+            else None
+        g_queued.set(coord.queue.queued_bytes() if coord is not None else 0)
+
+    _registry.register_collector(_collect_queued)

@@ -10,9 +10,11 @@ the reduced buffer, so no persistent buffer is managed.
 Pytrees are the port's nested ``dict``s of tensors, walked in sorted-key
 order as ``jax.tree`` walks them (``utils.tree``).
 :func:`_plan_buckets_by_bytes` is the reverse-backward bucket schedule of
-the gradient sync (``parallel/distributed.py``). Not ported yet:
-``plan_fusion_bins`` and the native planner (ROADMAP A.9b), and the bucket
-manifest of the IR verifier (A.15).
+the gradient sync (``parallel/distributed.py``); :func:`plan_fusion_bins`
+the greedy bins of the eager coordinator's fusion cycle
+(``ops/coordinator.py``), planned by the native core (``native/``) unless
+HOROVOD_TPU_NATIVE=0. Not ported yet: the bucket manifest of the IR
+verifier (ROADMAP A.15).
 """
 
 from __future__ import annotations
@@ -91,6 +93,42 @@ def _plan_buckets_by_bytes(sizes_bytes: Sequence[int],
     if cur:
         buckets.append(cur)
     return buckets
+
+
+def plan_fusion_bins(sizes_bytes: Sequence[int],
+                     threshold: int) -> List[List[int]]:
+    """Greedy bin-packing of tensor indices under the fusion threshold with
+    look-ahead skip (the reference's FuseResponses controller.cc:887-986):
+    walk the queue in order, adding tensors whose bytes still fit the
+    current bin, skipping (not stopping at) ones that do not; the first
+    tensor of a bin always fits. The native planner (``csrc/core.cc``)
+    makes the bins unless HOROVOD_TPU_NATIVE=0; :func:`_plan_fusion_bins_py`
+    is the behavioural spec, and both give the same bins."""
+    from horovod_tpu_torch import native
+    bins = native.plan_fusion_bins(sizes_bytes, threshold)
+    if bins is not None:
+        return bins
+    return _plan_fusion_bins_py(sizes_bytes, threshold)
+
+
+def _plan_fusion_bins_py(sizes_bytes: Sequence[int],
+                         threshold: int) -> List[List[int]]:
+    bins: List[List[int]] = []
+    remaining = list(range(len(sizes_bytes)))
+    while remaining:
+        bin_idxs: List[int] = []
+        acc = 0
+        leftover: List[int] = []
+        for i in remaining:
+            b = sizes_bytes[i]
+            if not bin_idxs or acc + b <= threshold:
+                bin_idxs.append(i)
+                acc += b
+            else:
+                leftover.append(i)
+        bins.append(bin_idxs)
+        remaining = leftover
+    return bins
 
 
 def _is_axes(x) -> bool:

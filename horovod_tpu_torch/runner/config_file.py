@@ -7,16 +7,21 @@ runner/common/util/config_parser.py — section structure
 params/autotune/timeline/stall_check/logging; launch.py config-file flag).
 Keys set CLI-argument defaults; anything given explicitly on the command
 line wins over the file (the reference's ``override_args`` mechanism).
-The keys of the launcher flags the port lacks (``params.fusion_threshold_mb``,
-``cycle_time_ms``, ``cache_capacity``, the ``autotune``, ``timeline`` and
-``metrics`` sections: subsystems not ported yet) are unknown keys and
-raise.
+The keys of the launcher flags the port lacks (the ``autotune`` and
+``metrics`` sections: subsystems not ported yet, ROADMAP A.13b) are
+unknown keys and raise.
 
 Example::
 
     params:
+      fusion_threshold_mb: 64
+      cycle_time_ms: 3.5
+      cache_capacity: 2048
       hierarchical_allreduce: false
       torus_allreduce: true
+    timeline:
+      filename: timeline.json
+      mark_cycles: true
     stall_check:
       enabled: false
     logging:
@@ -129,9 +134,11 @@ class _ConfigApplier:
 
 
 _KNOWN_KEYS = {
-    None: {"params", "stall_check", "logging", "elastic", "trace",
-           "mesh_shape", "num_proc", "hosts"},
-    "params": {"hierarchical_allreduce", "torus_allreduce"},
+    None: {"params", "timeline", "stall_check", "logging", "elastic",
+           "trace", "mesh_shape", "num_proc", "hosts"},
+    "params": {"fusion_threshold_mb", "cycle_time_ms", "cache_capacity",
+               "hierarchical_allreduce", "torus_allreduce"},
+    "timeline": {"filename", "mark_cycles"},
     "stall_check": {"enabled"},
     "trace": {"enabled", "dir", "profile"},
     "logging": {"level"},
@@ -156,12 +163,18 @@ def set_args_from_config(parser: argparse.ArgumentParser, args,
     """Map the YAML sections onto parsed hvdrun args (file loses to CLI)."""
     apply = _ConfigApplier(parser, args, overrides)
     _check_keys(config, None)
-    for name in ("params", "stall_check", "logging", "elastic", "trace"):
+    for name in ("params", "timeline", "stall_check", "logging", "elastic",
+                 "trace"):
         _check_keys(_section(config, name), name)
 
     params = _section(config, "params")
-    for key in ("hierarchical_allreduce", "torus_allreduce"):
+    for key in ("fusion_threshold_mb", "cycle_time_ms", "cache_capacity",
+                "hierarchical_allreduce", "torus_allreduce"):
         apply.set(key, params.get(key))
+
+    timeline = _section(config, "timeline")
+    apply.set("timeline_filename", timeline.get("filename"))
+    apply.set("timeline_mark_cycles", timeline.get("mark_cycles"))
 
     trace_cfg = _section(config, "trace")
     apply.set("trace", trace_cfg.get("enabled"))

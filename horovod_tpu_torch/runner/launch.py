@@ -28,12 +28,13 @@ never retried. Of several processes, any other nonzero exit code beats
 
 Runtime knobs are forwarded 1:1 as HOROVOD_* env vars, mirroring the
 reference's flag->env convention (launch.py:356-544), for the knobs the
-port reads. The JAX launcher's flags of subsystems not ported yet
-(``--fusion-threshold[-mb]``, ``--cycle-time-ms``, ``--cache-capacity``,
-``--autotune[-log-file]``, ``--timeline-filename``,
-``--timeline-mark-cycles``: ROADMAP A.9b; ``--metrics-port``,
-``--metrics-dump``: A.13b) are absent, so argparse refuses them. There is
-no ``--tpu``: the TPU-pod launch has no GPU counterpart.
+port reads: among them the control plane's ``--fusion-threshold[-mb]``,
+``--cycle-time-ms``, ``--cache-capacity``, ``--timeline-filename`` and
+``--timeline-mark-cycles``, set as the JAX launcher sets them. The JAX
+launcher's flags of subsystems not ported yet (``--autotune[-log-file]``,
+``--metrics-port``, ``--metrics-dump``: ROADMAP A.13b) are absent, so
+argparse refuses them. There is no ``--tpu``: the TPU-pod launch has no
+GPU counterpart.
 """
 
 from __future__ import annotations
@@ -143,9 +144,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "(HOROVOD_PREEMPTION_FILE).")
     p.add_argument("--verbose", action="store_true")
     # Knob mirrors (reference launch.py:356-544).
+    p.add_argument("--fusion-threshold-mb", type=float, default=None)
+    p.add_argument("--fusion-threshold", default=None,
+                   help="Raw HOROVOD_FUSION_THRESHOLD value; accepts size "
+                        "suffixes ('64MB') and the per-axis form "
+                        "'local:64MB,cross:8MB' on hierarchical meshes.")
+    p.add_argument("--cycle-time-ms", type=float, default=None)
+    p.add_argument("--cache-capacity", type=int, default=None)
     p.add_argument("--hierarchical-allreduce", action="store_true")
     p.add_argument("--torus-allreduce", action="store_true",
                    help="2D torus (local x cross) allreduce decomposition.")
+    p.add_argument("--timeline-filename", default=None)
+    p.add_argument("--timeline-mark-cycles", action="store_true")
     p.add_argument("--trace", action="store_true",
                    help="Enable the span tracer on every worker "
                         "(HOROVOD_TRACE=1) with a launcher-minted shared "
@@ -190,10 +200,30 @@ def env_from_args(args) -> dict:
     secret = make_secret().hex()
     env[SECRET_ENV] = secret
     os.environ[SECRET_ENV] = secret
+    if args.fusion_threshold_mb is not None:
+        env["HOROVOD_FUSION_THRESHOLD"] = str(
+            int(args.fusion_threshold_mb * 1024 * 1024))
+    if getattr(args, "fusion_threshold", None):
+        if args.fusion_threshold_mb is not None:
+            raise ValueError(
+                "--fusion-threshold and --fusion-threshold-mb both set; "
+                "pass only one")
+        # a bad per-axis spec fails in the launcher, not in every worker
+        from horovod_tpu_torch.config import _parse_fusion_threshold
+        _parse_fusion_threshold(args.fusion_threshold)
+        env["HOROVOD_FUSION_THRESHOLD"] = args.fusion_threshold
+    if args.cycle_time_ms is not None:
+        env["HOROVOD_CYCLE_TIME"] = str(args.cycle_time_ms)
+    if args.cache_capacity is not None:
+        env["HOROVOD_CACHE_CAPACITY"] = str(args.cache_capacity)
     if args.hierarchical_allreduce:
         env["HOROVOD_HIERARCHICAL_ALLREDUCE"] = "1"
     if args.torus_allreduce:
         env["HOROVOD_TORUS_ALLREDUCE"] = "1"
+    if args.timeline_filename:
+        env["HOROVOD_TIMELINE"] = args.timeline_filename
+    if args.timeline_mark_cycles:
+        env["HOROVOD_TIMELINE_MARK_CYCLES"] = "1"
     if getattr(args, "trace", False):
         env["HOROVOD_TRACE"] = "1"
         env["HVD_TRACE_ID"] = os.urandom(8).hex()

@@ -31,10 +31,15 @@ same order. A group of one rank has no process group: its collectives are
 local. A group that fails to form raises.
 
 ``init`` also drives the goodput accountant's ``init`` phase
-(``goodput/accountant.py``) and turns the span recorder on under
-``HOROVOD_TRACE=1`` (``tracing/spans.py``), as the JAX ``init`` does. Not
-ported yet: the timeline, the metrics server and the trace export and
-merge at ``shutdown`` (ROADMAP A.13b).
+(``goodput/accountant.py``), turns the span recorder on under
+``HOROVOD_TRACE=1`` (``tracing/spans.py``), starts the timeline under
+``HOROVOD_TIMELINE=path`` (``timeline.py``) and installs the metrics'
+scrape-time collectors, as the JAX ``init`` does. The eager API's
+fusion-cycle coordinator (``ops/coordinator.py``) is made at the first
+``*_async`` call and kept on ``Context.coordinator``; ``shutdown``
+flushes its queue and stops it before the process groups go, then ends a
+timeline ``init`` started. Not ported yet: the metrics server and the
+trace export and merge at ``shutdown`` (ROADMAP A.13b).
 """
 
 from __future__ import annotations
@@ -98,6 +103,9 @@ class Context:
         self.hosts = hosts
         self.owns_group = owns_group
         self.process_set_table = None
+        # the eager fusion-cycle coordinator (ops/coordinator.py), made
+        # lazily by the first *_async call
+        self.coordinator = None
         # the global set's join registry (eager.join): ranks that ran out
         # of data, in the order they joined
         self.joined_ranks: List[int] = []
@@ -283,6 +291,10 @@ def init(device="cuda", backend: Optional[str] = None,
         from horovod_tpu_torch.parallel import process_sets
         process_sets._attach(ctx)
         _context = ctx
+        from horovod_tpu_torch import metrics as _metrics
+        from horovod_tpu_torch import timeline as _timeline
+        _metrics._install_default_collectors()
+        _timeline.init_from_env()
         _goodput.init_end()
         return _context
 
@@ -293,6 +305,10 @@ def shutdown() -> None:
     with _lock:
         if _context is None:
             return
+        if _context.coordinator is not None:
+            _context.coordinator.shutdown()
+        from horovod_tpu_torch import timeline as _timeline
+        _timeline.stop_if_from_env()
         if dist.is_initialized():
             if _context.owns_group:
                 dist.destroy_process_group()

@@ -12,9 +12,9 @@ jax.devices()[:8])`` (:func:`run_jax`). The scenarios replay
 ``test_torch_adasum.py`` has) and the async-handle cases of
 ``tests/test_collectives.py`` (l.322, 331), with the grouped and uneven
 async forms; and, in one process, the stall inspector against the JAX
-package's. Where the JAX package dispatches an async op through its
-cycle coordinator, the port starts it at the call: both snapshot the join
-registry there. Tolerances: movement, integers, MIN/MAX and join's
+package's. Both packages dispatch an async op through their cycle
+coordinators (the port's deterministic in its 8-rank world) and snapshot
+the join registry at the enqueue. Tolerances: movement, integers, MIN/MAX and join's
 results bitwise; f32 sums and averages within 1e-6 of the largest value
 of the result (sums in another order differ in their last bits).
 """

@@ -141,8 +141,19 @@ def test_histogram_quantile_equals_jax():
 
 
 def test_runtime_totals_and_snapshot_goodput_block():
-    assert M.runtime_totals() == {"bytes_reduced": 0.0,
-                                  "collective_seconds": 0.0}
+    """The totals read this process's registry, which the eager
+    coordinator and handles feed (any earlier test in the process may
+    have), so they are read from fresh registries: zero at first, and
+    after a cycle its bytes (world x a rank's) and its handle's wait."""
+    import torch
+    from horovod_tpu_torch.ops.coordinator import Coordinator
+    shared = M._registry
+    M._registry = M.MetricsRegistry()
+    try:
+        assert M.runtime_totals() == {"bytes_reduced": 0.0,
+                                      "collective_seconds": 0.0}
+    finally:
+        M._registry = shared
     assert "goodput" not in M.metrics_snapshot()
     accountant.init_begin()
     accountant.init_end()
@@ -150,6 +161,21 @@ def test_runtime_totals_and_snapshot_goodput_block():
     assert set(snap["goodput"]["phases"]) == set(accountant.PHASES)
     assert "hvd_goodput_fraction" in snap
     assert "goodput" not in M.merge_snapshots([snap])
+    M._registry = M.MetricsRegistry()
+    try:
+        ctx = htt.init(device="cpu")
+        try:
+            ctx.coordinator = Coordinator(ctx, start_thread=False)
+            h = htt.allreduce_async(torch.ones(3), name="totals")
+            ctx.coordinator.run_cycle()
+            h.wait()
+        finally:
+            htt.shutdown()
+        totals = M.runtime_totals()
+    finally:
+        M._registry = shared
+    assert totals["bytes_reduced"] == 12.0
+    assert totals["collective_seconds"] > 0.0
 
 
 # ---------------------------------------------------------------------------

@@ -116,14 +116,17 @@ def test_env_from_args_rejects_what_jax_rejects(argv, err):
 
 
 # The JAX launcher's flags whose knobs no module of the port reads yet
-# (the coordinator, autotuner and timeline of ROADMAP A.9b; the metrics
-# server of A.13b), with a value for each.
+# (the online tuner and the metrics server of ROADMAP A.13b), with a value
+# for each.
 UNPORTED_FLAGS = {
-    "--fusion-threshold-mb": "64", "--fusion-threshold": "64MB",
-    "--cycle-time-ms": "5", "--cache-capacity": "7", "--autotune": None,
-    "--autotune-log-file": "at.csv", "--timeline-filename": "t.json",
-    "--timeline-mark-cycles": None, "--metrics-port": "9090",
-    "--metrics-dump": "m.json"}
+    "--autotune": None, "--autotune-log-file": "at.csv",
+    "--metrics-port": "9090", "--metrics-dump": "m.json"}
+# The control plane's flags (the coordinator and the timeline), with a
+# value for each.
+CONTROL_PLANE_FLAGS = {
+    "--fusion-threshold-mb": "64", "--fusion-threshold": "local:1MB,cross:16KB",
+    "--cycle-time-ms": "5", "--cache-capacity": "7",
+    "--timeline-filename": "t.json", "--timeline-mark-cycles": None}
 
 
 def _flags(mod):
@@ -132,7 +135,8 @@ def _flags(mod):
 
 def test_parser_has_jax_flags_but_tpu():
     """The JAX launcher's flags less ``--tpu`` and those of knobs the port
-    does not read."""
+    does not read (the online tuner's and the metrics server's); the
+    control plane's are there."""
     assert _flags(jlaunch) - _flags(launch) == {"--tpu"} | set(UNPORTED_FLAGS)
     assert _flags(launch) - _flags(jlaunch) == set()
 
@@ -147,6 +151,23 @@ def test_unported_knob_flags_are_refused(flag, capsys):
     with pytest.raises(SystemExit):
         launch.build_parser().parse_args(argv)
     assert "unrecognized arguments" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", sorted(CONTROL_PLANE_FLAGS))
+def test_control_plane_flags_set_jax_env(flag):
+    """Each flag of the coordinator and the timeline sets the environment
+    the JAX launcher sets for it."""
+    value = CONTROL_PLANE_FLAGS[flag]
+    argv = [flag] + ([value] if value else []) + ["--", "python", "x.py"]
+    got = _env(launch, argv)
+    assert got == _env(jlaunch, argv)
+    knob = {"--fusion-threshold-mb": "HOROVOD_FUSION_THRESHOLD",
+            "--fusion-threshold": "HOROVOD_FUSION_THRESHOLD",
+            "--cycle-time-ms": "HOROVOD_CYCLE_TIME",
+            "--cache-capacity": "HOROVOD_CACHE_CAPACITY",
+            "--timeline-filename": "HOROVOD_TIMELINE",
+            "--timeline-mark-cycles": "HOROVOD_TIMELINE_MARK_CYCLES"}[flag]
+    assert knob in got
 
 
 # ---------------------------------------------------------------------------
@@ -182,6 +203,9 @@ CONFIG_CASES = [
     ("logging:\n  level: 10\nmesh_shape: 4\n", ["--", "python", "x.py"]),
     ("stall_check:\n  enabled: null\ntrace:\n"
      "  enabled: true\n  dir: /tmp/t\n", ["--", "python", "x.py"]),
+    ("params:\n  fusion_threshold_mb: 32\n  cache_capacity: 9\n"
+     "timeline:\n  filename: t.json\n  mark_cycles: true\n",
+     ["--cycle-time-ms", "2.5", "--", "python", "x.py"]),
 ]
 
 
@@ -230,9 +254,8 @@ def test_config_file_rejections_match_jax(cfg, err):
 
 
 @pytest.mark.parametrize("cfg", [
-    {"params": {"fusion_threshold_mb": 64}}, {"params": {"cycle_time_ms": 5}},
-    {"params": {"cache_capacity": 7}}, {"autotune": {"enabled": True}},
-    {"timeline": {"filename": "t.json"}}, {"metrics": {"port": 9090}}])
+    {"autotune": {"enabled": True}}, {"autotune": {"log_file": "at.csv"}},
+    {"metrics": {"port": 9090}}, {"metrics": {"dump": "m.json"}}])
 def test_config_file_refuses_unported_knobs(cfg):
     """The JAX file's keys of knobs the port does not read raise, as a
     typo does."""
@@ -243,6 +266,28 @@ def test_config_file_refuses_unported_knobs(cfg):
     with pytest.raises(ValueError, match="unknown key"):
         config.set_args_from_config(
             parser, parser.parse_args(["--", "python"]), cfg, set())
+
+
+@pytest.mark.parametrize("cfg", [
+    {"params": {"fusion_threshold_mb": 64}}, {"params": {"cycle_time_ms": 5}},
+    {"params": {"cache_capacity": 7}}, {"timeline": {"filename": "t.json"}},
+    {"timeline": {"mark_cycles": True}}])
+def test_config_file_control_plane_keys_match_jax(cfg):
+    """The control plane's keys give the JAX package's arguments and
+    environment."""
+    got = []
+    for mod, cmod in ((launch, config), (jlaunch, jconfig)):
+        parser = mod.build_parser()
+        args = parser.parse_args(["--", "python"])
+        cmod.set_args_from_config(parser, args, cfg, set())
+        env = {k: v for k, v in mod.env_from_args(args).items()
+               if k not in PER_RUN}
+        got.append((vars(args), env))
+    (args, env), (jargs, jenv) = got
+    for dest in ("fusion_threshold_mb", "cycle_time_ms", "cache_capacity",
+                 "timeline_filename", "timeline_mark_cycles"):
+        assert args[dest] == jargs[dest]
+    assert env == jenv
 
 
 def test_config_file_rejects_non_mapping(tmp_path):

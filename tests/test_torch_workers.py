@@ -821,6 +821,314 @@ def _serve_tp_scenario(rank, sc, sets):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the control plane: one script run by both packages' coordinators
+# ---------------------------------------------------------------------------
+
+def run_coord_script(sc, api):
+    """Run the coordinator script ``sc["steps"]`` through ``api`` (an
+    adapter over one package: ``coord``, ``ctx``, ``knobs``,
+    ``call(fn, x, kw)``, ``enqueue_raw(op_type, x, name, kw)``,
+    ``arr(key)``, ``ps(i)``, ``op(name)``, ``to_np(value)``,
+    ``timeline(path or None)``). Steps: ``enqueue`` (``fn`` on ``arg`` or
+    the list ``args``, ``name``, ``kw``, ``ps``, ``raises``), ``raw`` (the
+    package's ``_enqueue_async``), ``cycle``, ``wait``/``sync``/``poll``
+    (of ``name``; ``out`` keeps the result; ``raises`` keeps the error's
+    type), ``call`` (a synchronous ``fn`` on ``arg``, kept as ``out``),
+    ``done`` (``quiet``: not recorded), ``knob``/``unknob``, ``capacity``, ``join``/
+    ``join_clear``, ``probe`` (dispatched programs and queue length),
+    ``min_threshold``, ``threshold_for``, ``timeline_start``/
+    ``timeline_stop`` and ``coord_shutdown``. Returns the bins (member
+    names per dispatched bin, in order), the ``stats``, the cache's
+    (hits, misses, evictions), the per-step records and the kept
+    values."""
+    coord = api.coord
+    bins, records, values, handles, knobs_set = [], [], {}, {}, set()
+    orig = coord._dispatch_bin
+
+    def recording(entries, *rest):
+        bins.append([e.name for e in entries])
+        return orig(entries, *rest)
+
+    coord._dispatch_bin = recording
+    try:
+        for st in sc["steps"]:
+            do = st["do"]
+            if do in ("enqueue", "raw"):
+                kw = dict(st.get("kw", {}))
+                if "op" in kw:
+                    kw["op"] = api.op(kw["op"])
+                if "ps" in st:
+                    kw["process_set"] = api.ps(st["ps"])
+                x = ([api.arr(k) for k in st["args"]] if "args" in st
+                     else api.arr(st["arg"]))
+                try:
+                    if do == "raw":
+                        h = api.enqueue_raw(st["op_type"], x, st["name"], kw)
+                    else:
+                        h = api.call(st["fn"], x, dict(kw, name=st["name"]))
+                except Exception as e:
+                    if not st.get("raises"):
+                        raise
+                    records.append(type(e).__name__)
+                    continue
+                handles[st["name"]] = h
+            elif do == "cycle":
+                records.append(int(coord.run_cycle()))
+            elif do in ("wait", "sync"):
+                try:
+                    out = handles[st["name"]].wait()
+                except Exception as e:
+                    if not st.get("raises"):
+                        raise
+                    records.append(type(e).__name__)
+                    continue
+                if "out" in st:
+                    values[st["out"]] = api.to_np(out)
+            elif do == "call":
+                kw = {"op": api.op(st["op"])} if "op" in st else {}
+                values[st["out"]] = api.to_np(api.call(
+                    st["fn"], api.arr(st["arg"]), kw))
+            elif do in ("done", "poll"):
+                done = bool(handles[st["name"]].done())
+                if not st.get("quiet"):
+                    records.append(done)
+            elif do == "knob":
+                for k, v in st["set"].items():
+                    api.knobs.set_override(k, v)
+                    knobs_set.add(k)
+            elif do == "unknob":
+                for k in st["names"]:
+                    api.knobs.clear_override(k)
+            elif do == "capacity":
+                coord.cache.capacity = st["value"]
+            elif do == "join":
+                api.ctx.joined_ranks.append(st["rank"])
+            elif do == "join_clear":
+                api.ctx.joined_ranks.clear()
+            elif do == "probe":
+                records.append([coord.stats.dispatched_programs,
+                                len(coord.queue)])
+            elif do == "min_threshold":
+                records.append(int(coord._min_threshold()))
+            elif do == "threshold_for":
+                records.append(int(coord._threshold_for(st["kind"])))
+            elif do == "timeline_start":
+                api.timeline(st["path"])
+            elif do == "timeline_stop":
+                api.timeline(None)
+            elif do == "coord_shutdown":
+                coord.shutdown()
+            else:
+                raise ValueError(f"unknown step {do!r}")
+    finally:
+        coord._dispatch_bin = orig
+        for k in knobs_set:
+            api.knobs.clear_override(k)
+    st = coord.stats
+    return {"bins": bins, "records": records, "values": values,
+            "stats": [st.cycles, st.tensors, st.dispatched_programs,
+                      st.fused_tensors_max],
+            "cache": [coord.cache.hits, coord.cache.misses,
+                      coord.cache.evictions]}
+
+
+class _PortCoordAPI:
+    """:func:`run_coord_script`'s adapter over the port, rank ``rank``'s
+    row of every array."""
+
+    def __init__(self, rank, sc, sets, coord):
+        from horovod_tpu_torch.config import knobs
+        from horovod_tpu_torch.runtime import context
+        self.rank, self.sc, self.sets = rank, sc, sets
+        self.coord, self.knobs = coord, knobs
+        self.ctx = context.get_context()
+
+    def arr(self, key):
+        return torch.from_numpy(np.ascontiguousarray(
+            self.sc["arrays"][key][self.rank]))
+
+    def ps(self, i):
+        return self.sets[i]
+
+    def op(self, name):
+        from horovod_tpu_torch.ops.reduce_ops import ReduceOp
+        return ReduceOp[name]
+
+    def call(self, fn, x, kw):
+        return getattr(htt, fn)(x, **kw)
+
+    def enqueue_raw(self, op_type, x, name, kw):
+        from horovod_tpu_torch import eager
+        return eager._enqueue_async(op_type, x, name, **kw)
+
+    def to_np(self, v):
+        if isinstance(v, (list, tuple)):
+            return [self.to_np(e) for e in v]
+        return v.detach().cpu().numpy()
+
+    def timeline(self, path):
+        if path is None:
+            htt.stop_timeline()
+        else:
+            htt.start_timeline(path.format(rank=self.rank))
+
+
+def _coord_scenario(rank, sc, sets):
+    """A control-plane script (:func:`run_coord_script`) on a fresh
+    coordinator: thread-less (``Coordinator(ctx, start_thread=False)``,
+    as the JAX tests' ``manual_coord``), deterministic where ``det`` says
+    so (a world of several ranks always is), or, with ``lazy``, the
+    context's own from ``get_coordinator`` (its cycle thread in a world
+    of one). Saves the script's record as JSON (with ``thread``: whether
+    a cycle thread ran, and still runs after ``shutdown``) and each kept
+    value."""
+    import json
+    from horovod_tpu_torch.ops.coordinator import Coordinator, get_coordinator
+    from horovod_tpu_torch.runtime import context
+    ctx = context.get_context()
+    if ctx.coordinator is not None:
+        ctx.coordinator.shutdown()
+        ctx.coordinator = None
+    if sc.get("lazy"):
+        coord = get_coordinator(ctx)
+    else:
+        coord = Coordinator(ctx, start_thread=False)
+        ctx.coordinator = coord
+    if sc.get("det"):
+        coord.deterministic = True
+    res = run_coord_script(sc, _PortCoordAPI(rank, sc, sets, coord))
+    alive = coord._thread is not None and coord._thread.is_alive()
+    coord.shutdown()
+    res["thread"] = [alive, coord._thread is not None
+                     and coord._thread.is_alive()]
+    ctx.coordinator = None
+    out = {"record": np.asarray(json.dumps({k: v for k, v in res.items()
+                                            if k != "values"}))}
+    for key, v in res["values"].items():
+        if isinstance(v, list):
+            for i, e in enumerate(v):
+                out[f"{key}|{i}"] = e
+        else:
+            out[key] = v
+    return out
+
+
+def _divergence_scenario(rank, sc, sets):
+    """One divergence case of a two-rank world on a fresh coordinator
+    (``case``): ``clean`` (identical programs, three bursts), ``extra``
+    (rank 1 enqueues a tensor rank 0 never does), ``widened`` (the same
+    once the check interval has widened to 4, at a flush rank 0 dispatches
+    unchecked; rank 1 then enters rank 0's collective, so the world goes
+    on), ``never`` (rank 1 never flushes), or ``cadence`` (the checker
+    alone over the c10d store, rank 1's adaptive interval desynced after
+    two clean flushes). Saves the error text (empty when none), the
+    seconds taken and the checks made; every rank ends at a barrier."""
+    import time
+    import torch.distributed as dist
+    from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.ops.coordinator import Coordinator, Entry
+    from horovod_tpu_torch.ops.divergence import (DivergenceChecker,
+                                                  DivergenceError)
+    from horovod_tpu_torch.runtime import context
+    from horovod_tpu_torch.utils.kvstore import distributed_kv
+    ctx = context.get_context()
+    if ctx.coordinator is not None:
+        ctx.coordinator.shutdown()
+    coord = Coordinator(ctx, start_thread=False)
+    ctx.coordinator = coord
+    checker = coord.divergence_checker
+    x = torch.ones(8)
+    error, t0 = "", time.perf_counter()
+    try:
+        if sc["case"] == "clean":
+            for i in range(3):
+                hs = [htt.allreduce_async(x * (i + 1), name=f"g{i}_{j}")
+                      for j in range(4)]
+                for h in hs:
+                    htt.synchronize(h)
+        elif sc["case"] == "extra":
+            if rank == 1:
+                htt.allreduce_async(x, name="extra_tensor")
+            htt.synchronize(htt.allreduce_async(x, name="shared_grad"))
+        elif sc["case"] == "widened":
+            knobs.set_override("HOROVOD_DIVERGENCE_CHECK_MAX_INTERVAL", 4)
+            while not (checker.effective_interval == 4
+                       and checker._since_check == 0):
+                htt.synchronize(htt.allreduce_async(x, name="steady"))
+            t0 = time.perf_counter()
+            try:
+                if rank == 1:
+                    htt.allreduce_async(x, name="late_extra")
+                htt.synchronize(htt.allreduce_async(x, name="steady"))
+            finally:
+                knobs.clear_override("HOROVOD_DIVERGENCE_CHECK_MAX_INTERVAL")
+                if rank == 1:       # rank 0's collective is still in flight
+                    htt.allreduce(x, name="release")
+        elif sc["case"] == "never":
+            h = htt.allreduce_async(x, name="lonely")
+            if rank == 0:
+                htt.synchronize(h)
+        else:
+            checker = DivergenceChecker(
+                distributed_kv(site="divergence"), rank, 2,
+                prefix=f"hvd/test/{sc['name']}")
+            for i in (1, 2):
+                checker.observe(i, [Entry("g", "allreduce", x, None)])
+            dist.barrier()
+            checker._effective, checker._streak = 1 + rank, 0
+            for i in (3, 4):
+                checker.observe(i, [Entry("g", "allreduce", x, None)])
+    except DivergenceError as e:
+        error = str(e)
+    seconds = time.perf_counter() - t0
+    coord.reset(RuntimeError("case over"))
+    ctx.coordinator = None
+    dist.barrier()
+    return {"error": np.asarray(error), "seconds": np.asarray(seconds),
+            "checks": np.asarray(checker.checks)}
+
+
+def _frontend_leaves(v, prefix, out):
+    """Record one result of the DLPack bridge: per leaf (lists and tuples
+    walked) its framework (the root of its type's module), its dtype's
+    name and its value as float64 or int64 numpy."""
+    if isinstance(v, (list, tuple)):
+        for i, e in enumerate(v):
+            _frontend_leaves(e, f"{prefix}|{i}", out)
+        return
+    out[f"{prefix}|type"] = np.asarray(type(v).__module__.split(".")[0])
+    out[f"{prefix}|dtype"] = np.asarray(str(v.dtype).replace("torch.", ""))
+    arr = np.asarray(v.astype(np.float64) if v.dtype.name == "bfloat16"
+                     else v) if isinstance(v, np.ndarray) else \
+        v.detach().double().numpy() if v.is_floating_point() else \
+        v.detach().numpy()
+    out[prefix] = arr
+
+
+def _dlpack_scenario(rank, sc, sets):
+    """Each of ``calls`` (``fn`` of the public API on this rank's rows of
+    the numpy ``arg``, or of each of ``args`` as a list; ``kw``, with
+    ``op`` by name and ``rank_kw`` stacked per rank; ``wait``: an async
+    form, synchronized) with numpy inputs through the DLPack bridge;
+    each result recorded by :func:`_frontend_leaves`."""
+    from horovod_tpu_torch.ops.reduce_ops import ReduceOp
+    out = {}
+    for call in sc["calls"]:
+        x = ([np.ascontiguousarray(a[rank]) for a in call["args"]]
+             if "args" in call else np.ascontiguousarray(call["arg"][rank]))
+        kw = dict(call.get("kw", {}))
+        for k, v in call.get("rank_kw", {}).items():
+            kw[k] = v[rank]
+        if "op" in kw:
+            kw["op"] = ReduceOp[kw["op"]]
+        res = getattr(htt, call["fn"])(x, **kw)
+        if call.get("wait"):
+            res = htt.synchronize(res)
+        _frontend_leaves(res, call["name"], out)
+    return out
+
+
 _PHASE_SCENARIOS = {"call": _call_scenario, "topology": _topology_scenario,
                     "eager": _eager_scenario,
                     "adasum_opt": _adasum_opt_scenario,
@@ -837,7 +1145,10 @@ _PHASE_SCENARIOS = {"call": _call_scenario, "topology": _topology_scenario,
                     "attention": _attention_scenario,
                     "moe": _moe_scenario,
                     "pipeline": _pipeline_scenario,
-                    "serve_tp": _serve_tp_scenario}
+                    "serve_tp": _serve_tp_scenario,
+                    "coord": _coord_scenario,
+                    "divergence": _divergence_scenario,
+                    "dlpack": _dlpack_scenario}
 
 
 def phase_worker(rank, world, port, phases, out_dir):
