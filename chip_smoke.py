@@ -9,6 +9,8 @@
                                    # only phase 9's configurations, on 4 cards
     python3 chip_smoke.py --data-parallel 4 --control-plane-only
                                    # only phase 10's checks, on 4 cards
+    python3 chip_smoke.py --data-parallel 4 --zoo-only
+                                   # only VGG-16 and Inception V3, on 4 cards
 
 Phases, each of which raises (and so exits non-zero) when it fails:
 
@@ -20,7 +22,12 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    timed beside its bound and a library call that computes the same
    function: the paged-decode kernel (serving; its split and merge
    kernels' device ms per call from torch.profiler, beside CUDA-event ms;
-   bf16 at KVH 16 and 4, f32), then the flash forward
+   bf16 at KVH 16 and 4, f32; then at the speculative verify step's
+   geometry, ``paged_decode verify geometry:``: 8 slots' tables each
+   repeated K+1 = 5 times, lengths len_s+1 .. len_s+5 with one slot's
+   rows past the table, its first copies bitwise the 8 rows alone; its
+   bound reads each slot's K/V rows once), then
+   the flash forward
    and the two flash backward kernels (training: B=8, S=2048, H=16,
    D=64, bf16, causal; plus f32, offset, fully masked and ragged cases;
    the timed line is followed by a ``forward`` line with the forward's
@@ -123,7 +130,39 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     tensor) and by the direct path (one started allreduce per
     tensor), with the host ms of a cycle and of a bin's dispatch; and a
     burst of integer-valued tensors of the gradients' shapes, exact, with
-    its timeline (which must load with json).
+    its timeline (which must load with json);
+11. the model zoo on one card (``zoo train <name>:`` lines, each after
+    a ``zoo profile <name>:`` line), bf16, weights from a seed, through
+    ``DistributedOptimizer`` (SGD 0.01, momentum 0.9) and
+    ``data_parallel_train_step`` in an NCCL world of one, a warm-up and
+    ZOO_STEPS steps each: VGG-16 at 224^2 and 128 images, Inception V3 at
+    299^2 and INCEPTION_B images, and ResNet-50 with ``folded_bn=True``
+    (as ``bench.py`` builds it), with plain batch norm, and with the
+    space-to-depth stem and ``folded_bn``: step ms (median and range),
+    images/s, peak memory, the device's busy share and kernel launches of
+    a profiled step (``zoo folded_bn against batch norm:``); then the
+    narrow f32 zoo card against CPU (``zoo card vs cpu``: VGG-11 at 32^2
+    and ResNet-18 with both options at 64^2 in train mode, Inception V3
+    at 75^2 in eval mode, then in train mode part by part against the
+    CPU in f64: its stem's layers and each of its eleven blocks, outputs,
+    statistics and gradients);
+12. speculative serving (``spec serving:``): phase 3's traffic through
+    the flagship at full width and depth in three modes, off, ngram:3
+    and truncate:4 (4 of 16 layers), each at K = 4: decode tokens/s,
+    decode steps, TPOT p50/p99, acceptance, the share of requests whose
+    tokens equal the off run's, and for each that differs the first
+    position and the off run's top-2 logit gap there (teacher-forced);
+    then the same prefixes through decode steps (M = 8) and one verify
+    step (M = 40), each row's largest logit difference, and each
+    operation of the decode body at M = 8 and M = 40 on the same rows
+    (which first differs bit for bit). A differing token whose top-2 gap
+    exceeds the largest row difference fails the phase. The truncate:4
+    draft's ``propose_drafts`` must give, bitwise, the greedy tokens of a
+    plain engine on the model cut to its first 4 layers. Then the
+    train-to-serve handoff (``serve handoff:``): ``load_for_serving`` of
+    the snapshot phase 4's preempted run committed, its parameters
+    bitwise those the snapshot was taken of, and an engine built from
+    them gives the tokens of one built from those parameters directly.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the
@@ -237,7 +276,13 @@ order); the three syncs timed; the integer burst exact with its
 timeline; the check's ms per flush at HOROVOD_DIVERGENCE_CHECK_EVERY=1
 and once its interval has widened; and the drill: rank 1 enqueues a
 tensor no other rank does, and every rank raises DivergenceError naming
-it within HOROVOD_DIVERGENCE_TIMEOUT=CP_DIV_TIMEOUT seconds.
+it within HOROVOD_DIVERGENCE_TIMEOUT=CP_DIV_TIMEOUT seconds. Last, the
+zoo on N cards (``--data-parallel N --zoo-only``: only these; ``zoo data
+parallel <model>:`` lines): VGG-16 and Inception V3 at phase 11's batch
+per card, on one card and then on N, ZOO_DP_STEPS steps each: every
+rank's parameters bitwise equal after the steps, step ms, scaling
+efficiency (one card's step over N's) and the NCCL kernels' device ms
+of a profiled step.
 """
 
 from __future__ import annotations
@@ -356,14 +401,19 @@ def paged_case(gen, *, b, h, kvh, d, page, n_max, lengths, dtype, copies):
     return q, pools, bt, ln
 
 
-def kernel_bound_ms(q, k_pages, lengths, n_ctx) -> float:
+def kernel_bound_ms(q, k_pages, lengths, n_ctx, kv_lengths=None) -> float:
     """Least time for the work: K/V rows read once (only positions below
     each length), q read, the f32 output written — or its f32 operations
-    at the card's f32 rate, whichever is larger."""
+    at the card's f32 rate, whichever is larger. ``kv_lengths`` (default
+    ``lengths``) is one length per distinct block table: where rows share
+    a table, as the verify step's K+1 rows of a slot do, the function
+    needs that table's K/V rows once, up to the longest of its rows."""
     b, h, d = q.shape
     kvh = k_pages.shape[2]
     rows = int(lengths.clamp(0, n_ctx).sum())
-    nbytes = (2 * rows * kvh * d * k_pages.element_size()
+    kv = lengths if kv_lengths is None else kv_lengths
+    kv_rows = int(kv.clamp(0, n_ctx).sum())
+    nbytes = (2 * kv_rows * kvh * d * k_pages.element_size()
               + q.numel() * q.element_size() + b * h * d * 4
               + 4 * b * (n_ctx // k_pages.shape[1]) + 4 * b)
     flops = 4 * rows * h * d
@@ -1325,6 +1375,7 @@ def profile_train_step(step, state, batch, card,
                               for us, k_, c in rows[:8]],
            "card": card}
     log(f"{label}: " + json.dumps(out))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1349,13 +1400,13 @@ def resnet_step(htt, dev, seed: int):
     return init_fn(model), step, put_batch
 
 
-def resnet_batches(put_batch, n, batch, dev, seed=1):
-    """``n`` global batches of ``batch`` synthetic 224^2 bf16 images and
-    labels (bench.py's synthetic data), made on the card from ``seed``;
-    ``put_batch`` keeps this rank's rows."""
+def resnet_batches(put_batch, n, batch, dev, seed=1, image=224):
+    """``n`` global batches of ``batch`` synthetic ``image``^2 bf16 images
+    and labels (bench.py's synthetic data), made on the card from
+    ``seed``; ``put_batch`` keeps this rank's rows."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     return [put_batch((
-        torch.rand((batch, 224, 224, 3), generator=gen, device=dev
+        torch.rand((batch, image, image, 3), generator=gen, device=dev
                    ).to(torch.bfloat16),
         torch.randint(0, 1000, (batch,), generator=gen, device=dev)))
         for _ in range(n)]
@@ -1498,6 +1549,17 @@ def resnet_card_vs_cpu(htt) -> None:
 CKPT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                          "resilient_ckpt")
 CKPT_INTERVAL, PREEMPT_AT = 2, 3
+# The snapshot phase 12 serves from (a copy of the preempted run's), under
+# build/ too; phase 12 deletes it.
+HANDOFF_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "serve_handoff")
+
+
+def host_tree(tree):
+    """A nested dict of tensors copied to the host."""
+    from horovod_tpu_torch.utils import tree as tree_util
+    return tree_util.tree_map(lambda t: t.detach().to("cpu", copy=True),
+                              tree)
 RESILIENT_WORLD_S = 420     # the N-card resilient world's deadline
 CKPT_BUDGET = 0.05          # HOROVOD_CKPT_OVERHEAD_BUDGET's default
 
@@ -1749,7 +1811,7 @@ def snapshot_probe(ck, state, dev, n: int = 2):
 
 
 def resilient_train(htt, fa, card, n_steps: int = 4,
-                    device="cuda") -> dict:
+                    device="cuda") -> tuple:
     """The resilient phase at full width and depth (``resilient train:``
     line): the flagship through ``train_loop`` in an NCCL world of one,
     uninterrupted, preempted at step PREEMPT_AT and resumed, the resumed
@@ -1757,7 +1819,9 @@ def resilient_train(htt, fa, card, n_steps: int = 4,
     snapshot bytes, on-path ms, write s, restore s and the share of step
     time HOROVOD_CKPT_INTERVAL=auto would pay. Returns the digests of the
     uninterrupted run's tensors (phase 8 holds the launched run to
-    them)."""
+    them) and the handoff: a copy of the preempted run's committed
+    snapshot (HANDOFF_DIR) with the parameters it holds, on the host
+    (phase 12 serves them)."""
     import math
     import shutil
     from horovod_tpu_torch.resilience import AsyncCheckpointer
@@ -1774,6 +1838,12 @@ def resilient_train(htt, fa, card, n_steps: int = 4,
         res = resilient_runs(htt, fa, cfg, dev, batches, CKPT_ROOT)
         state, pre_ck = res.pop("preempted_state"), res.pop("preempted_ck")
         pre_ck.close()
+        # phase 12's train-to-serve handoff reads this committed snapshot;
+        # the parameters it holds stay on the host beside it
+        shutil.rmtree(HANDOFF_DIR, ignore_errors=True)
+        shutil.copytree(os.path.join(CKPT_ROOT, "preempted"), HANDOFF_DIR)
+        handoff = {"dir": HANDOFF_DIR, "step": PREEMPT_AT,
+                   "params": host_tree(state.params)}
         shutil.rmtree(os.path.join(CKPT_ROOT, "uninterrupted"),
                       ignore_errors=True)
         tensors = state_tensors(htt, state)
@@ -1833,7 +1903,7 @@ def resilient_train(htt, fa, card, n_steps: int = 4,
         raise AssertionError(
             f"the resumed run differs from the uninterrupted one in "
             f"{len(diff)} leaves (max abs diff {max(diff.values())})")
-    return ref_digests
+    return ref_digests, handoff
 
 
 def resilient_rank(rank, world, ports, results, device="cuda",
@@ -2503,6 +2573,13 @@ def nccl_overlap(prof):
 def dp_variant(htt, rank, world, dev, variant, n_steps):
     """Build one variant's step and its batches (this rank's rows)."""
     model = variant["model"]
+    if model in ZOO:
+        spec = ZOO[model]
+        state, step, put_batch = zoo_step(htt, dev, model, seed=rank)
+        batches = resnet_batches(put_batch, n_steps + 2,
+                                 spec["batch"] * world, dev,
+                                 image=spec["image"])
+        return state, step, batches, spec["batch"] * world, "images"
     if model == "resnet":
         state, step, put_batch = resnet_step(htt, dev, seed=rank)
         batches = resnet_batches(put_batch, n_steps + 2, RESNET_B * world,
@@ -2542,6 +2619,7 @@ def dp_rank(rank, world, ports, results, variants, device="cuda",
     join_store_world(rank, world, ports, device)
     import horovod_tpu_torch as htt
     from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.ops import collectives as C
     from horovod_tpu_torch.parallel import distributed as D
     from horovod_tpu_torch.utils import tree as tree_util
     from torch.profiler import ProfilerActivity, profile
@@ -2589,8 +2667,10 @@ def dp_rank(rank, world, ports, results, variants, device="cuda",
         for k in variant.get("knobs", {}):
             knobs.clear_override(k)
         leaves = (list(state.params.parameters())
-                  if variant["model"] == "resnet"
+                  if isinstance(state.params, torch.nn.Module)
                   else tree_util.tree_leaves(state.params))
+        bitwise = (same_on_every_rank(C, leaves)
+                   if variant["model"] in ZOO else None)
         total = sum(float(t.detach().double().sum()) for t in leaves)
         lo = htt.allreduce(torch.tensor([total], dtype=torch.float64,
                                         device=dev), htt.Min)
@@ -2612,7 +2692,8 @@ def dp_rank(rank, world, ports, results, variants, device="cuda",
                 "dcn_wire_bytes": trace["dcn_wire_bytes"],
                 "dcn_wire_bytes_predicted": predicted,
                 "mesh": ctx.topology.mesh.shape,
-                "params_equal_across_ranks": float(lo) == float(hi)})
+                "params_equal_across_ranks": float(lo) == float(hi),
+                "params_bitwise_equal": bitwise})
         del state, step, batches
         if device == "cuda":
             torch.cuda.empty_cache()
@@ -5007,6 +5088,658 @@ def control_plane_world_one(htt, cb, card, dev="cuda", batch=RESNET_B,
     log("control plane (world 1): " + json.dumps(out))
 
 
+# ---------------------------------------------------------------------------
+# phase 2: the paged-decode kernel at the speculative verify geometry
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4                  # HOROVOD_SERVE_SPEC_K's default
+SPEC_TRUNCATE = 4           # truncate:4, 4 of the flagship's 16 layers
+
+
+def check_kernel_verify(fa, kvc, gen):
+    """The paged-decode kernel at the verify step's geometry: 8 slots'
+    block tables each repeated K+1 = 5 times (40 rows), row i of a slot at
+    length len_s + 1 + i (the decode body attends with lengths + 1), slot
+    1's last three rows past n_max * page (the kernel clamps them to the
+    table), slot 3 empty (length 0: exact zeros); bf16, the flagship's
+    heads (H = KVH = 16, D = 64), page 128, n_max 16. Held against its
+    plain version; the 40 rows' first copies must equal, bit for bit, the
+    kernel on the 8 slots alone (its rows are independent of M). Device
+    ms and the bound beside it: each slot's K/V rows read once (up to its
+    longest row), though the kernel reads them once a row."""
+    slots, k1, h, d, page, n_max = 8, SPEC_K + 1, 16, 64, 128, 16
+    base = [1, 2046, 300, 0, 1024, 1537, 128, 777]
+    lengths = [0 if b == 0 else b + 1 + i for b in base for i in range(k1)]
+    q, pools, bt8, _ = paged_case(gen, b=slots * k1, h=h, kvh=h, d=d,
+                                  page=page, n_max=n_max, lengths=lengths,
+                                  dtype=torch.bfloat16, copies=1)
+    kp, vp = pools[0]
+    bt = bt8[:slots].repeat_interleave(k1, dim=0).contiguous()
+    ln = torch.tensor(lengths, dtype=torch.int32, device=q.device)
+    scale = d ** -0.5
+    out = fa.flash_paged_decode(q, kp, vp, bt, ln, scale)
+    ref = kvc.paged_attention_reference(q, kp, vp, bt, ln, scale)
+    err = float((out - ref).abs().max())
+    first = slice(0, slots * k1, k1)
+    alone = fa.flash_paged_decode(q[first].contiguous(), kp, vp,
+                                  bt[first].contiguous(),
+                                  ln[first].contiguous(), scale)
+    res = {"rows": slots * k1, "lengths": lengths, "max_abs_err": err,
+           "tol": TOL[torch.bfloat16],
+           "rows_equal_at_m8_and_m40": bool(torch.equal(out[first], alone)),
+           "ms": call_device_ms(lambda: fa.flash_paged_decode(
+               q, kp, vp, bt, ln, scale), 20),
+           "bound_ms": kernel_bound_ms(
+               q, kp, ln, n_max * page,
+               kv_lengths=ln.view(slots, k1).max(dim=1).values)}
+    log("paged_decode verify geometry (bf16, 8 slots x K+1=5 rows, H=KVH=16,"
+        " D=64): " + json.dumps(res))
+    if not torch.isfinite(out).all() or err > TOL[torch.bfloat16]:
+        raise AssertionError(f"paged_decode at the verify geometry "
+                             f"disagrees with its plain version: {err}")
+    if not bool((out[3 * k1:4 * k1] == 0).all()):
+        raise AssertionError("verify geometry: empty slot is not zeros")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the model zoo
+# ---------------------------------------------------------------------------
+
+ZOO_STEPS = 4
+# Images per card: BENCH_VGG16.json's and BENCH_INCEPTION3.json's
+# batch_per_chip, RESNET_B for the ResNets.
+VGG_B, INCEPTION_B = 128, 256
+ZOO = {
+    "vgg16": dict(model="VGG-16", image=224, batch=VGG_B,
+                  fwd_gflop=15.47),
+    "inception3": dict(model="Inception V3", image=299, batch=INCEPTION_B,
+                       fwd_gflop=5.73),
+    "resnet50_folded_bn": dict(model="ResNet-50 folded_bn (bench.py)",
+                               image=224, batch=RESNET_B,
+                               fwd_gflop=RESNET_FWD_FLOPS / 1e9),
+    "resnet50": dict(model="ResNet-50", image=224, batch=RESNET_B,
+                     fwd_gflop=RESNET_FWD_FLOPS / 1e9),
+    "resnet50_s2d_folded_bn": dict(
+        model="ResNet-50 space_to_depth folded_bn", image=224,
+        batch=RESNET_B, fwd_gflop=RESNET_FWD_FLOPS / 1e9)}
+
+
+def zoo_model(htt, name, dev, seed, **kw):
+    """One of ZOO's models, bf16 compute, 1000 classes, weights from
+    ``seed``."""
+    from horovod_tpu_torch import models
+    kw = dict(num_classes=1000, dtype=torch.bfloat16, device=dev,
+              seed=seed, **kw)
+    if name == "vgg16":
+        return models.VGG16(image=ZOO[name]["image"], **kw)
+    if name == "inception3":
+        return models.InceptionV3(**kw)
+    return htt.ResNet50(folded_bn="folded_bn" in name,
+                        space_to_depth="s2d" in name, **kw)
+
+
+def zoo_step(htt, dev, name, seed):
+    """``zoo_model`` with SGD(0.01, momentum 0.9) through
+    ``DistributedOptimizer`` and ``data_parallel_train_step``."""
+    model = zoo_model(htt, name, dev, seed)
+    opt = htt.DistributedOptimizer(torch.optim.SGD(
+        model.parameters(), lr=0.01, momentum=0.9), op=htt.Average)
+    init_fn, step, put_batch = htt.data_parallel_train_step(
+        resnet_loss, opt, device=dev)
+    return init_fn(model), step, put_batch
+
+
+def zoo_train_one(htt, name, card):
+    """ZOO_STEPS timed steps (after a warm-up) of one model on one card,
+    then one profiled step: step ms (median, range), images/s, peak
+    memory, the device's busy share and kernel launches of the profiled
+    step."""
+    spec = ZOO[name]
+    state, step, put_batch = zoo_step(htt, "cuda", name, seed=0)
+    batches = resnet_batches(put_batch, ZOO_STEPS + 2, spec["batch"],
+                             "cuda", image=spec["image"])
+    state, loss = step(state, *batches[0])                  # warm-up
+    losses = [float(loss)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stamps = [time.perf_counter()]
+    for batch in batches[1:-1]:
+        state, loss = step(state, *batch)
+        losses.append(float(loss))                           # synchronizes
+        stamps.append(time.perf_counter())
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile_train_step(step, state, batches[-1], card,
+                              label=f"zoo profile {name}")
+    if not all(np.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: non-finite loss {losses}")
+    ms = np.diff(stamps) * 1e3
+    med = float(np.median(ms))
+    n_params = sum(p.numel() for p in state.params.parameters())
+    line = {
+        "model": spec["model"], "parameters": n_params,
+        "image": spec["image"], "batch": spec["batch"],
+        "dtype": "bf16", "steps": ZOO_STEPS, "losses": losses,
+        "step_ms": [float(x) for x in ms], "step_ms_median": med,
+        "step_ms_range": [float(ms.min()), float(ms.max())],
+        "images_per_s": spec["batch"] / med * 1e3,
+        "mfu": (spec["batch"] / med * 1e3 * 3 * spec["fwd_gflop"] * 1e9
+                / BF16_FLOPS_PER_S),
+        "peak_memory_gb": peak_gb,
+        "device_busy_share": prof["device_busy_share"],
+        "kernel_launches_per_step": prof["kernel_launches"],
+        "card": card}
+    log(f"zoo train {name}: " + json.dumps(line))
+    del state, step, batches
+    torch.cuda.empty_cache()
+    return line
+
+
+def zoo_one_card(htt, card) -> dict:
+    """Phase 11: every ZOO model through an NCCL world of one, then the
+    narrow f32 models card against CPU."""
+    ctx = htt.init()
+    if ctx.backend != "nccl" or htt.size() != 1:
+        raise AssertionError(f"expected an NCCL world of one, got "
+                             f"{ctx.backend} x {htt.size()}")
+    try:
+        out = {name: zoo_train_one(htt, name, card) for name in ZOO}
+    finally:
+        htt.shutdown()
+    folded = out["resnet50_folded_bn"]["step_ms_median"]
+    plain = out["resnet50"]["step_ms_median"]
+    log("zoo folded_bn against batch norm (ResNet-50, 128 x 224^2 bf16): "
+        + json.dumps({"folded_step_ms": folded, "plain_step_ms": plain,
+                      "folded_over_plain": folded / plain,
+                      "s2d_folded_step_ms": out[
+                          "resnet50_s2d_folded_bn"]["step_ms_median"],
+                      "card": card}))
+    zoo_card_vs_cpu(htt)
+    return out
+
+
+def zoo_card_vs_cpu(htt) -> None:
+    """The narrow f32 zoo, card against CPU on the same weights and batch:
+    VGG-11 at 32^2 (classifier_width 64) and ResNet-18 with the
+    space-to-depth stem and folded batch norm at 64^2, each in train mode
+    (logits, running statistics, every gradient); Inception V3 at 75^2,
+    batch 2, in eval mode (logits and every gradient; on the initial
+    running statistics), then in train mode part by part
+    (``inception_blocks_card_vs_cpu``)."""
+    from horovod_tpu_torch.models import inception, vgg
+    cases = [
+        ("VGG-11 32^2", lambda d: vgg.VGG11(
+            num_classes=10, dtype=torch.float32, classifier_width=64,
+            image=32, device=d, seed=3), 32, True),
+        ("ResNet-18 s2d folded_bn 64^2", lambda d: htt.ResNet18(
+            num_classes=10, dtype=torch.float32, space_to_depth=True,
+            folded_bn=True, device=d, seed=3), 64, True),
+        ("Inception V3 75^2 eval", lambda d: inception.InceptionV3(
+            num_classes=10, dtype=torch.float32, device=d, seed=3), 75,
+         False)]
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    result = {}
+    for label, make, side, train in cases:
+        rng = np.random.default_rng(6)
+        x = torch.from_numpy(rng.standard_normal((2, side, side, 3)).astype(
+            np.float32))
+        y = torch.from_numpy(rng.integers(0, 10, (2,)))
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            model = make(dev)
+            logits = model(x.to(dev), train=train)
+            torch.nn.functional.cross_entropy(logits, y.to(dev)).backward()
+            stats = dict(model.named_buffers()) if train else {}
+            runs[dev] = (logits.detach().cpu(),
+                         {n: b.detach().cpu() for n, b in stats.items()},
+                         [p.grad.detach().cpu() for p in model.parameters()])
+        (lc, sc, gc), (lg, sg, gg) = runs["cpu"], runs["cuda"]
+        res = {"logits": rel(lg, lc), "gradients": max(
+            rel(a, b) for a, b in zip(gg, gc))}
+        if sc:
+            res["running_stats"] = max(rel(sg[n], sc[n]) for n in sc)
+        result[label] = res
+        for k_, v_ in res.items():
+            if not v_ <= RESNET_REL_TOL[k_]:
+                raise AssertionError(f"zoo card vs cpu {label}: {k_} "
+                                     f"differ: {v_}")
+    log("zoo card vs cpu (f32, batch 2): worst relative difference "
+        + json.dumps(result) + f" (tol {RESNET_REL_TOL})")
+    inception_blocks_card_vs_cpu()
+
+
+# Spatial side of each Inception block's input in the train-mode check:
+# batch norm then sees at least 2 x 3 x 3 positions (at 75^2 the E blocks
+# see 1 x 1 maps, two positions a batch; see
+# tests/test_torch_zoo_inception.py).
+INCEPTION_BLOCK_SIDE = {"A": 9, "B": 9, "C": 7, "D": 7, "E": 5}
+# The limit for the weight gradients of InceptionA's 5x5 convs: on a
+# channels-last view at batch 2, cuDNN's f32 weight-gradient algorithm
+# (torch 2.11, cuDNN 9.2, TF32 off; an H100) is 1.1e-3 to 4.1e-3 off an
+# f64 reference, where NCHW-contiguous input, cuDNN off or batch 8 is
+# within 2e-6 (tools/zoo_numerics.py; ROADMAP C). One bf16 step at 1.0,
+# 2^-7: below what the zoo trains in.
+CONV5X5_WGRAD_TOL = 2.0 ** -7
+
+
+def inception_blocks_card_vs_cpu() -> None:
+    """Inception V3 (f32, seed 3) in train mode on the card, part by part
+    on seeded standard-normal inputs, batch 2: each layer of the stem at
+    its 75^2 shapes (BasicConv_0-4 and the two 3x3/2 max pools), then each
+    of the eleven InceptionA-E blocks at INCEPTION_BLOCK_SIDE. Each part is
+    held against the same part, on the same parameters, on the CPU in f64:
+    its output, its running statistics, and the gradients of a seeded
+    weighted sum of the output (every parameter of the part, and the
+    input), each relative to the reference's largest value, at ResNet's
+    limits (the 5x5 kernels' gradients at CONV5X5_WGRAD_TOL).
+
+    Why f64 and part by part: a pre-ReLU value within f32 rounding of
+    zero takes the other side of the kink on one device, and the
+    gradient of the whole path behind it moves by percents. The CPU's
+    f32 did so once in InceptionC_1 (15.8 %; the card agreed with f64
+    to 2.1e-6), and the card once in the stem run whole on its own
+    post-ReLU activations (4.1 %; the CPU's f32 within 3.5e-6 of f64;
+    tools/zoo_numerics.py)."""
+    from horovod_tpu_torch.models import inception
+    models = {d: inception.InceptionV3(num_classes=10, dtype=dt, device=d,
+                                       seed=3)
+              for d, dt in (("cpu", torch.float64), ("cuda", torch.float32))}
+    ref = models["cpu"]
+
+    def pool(m, x, train):
+        return inception.max_pool_nhwc(x, 3, 2)
+
+    parts, side, cin, i = [], 75, 3, 0
+    for spec in ref._stem:
+        if spec is None:
+            parts.append((f"stem max_pool {side}^2", pool, lambda m: [],
+                          (2, side, side, cin)))
+            side = (side - 3) // 2 + 1
+            continue
+        name = f"BasicConv_{i}"
+        conv = getattr(ref, name)
+        parts.append((name,
+                      lambda m, x, train, n=name: getattr(m, n)(x, train),
+                      lambda m, n=name: [getattr(m, n)],
+                      (2, side, side, cin)))
+        features, kernel, strides, padding = spec
+        if padding == "VALID":
+            side = (side - kernel[0]) // strides[0] + 1
+        cin, i = conv.out_channels, i + 1
+    for name in ref.block_names:
+        side = INCEPTION_BLOCK_SIDE[name[len("Inception")]]
+        parts.append((name,
+                      lambda m, x, train, n=name: getattr(m, n)(x, train),
+                      lambda m, n=name: [getattr(m, n)],
+                      (2, side, side, cin)))
+        cin = getattr(ref, name).out_channels
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max()) / max(
+            float(b.abs().max()), 1e-30)
+
+    result = {}
+    for k, (label, fn, mods, shape) in enumerate(parts):
+        rng = np.random.default_rng(100 + k)
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        w = None
+        runs = {}
+        for dev, m in models.items():
+            dt = torch.float64 if dev == "cpu" else torch.float32
+            xd = x.detach().to(dev, dt).requires_grad_(True)     # a leaf
+            y = fn(m, xd, True)
+            if w is None:
+                w = torch.from_numpy(rng.standard_normal(
+                    tuple(y.shape)).astype(np.float32))
+            (y * w.to(dev, dt)).sum().backward()
+            ps = [p for mod in mods(m) for p in mod.parameters()]
+            bs = [b for mod in mods(m) for b in mod.buffers()]
+            runs[dev] = (y.detach().cpu(), [b.detach().cpu() for b in bs],
+                         [p.grad.detach().cpu() for p in ps]
+                         + [xd.grad.detach().cpu()])
+        (yc, sc, gc), (yg, sg, gg) = runs["cpu"], runs["cuda"]
+        five = [a.shape[:2] == (5, 5) for a in gc]
+        res = {"logits": rel(yg, yc),
+               "running_stats": max((rel(a, b) for a, b in zip(sg, sc)),
+                                    default=0.0),
+               "gradients": max(rel(a, b) for a, b, f in zip(gg, gc, five)
+                                if not f)}
+        tol = dict(RESNET_REL_TOL)
+        if any(five):
+            res["gradients_5x5_kernels"] = max(
+                rel(a, b) for a, b, f in zip(gg, gc, five) if f)
+            tol["gradients_5x5_kernels"] = CONV5X5_WGRAD_TOL
+        result[label] = res
+        for k_, v_ in res.items():
+            if not v_ <= tol[k_]:
+                raise AssertionError(f"Inception V3 train mode card vs cpu "
+                                     f"f64 {label}: {k_} differ: {v_}")
+    log("zoo card vs cpu Inception V3 train mode part by part (card f32 "
+        "against cpu f64, batch 2; 'logits' is the part's output): worst "
+        "relative difference " + json.dumps(result) + f" (tol "
+        f"{RESNET_REL_TOL}, 5x5 kernels' gradients {CONV5X5_WGRAD_TOL})")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: speculative serving and the train-to-serve handoff
+# ---------------------------------------------------------------------------
+
+def serve_run(eng, reqs, fa):
+    """The scheduler over ``reqs`` on ``eng``: (done, stats, wall s,
+    paged-decode launches), after a two-request warm-up."""
+    from horovod_tpu_torch.serving import ServeScheduler
+    ServeScheduler(eng, device="cuda").run(mp_serve_requests(
+        eng.cfg.vocab_size, n=2, new_tokens=8, seed=9, lo=40, hi=60))
+    torch.cuda.synchronize()
+    sched = ServeScheduler(eng, mode="continuous", device="cuda")
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    done = sched.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(done) != len(reqs) or any(r.error for r in done):
+        raise AssertionError([r.error for r in done if r.error])
+    return done, sched.stats(), wall, fa.LAUNCHES["paged_decode"]
+
+
+def op_rows_probe(eng, cfg, gen):
+    """Where a verify row (M = slots * (K+1)) first departs from its decode
+    row (M = slots): each operation of the decode body, in its order, on
+    the same 8 input rows alone and tiled K+1 times, on layer 0's weights;
+    for each, whether the first copy's rows are bitwise the rows computed
+    alone, and the largest difference."""
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.parallel import tensor_parallel as tp_lib
+    from horovod_tpu_torch.serving import engine as E
+    lp = E._layer(eng.params, 0)
+    s, k1, d = eng.slots, eng.spec_k + 1, cfg.d_model
+    x = torch.randn((s, d), generator=gen, device="cuda").to(cfg.dtype)
+    a = torch.randn((s, cfg.n_heads * cfg.head_dim), generator=gen,
+                    device="cuda").to(cfg.dtype)
+    u = torch.randn((s, cfg.d_ff), generator=gen, device="cuda").to(
+        cfg.dtype)
+    ops = [("rmsnorm", x, lambda t: tfm._rmsnorm(t, lp["attn_norm"])),
+           ("q_projection", x, lambda t: E._qkv(cfg, lp, t)[0]),
+           ("o_projection", a, lambda t: tp_lib.row_parallel(
+               t, lp["wo"], None)),
+           ("mlp_in", x, lambda t: tp_lib.column_parallel(t, lp["w_in"])),
+           ("mlp_out", u, lambda t: tp_lib.row_parallel(t, lp["w_out"],
+                                                        None)),
+           ("mlp", x, lambda t: E._mlp(cfg, lp, t)),
+           ("head", x, lambda t: E._gather_logits(cfg, t,
+                                                  eng.params["head"]))]
+    out = []
+    for name, inp, fn in ops:
+        alone = fn(inp)
+        tiled = fn(inp.repeat(k1, 1))[:s]
+        out.append({"op": name, "bitwise_equal": bool(torch.equal(alone,
+                                                                  tiled)),
+                    "max_abs_diff": float((alone.float() - tiled.float()
+                                           ).abs().max())})
+    return out
+
+
+def verify_vs_decode(htt, cfg, params, reqs, off_tokens, gen):
+    """The same prefixes through a decode step (M = 8) and a verify row (M
+    = 40): 8 requests prefilled in a plain engine and in a speculative one
+    (ngram:3, K = SPEC_K); the plain engine then decodes K+1 steps fed
+    the off run's tokens, and the speculative one runs ONE verify step
+    whose drafts are those tokens, so verify row (s, i) and decode step i
+    of slot s see the same prefix. Per step i: the largest |logit
+    difference| over the slots, and whether the rows are bitwise equal;
+    then the per-operation probe."""
+    from horovod_tpu_torch.serving import ServeEngine
+    k = SPEC_K
+    off = ServeEngine(cfg, params, device="cuda")
+    spec = ServeEngine(cfg, params, device="cuda", draft="ngram:3",
+                       spec_k=k)
+    slots = []
+    for r in reqs[:off.slots]:
+        for eng in (off, spec):
+            s = eng.reserve(r.prompt.size + len(off_tokens[r.rid]))
+            if eng.prefill(s, r.prompt) != off_tokens[r.rid][0]:
+                raise AssertionError(f"request {r.rid}: prefill token "
+                                     f"differs from the off run's")
+        slots.append((s, r.rid))
+    toks = np.zeros((off.slots, k + 1), np.int32)
+    for s, rid in slots:
+        toks[s] = off_tokens[rid][:k + 1]
+    dec = []
+    for i in range(k + 1):
+        off.decode_step(toks[:, i])
+        dec.append(off.last_logits.float().clone())
+    spec.spec_step(toks[:, 0], toks[:, 1:])
+    ver = spec.last_logits.float().reshape(off.slots, k + 1, -1)
+    steps = [{"step": i, "max_abs_logit_diff": float(
+        (ver[:, i] - dec[i]).abs().max()),
+        "bitwise_equal": bool(torch.equal(ver[:, i], dec[i]))}
+        for i in range(k + 1)]
+    probe = op_rows_probe(spec, cfg, gen)
+    del off, spec
+    torch.cuda.empty_cache()
+    return steps, probe
+
+
+def truncate_draft_vs_plain(htt, cfg, params, reqs) -> dict:
+    """The truncate:SPEC_TRUNCATE draft against a plain engine on the
+    model cut to its first SPEC_TRUNCATE layers (the same leaves, the
+    same final norm and head): 8 requests prefilled in both; the draft
+    engine's ``propose_drafts`` from the full model's first token must
+    give, bitwise, the tokens the plain engine decodes greedily from
+    that token (its layers' K/V below the prompt's end are the full
+    model's first layers'). Random weights accept no draft, so this is
+    what shows the draft computes the right tokens on the card."""
+    from horovod_tpu_torch.serving import ServeEngine
+    n, k = SPEC_TRUNCATE, SPEC_K
+    cut_cfg = flagship_cfg(htt.TransformerConfig, n_layers=n)
+    cut = {**params, "layers": {name: leaf[:n] for name, leaf
+                                in params["layers"].items()}}
+    draft = ServeEngine(cfg, params, device="cuda",
+                        draft=f"truncate:{n}", spec_k=k)
+    plain = ServeEngine(cut_cfg, cut, device="cuda")
+    first = np.zeros(draft.slots, np.int32)
+    for r in reqs[:draft.slots]:
+        s = draft.reserve(r.prompt.size + k + 1)
+        first[s] = draft.prefill(s, r.prompt)
+        if plain.reserve(r.prompt.size + k + 1) != s:
+            raise AssertionError("truncate draft check: slots differ")
+        plain.prefill(s, r.prompt)
+    active = np.ones(draft.slots, bool)
+    drafts = draft.propose_drafts(first, active)
+    want, toks = [], first
+    for _ in range(k):
+        toks = plain.decode_step(toks)
+        want.append(toks)
+    want = np.stack(want, axis=1)
+    line = {"n_layers": n, "k": k, "slots": int(draft.slots),
+            "tokens_equal": bool(np.array_equal(drafts, want)),
+            "last_step_logits_bitwise_equal": bool(torch.equal(
+                draft.last_logits, plain.last_logits)),
+            "last_step_max_abs_logit_diff": float(
+                (draft.last_logits.float() - plain.last_logits.float()
+                 ).abs().max())}
+    del draft, plain, cut
+    torch.cuda.empty_cache()
+    if not line["tokens_equal"]:
+        raise AssertionError(f"truncate:{n} drafts {drafts.tolist()} differ "
+                             f"from the {n}-layer model's greedy tokens "
+                             f"{want.tolist()}")
+    return line
+
+
+def spec_serving(htt, fa, card, handoff) -> dict:
+    """Phase 12: the flagship at full width and depth, serve traffic (16
+    requests of 64-1024 prompt tokens, 32 new tokens each, knob defaults)
+    in three modes, off, ngram:3 and truncate:SPEC_TRUNCATE, each at K =
+    SPEC_K; then the verify-against-decode rows and the truncated draft
+    against the cut model; then the train-to-serve handoff of phase 4's
+    snapshot."""
+    from horovod_tpu_torch.serving import ServeEngine
+    cfg = flagship_cfg(htt.TransformerConfig)
+    params = htt.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    modes = ["off", "ngram:3", f"truncate:{SPEC_TRUNCATE}"]
+    runs, tokens = {}, {}
+    forced = None
+    for mode in modes:
+        eng = ServeEngine(cfg, params, device="cuda", draft=mode,
+                          spec_k=SPEC_K)
+        done, st, wall, launches = serve_run(
+            eng, mp_serve_requests(cfg.vocab_size), fa)
+        tokens[mode] = {r.rid: list(r.tokens) for r in done}
+        if any(len(t) != 32 for t in tokens[mode].values()):
+            raise AssertionError(f"{mode}: not every request has 32 tokens")
+        tpot = [t * 1e3 for r in done for t in r.tpot]
+        gen_tokens = st["generated_tokens"]
+        runs[mode] = {
+            "decode_tokens_per_s": gen_tokens / wall, "wall_s": wall,
+            "decode_steps": st["decode_steps"],
+            "tokens_per_decode_step": (gen_tokens - len(done))
+            / st["decode_steps"],
+            "tpot_ms_p50": pct(tpot, 50), "tpot_ms_p99": pct(tpot, 99),
+            "acceptance_rate": (st["spec"] or {}).get("acceptance_rate"),
+            "proposed": (st["spec"] or {}).get("proposed"),
+            "accepted": (st["spec"] or {}).get("accepted"),
+            "paged_decode_launches": launches}
+        if launches < cfg.n_layers * st["decode_steps"]:
+            raise AssertionError(f"{mode}: paged_decode launched "
+                                 f"{launches} times")
+        if mode == "off":           # the off run's logits, teacher-forced
+            forced = mp_forced_logits(
+                eng, lambda: mp_serve_requests(cfg.vocab_size),
+                tokens["off"])
+        del eng
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    steps, probe = verify_vs_decode(
+        htt, cfg, params, mp_serve_requests(cfg.vocab_size), tokens["off"],
+        gen)
+    row_diff = max(x["max_abs_logit_diff"] for x in steps)
+    truncate_check = truncate_draft_vs_plain(
+        htt, cfg, params, mp_serve_requests(cfg.vocab_size))
+    faults = []
+    for mode in modes[1:]:
+        same = [rid for rid in tokens["off"]
+                if tokens[mode][rid] == tokens["off"][rid]]
+        runs[mode]["equal_to_off_share"] = len(same) / len(tokens["off"])
+        diverged = []
+        for rid, want in tokens["off"].items():
+            got = tokens[mode][rid]
+            p = next((i for i, (a, b) in enumerate(zip(got, want))
+                      if a != b), None)
+            if p is None:
+                continue
+            top2 = torch.topk(forced[rid][p], 2).values
+            gap = float(top2[0] - top2[1])
+            diverged.append({"rid": rid, "position": p,
+                             "token": got[p], "off_token": want[p],
+                             "off_top2_gap": gap})
+            if gap > row_diff:
+                faults.append((mode, diverged[-1]))
+        runs[mode]["divergences"] = diverged
+    first_diff = next((x for x in probe if not x["bitwise_equal"]), None)
+    line = {"model": "flagship TransformerLM", "k": SPEC_K,
+            "requests": 16, "new_tokens": 32, "modes": runs,
+            "verify_vs_decode_rows": steps,
+            "verify_vs_decode_max_abs_logit_diff": row_diff,
+            "first_step_max_abs_logit_diff": steps[0]["max_abs_logit_diff"],
+            "op_probe_m8_vs_m40": probe,
+            "first_op_that_differs": first_diff and first_diff["op"],
+            "truncate_draft_vs_cut_model": truncate_check,
+            "card": card}
+    log("spec serving: " + json.dumps(line))
+    if faults:
+        raise AssertionError(f"speculative tokens part from the off run "
+                             f"where the off run's top-2 gap exceeds the "
+                             f"verify/decode row difference {row_diff}: "
+                             f"{faults}")
+    serve_handoff(htt, cfg, handoff, fa, card)
+    return line
+
+
+def serve_handoff(htt, cfg, handoff, fa, card) -> None:
+    """``load_for_serving`` of phase 4's committed snapshot: the restored
+    parameters bitwise the ones the snapshot was taken of, and an engine
+    built from them gives the tokens, bitwise, of an engine built from
+    those parameters directly."""
+    import shutil
+    from horovod_tpu_torch.serving import ServeEngine, load_for_serving
+    from horovod_tpu_torch.utils import tree as tree_util
+    try:
+        t0 = time.perf_counter()
+        step, restored = load_for_serving(handoff["dir"], cfg,
+                                          device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        direct = tree_util.tree_map(lambda t: t.to("cuda"),
+                                    handoff["params"])
+        ra = tree_util.flatten_dict(restored)
+        da = tree_util.flatten_dict(direct)
+        if step != handoff["step"] or set(ra) != set(da) or not all(
+                torch.equal(ra[k], da[k]) for k in ra):
+            raise AssertionError(f"handoff: step {step}, restored "
+                                 f"parameters differ from the snapshot's")
+        toks = []
+        for p in (restored, direct):
+            eng = ServeEngine(cfg, p, device="cuda")
+            done, _, _, _ = serve_run(eng, mp_serve_requests(
+                cfg.vocab_size, n=4, new_tokens=16, seed=3), fa)
+            toks.append({r.rid: list(r.tokens) for r in done})
+            del eng
+        line = {"step": step, "load_s": load_s, "leaves": len(ra),
+                "tokens_equal": toks[0] == toks[1], "requests": 4,
+                "card": card}
+        log("serve handoff: " + json.dumps(line))
+        if toks[0] != toks[1]:
+            raise AssertionError("handoff: the restored engine's tokens "
+                                 "differ from the direct engine's")
+    finally:
+        shutil.rmtree(handoff["dir"], ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# --data-parallel N --zoo-only: VGG-16 and Inception V3 across cards
+# ---------------------------------------------------------------------------
+
+ZOO_DP_STEPS = 3
+ZOO_DP = [dict(label="vgg16", model="vgg16"),
+          dict(label="inception3", model="inception3")]
+
+
+def zoo_data_parallel(n: int, card: str, **kw) -> None:
+    """VGG-16 and Inception V3 at phase 11's batch per card, on one card
+    and then on ``n``, ZOO_DP_STEPS timed steps each: every rank's
+    parameters bitwise equal after the steps; step ms, scaling efficiency
+    (one card's step over N's: the batch per card is the same) and the
+    NCCL kernels' device ms of a profiled step."""
+    one = run_world(1, ZOO_DP, n_steps=ZOO_DP_STEPS, **kw)
+    many = run_world(n, ZOO_DP, n_steps=ZOO_DP_STEPS, **kw)
+    for label, res in many.items():
+        r1 = one[label]
+        line = {"model": ZOO[label]["model"], "world": n,
+                "batch_per_card": ZOO[label]["batch"],
+                "image": ZOO[label]["image"],
+                "step_ms": res["step_ms"],
+                "step_ms_mean": res["step_ms_mean"],
+                "one_card_step_ms_mean": r1["step_ms_mean"],
+                "scaling_efficiency": r1["step_ms_mean"]
+                / res["step_ms_mean"],
+                "images_per_s": res["images_per_s"],
+                "nccl_ms": res["nccl_ms"],
+                "nccl_overlapped_ms": res["nccl_overlapped_ms"],
+                "compute_ms": res["compute_ms"],
+                "sync_buckets": res["sync_buckets"],
+                "params_bitwise_equal": res["params_bitwise_equal"],
+                "losses": res["losses"], "card": card}
+        log(f"zoo data parallel {label}: " + json.dumps(line))
+        if not (res["params_bitwise_equal"] and all(
+                np.isfinite(x) for x in res["losses"] + r1["losses"])):
+            raise AssertionError(f"zoo data parallel {label}: {line}")
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an "
@@ -5020,15 +5753,16 @@ def main(argv) -> int:
     launcher_only = argv[2:] == ["--launcher-only"]
     mp_only = argv[2:] == ["--model-parallel-only"]
     cp_only = argv[2:] == ["--control-plane-only"]
+    zoo_only = argv[2:] == ["--zoo-only"]
     if argv:
         if len(argv) not in (2, 3) or argv[0] != "--data-parallel" or \
                 (len(argv) == 3 and not (resilient_only or api_only
                                          or launcher_only or mp_only
-                                         or cp_only)):
+                                         or cp_only or zoo_only)):
             print("usage: chip_smoke.py [--data-parallel N "
                   "[--resilient-only | --api-only | --launcher-only | "
-                  "--model-parallel-only | --control-plane-only]]",
-                  file=sys.stderr)
+                  "--model-parallel-only | --control-plane-only | "
+                  "--zoo-only]]", file=sys.stderr)
             return 2
         n_dp = int(argv[1])
         if not 2 <= n_dp <= torch.cuda.device_count():
@@ -5063,7 +5797,7 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if n_dp:
         only = (resilient_only or api_only or launcher_only or mp_only
-                or cp_only)
+                or cp_only or zoo_only)
         if not only:
             collectives_n_cards(n_dp, card)
             data_parallel(n_dp, card)
@@ -5077,6 +5811,8 @@ def main(argv) -> int:
             model_parallel_world(n_dp, card)
         if not only or cp_only:
             control_plane_world(n_dp, card)
+        if not only or zoo_only:
+            zoo_data_parallel(n_dp, card)
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -5093,6 +5829,9 @@ def main(argv) -> int:
     # a card's heads under TP serving at tp4 (--data-parallel 4)
     errs.append(check_kernel(fa, kvc, gen, h=4, kvh=4, dtype=torch.bfloat16,
                              timed=False)["max_abs_err"])
+    # the speculative verify step's geometry (phase 12)
+    verify_case = check_kernel_verify(fa, kvc, gen)
+    errs.append(verify_case["max_abs_err"])
     flash_case, flash_errs = check_flash_all(fa, sq, gen)
     conv_case, conv_errs = check_conv_all(cb, gen)
     copy_case = check_stream_copy(sc, gen)
@@ -5108,7 +5847,7 @@ def main(argv) -> int:
     train_flagship_fused(htt, fa, card, unfused_losses, unfused_params)
     del unfused_params
     resnet_launches = train_resnet50(htt, cb, card)
-    uninterrupted = resilient_train(htt, fa, card)
+    uninterrupted, handoff = resilient_train(htt, fa, card)
 
     # phase 5: card against CPU
     card_vs_cpu(htt)
@@ -5135,6 +5874,14 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     control_plane_world_one(htt, cb, card)
 
+    # phase 11: the model zoo on one card
+    torch.cuda.empty_cache()
+    zoo_one_card(htt, card)
+
+    # phase 12: speculative serving and the train-to-serve handoff
+    torch.cuda.empty_cache()
+    spec_serving(htt, fa, card, handoff)
+
     kernels = [{
         "name": "paged_decode", "route": "cuda",
         "source": "horovod_tpu_torch/csrc/paged_decode.cu",
@@ -5143,7 +5890,10 @@ def main(argv) -> int:
         "max_abs_err": max(errs),
         **{k_: main_case[k_] for k_ in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms",
-                                        "event_ms", "library_event_ms")}}]
+                                        "event_ms", "library_event_ms")},
+        "verify_geometry": {k_: verify_case[k_] for k_ in (
+            "rows", "max_abs_err", "rows_equal_at_m8_and_m40", "ms",
+            "bound_ms")}}]
     # The plain backward computes dq, dk and dv in one function, and one
     # library backward computes all three: both times stand for the pair
     # (the library's on the dq row only).

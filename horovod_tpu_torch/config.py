@@ -157,11 +157,21 @@ knobs.register("HOROVOD_SERVE_MAX_NEW_TOKENS", 128, int,
 knobs.register("HOROVOD_SERVE_PREFIX_CACHE", False, bool,
                help="Shared-prefix KV page reuse with copy-on-write.")
 knobs.register("HOROVOD_SERVE_DRAFT", "off", str,
-               help="Speculative-decode drafter. Only 'off' is ported; "
-                    "any other value raises.")
+               help="Speculative-decode drafter: 'off' (plain decode), "
+                    "'ngram[:N]' (host-side n-gram lookup over the "
+                    "request's own history, order N, default 3 — no "
+                    "extra device work), or 'truncate:N' (self-draft "
+                    "from the target's first N layers, sharing the KV "
+                    "page pool; verify overwrites the draft's page "
+                    "writes with identical values). Read at engine "
+                    "build time.")
 knobs.register("HOROVOD_SERVE_SPEC_K", 4, int,
-               help="Draft tokens per speculative step (unused while "
-                    "HOROVOD_SERVE_DRAFT=off).")
+               help="Draft tokens proposed per slot per speculative "
+                    "step; ONE verify step scores all K+1 positions per "
+                    "slot in a single decode-shaped step (batch slots x "
+                    "(K+1)), committing 1..K+1 tokens under the greedy "
+                    "accept-prefix rule. Read at engine build time; "
+                    "ignored while HOROVOD_SERVE_DRAFT=off.")
 
 # Training knobs (ops/blockwise_ce.py, ops/fusion.py), read at each call.
 # The flash kernels fix their tiles at compile time, so the JAX package's

@@ -30,6 +30,12 @@ DURATION_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
                     0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
 # Count buckets (bins per cycle and the like).
 COUNT_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0)
+# Serving-latency buckets (seconds) for TTFT and TPOT: DURATION_BUCKETS
+# has one edge below 1 ms, which would put a decode step's tens of
+# microseconds to milliseconds in one bar; five sub-ms edges keep a p99
+# readable down to 50 us.
+LATENCY_BUCKETS = (0.00005, 0.0001, 0.00025, 0.0005, 0.001, 0.0025,
+                   0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5)
 
 
 def _fmt(v: float) -> str:

@@ -19,8 +19,15 @@ sees its NHWC input as a channels-last NCHW view (``x.permute(0, 3, 1,
 
 ``ResNet(fused_conv_bn=True)`` routes bottleneck blocks to
 ``models.fused_block.FusedBottleneckBlock``, whose 1x1 convs run the
-conv+BN kernels. Not ported: ``space_to_depth`` and ``folded_bn``
-(ROADMAP A.14); passing either raises ``NotImplementedError``.
+conv+BN kernels. ``space_to_depth=True`` replaces the 7x7/s2 stem by the
+4x4/s1 conv ``conv_init_s2d`` on the (N, H/2, W/2, 4C) rearranged input;
+``folded_bn=True`` takes every batch norm outside the fused blocks
+through ``models.folded_bn.FoldedBatchNorm`` (named ``FoldedBatchNorm_i``
+in the blocks, as flax names it).
+
+:class:`Conv` and :class:`Dense` are shared with the other models of the
+zoo (``vgg``, ``inception``, ``mlp``): ``Conv(use_bias=True)`` is flax's
+default ``nn.Conv``, ``Dense(dtype=...)`` computes in that dtype.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from horovod_tpu_torch.models.folded_bn import FoldedBatchNorm
 from horovod_tpu_torch.ops import collectives
 from horovod_tpu_torch.utils.device import resolve_device
 from horovod_tpu_torch.utils.tree import flatten_dict, unflatten_dict
@@ -42,7 +50,11 @@ from horovod_tpu_torch.utils.tree import flatten_dict, unflatten_dict
 def lecun_normal_(t: torch.Tensor, fan_in: int,
                   gen: torch.Generator) -> torch.Tensor:
     """flax's default kernel init: a normal truncated at two standard
-    deviations, scaled to variance 1 / fan_in."""
+    deviations, scaled to variance 1 / fan_in. A tensor on the ``meta``
+    device (a model built only to count its parameters) is left as it
+    is."""
+    if t.is_meta:
+        return t
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     with torch.no_grad():
         return nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
@@ -80,32 +92,38 @@ def conv_nhwc(x: torch.Tensor, kernel: torch.Tensor,
 
 
 class Conv(nn.Module):
-    """``flax.linen.Conv(use_bias=False, dtype=dtype)``: an HWIO kernel."""
+    """``flax.linen.Conv(use_bias=use_bias, dtype=dtype)``: an HWIO
+    kernel, and with ``use_bias`` a zero-initialized ``bias`` added in
+    ``dtype``."""
 
     def __init__(self, cin: int, cout: int, kernel_size: Tuple[int, int],
                  strides: Tuple[int, int] = (1, 1), padding: Any = "SAME",
-                 *, dtype: torch.dtype, gen: torch.Generator):
+                 *, dtype: torch.dtype, gen: torch.Generator,
+                 use_bias: bool = False):
         super().__init__()
         kh, kw = kernel_size
         self.kernel = nn.Parameter(lecun_normal_(
             torch.empty(kh, kw, cin, cout), kh * kw * cin, gen))
+        self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
         self.strides, self.padding, self.dtype = tuple(strides), padding, dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_nhwc(x.to(self.dtype), self.kernel, self.strides,
-                         self.padding)
+        y = conv_nhwc(x.to(self.dtype), self.kernel, self.strides,
+                      self.padding)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 class BatchNorm(nn.Module):
     """``flax.linen.BatchNorm`` over the last axis, not torch's.
 
     Train mode takes ``mean = E[x]`` and ``var = max(0, E[x^2] - E[x]^2)``
-    in f32 (with ``axis_name``, the mean over the ranks of the per-rank
+    in f32, or in f64 for f64 input, as flax promotes to at least f32
+    (with ``axis_name``, the mean over the ranks of the per-rank
     ``E[x]`` and ``E[x^2]``), and moves the running statistics as
     ``ra = momentum * ra + (1 - momentum) * batch`` with the BIASED
     variance (torch keeps the unbiased one and calls 1 - momentum its
     momentum). The output ``(x - mean) * rsqrt(var + eps) * scale + bias``
-    is computed in f32 and cast to ``dtype``. Eval mode normalizes with the
+    is computed in that type and cast to ``dtype``. Eval mode normalizes with the
     running statistics."""
 
     def __init__(self, c: int, *, momentum: float = 0.9,
@@ -121,7 +139,7 @@ class BatchNorm(nn.Module):
         self.dtype, self.axis_name = dtype, axis_name
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        xf = x.float()
+        xf = x if x.dtype == torch.float64 else x.float()
         if train:
             dims = tuple(range(x.ndim - 1))
             mu, mu2 = xf.mean(dims), (xf * xf).mean(dims)
@@ -142,21 +160,43 @@ class BatchNorm(nn.Module):
 
 
 class Dense(nn.Module):
-    """``flax.linen.Dense(dtype=float32)``: kernel ``[in, out]``, bias."""
+    """``flax.linen.Dense(dtype=dtype)``: kernel ``[in, out]`` and bias,
+    f32 parameters, the product and the bias computed in ``dtype``."""
 
-    def __init__(self, cin: int, cout: int, *, gen: torch.Generator):
+    def __init__(self, cin: int, cout: int, *, gen: torch.Generator,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.kernel = nn.Parameter(lecun_normal_(torch.empty(cin, cout),
                                                  cin, gen))
         self.bias = nn.Parameter(torch.zeros(cout))
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x.float() @ self.kernel + self.bias
+        dt = self.dtype
+        return x.to(dt) @ self.kernel.to(dt) + self.bias.to(dt)
+
+
+def _norm_cls(norm_kw: Mapping[str, Any]) -> type:
+    return FoldedBatchNorm if norm_kw.get("folded") else BatchNorm
 
 
 def _norm(c: int, norm_kw: Mapping[str, Any],
-          zero_scale: bool = False) -> BatchNorm:
-    return BatchNorm(c, zero_scale=zero_scale, **norm_kw)
+          zero_scale: bool = False) -> nn.Module:
+    kw = {k: v for k, v in norm_kw.items() if k != "folded"}
+    return _norm_cls(norm_kw)(c, zero_scale=zero_scale, **kw)
+
+
+def _set_norm(block: nn.Module, i: int, c: int, norm_kw: Mapping[str, Any],
+              zero_scale: bool = False) -> None:
+    """A block's i-th norm, named as flax names it:
+    ``<BatchNorm|FoldedBatchNorm>_<i>``."""
+    block.norm_cls = _norm_cls(norm_kw).__name__
+    block.add_module(f"{block.norm_cls}_{i}",
+                     _norm(c, norm_kw, zero_scale=zero_scale))
+
+
+def _block_norm(block: nn.Module, i: int) -> nn.Module:
+    return getattr(block, f"{block.norm_cls}_{i}")
 
 
 class ResNetBlock(nn.Module):
@@ -167,9 +207,9 @@ class ResNetBlock(nn.Module):
         super().__init__()
         conv = partial(Conv, dtype=dtype, gen=gen)
         self.Conv_0 = conv(cin, filters, (3, 3), strides)
-        self.BatchNorm_0 = _norm(filters, norm_kw)
+        _set_norm(self, 0, filters, norm_kw)
         self.Conv_1 = conv(filters, filters, (3, 3))
-        self.BatchNorm_1 = _norm(filters, norm_kw, zero_scale=True)
+        _set_norm(self, 1, filters, norm_kw, zero_scale=True)
         self.needs_proj = cin != filters or tuple(strides) != (1, 1)
         if self.needs_proj:
             self.conv_proj = conv(cin, filters, (1, 1), strides)
@@ -178,8 +218,8 @@ class ResNetBlock(nn.Module):
         self.out_channels = filters
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        y = self.act(self.BatchNorm_0(self.Conv_0(x), train))
-        y = self.BatchNorm_1(self.Conv_1(y), train)
+        y = self.act(_block_norm(self, 0)(self.Conv_0(x), train))
+        y = _block_norm(self, 1)(self.Conv_1(y), train)
         residual = (self.norm_proj(self.conv_proj(x), train)
                     if self.needs_proj else x)
         return self.act(residual + y)
@@ -193,11 +233,11 @@ class BottleneckBlock(nn.Module):
         super().__init__()
         conv = partial(Conv, dtype=dtype, gen=gen)
         self.Conv_0 = conv(cin, filters, (1, 1))
-        self.BatchNorm_0 = _norm(filters, norm_kw)
+        _set_norm(self, 0, filters, norm_kw)
         self.Conv_1 = conv(filters, filters, (3, 3), strides)
-        self.BatchNorm_1 = _norm(filters, norm_kw)
+        _set_norm(self, 1, filters, norm_kw)
         self.Conv_2 = conv(filters, 4 * filters, (1, 1))
-        self.BatchNorm_2 = _norm(4 * filters, norm_kw, zero_scale=True)
+        _set_norm(self, 2, 4 * filters, norm_kw, zero_scale=True)
         self.needs_proj = cin != 4 * filters or tuple(strides) != (1, 1)
         if self.needs_proj:
             self.conv_proj = conv(cin, 4 * filters, (1, 1), strides)
@@ -206,9 +246,9 @@ class BottleneckBlock(nn.Module):
         self.out_channels = 4 * filters
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        y = self.act(self.BatchNorm_0(self.Conv_0(x), train))
-        y = self.act(self.BatchNorm_1(self.Conv_1(y), train))
-        y = self.BatchNorm_2(self.Conv_2(y), train)
+        y = self.act(_block_norm(self, 0)(self.Conv_0(x), train))
+        y = self.act(_block_norm(self, 1)(self.Conv_1(y), train))
+        y = _block_norm(self, 2)(self.Conv_2(y), train)
         residual = (self.norm_proj(self.conv_proj(x), train)
                     if self.needs_proj else x)
         return self.act(residual + y)
@@ -223,6 +263,10 @@ class ResNet(nn.Module):
     - ``bn_cross_replica_axis``: batch-norm statistics summed over the
       ranks when that axis is bound (sync batch norm; the trainer binds it
       with ``data_parallel_train_step(bind_axis=True)``).
+    - ``space_to_depth``: the 4x4/s1 stem on the (N, H/2, W/2, 4C) input
+      (channel order (a, b, c)); odd spatial dims raise ``ValueError``.
+    - ``folded_bn``: :class:`FoldedBatchNorm` for ``bn_init`` and the
+      plain blocks' norms.
     - ``fused_conv_bn``: bottleneck blocks run as ``FusedBottleneckBlock``
       (the 1x1 conv+BN kernels), in ``fused_stages`` (1-based; None = all).
     - ``in_channels``: the image channels (flax infers them at init).
@@ -240,17 +284,21 @@ class ResNet(nn.Module):
                  fused_stages: Optional[Tuple[int, ...]] = None, *,
                  in_channels: int = 3, device="cuda", seed: int = 0):
         super().__init__()
-        if space_to_depth or folded_bn:
-            raise NotImplementedError(
-                "space_to_depth and folded_bn are not yet ported to "
-                "horovod_tpu_torch (ROADMAP A.14)")
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         self.dtype, self.act = dtype, act
+        self.space_to_depth = space_to_depth
         norm_kw = dict(momentum=0.9, epsilon=1e-5, dtype=dtype,
-                       axis_name=bn_cross_replica_axis)
-        self.conv_init = Conv(in_channels, num_filters, (7, 7), (2, 2),
-                              [(3, 3), (3, 3)], dtype=dtype, gen=gen)
+                       axis_name=bn_cross_replica_axis, folded=folded_bn)
+        if space_to_depth:
+            # the MLPerf stem: any 7x7/s2 conv is this 4x4/s1 conv on the
+            # space-to-depth input (a zero-padded 8x8 kernel rearranged)
+            self.conv_init_s2d = Conv(4 * in_channels, num_filters, (4, 4),
+                                      (1, 1), [(2, 1), (2, 1)], dtype=dtype,
+                                      gen=gen)
+        else:
+            self.conv_init = Conv(in_channels, num_filters, (7, 7), (2, 2),
+                                  [(3, 3), (3, 3)], dtype=dtype, gen=gen)
         self.bn_init = _norm(num_filters, norm_kw)
         fused_cls = None
         if fused_conv_bn:
@@ -281,7 +329,18 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = x.to(self.dtype)
-        x = self.act(self.bn_init(self.conv_init(x), train))
+        if self.space_to_depth:
+            n, h, w, c = x.shape
+            if h % 2 or w % 2:
+                raise ValueError(
+                    f"space_to_depth stem needs even spatial dims, got "
+                    f"{h}x{w} — pad the input or use space_to_depth=False")
+            x = x.reshape(n, h // 2, 2, w // 2, 2, c).permute(
+                0, 1, 3, 2, 4, 5).reshape(n, h // 2, w // 2, 4 * c)
+            x = self.conv_init_s2d(x)
+        else:
+            x = self.conv_init(x)
+        x = self.act(self.bn_init(x, train))
         x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, padding=1)
         x = x.permute(0, 2, 3, 1)
         for name in self.block_names:

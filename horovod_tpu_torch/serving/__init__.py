@@ -1,11 +1,59 @@
-"""Paged-KV serving of the flagship TransformerLM in PyTorch: the engine,
-the continuous-batching scheduler and the paged KV cache (the counterparts
-of ``horovod_tpu.serving``)."""
+"""Paged-KV serving of the flagship TransformerLM in PyTorch, the
+counterpart of ``horovod_tpu.serving`` (without the fleet and router):
 
-from horovod_tpu_torch.serving.engine import ServeEngine, prefill_buckets
+- :mod:`~horovod_tpu_torch.serving.kv_cache`: the page pool, the
+  refcounted allocator (publishing ``hvd_serve_pages_*``), block tables,
+  the shared-prefix index with copy-on-write, and the paged-attention
+  reference and dispatch;
+- :mod:`~horovod_tpu_torch.serving.engine`: the prefill/decode engine,
+  the speculative verify and truncated-layer draft steps, and
+  ``load_for_serving``, the train-to-serve handoff;
+- :mod:`~horovod_tpu_torch.serving.scheduler`: continuous batching,
+  accept-prefix speculative decode, the host-side n-gram drafter and the
+  ``hvd_serve_*`` metrics.
+
+:func:`serving_stats` is the live summary the JAX package's ``/healthz``
+serving block and its goodput ledger's ``serve`` block carry."""
+
+from typing import Any, Dict, Optional
+
+from horovod_tpu_torch.serving.engine import (ServeEngine, active_engine,
+                                              load_for_serving,
+                                              prefill_buckets)
 from horovod_tpu_torch.serving.kv_cache import (BlockTables, PageAllocator,
-                                                PagePool, PrefixIndex)
-from horovod_tpu_torch.serving.scheduler import Request, ServeScheduler
+                                                PagePool, PrefixIndex,
+                                                copy_page,
+                                                paged_attention_reference,
+                                                paged_decode_attention)
+from horovod_tpu_torch.serving.scheduler import (NGramDrafter, Request,
+                                                 ServeScheduler,
+                                                 active_scheduler)
 
-__all__ = ["BlockTables", "PageAllocator", "PagePool", "PrefixIndex",
-           "Request", "ServeEngine", "ServeScheduler", "prefill_buckets"]
+
+def serving_stats() -> Optional[Dict[str, Any]]:
+    """Live serving summary: ``{"engine": ..., "scheduler": ...}`` of the
+    most recently built engine and scheduler, or None when no engine was
+    built in this process."""
+    engine = active_engine()
+    if engine is None:
+        return None
+    out: Dict[str, Any] = {"engine": engine.stats()}
+    sched = active_scheduler()
+    if sched is not None:
+        out["scheduler"] = sched.stats()
+    return out
+
+
+def reset_for_tests() -> None:
+    from horovod_tpu_torch.serving import engine as _engine
+    from horovod_tpu_torch.serving import scheduler as _scheduler
+    _engine.reset_for_tests()
+    _scheduler.reset_for_tests()
+
+
+__all__ = ["BlockTables", "NGramDrafter", "PageAllocator", "PagePool",
+           "PrefixIndex", "Request", "ServeEngine", "ServeScheduler",
+           "active_engine", "active_scheduler", "copy_page",
+           "load_for_serving", "paged_attention_reference",
+           "paged_decode_attention", "prefill_buckets", "reset_for_tests",
+           "serving_stats"]

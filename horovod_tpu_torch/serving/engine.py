@@ -25,8 +25,17 @@ shard of the parameters (``param_specs``) and a page pool of its
 None, tp, None)``). The step bodies run with ``tp`` bound: the
 row-parallel projections psum over it and the logits are all-gathered,
 so every rank picks the same greedy token. Every rank must run the same
-scheduler on the same requests. Speculative decoding and
-``load_for_serving`` come in later slices.
+scheduler on the same requests.
+
+Speculative decoding (``HOROVOD_SERVE_DRAFT`` = ``ngram[:N]`` or
+``truncate:N``, ``HOROVOD_SERVE_SPEC_K`` drafts a step): the verify step
+is the decode body at ``slots * (K+1)`` rows, each slot's block-table row
+repeated K+1 times with lengths ``len_s .. len_s + K``; the
+``truncate:N`` draft is the decode body through the first N layers,
+writing those layers' K/V into the shared pool in place (verify
+rewrites the same positions). :func:`load_for_serving` is the
+train-to-serve handoff: the parameters of the newest committed training
+snapshot, checked against the serving config.
 """
 
 from __future__ import annotations
@@ -73,11 +82,37 @@ def _check_cfg(cfg: tfm.TransformerConfig) -> None:
             "sp/ep/pp axes None (TP via tp_axis is supported).")
 
 
-def _check_draft(spec: str) -> None:
-    if str(spec or "off").strip().lower() not in ("", "off", "0"):
-        raise ValueError(
-            f"HOROVOD_SERVE_DRAFT={spec!r}: speculative decoding is not "
-            f"yet ported to horovod_tpu_torch; use 'off'")
+def _parse_draft(spec: str, n_layers: int) -> Tuple[str, int]:
+    """HOROVOD_SERVE_DRAFT -> (mode, n): 'off', 'ngram[:N]' (host-side
+    n-gram drafter, N = match order, default 3), or 'truncate:N'
+    (self-drafting from the target's first N layers)."""
+    s = str(spec or "off").strip().lower()
+    if s in ("", "off", "0"):
+        return "off", 0
+    head, _, arg = s.partition(":")
+    if head == "ngram":
+        n = int(arg or 3)
+        if n < 1:
+            raise ValueError(
+                f"HOROVOD_SERVE_DRAFT={spec!r}: n-gram order must be "
+                f">= 1")
+        return "ngram", n
+    if head == "truncate":
+        if not arg:
+            raise ValueError(
+                f"HOROVOD_SERVE_DRAFT={spec!r}: truncate needs a layer "
+                f"count, e.g. 'truncate:2'")
+        n = int(arg)
+        if not (1 <= n < n_layers):
+            raise ValueError(
+                f"HOROVOD_SERVE_DRAFT={spec!r}: draft layer count must "
+                f"be in [1, {n_layers - 1}] (the target has "
+                f"{n_layers} layers; drafting with all of them is just "
+                f"decoding twice)")
+        return "truncate", n
+    raise ValueError(
+        f"HOROVOD_SERVE_DRAFT={spec!r}: expected 'off', 'ngram[:N]' "
+        f"or 'truncate:N'")
 
 
 def _rope_rows(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -131,14 +166,22 @@ def _layer(params: Dict[str, Any], i: int) -> Dict[str, torch.Tensor]:
 def _decode_body(cfg: tfm.TransformerConfig, params: Any,
                  k_pages: torch.Tensor, v_pages: torch.Tensor,
                  block_tables: torch.Tensor, lengths: torch.Tensor,
-                 tokens: torch.Tensor
+                 tokens: torch.Tensor, *, n_layers: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decode step over all slots: tokens ``[S]``, lengths ``[S]``
     (tokens already cached, the position this token lands at). Each layer
     writes the token's K/V into the pool (in place) and then attends with
     ``lengths + 1``. Empty slots carry length 0 and scratch-page block
     tables; their writes sink into the scratch page. Returns
-    ``(next_tokens [S] int32, logits [S, V] f32)``."""
+    ``(next_tokens [S] int32, logits [S, V] f32)``.
+
+    The same body at ``slots * (K+1)`` rows is the speculative verify
+    step: each row's K/V lands in the pages before the layer attends, so
+    row i of a slot sees exactly the drafts before it. ``n_layers``
+    truncates the stack to layers ``0..n-1`` plus the shared final norm
+    and head: the ``truncate:N`` draft, whose K/V writes to those layers
+    of the shared pool verify later rewrites (with the same values on
+    the CPU; on CUDA up to the last bits of GEMMs of another M)."""
     scale = cfg.head_dim ** -0.5
     x = tp_lib.vocab_parallel_embed(
         tokens, params["embed"].to(cfg.dtype), cfg.tp_axis)    # [S, D]
@@ -147,7 +190,7 @@ def _decode_body(cfg: tfm.TransformerConfig, params: Any,
     n_ctx = block_tables.shape[1] * k_pages.shape[2]
     valid = lengths < n_ctx
     attend = lengths + 1
-    for i in range(cfg.n_layers):
+    for i in range(cfg.n_layers if n_layers is None else n_layers):
         lp = _layer(params, i)
         kp, vp = k_pages[i], v_pages[i]
         h = tfm._rmsnorm(x, lp["attn_norm"])
@@ -240,7 +283,8 @@ class ServeEngine:
                  n_pages: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
                  prefix_cache: Optional[bool] = None,
-                 draft: Optional[str] = None):
+                 draft: Optional[str] = None,
+                 spec_k: Optional[int] = None):
         _check_cfg(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -260,7 +304,16 @@ class ServeEngine:
             if prefix_cache is None else prefix_cache)
         self.draft_spec = str(
             knobs.get("HOROVOD_SERVE_DRAFT") if draft is None else draft)
-        _check_draft(self.draft_spec)
+        self.draft_mode, self.draft_n = _parse_draft(
+            self.draft_spec, cfg.n_layers)
+        self.spec_k = (int(spec_k if spec_k is not None
+                           else knobs.get("HOROVOD_SERVE_SPEC_K"))
+                       if self.draft_mode != "off" else 0)
+        if self.draft_mode != "off" and self.spec_k < 1:
+            raise ValueError(
+                f"HOROVOD_SERVE_DRAFT={self.draft_spec!r} needs "
+                f"HOROVOD_SERVE_SPEC_K >= 1 drafts per step, got "
+                f"{self.spec_k}")
 
         tp = cfg.tp_axis
         self.tp_size = (collectives.get_context().topology.axis_size(
@@ -283,8 +336,10 @@ class ServeEngine:
         self.k_pages, self.v_pages = self.pool.alloc_arrays()
         self.builds = 0
         self.store_outcomes: Dict[str, str] = {}
-        # f32 logits of the most recent prefill chunk or decode step
+        # f32 logits of the most recent prefill chunk, decode, draft or
+        # verify step
         self.last_logits: Optional[torch.Tensor] = None
+        _register_engine(self)
         logger.info(
             "serve engine up on %s: %d slots, %d+1 pages x %d tokens "
             "(%.1f MiB KV pool), prefill buckets %s", self.device,
@@ -444,6 +499,98 @@ class ServeEngine:
         self.tables.lengths[active] += 1
         return nxt.cpu().numpy()
 
+    # -- speculative decode (draft K, verify all K in one step) --------------
+    @torch.inference_mode()
+    def propose_drafts(self, tokens: np.ndarray,
+                       active: np.ndarray) -> np.ndarray:
+        """K draft tokens per slot from the truncated-layer draft model
+        (``HOROVOD_SERVE_DRAFT=truncate:N``): K decode-shaped steps
+        through the target's first N layers. Their K/V writes land in the
+        shared pool at the speculated positions; verify rewrites the same
+        positions before anything attends over them, so no reader sees a
+        draft-only value."""
+        if self.draft_mode != "truncate":
+            raise RuntimeError(
+                "propose_drafts needs HOROVOD_SERVE_DRAFT=truncate:N "
+                f"(engine built with {self.draft_spec!r})")
+        k = self.spec_k
+        drafts = np.zeros((self.slots, k), np.int32)
+        bt_np = self.tables.tables.copy()
+        ln_np = self.tables.lengths.copy()
+        bt_np[~active] = self.pool.scratch_page
+        ln_np[~active] = 0
+        toks = np.asarray(tokens, np.int32).copy()
+        toks[~active] = 0
+        bt = self._tensor(bt_np)
+        for i in range(k):
+            with self._bound():
+                nxt, self.last_logits = _decode_body(
+                    self.cfg, self.params, self.k_pages, self.v_pages, bt,
+                    self._tensor(ln_np), self._tensor(toks),
+                    n_layers=self.draft_n)
+            nxt = nxt.cpu().numpy()
+            drafts[:, i] = nxt
+            toks = np.where(active, nxt, 0).astype(np.int32)
+            ln_np = ln_np + active.astype(np.int32)
+        return drafts
+
+    @torch.inference_mode()
+    def spec_step(self, tokens: np.ndarray, drafts: np.ndarray,
+                  active: Optional[np.ndarray] = None) -> np.ndarray:
+        """One batched speculative verify step: ``tokens[s]`` is slot s's
+        last accepted token, ``drafts[s]`` its K proposed continuations.
+        Runs the decode body once at ``slots * (K+1)`` rows: row (s, i)
+        consumes draft i (row 0 the accepted token) at position
+        ``len_s + i``. Returns ``out [slots, K+1]``: out[s, i] is the
+        token sequential decode emits after consuming rows 0..i (bitwise
+        on the CPU; on CUDA the M = ``slots * (K+1)`` GEMMs can differ
+        from decode's M = ``slots`` in the last bits, and so flip a
+        near-tie).
+
+        Lengths of active slots advance by K+1; the scheduler keeps the
+        accepted prefix and calls :meth:`rollback` with the rejected
+        count."""
+        if not self.spec_k:
+            raise RuntimeError(
+                "spec_step needs HOROVOD_SERVE_DRAFT != 'off' "
+                f"(engine built with {self.draft_spec!r})")
+        k = self.spec_k
+        if active is None:
+            active = (np.array([p is not None for p in self.slot_pages])
+                      & (self.tables.lengths > 0))
+        rows = self.slots * (k + 1)
+        bt = np.repeat(self.tables.tables, k + 1, axis=0)
+        ln = (np.repeat(self.tables.lengths, k + 1)
+              + np.tile(np.arange(k + 1, dtype=np.int32), self.slots))
+        toks = np.concatenate(
+            [np.asarray(tokens, np.int32).reshape(-1, 1),
+             np.asarray(drafts, np.int32).reshape(self.slots, k)],
+            axis=1).reshape(rows)
+        row_active = np.repeat(active, k + 1)
+        bt[~row_active] = self.pool.scratch_page
+        ln[~row_active] = 0
+        toks[~row_active] = 0
+        with self._bound():
+            nxt, self.last_logits = _decode_body(
+                self.cfg, self.params, self.k_pages, self.v_pages,
+                self._tensor(bt), self._tensor(ln.astype(np.int32)),
+                self._tensor(toks))
+        self.tables.lengths[active] += k + 1
+        return nxt.cpu().numpy().reshape(self.slots, k + 1)
+
+    def rollback(self, slot: int, n_rejected: int) -> None:
+        """Accept-prefix rollback: drop the rejected speculative suffix of
+        a slot, which is length bookkeeping only. Its page writes are
+        masked by the shorter length and rewritten by the next verify
+        before anything attends over them; the slot's worst-case pages
+        stay reserved."""
+        n = int(n_rejected)
+        if not (0 <= n <= int(self.tables.lengths[slot])):
+            raise ValueError(
+                f"rollback of {n} tokens on slot {slot} with length "
+                f"{int(self.tables.lengths[slot])}")
+        self.tables.lengths[slot] -= n
+
     def occupancy(self) -> float:
         used = sum(1 for p in self.slot_pages if p is not None)
         return used / float(self.slots)
@@ -470,8 +617,147 @@ class ServeEngine:
                              if self.prefix is not None else None),
             "cow_copies": self.cow_copies,
             "draft": self.draft_spec,
-            "spec_k": 0,
+            "spec_k": self.spec_k,
             "builds": self.builds,
             "store_outcomes": dict(self.store_outcomes),
             "tp": self.tp_size,
         }
+
+
+# ---------------------------------------------------------------------------
+# train -> serve handoff
+# ---------------------------------------------------------------------------
+#
+# The messages are the JAX package's (``horovod_tpu/analysis/
+# rules_compat.py``: tree_diff, structure_message, geometry_message), kept
+# here in the same words.
+
+def tree_diff(got: Dict[str, Tuple[Tuple[int, ...], str]],
+              want: Dict[str, Tuple[Tuple[int, ...], str]]
+              ) -> Dict[str, Any]:
+    """Structural diff of two leaf maps ``{path: (shape, dtype)}``:
+    ``missing`` (expected, absent), ``extra`` (present, unexpected),
+    ``shape`` and ``dtype`` mismatches on shared leaves, each sorted."""
+    gk, wk = set(got), set(want)
+    shape = []
+    dtype = []
+    for key in sorted(gk & wk):
+        (gs, gd), (ws, wd) = got[key], want[key]
+        if tuple(gs) != tuple(ws):
+            shape.append((key, tuple(gs), tuple(ws)))
+        elif gd != wd:
+            dtype.append((key, gd, wd))
+    return {
+        "missing": sorted(wk - gk),
+        "extra": sorted(gk - wk),
+        "shape": shape,
+        "dtype": dtype,
+    }
+
+
+def structure_message(got_desc: str, want_desc: str,
+                      context: str = "train->serve handoff") -> str:
+    return (f"{context}: restored param tree does not match the serving "
+            f"TransformerConfig (restored {got_desc}, serving expects "
+            f"{want_desc}) — was the snapshot saved by a different "
+            f"model?")
+
+
+def geometry_message(leaf: str, got: Tuple[int, ...],
+                     want: Tuple[int, ...],
+                     context: str = "train->serve handoff") -> str:
+    return (f"{context}: param {leaf} has shape {tuple(got)} but the "
+            f"serving TransformerConfig expects {tuple(want)} — the "
+            f"snapshot was saved by a different model geometry "
+            f"(layers/width/heads/vocab)")
+
+
+def _leaf_shapes(tree: Any, path: str = "") -> Dict[str, Tuple]:
+    """``{keystr: (shape, "")}`` of a nested dict of arrays, in
+    ``jax.tree_util.keystr``'s form (``['layers']['wq']``)."""
+    if isinstance(tree, dict):
+        out: Dict[str, Tuple] = {}
+        for k in sorted(tree):
+            out.update(_leaf_shapes(tree[k], f"{path}[{k!r}]"))
+        return out
+    return {path: (tuple(tree.shape), "")}
+
+
+def _structure(tree: Any) -> str:
+    """The key structure of a nested dict, for the mismatch message."""
+    if isinstance(tree, dict):
+        return "{" + ", ".join(f"{k!r}: {_structure(tree[k])}"
+                               for k in sorted(tree)) + "}"
+    return "*"
+
+
+def load_for_serving(ckpt_dir: str, cfg: tfm.TransformerConfig,
+                     template: Optional[Any] = None, *, device="cuda"
+                     ) -> Tuple[int, Any]:
+    """(step, params) from the newest committed training snapshot in
+    ``ckpt_dir`` (``resilience.async_checkpoint.restore_latest``), placed
+    on ``device``; pass them to ``ServeEngine(cfg, params)`` (under TP
+    each rank's engine keeps its shard of these global parameters).
+
+    The snapshot is the whole ``TrainState``: the optimizer's leaves
+    (momentum, the error-feedback residual, the step) restore beside the
+    parameters and are dropped. The parameter tree must have the keys of
+    ``init_params(cfg)`` (``ValueError`` naming a different model) and
+    its leaves their shapes (``ValueError`` naming the first leaf that
+    differs). A missing snapshot raises ``FileNotFoundError``."""
+    from horovod_tpu_torch.resilience import async_checkpoint as ac
+    dev = resolve_device(device)
+    got = ac.restore_latest(ckpt_dir, template=template)
+    if got is None:
+        raise FileNotFoundError(
+            f"train->serve handoff: no committed checkpoint under "
+            f"{ckpt_dir} (is HOROVOD_CKPT_DIR right, and did the "
+            f"training run commit at least one snapshot?)")
+    step, state = got
+    params = getattr(state, "params", None)
+    if params is None and isinstance(state, dict):
+        params = state.get("params")
+    if params is None:
+        params = state          # a params-only tree saved directly
+    with torch.device("meta"):
+        expected = tfm.init_params(cfg, torch.Generator(), device="meta")
+    if not isinstance(params, dict):
+        raise ValueError(structure_message(type(params).__name__,
+                                           _structure(expected)))
+    diff = tree_diff(_leaf_shapes(params), _leaf_shapes(expected))
+    if diff["missing"] or diff["extra"]:
+        raise ValueError(structure_message(_structure(params),
+                                           _structure(expected)))
+    if diff["shape"]:
+        name, got_shape, want_shape = diff["shape"][0]
+        raise ValueError(geometry_message(name, got_shape, want_shape))
+
+    def place(tree):
+        if isinstance(tree, dict):
+            return {k: place(v) for k, v in tree.items()}
+        return torch.as_tensor(tree).to(device=dev, dtype=torch.float32)
+
+    logger.info("train->serve handoff: restored step %d from %s "
+                "(optimizer/residual leaves dropped)", step, ckpt_dir)
+    return int(step), place(params)
+
+
+# ---------------------------------------------------------------------------
+# module-level registry (the serving block of serving_stats())
+# ---------------------------------------------------------------------------
+
+_active_engine: Optional[ServeEngine] = None
+
+
+def _register_engine(engine: ServeEngine) -> None:
+    global _active_engine
+    _active_engine = engine
+
+
+def active_engine() -> Optional[ServeEngine]:
+    return _active_engine
+
+
+def reset_for_tests() -> None:
+    global _active_engine
+    _active_engine = None

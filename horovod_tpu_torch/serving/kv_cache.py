@@ -71,15 +71,31 @@ class PagePool:
                 * self.n_kv_heads * self.head_dim * itemsize)
 
 
+def _pool_gauges():
+    """The hvd_serve_pages_* gauges, created at the allocator's first
+    state change (not at import)."""
+    from horovod_tpu_torch import metrics as M
+    return (
+        M.gauge("hvd_serve_pages_free",
+                "Free pages in the serving KV pool"),
+        M.gauge("hvd_serve_pages_shared",
+                "Serving KV pool pages with more than one holder "
+                "(N block tables and/or the prefix index)"),
+    )
+
+
 class PageAllocator:
     """Refcounted LIFO free list over physical page ids ``[0, n_pages)``;
     the scratch page is never handed out. A page returns to the free list
-    when its last holder (a block table or the prefix index) lets go."""
+    when its last holder (a block table or the prefix index) lets go.
+    Every change publishes ``hvd_serve_pages_free`` and
+    ``hvd_serve_pages_shared``."""
 
     def __init__(self, n_pages: int):
         self.n_pages = int(n_pages)
         self._free: List[int] = list(range(self.n_pages - 1, -1, -1))
         self._refs: Dict[int, int] = {}
+        self._gauges = None
 
     @property
     def free_pages(self) -> int:
@@ -98,6 +114,12 @@ class PageAllocator:
     def refcount(self, page: int) -> int:
         return self._refs.get(int(page), 0)
 
+    def _publish(self) -> None:
+        if self._gauges is None:
+            self._gauges = _pool_gauges()
+        self._gauges[0].set(len(self._free))
+        self._gauges[1].set(self.shared_pages)
+
     def can_alloc(self, n: int) -> bool:
         return n <= len(self._free)
 
@@ -111,6 +133,7 @@ class PageAllocator:
         out = [self._free.pop() for _ in range(n)]
         for p in out:
             self._refs[p] = 1
+        self._publish()
         return out
 
     def incref(self, page: int) -> None:
@@ -121,6 +144,7 @@ class PageAllocator:
                 f"incref of page {p} which is not allocated — a prefix "
                 f"match must only hand out pages the index still holds")
         self._refs[p] += 1
+        self._publish()
 
     def decref(self, page: int) -> bool:
         """Drop one holder; True when the page went back to the free
@@ -135,9 +159,11 @@ class PageAllocator:
                 f"(every holder must decref exactly once)")
         if c > 1:
             self._refs[p] = c - 1
+            self._publish()
             return False
         del self._refs[p]
         self._free.append(p)
+        self._publish()
         return True
 
     def free(self, pages: List[int]) -> None:

@@ -12,8 +12,26 @@ boundary is a scheduling point:
 3. **decode** one batched step across all occupied slots.
 
 ``mode="static"`` is the baseline: admit only when every slot is free
-and run the whole batch to completion. The Prometheus metrics and
-speculative decoding of the JAX scheduler come in later slices.
+and run the whole batch to completion.
+
+Speculative decoding (``HOROVOD_SERVE_DRAFT`` set): the decode point
+becomes draft-then-verify. A drafter proposes K tokens per slot (the
+host-side :class:`NGramDrafter`, or the engine's truncated-layer draft)
+and one batched verify step scores all K+1 positions per slot. Draft i
+is accepted while it equals the token the verify step emitted one
+position earlier, so the committed tokens are the sequential-decode
+tokens, 1 to K+1 a step; EOS and the generation cap cut the accepted run
+where sequential decode would stop, and the rejected suffix rolls the
+slot's length back (``engine.rollback``). The tokens are the sequential
+ones bitwise on the CPU. On CUDA the verify step's ``slots * (K+1)``
+rows go through GEMMs of another M than the decode step's ``slots``,
+whose last bits can differ (the MLP output GEMM on an H100), so a
+near-tie argmax can flip: there they are equal up to such ties.
+
+The ``hvd_serve_*`` metrics (requests by lifecycle edge, prefill and
+decode tokens, queue depth, batch occupancy, and TTFT and TPOT on
+``metrics.LATENCY_BUCKETS``) are observed where the JAX scheduler
+observes them.
 """
 
 from __future__ import annotations
@@ -21,7 +39,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Any, Deque, Dict, List, Optional
+from typing import Any, Deque, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -56,6 +74,64 @@ class Request:
         return self.finished_at is not None
 
 
+def _metrics():
+    from horovod_tpu_torch import metrics as M
+    return {
+        "requests": M.counter(
+            "hvd_serve_requests_total",
+            "Serving requests by lifecycle edge",
+            labelnames=("event",)),
+        "tokens": M.counter(
+            "hvd_serve_tokens_total",
+            "Tokens through the serving engine",
+            labelnames=("kind",)),
+        "queue": M.gauge(
+            "hvd_serve_queue_depth",
+            "Requests admitted to the scheduler but not yet in a "
+            "decode slot"),
+        "occupancy": M.gauge(
+            "hvd_serve_batch_occupancy",
+            "Occupied fraction of the decode batch slots",
+            aggregation="leader"),
+        "ttft": M.histogram(
+            "hvd_serve_ttft_seconds",
+            "Time to first token (arrival -> first generated token, "
+            "queue wait included)", buckets=M.LATENCY_BUCKETS),
+        "tpot": M.histogram(
+            "hvd_serve_tpot_seconds",
+            "Time per output token during decode (inter-token "
+            "interval)", buckets=M.LATENCY_BUCKETS),
+    }
+
+
+class NGramDrafter:
+    """Host-side n-gram drafter: propose the K tokens that followed the
+    most recent earlier occurrence of the request's current n-token
+    suffix (prompt + generated history), falling back to shorter
+    suffixes down to a single token, and padding with the last proposed
+    (or last seen) token. No device work; a wrong guess costs its row in
+    the fixed-shape verify batch."""
+
+    def __init__(self, n: int = 3):
+        self.n = max(int(n), 1)
+
+    def propose(self, history: Sequence[int], k: int) -> List[int]:
+        h = [int(t) for t in history]
+        out: List[int] = []
+        for n in range(min(self.n, max(len(h) - 1, 0)), 0, -1):
+            tail = h[-n:]
+            for i in range(len(h) - n - 1, -1, -1):
+                if h[i:i + n] == tail:
+                    out = h[i + n:i + n + k]
+                    break
+            if out:
+                break
+        last = h[-1] if h else 0
+        while len(out) < k:
+            out.append(out[-1] if out else last)
+        return out[:k]
+
+
 class ServeScheduler:
     """Single-threaded scheduling loop over one engine. ``device`` names
     the device the engine serves on (default ``"cuda"``, which raises
@@ -83,11 +159,19 @@ class ServeScheduler:
         self.prefilling: Dict[int, Request] = {}    # slot -> request
         self.active: Dict[int, Request] = {}        # slot -> request
         self.completed: List[Request] = []
+        self._m = _metrics()
         self._decode_steps = 0
         self._occ_sum = 0.0
         self.queue_peak = 0
+        # speculative tallies
+        self._spec = engine.spec_k > 0
+        self._ngram = (NGramDrafter(engine.draft_n)
+                       if engine.draft_mode == "ngram" else None)
+        self.spec_proposed = 0
+        self.spec_accepted = 0
         self.prompt_tokens = 0
         self.cached_tokens = 0
+        _register_scheduler(self)
 
     # -- intake --------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -97,6 +181,8 @@ class ServeScheduler:
             req.arrival = time.perf_counter()
         self.queue.append(req)
         self.queue_peak = max(self.queue_peak, len(self.queue))
+        self._m["requests"].labels(event="submitted").inc()
+        self._m["queue"].set(len(self.queue))
 
     # -- scheduling points ---------------------------------------------------
     def _retire(self, now: float) -> None:
@@ -108,6 +194,7 @@ class ServeScheduler:
                 self.engine.release(slot)       # eviction-on-finish
                 del self.active[slot]
                 self.completed.append(req)
+                self._m["requests"].labels(event="completed").inc()
 
     def _admit(self, now: float) -> None:
         if self.mode == "static" and (self.active or self.prefilling):
@@ -142,25 +229,30 @@ class ServeScheduler:
                 req.error = reject
                 req.finished_at = now
                 self.completed.append(req)
+                self._m["requests"].labels(event="rejected").inc()
+                self._m["queue"].set(len(self.queue))
                 continue
             slot = self.engine.reserve(worst, prompt=req.prompt)
             if slot is None:
                 break               # no slot / pages: wait for a finish
             self.queue.popleft()
+            self._m["queue"].set(len(self.queue))
             req.slot = slot
             # shared-prefix reuse: prefill starts past the cached tokens
             req._prefill_pos = int(self.engine.slot_skip[slot])
             self.prompt_tokens += int(req.prompt.size)
             self.cached_tokens += req._prefill_pos
             self.prefilling[slot] = req
+            self._m["requests"].labels(event="admitted").inc()
 
     def _prefill_cycle(self) -> None:
         """Advance every admitted-but-unprefilled request by exactly ONE
         chunk, so a decode step runs between consecutive chunks."""
         for slot, req in list(self.prefilling.items()):
-            pos, first = self.engine.prefill_chunk(slot, req.prompt,
-                                                   req._prefill_pos)
+            old = req._prefill_pos
+            pos, first = self.engine.prefill_chunk(slot, req.prompt, old)
             req._prefill_pos = pos
+            self._m["tokens"].labels(kind="prefill").inc(pos - old)
             if first is None:
                 continue
             del self.prefilling[slot]
@@ -169,9 +261,14 @@ class ServeScheduler:
             req.ttft = t - req.arrival if req.arrival is not None else 0.0
             req._last_token_t = t
             self.active[slot] = req
+            self._m["ttft"].observe(max(req.ttft, 0.0))
+            self._m["tokens"].labels(kind="decode").inc()
 
     def _decode(self) -> None:
         if not self.active:
+            return
+        if self._spec:
+            self._decode_spec()
             return
         tokens = np.zeros((self.engine.slots,), np.int32)
         active = np.zeros((self.engine.slots,), bool)
@@ -181,11 +278,64 @@ class ServeScheduler:
         nxt = self.engine.decode_step(tokens, active=active)
         t = time.perf_counter()
         self._decode_steps += 1
-        self._occ_sum += self.engine.occupancy()
+        occ = self.engine.occupancy()
+        self._occ_sum += occ
+        self._m["occupancy"].set(occ)
         for slot, req in self.active.items():
+            dt = t - req._last_token_t
             req.tokens.append(int(nxt[slot]))
-            req.tpot.append(t - req._last_token_t)
+            req.tpot.append(dt)
             req._last_token_t = t
+            self._m["tpot"].observe(dt)
+            self._m["tokens"].labels(kind="decode").inc()
+
+    def _decode_spec(self) -> None:
+        """Draft-then-verify decode point, accept-prefix per slot: draft
+        i is confirmed while it equals the verify step's own emission one
+        position back, so the appended run is the sequential greedy
+        sequence (on CUDA, up to near-ties; see the module docstring);
+        EOS and the generation cap cut it where sequential decode would
+        stop, and the rejected suffix rolls the slot's length back."""
+        eng = self.engine
+        k = eng.spec_k
+        tokens = np.zeros((eng.slots,), np.int32)
+        active = np.zeros((eng.slots,), bool)
+        for slot, req in self.active.items():
+            tokens[slot] = req.tokens[-1]
+            active[slot] = True
+        if self._ngram is not None:
+            drafts = np.zeros((eng.slots, k), np.int32)
+            for slot, req in self.active.items():
+                hist = list(np.asarray(req.prompt).reshape(-1))
+                hist += req.tokens
+                drafts[slot] = self._ngram.propose(hist, k)
+        else:
+            drafts = eng.propose_drafts(tokens, active)
+        out = eng.spec_step(tokens, drafts, active=active)  # [S, K+1]
+        t = time.perf_counter()
+        self._decode_steps += 1
+        occ = eng.occupancy()
+        self._occ_sum += occ
+        self._m["occupancy"].set(occ)
+        for slot, req in self.active.items():
+            g = 0
+            while g < k and int(drafts[slot, g]) == int(out[slot, g]):
+                g += 1
+            accepted = [int(x) for x in out[slot, :g + 1]]
+            self.spec_proposed += k
+            self.spec_accepted += g
+            room = req.max_new_tokens - len(req.tokens)
+            accepted = accepted[:max(room, 1)]
+            if req.eos_token is not None and req.eos_token in accepted:
+                accepted = accepted[:accepted.index(req.eos_token) + 1]
+            n_new = len(accepted)
+            eng.rollback(slot, (k + 1) - n_new)
+            dt = t - req._last_token_t
+            req.tokens.extend(accepted)
+            req.tpot.extend([dt / n_new] * n_new)
+            req._last_token_t = t
+            self._m["tpot"].observe(dt / n_new)
+            self._m["tokens"].labels(kind="decode").inc(n_new)
 
     def step(self, now: Optional[float] = None) -> None:
         """One scheduling cycle: retire -> admit -> one prefill chunk per
@@ -221,6 +371,7 @@ class ServeScheduler:
                     time.sleep(wait)
                 continue
             self.step(now)
+        self._m["occupancy"].set(self.engine.occupancy())
         return self.completed
 
     # -- reporting -----------------------------------------------------------
@@ -245,5 +396,34 @@ class ServeScheduler:
                                    / self.prompt_tokens, 4)
                              if self.prompt_tokens else None),
             } if self.engine.prefix_cache else None),
-            "spec": None,
+            "spec": ({
+                "draft": self.engine.draft_spec,
+                "k": self.engine.spec_k,
+                "proposed": self.spec_proposed,
+                "accepted": self.spec_accepted,
+                "acceptance_rate": (round(self.spec_accepted
+                                          / self.spec_proposed, 4)
+                                    if self.spec_proposed else None),
+            } if self._spec else None),
         }
+
+
+# ---------------------------------------------------------------------------
+# module registry (the scheduler block of serving_stats())
+# ---------------------------------------------------------------------------
+
+_active_scheduler: Optional[ServeScheduler] = None
+
+
+def _register_scheduler(s: ServeScheduler) -> None:
+    global _active_scheduler
+    _active_scheduler = s
+
+
+def active_scheduler() -> Optional[ServeScheduler]:
+    return _active_scheduler
+
+
+def reset_for_tests() -> None:
+    global _active_scheduler
+    _active_scheduler = None

@@ -1288,3 +1288,27 @@ def test_cuda_adasum_optimizer_of_one_rank_is_its_inner_optimizer():
             assert torch.equal(a, b)
     finally:
         htt.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", [3, 17, 35])
+def test_cuda_inception_avg_pool_gradient_matches_the_cpu(side):
+    """Inception's 3x3/1 SAME average pool (padding counted) on a
+    channels-last CUDA view: output and input gradient within 1e-5 of the
+    CPU's on the same numbers (its backward pools the gradient with the
+    forward operator)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from horovod_tpu_torch.models import inception
+    rng = np.random.default_rng(side)
+    x0 = rng.standard_normal((2, side, side, 64)).astype(np.float32)
+    g0 = rng.standard_normal((2, side, side, 64)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        x = torch.from_numpy(x0).to(dev).requires_grad_(True)
+        y = inception.avg_pool_same(x)
+        (y * torch.from_numpy(g0).to(dev)).sum().backward()
+        out[dev] = (y.detach().cpu(), x.grad.cpu())
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())

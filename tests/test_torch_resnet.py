@@ -161,9 +161,9 @@ def test_non_relu_act_and_unported_options_raise():
     with pytest.raises(ValueError, match="bottleneck"):
         htt.ResNet(stage_sizes=[1], block_cls=resnet.ResNetBlock,
                    fused_conv_bn=True, device="cpu")
-    for kw in (dict(space_to_depth=True), dict(folded_bn=True)):
-        with pytest.raises(NotImplementedError, match="A.14"):
-            _model(False, **kw)
+    s2d = _model(False, space_to_depth=True, folded_bn=True)
+    with pytest.raises(ValueError, match="even spatial dims"):
+        s2d(torch.zeros(2, 33, 32, 3))
     sgd = torch.optim.SGD([torch.zeros(1, requires_grad=True)], lr=0.1)
     with pytest.raises(NotImplementedError, match="Sum, Average and Adasum"):
         htt.DistributedOptimizer(sgd, op=htt.ops.reduce_ops.Max)

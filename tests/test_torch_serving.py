@@ -351,8 +351,13 @@ def test_engine_rejects_what_the_slice_does_not_serve(jparams):
     # tensor parallelism is served, on the runtime's mesh
     with pytest.raises(RuntimeError, match="not been initialized"):
         ServeEngine(_cfg(tp_axis="tp"), params, device="cpu")
-    with pytest.raises(ValueError, match="not yet ported"):
-        ServeEngine(_cfg(), params, device="cpu", draft="ngram:3")
+    for draft, spec_k, msg in (("truncate", None, "needs a layer count"),
+                               ("truncate:2", None, "in \\[1, 1\\]"),
+                               ("banana", None, "expected 'off'"),
+                               ("ngram:3", 0, "HOROVOD_SERVE_SPEC_K")):
+        with pytest.raises(ValueError, match=msg):
+            ServeEngine(_cfg(), params, device="cpu", draft=draft,
+                        spec_k=spec_k)
     _, eng = _engines(jparams)
     with pytest.raises(ValueError, match="HOROVOD_SERVE_MAX_SEQ"):
         eng.prefill(eng.reserve(16), np.zeros(4096, np.int32))

@@ -11,6 +11,9 @@ quarter of the FFN and of the vocabulary), every rank running the same
 of the scheduler, must equal the JAX ``ServeEngine`` on a (tp 4) mesh of
 ``jax.devices()[:4]`` on every rank; the first prefill's logits are held
 within 1e-4 of the JAX model's (f32; the sums run in another order).
+A second phase of the same world re-inits on a (dp 2, tp 2) mesh and
+serves the same requests at tp2 with ``HOROVOD_SERVE_DRAFT=ngram:3``:
+every rank's tokens must be those of one device.
 """
 
 import signal
@@ -54,6 +57,7 @@ def jparams():
 
 
 PROMPTS = ts._prompts(5, 6)
+SPEC_ENGINE = {**ts.ENGINE_KW, "draft": "ngram:3", "spec_k": 4}
 
 
 @pytest.fixture(scope="module")
@@ -64,6 +68,14 @@ def port_world(jparams, tmp_path_factory):
                    scenarios=[dict(name="serve", kind="serve_tp", cfg=cfg,
                                    params=ts._np_tree(jparams),
                                    engine=ts.ENGINE_KW,
+                                   prompts=[p.tolist() for p in PROMPTS],
+                                   new_tokens=NEW_TOKENS)]),
+              # speculative serving at tp2: two tp groups of two ranks
+              dict(init=dict(mesh_shape=(2, W // 2),
+                             axis_names=("dp", "tp")),
+                   scenarios=[dict(name="serve_spec", kind="serve_tp",
+                                   cfg=cfg, params=ts._np_tree(jparams),
+                                   engine=SPEC_ENGINE,
                                    prompts=[p.tolist() for p in PROMPTS],
                                    new_tokens=NEW_TOKENS)])]
     load = workers.run_phases(W, phases, tmp_path_factory.mktemp("tp_serve"))
@@ -97,3 +109,32 @@ def test_tp_engine_first_logits_match_jax_model(port_world, jparams):
         got = port_world("serve", rank)["first_logits"]
         np.testing.assert_allclose(got, want, atol=LOGIT_TOL,
                                    rtol=LOGIT_TOL, err_msg=f"rank {rank}")
+
+
+def test_tp2_ngram_speculation_gives_the_tokens_of_one_rank(port_world,
+                                                           jparams):
+    """HOROVOD_SERVE_DRAFT=ngram:3 at tp2 (each rank of a (dp 2, tp 2)
+    mesh an engine on its tp group): every rank's tokens are the
+    sequential tokens of the JAX engine on one device, and its
+    proposed/accepted tallies those of the JAX ngram:3 engine on one
+    device."""
+    reqs = [JRequest(rid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(PROMPTS)]
+    off = JServeScheduler(ts._synchronous(JServeEngine(
+        ts._jcfg(), jparams, mesh=None, **ts.ENGINE_KW)),
+        queue_deadline=0.0).run(reqs)
+    one = {r.rid: list(r.tokens) for r in off}
+    jeng = JServeEngine(ts._jcfg(), jparams, mesh=None, **SPEC_ENGINE)
+    jsched = JServeScheduler(jeng, queue_deadline=0.0)
+    jdone = jsched.run([JRequest(rid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+                        for i, p in enumerate(PROMPTS)])
+    assert {r.rid: list(r.tokens) for r in jdone} == one
+    spec = jsched.stats()["spec"]
+    for rank in range(W):
+        got = port_world("serve_spec", rank)
+        assert {i: got[f"t|{i}"].tolist()
+                for i in range(len(PROMPTS))} == one, f"rank {rank}"
+        assert int(got["tp"]) == W // 2
+        assert int(got["kv_heads"]) == ts.CFG_KW["n_heads"] // (W // 2)
+        assert (int(got["proposed"]), int(got["accepted"])) == (
+            spec["proposed"], spec["accepted"]), f"rank {rank}"

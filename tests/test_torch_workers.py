@@ -801,9 +801,10 @@ def _pipeline_scenario(rank, sc, sets):
 
 
 def _serve_tp_scenario(rank, sc, sets):
-    """A tensor-parallel ServeEngine (global ``params``) and a
-    ServeScheduler over ``prompts``: every request's tokens (``t|<rid>``)
-    and the engine's first prefill logits."""
+    """A tensor-parallel ServeEngine (global ``params``, ``engine``
+    keyword arguments) and a ServeScheduler over ``prompts``: every
+    request's tokens (``t|<rid>``), the engine's first prefill logits and,
+    with a drafter, the scheduler's ``proposed``/``accepted`` tallies."""
     from horovod_tpu_torch import Request, ServeEngine, ServeScheduler
     eng = ServeEngine(sc["cfg"], sc["params"], device="cpu",
                       **sc["engine"])
@@ -814,10 +815,15 @@ def _serve_tp_scenario(rank, sc, sets):
     reqs = [Request(rid=i, prompt=np.asarray(p, np.int32),
                     max_new_tokens=sc["new_tokens"])
             for i, p in enumerate(sc["prompts"])]
-    done = ServeScheduler(eng, queue_deadline=0.0, device="cpu").run(reqs)
+    sched = ServeScheduler(eng, queue_deadline=0.0, device="cpu")
+    done = sched.run(reqs)
     out = {f"t|{r.rid}": np.asarray(r.tokens) for r in done}
     out.update(first_logits=first, tp=np.asarray(eng.stats()["tp"]),
                kv_heads=np.asarray(eng.k_pages.shape[3]))
+    spec = sched.stats()["spec"]
+    if spec is not None:
+        out.update(proposed=np.asarray(spec["proposed"]),
+                   accepted=np.asarray(spec["accepted"]))
     return out
 
 
