@@ -11,6 +11,8 @@
                                    # only phase 10's checks, on 4 cards
     python3 chip_smoke.py --data-parallel 4 --zoo-only
                                    # only VGG-16 and Inception V3, on 4 cards
+    python3 chip_smoke.py --data-parallel 4 --fleet-only
+                                   # only the serving fleet, a replica a card
 
 Phases, each of which raises (and so exits non-zero) when it fails:
 
@@ -150,19 +152,33 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     the flagship at full width and depth in three modes, off, ngram:3
     and truncate:4 (4 of 16 layers), each at K = 4: decode tokens/s,
     decode steps, TPOT p50/p99, acceptance, the share of requests whose
-    tokens equal the off run's, and for each that differs the first
-    position and the off run's top-2 logit gap there (teacher-forced);
+    tokens equal the off run's (every request must keep every token);
     then the same prefixes through decode steps (M = 8) and one verify
-    step (M = 40), each row's largest logit difference, and each
-    operation of the decode body at M = 8 and M = 40 on the same rows
-    (which first differs bit for bit). A differing token whose top-2 gap
-    exceeds the largest row difference fails the phase. The truncate:4
+    step (M = 40), each row's largest logit difference (every row must
+    be bitwise its decode row), each operation of the decode body at M =
+    8 and M = 40 on the same rows (which first differs bit for bit; the
+    MLP's output product does, and the other products and the norms'
+    means now and then by a bf16 step, so the verify step runs them in
+    chunks of 8 rows, ``mlp_chunked``), and the verify step's body timed
+    whole and
+    chunked (device ms, launches). The truncate:4
     draft's ``propose_drafts`` must give, bitwise, the greedy tokens of a
     plain engine on the model cut to its first 4 layers. Then the
     train-to-serve handoff (``serve handoff:``): ``load_for_serving`` of
     the snapshot phase 4's preempted run committed, its parameters
     bitwise those the snapshot was taken of, and an engine built from
     them gives the tokens of one built from those parameters directly.
+13. the serving fleet and the metrics export (``fleet (world 1):``):
+    phase 3's traffic through ``ServingFleet`` on the flagship: a fleet
+    of one gives the bare engine's tokens bitwise while a
+    ``MetricsServer`` on a free local port is scraped over loopback
+    (``/metrics`` with ``hvd_serve_*``, ``/healthz`` with the serving and
+    fleet blocks); two replicas on the card run the drain drill (nothing
+    dropped, the leaver's whole pool free), the replica_kill drill at the
+    router's dispatch path twice (every request served with the bare
+    tokens, the same re-admission order) and the replica_slow drill;
+    decode tokens/s, TTFT and TPOT p50/p99, each replica's join seconds
+    and builds.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the
@@ -282,7 +298,16 @@ parallel <model>:`` lines): VGG-16 and Inception V3 at phase 11's batch
 per card, on one card and then on N, ZOO_DP_STEPS steps each: every
 rank's parameters bitwise equal after the steps, step ms, scaling
 efficiency (one card's step over N's) and the NCCL kernels' device ms
-of a profiled step.
+of a profiled step. Last, the serving fleet on N cards
+(``--data-parallel N --fleet-only``: only this; ``fleet data parallel:``
+line): one process, a replica a card on its own thread, not an NCCL
+world. Paged decode is held against its plain version on every card;
+phase 3's 16 requests through a fleet of one and of N, every token the
+bare one-card engine's, each replica's weights and pool on its own card
+(``torch.cuda.memory_allocated``), decode tokens/s at 1 and N replicas
+and their ratio; the autoscaler grows 1 -> N under staggered arrivals;
+then one replica is killed and another drained, every request served
+with the bare tokens.
 """
 
 from __future__ import annotations
@@ -5450,7 +5475,8 @@ def op_rows_probe(eng, cfg, gen):
     row (M = slots): each operation of the decode body, in its order, on
     the same 8 input rows alone and tiled K+1 times, on layer 0's weights;
     for each, whether the first copy's rows are bitwise the rows computed
-    alone, and the largest difference."""
+    alone, and the largest difference. ``mlp_chunked`` is the MLP as the
+    verify step runs it, its output product in chunks of ``slots`` rows."""
     from horovod_tpu_torch.models import transformer as tfm
     from horovod_tpu_torch.parallel import tensor_parallel as tp_lib
     from horovod_tpu_torch.serving import engine as E
@@ -5469,6 +5495,7 @@ def op_rows_probe(eng, cfg, gen):
            ("mlp_out", u, lambda t: tp_lib.row_parallel(t, lp["w_out"],
                                                         None)),
            ("mlp", x, lambda t: E._mlp(cfg, lp, t)),
+           ("mlp_chunked", x, lambda t: E._mlp(cfg, lp, t, s)),
            ("head", x, lambda t: E._gather_logits(cfg, t,
                                                   eng.params["head"]))]
     out = []
@@ -5490,7 +5517,8 @@ def verify_vs_decode(htt, cfg, params, reqs, off_tokens, gen):
     whose drafts are those tokens, so verify row (s, i) and decode step i
     of slot s see the same prefix. Per step i: the largest |logit
     difference| over the slots, and whether the rows are bitwise equal;
-    then the per-operation probe."""
+    then the per-operation probe, and the verify step's body timed with
+    its GEMMs and norm means whole and in chunks of ``slots`` rows."""
     from horovod_tpu_torch.serving import ServeEngine
     k = SPEC_K
     off = ServeEngine(cfg, params, device="cuda")
@@ -5518,9 +5546,39 @@ def verify_vs_decode(htt, cfg, params, reqs, off_tokens, gen):
         "bitwise_equal": bool(torch.equal(ver[:, i], dec[i]))}
         for i in range(k + 1)]
     probe = op_rows_probe(spec, cfg, gen)
+    timing = verify_body_times(spec, toks)
     del off, spec
     torch.cuda.empty_cache()
-    return steps, probe
+    return steps, probe, timing
+
+
+def verify_body_times(eng, toks):
+    """The verify step's body at its geometry (``slots * (K+1)`` rows on
+    the engine's live tables) with its GEMMs and norm means whole, as
+    before the repair, and in chunks of ``slots`` rows, as ``spec_step`` runs
+    it: device ms and kernel launches a step from torch.profiler, and ms
+    a step by CUDA events (host launch cost included)."""
+    from horovod_tpu_torch.serving import engine as E
+    k, s = eng.spec_k, eng.slots
+    bt = np.repeat(eng.tables.tables, k + 1, axis=0)
+    ln = (np.repeat(eng.tables.lengths, k + 1)
+          + np.tile(np.arange(k + 1, dtype=np.int32), s)).astype(np.int32)
+    args = (eng.cfg, eng.params, eng.k_pages, eng.v_pages,
+            eng._tensor(bt), eng._tensor(ln),
+            eng._tensor(np.asarray(toks, np.int32).reshape(-1)))
+    out = {}
+    with torch.inference_mode():
+        for name, rows in (("whole", None), ("chunked", s)):
+            def body(rows=rows):
+                return E._decode_body(*args, rows=rows)
+            prof = profiled_rows(body, 5)
+            out[name] = {
+                "device_ms": sum(r[0] for r in prof) / 1e3 / 5,
+                "launches": sum(r[2] for r in prof) / 5,
+                "event_ms": cuda_ms(lambda i: body(), 10)}
+    out["extra_launches"] = (out["chunked"]["launches"]
+                             - out["whole"]["launches"])
+    return out
 
 
 def truncate_draft_vs_plain(htt, cfg, params, reqs) -> dict:
@@ -5574,16 +5632,16 @@ def spec_serving(htt, fa, card, handoff) -> dict:
     """Phase 12: the flagship at full width and depth, serve traffic (16
     requests of 64-1024 prompt tokens, 32 new tokens each, knob defaults)
     in three modes, off, ngram:3 and truncate:SPEC_TRUNCATE, each at K =
-    SPEC_K; then the verify-against-decode rows and the truncated draft
-    against the cut model; then the train-to-serve handoff of phase 4's
-    snapshot."""
+    SPEC_K, every request's tokens required equal to the off run's; then
+    the verify-against-decode rows (required bitwise) and the truncated
+    draft against the cut model; then the train-to-serve handoff of phase
+    4's snapshot."""
     from horovod_tpu_torch.serving import ServeEngine
     cfg = flagship_cfg(htt.TransformerConfig)
     params = htt.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     modes = ["off", "ngram:3", f"truncate:{SPEC_TRUNCATE}"]
     runs, tokens = {}, {}
-    forced = None
     for mode in modes:
         eng = ServeEngine(cfg, params, device="cuda", draft=mode,
                           spec_k=SPEC_K)
@@ -5607,14 +5665,10 @@ def spec_serving(htt, fa, card, handoff) -> dict:
         if launches < cfg.n_layers * st["decode_steps"]:
             raise AssertionError(f"{mode}: paged_decode launched "
                                  f"{launches} times")
-        if mode == "off":           # the off run's logits, teacher-forced
-            forced = mp_forced_logits(
-                eng, lambda: mp_serve_requests(cfg.vocab_size),
-                tokens["off"])
         del eng
         torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(7)
-    steps, probe = verify_vs_decode(
+    steps, probe, verify_times = verify_vs_decode(
         htt, cfg, params, mp_serve_requests(cfg.vocab_size), tokens["off"],
         gen)
     row_diff = max(x["max_abs_logit_diff"] for x in steps)
@@ -5632,29 +5686,27 @@ def spec_serving(htt, fa, card, handoff) -> dict:
                       if a != b), None)
             if p is None:
                 continue
-            top2 = torch.topk(forced[rid][p], 2).values
-            gap = float(top2[0] - top2[1])
             diverged.append({"rid": rid, "position": p,
-                             "token": got[p], "off_token": want[p],
-                             "off_top2_gap": gap})
-            if gap > row_diff:
-                faults.append((mode, diverged[-1]))
+                             "token": got[p], "off_token": want[p]})
+            faults.append((mode, diverged[-1]))
         runs[mode]["divergences"] = diverged
     first_diff = next((x for x in probe if not x["bitwise_equal"]), None)
     line = {"model": "flagship TransformerLM", "k": SPEC_K,
             "requests": 16, "new_tokens": 32, "modes": runs,
             "verify_vs_decode_rows": steps,
             "verify_vs_decode_max_abs_logit_diff": row_diff,
+            "verify_body_whole_vs_chunked": verify_times,
             "first_step_max_abs_logit_diff": steps[0]["max_abs_logit_diff"],
             "op_probe_m8_vs_m40": probe,
             "first_op_that_differs": first_diff and first_diff["op"],
             "truncate_draft_vs_cut_model": truncate_check,
             "card": card}
     log("spec serving: " + json.dumps(line))
+    if not all(x["bitwise_equal"] for x in steps):
+        raise AssertionError(f"verify rows are not the decode rows bit for "
+                             f"bit: {steps}")
     if faults:
-        raise AssertionError(f"speculative tokens part from the off run "
-                             f"where the off run's top-2 gap exceeds the "
-                             f"verify/decode row difference {row_diff}: "
+        raise AssertionError(f"speculative tokens part from the off run: "
                              f"{faults}")
     serve_handoff(htt, cfg, handoff, fa, card)
     return line
@@ -5740,6 +5792,403 @@ def zoo_data_parallel(n: int, card: str, **kw) -> None:
             raise AssertionError(f"zoo data parallel {label}: {line}")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the serving fleet and the metrics export
+# ---------------------------------------------------------------------------
+
+FLEET_SLOW_S = 0.002        # replica_slow's delay a dispatch
+FLEET_STAGGER_S = 0.05      # arrival offsets of the autoscaler drill
+
+
+class Scraper:
+    """Scrapes ``/metrics`` and ``/healthz`` of the local metrics server
+    over loopback every 50 ms while a ``with`` block runs; ``seen`` keeps
+    (text, health) of each scrape."""
+
+    def __init__(self, port: int):
+        import threading
+        self.port = port
+        self.seen = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+
+    def get(self, path):
+        import urllib.request
+        with urllib.request.urlopen(f"http://127.0.0.1:{self.port}{path}",
+                                    timeout=10) as r:
+            return r.read().decode()
+
+    def _loop(self):
+        while not self._stop.is_set():
+            self.seen.append((self.get("/metrics"),
+                              json.loads(self.get("/healthz"))))
+            self._stop.wait(0.05)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def fleet_engine_maker(cfg, params, devices):
+    """``make_engine`` of a fleet: replica ``rid`` serves on
+    ``devices[rid % len(devices)]``."""
+    from horovod_tpu_torch.serving import ServeEngine
+
+    def make(rid):
+        return ServeEngine(cfg, params, device=devices[rid % len(devices)])
+    return make
+
+
+def fleet_run(fleet, fa, reqs, parallel=False):
+    """``fleet.run(reqs)`` with the paged-decode count set to 0 just
+    before and read just after: (done, wall s, launches, decode steps)."""
+    def decode_steps():
+        return sum(rep.scheduler.stats()["decode_steps"]
+                   for rep in fleet.replicas.values())
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+    steps0 = decode_steps()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    done = fleet.run(reqs, parallel=parallel)
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+    wall = time.perf_counter() - t0
+    return done, wall, fa.LAUNCHES["paged_decode"], decode_steps() - steps0
+
+
+def fleet_check(label, done, bare, rids=None, n_layers=16, launches=None,
+                steps=None):
+    """Every request served without an error, with the bare engine's
+    tokens bitwise (``rids`` maps a request to its bare twin), and the
+    paged-decode kernel launched on the path."""
+    rids = rids or {r.rid: r.rid for r in done}
+    errors = [r.error for r in done if r.error]
+    if errors or len(done) != len(rids):
+        raise AssertionError(f"{label}: {len(done)} of {len(rids)} served, "
+                             f"errors {errors}")
+    differ = [r.rid for r in done if list(r.tokens) != bare[rids[r.rid]]]
+    if differ:
+        raise AssertionError(f"{label}: requests {differ} differ from the "
+                             f"bare engine's tokens")
+    if launches is not None and (not steps or launches < n_layers * steps):
+        raise AssertionError(f"{label}: paged_decode launched {launches} "
+                             f"times over {steps} decode steps")
+
+
+def fleet_latency(done, wall):
+    gen = sum(len(r.tokens) for r in done)
+    ttft = [r.ttft * 1e3 for r in done]
+    tpot = [t * 1e3 for r in done for t in r.tpot]
+    return {"decode_tokens_per_s": gen / wall, "wall_s": wall,
+            "ttft_ms_p50": pct(ttft, 50), "ttft_ms_p99": pct(ttft, 99),
+            "tpot_ms_p50": pct(tpot, 50), "tpot_ms_p99": pct(tpot, 99)}
+
+
+def fleet_joins(fleet):
+    return [{"replica": e["replica"], "boot_s": e["boot_s"],
+             "builds": e["builds"], "reason": e["reason"]}
+            for e in fleet.scale_events if e["event"] == "grow"]
+
+
+def fleet_bare(htt, fa, cfg, params):
+    """The bare one-card engine's tokens for the 16 requests."""
+    from horovod_tpu_torch.serving import ServeEngine
+    eng = ServeEngine(cfg, params, device="cuda:0")
+    done, _, _, _ = serve_run(eng, mp_serve_requests(cfg.vocab_size), fa)
+    del eng
+    return {r.rid: list(r.tokens) for r in done}
+
+
+def fleet_world_one(htt, fa, card) -> dict:
+    """Phase 13: the flagship at full width and depth (bf16, seed 0) with
+    phase 3's traffic (16 requests of 64-1024 prompt tokens, 32 new tokens
+    each, knob defaults) through the serving fleet on one card: a fleet of
+    one gives the bare engine's tokens bitwise; two replicas on the card
+    run the drain drill (nothing dropped, the leaver's pool free), the
+    replica_kill drill at the router's dispatch path twice (every request
+    served, the same re-admission order) and the replica_slow drill; a
+    MetricsServer on a free local port is scraped over loopback while the
+    fleet serves (``/metrics`` with ``hvd_serve_*``, ``/healthz`` with the
+    serving and fleet blocks)."""
+    from horovod_tpu_torch import metrics as M
+    from horovod_tpu_torch.resilience import chaos
+    from horovod_tpu_torch.serving import Request, ReplicaState, ServingFleet
+    cfg = flagship_cfg(htt.TransformerConfig)
+    params = htt.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    bare = fleet_bare(htt, fa, cfg, params)
+    make = fleet_engine_maker(cfg, params, ["cuda:0"])
+    reqs = lambda: mp_serve_requests(cfg.vocab_size)   # noqa: E731
+    srv = M.start_metrics_server(0, host="127.0.0.1")
+    line = {"model": "flagship TransformerLM", "requests": 16,
+            "new_tokens": 32, "card": card}
+
+    # a fleet of one, scraped while it serves
+    fleet = ServingFleet(make, replicas=1, max_replicas=1)
+    fleet.run(mp_serve_requests(cfg.vocab_size, n=2, new_tokens=8, seed=9,
+                                lo=40, hi=60))          # warm-up
+    fleet.completed.clear()
+    with Scraper(srv.port) as scr:
+        done, wall, launches, steps = fleet_run(fleet, fa, reqs())
+    fleet_check("fleet of one", done, bare, n_layers=cfg.n_layers,
+                launches=launches, steps=steps)
+    during = [(t, h) for t, h in scr.seen
+              if h.get("fleet") and h.get("serving")]
+    if not during or "hvd_serve_tokens_total" not in during[-1][0]:
+        raise AssertionError(f"no /metrics and /healthz scrape with the "
+                             f"serving and fleet blocks while the fleet "
+                             f"served ({len(scr.seen)} scrapes)")
+    health = json.loads(scr.get("/healthz"))
+    if health["fleet"]["completed"] != 16 or \
+            health["fleet"]["members"]["replica-0"]["state"] != "ready":
+        raise AssertionError(f"/healthz fleet block: {health['fleet']}")
+    line["fleet_of_one"] = {
+        **fleet_latency(done, wall), "tokens_equal_bare": True,
+        "paged_decode_launches": launches, "decode_steps": steps,
+        "joins": fleet_joins(fleet)}
+    line["scrape"] = {
+        "scrapes_while_serving": len(during),
+        "metrics_families_hvd_serve": sorted(
+            {ln.split(" ")[2] for ln in during[-1][0].splitlines()
+             if ln.startswith("# TYPE hvd_serve_")}),
+        "healthz_status": health["status"],
+        "healthz_blocks": sorted(health),
+        "fleet_members": {m: v["state"] for m, v
+                          in health["fleet"]["members"].items()}}
+    del fleet
+
+    def two(**kw):
+        return ServingFleet(make, replicas=2, max_replicas=2,
+                            scale_down_idle=10 ** 9, cooldown=0, **kw)
+
+    # the drain drill
+    fleet = two()
+    batch = reqs()
+    for r in batch:
+        fleet.dispatch(r)
+    fleet.cycle()
+    rep = fleet.replicas[1]
+    aboard = len(rep.aboard)
+    fleet.drain(1, reason="drill")
+    extra = Request(rid=100, prompt=batch[0].prompt.copy(),
+                    max_new_tokens=32)
+    fleet.dispatch(extra)
+    done, wall, launches, steps = fleet_run(fleet, fa, [])
+    fleet_check("drain drill", done, bare, rids={**{i: i for i in range(16)},
+                                                 100: 0})
+    leave = [e for e in fleet.scale_events if e["event"] == "leave"]
+    if (rep.state != ReplicaState.LEFT or not aboard or not leave
+            or leave[0]["pages_freed"] != rep.engine.pool.n_pages
+            or getattr(extra, "_fleet_seq") in rep.aboard):
+        raise AssertionError(f"drain drill: state {rep.state}, aboard "
+                             f"{aboard}, leave {leave}")
+    line["drain_drill"] = {
+        "aboard_at_drain": aboard, "served": len(done),
+        "pages_freed": leave[0]["pages_freed"],
+        "pages_total": leave[0]["pages_total"], "tokens_equal_bare": True,
+        "paged_decode_launches": launches}
+    del fleet, rep
+
+    # the replica_kill drill at the dispatch path, twice
+    kills = []
+    for _ in range(2):
+        chaos.install({"replica_kill": {"replica": 1, "after_requests": 2}})
+        try:
+            fleet = two()
+            blacklisted = []            # at the registry's death notice
+            fleet.registry.register_listener(
+                lambda ts, res, reg=fleet.registry: blacklisted.append(
+                    reg.is_blacklisted("replica-1")))
+            batch = reqs()
+            for r in batch:
+                r.arrival = 0.0
+            done, wall, launches, steps = fleet_run(fleet, fa, batch)
+        finally:
+            chaos.install(None)
+        fleet_check("replica_kill drill", done, bare, n_layers=cfg.n_layers,
+                    launches=launches, steps=steps)
+        if (fleet.replicas[1].state != ReplicaState.DEAD
+                or not fleet.readmissions or blacklisted != [True]):
+            raise AssertionError("replica_kill drill: replica 1 did not die "
+                                 "and re-admit its requests")
+        kills.append({"readmission_log": list(fleet.readmission_log),
+                      **fleet_latency(done, wall)})
+        del fleet
+    if kills[0]["readmission_log"] != kills[1]["readmission_log"]:
+        raise AssertionError(f"replica_kill drill: re-admission orders "
+                             f"differ: {kills}")
+    line["kill_drill"] = {"runs": kills, "tokens_equal_bare": True,
+                          "readmission_order_equal": True}
+
+    # the replica_slow drill
+    chaos.install({"replica_slow": {"replica": 0, "delay": FLEET_SLOW_S,
+                                    "after_requests": 1}})
+    try:
+        fleet = two()
+        done, wall, launches, steps = fleet_run(fleet, fa, reqs())
+    finally:
+        chaos.install(None)
+    fleet_check("replica_slow drill", done, bare, n_layers=cfg.n_layers,
+                launches=launches, steps=steps)
+    slow = fleet.router.stats()["slow_injected_s"]
+    if slow < FLEET_SLOW_S:
+        raise AssertionError(f"replica_slow drill injected {slow} s")
+    line["slow_drill"] = {"slow_injected_s": slow, "tokens_equal_bare": True,
+                          **fleet_latency(done, wall),
+                          "joins": fleet_joins(fleet)}
+    del fleet
+    M.stop_exports()
+    log("fleet (world 1): " + json.dumps(line))
+    torch.cuda.empty_cache()
+    return line
+
+
+def check_kernel_on_card(fa, kvc, dev) -> float:
+    """Paged decode on card ``dev`` against its plain version, at the
+    main path's geometry (8 slots, ragged lengths, slot 3 empty, bf16, H =
+    KVH = 16, D = 64, page 128)."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b, h, d, page, n_max = 8, 16, 64, 128, 16
+    lengths = [1, 2048, 300, 0, 1024, 1537, 128, 777]
+    shape = (b * n_max + 1, page, h, d)
+    kp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    vp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    bt = torch.randperm(b * n_max, generator=gen, device=dev).reshape(
+        b, n_max).to(torch.int32).contiguous()
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    out = fa.flash_paged_decode(q, kp, vp, bt, ln, d ** -0.5)
+    ref = kvc.paged_attention_reference(q, kp, vp, bt, ln, d ** -0.5)
+    err = float((out - ref).abs().max())
+    if out.device != torch.device(dev) or err > TOL[torch.bfloat16] or \
+            not bool((out[3] == 0).all()):
+        raise AssertionError(f"paged_decode on {dev}: max_abs_err {err}")
+    return err
+
+
+def fleet_n_cards(n: int, card: str) -> None:
+    """``--data-parallel N --fleet-only``: one process, a replica a card
+    (``cuda:0`` .. ``cuda:N-1``), each stepped on its own thread
+    (``run(parallel=True)``); not an NCCL world. The kernel is held on
+    every card; every request's tokens equal the bare one-card engine's;
+    each replica's weights and pool sit on its own card; decode tokens/s
+    at 1 and at N replicas; the autoscaler grows 1 -> N under staggered
+    arrivals; then one replica is killed and another drained."""
+    import horovod_tpu_torch as htt
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.serving import ReplicaState, ServingFleet
+    from horovod_tpu_torch.serving import kv_cache as kvc
+    devices = [f"cuda:{i}" for i in range(n)]
+    errs = {dev: check_kernel_on_card(fa, kvc, dev) for dev in devices}
+    cfg = flagship_cfg(htt.TransformerConfig)
+    params = htt.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda:0")
+    bare = fleet_bare(htt, fa, cfg, params)
+    reqs = lambda: mp_serve_requests(cfg.vocab_size)   # noqa: E731
+    warm = lambda: mp_serve_requests(                   # noqa: E731
+        cfg.vocab_size, n=2 * n, new_tokens=8, seed=9, lo=40, hi=60)
+    line = {"model": "flagship TransformerLM", "cards": n, "requests": 16,
+            "new_tokens": 32, "kernel_max_abs_err_by_card": errs,
+            "card": card}
+    rates = {}
+    for k in (1, n):
+        fleet = ServingFleet(fleet_engine_maker(cfg, params, devices[:k]),
+                             replicas=k, max_replicas=k,
+                             scale_down_idle=10 ** 9, cooldown=0)
+        fleet.run(warm(), parallel=True)
+        fleet.completed.clear()
+        batch = reqs()
+        for r in batch:
+            r.arrival = 0.0
+        done, wall, launches, steps = fleet_run(fleet, fa, batch,
+                                                parallel=True)
+        fleet_check(f"fleet of {k}", done, bare, n_layers=cfg.n_layers,
+                    launches=launches, steps=steps)
+        rates[k] = {**fleet_latency(done, wall),
+                    "paged_decode_launches": launches,
+                    "served_by": {rep.member: rep.dispatched_count
+                                  for rep in fleet.replicas.values()},
+                    "joins": fleet_joins(fleet)}
+        if k == n:
+            placed = {}
+            for rid, rep in fleet.replicas.items():
+                eng = rep.engine
+                devs = {str(eng.k_pages.device), str(eng.v_pages.device),
+                        str(eng.params["head"].device),
+                        str(eng.params["layers"]["w_out"].device)}
+                need = eng.pool.nbytes() + sum(
+                    t.numel() * t.element_size()
+                    for t in [*eng.params["layers"].values(),
+                              eng.params["embed"], eng.params["head"]])
+                i = rid % n
+                placed[rep.member] = {
+                    "devices": sorted(devs),
+                    "memory_allocated_gb": torch.cuda.memory_allocated(i)
+                    / 1e9, "weights_and_pool_gb": need / 1e9}
+                if devs != {devices[i]} or \
+                        torch.cuda.memory_allocated(i) < need:
+                    raise AssertionError(f"replica {rid}: {devs}, "
+                                         f"{placed[rep.member]}")
+            line["placement"] = placed
+        del fleet
+    line["fleet_of_1"], line[f"fleet_of_{n}"] = rates[1], rates[n]
+    line["tokens_per_s_ratio"] = (rates[n]["decode_tokens_per_s"]
+                                  / rates[1]["decode_tokens_per_s"])
+
+    # the autoscaler grows 1 -> n under staggered arrivals
+    fleet = ServingFleet(fleet_engine_maker(cfg, params, devices),
+                         replicas=1, min_replicas=1, max_replicas=n,
+                         scale_up_depth=0, scale_down_idle=10 ** 9,
+                         cooldown=0)
+    batch = reqs()
+    for i, r in enumerate(batch):
+        r.arrival = i * FLEET_STAGGER_S
+    done, wall, launches, steps = fleet_run(fleet, fa, batch, parallel=True)
+    fleet_check("autoscaler drill", done, bare, n_layers=cfg.n_layers,
+                launches=launches, steps=steps)
+    grown = fleet_joins(fleet)
+    if len(fleet.live()) != n:
+        raise AssertionError(f"autoscaler drill: {len(fleet.live())} "
+                             f"replicas, grow events {grown}")
+    # then a kill and a drain on the grown fleet, the autoscaler held
+    fleet.scale_up_depth = 10 ** 9
+    batch = reqs()
+    for r in batch:
+        r.rid += 100
+        r.arrival = None
+        fleet.dispatch(r)
+    orphans = fleet.kill_replica(n - 1, reason="drill")
+    fleet.drain(n - 2, reason="drill")
+    done2, wall2, launches2, steps2 = fleet_run(fleet, fa, [],
+                                                parallel=True)
+    fleet_check("kill and drain drill", [r for r in done2 if r.rid >= 100],
+                bare, rids={100 + i: i for i in range(16)})
+    left = fleet.replicas[n - 2]
+    if (fleet.replicas[n - 1].state != ReplicaState.DEAD or not orphans
+            or left.state != ReplicaState.LEFT
+            or left.engine.allocator.free_pages != left.engine.pool.n_pages):
+        raise AssertionError(f"kill and drain drill: {fleet.stats()}")
+    line["autoscaler_drill"] = {
+        "grow_events": grown, **fleet_latency(done, wall),
+        "served_by": {rep.member: rep.dispatched_count
+                      for rep in fleet.replicas.values()}}
+    line["kill_and_drain_drill"] = {
+        "readmitted": [r.rid for r in orphans],
+        "states": {rep.member: rep.state
+                   for rep in fleet.replicas.values()},
+        "pages_freed_by_leaver": left.engine.allocator.free_pages,
+        "tokens_equal_bare": True, "paged_decode_launches": launches2}
+    del fleet, left
+    log(f"fleet data parallel: " + json.dumps(line))
+    torch.cuda.empty_cache()
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an "
@@ -5754,15 +6203,17 @@ def main(argv) -> int:
     mp_only = argv[2:] == ["--model-parallel-only"]
     cp_only = argv[2:] == ["--control-plane-only"]
     zoo_only = argv[2:] == ["--zoo-only"]
+    fleet_only = argv[2:] == ["--fleet-only"]
     if argv:
         if len(argv) not in (2, 3) or argv[0] != "--data-parallel" or \
                 (len(argv) == 3 and not (resilient_only or api_only
                                          or launcher_only or mp_only
-                                         or cp_only or zoo_only)):
+                                         or cp_only or zoo_only
+                                         or fleet_only)):
             print("usage: chip_smoke.py [--data-parallel N "
                   "[--resilient-only | --api-only | --launcher-only | "
                   "--model-parallel-only | --control-plane-only | "
-                  "--zoo-only]]", file=sys.stderr)
+                  "--zoo-only | --fleet-only]]", file=sys.stderr)
             return 2
         n_dp = int(argv[1])
         if not 2 <= n_dp <= torch.cuda.device_count():
@@ -5797,7 +6248,7 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if n_dp:
         only = (resilient_only or api_only or launcher_only or mp_only
-                or cp_only or zoo_only)
+                or cp_only or zoo_only or fleet_only)
         if not only:
             collectives_n_cards(n_dp, card)
             data_parallel(n_dp, card)
@@ -5813,6 +6264,8 @@ def main(argv) -> int:
             control_plane_world(n_dp, card)
         if not only or zoo_only:
             zoo_data_parallel(n_dp, card)
+        if not only or fleet_only:
+            fleet_n_cards(n_dp, card)
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -5881,6 +6334,10 @@ def main(argv) -> int:
     # phase 12: speculative serving and the train-to-serve handoff
     torch.cuda.empty_cache()
     spec_serving(htt, fa, card, handoff)
+
+    # phase 13: the serving fleet and the metrics export on one card
+    torch.cuda.empty_cache()
+    fleet_world_one(htt, fa, card)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",

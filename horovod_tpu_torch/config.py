@@ -173,6 +173,50 @@ knobs.register("HOROVOD_SERVE_SPEC_K", 4, int,
                     "accept-prefix rule. Read at engine build time; "
                     "ignored while HOROVOD_SERVE_DRAFT=off.")
 
+# Fleet knobs (serving/fleet.py: replicas behind one router, the occupancy
+# autoscaler, drain-safe lifecycle): the JAX package's names and defaults.
+knobs.register("HOROVOD_FLEET_REPLICAS", 1, int,
+               help="Initial serving replicas a ServingFleet boots "
+                    "with (each its own ServeEngine + scheduler; the "
+                    "kernels are built once per build directory, so "
+                    "every replica after the first constructs warm with "
+                    "builds==0). Clamped up to "
+                    "HOROVOD_FLEET_MIN_REPLICAS.")
+knobs.register("HOROVOD_FLEET_MIN_REPLICAS", 1, int,
+               help="Autoscaler floor: scale-down never drains below "
+                    "this many READY replicas, and a replica kill with "
+                    "no survivors grows back to at least one before "
+                    "re-admitting the dead replica's requests.")
+knobs.register("HOROVOD_FLEET_MAX_REPLICAS", 4, int,
+               help="Autoscaler ceiling: scale-up stops here no matter "
+                    "the queue depth (the device-memory bound — each "
+                    "replica holds a full KV page pool).")
+knobs.register("HOROVOD_FLEET_SCALE_UP_DEPTH", 8, int,
+               help="Queue-depth-per-ready-replica threshold of the "
+                    "occupancy autoscaler (the hvd_serve_queue_depth "
+                    "signal): when queued requests exceed this many "
+                    "per READY replica, the fleet grows one replica in "
+                    "the SAME scheduling cycle the pressure is "
+                    "observed.")
+knobs.register("HOROVOD_FLEET_SCALE_DOWN_IDLE", 64, int,
+               help="Consecutive fully-idle fleet cycles (no queued, "
+                    "prefilling, or decoding request anywhere) before "
+                    "the autoscaler drains the newest replica. Drain "
+                    "is admission-stop + run-to-completion — never a "
+                    "drop.")
+knobs.register("HOROVOD_FLEET_COOLDOWN", 16, int,
+               help="Minimum fleet cycles between two autoscale "
+                    "events (grow or drain) — the anti-flap guard; "
+                    "chaos replica kills and operator drains are not "
+                    "throttled by it.")
+knobs.register("HOROVOD_FLEET_AFFINITY", True, bool,
+               help="Prefix-affinity routing: a request whose prompt "
+                    "prefix is resident in some replica's hash-chain "
+                    "index routes there (shared pages only hit when "
+                    "common-prefix requests land on the SAME replica). "
+                    "Off, placement is pure "
+                    "join-shortest-queue.")
+
 # Training knobs (ops/blockwise_ce.py, ops/fusion.py), read at each call.
 # The flash kernels fix their tiles at compile time, so the JAX package's
 # HOROVOD_FLASH_BLOCK_Q/_K have no counterpart here.
@@ -425,6 +469,24 @@ knobs.register("HOROVOD_NUM_STREAMS", 1, int,
                     "stream i mod N. Bins are always issued from the "
                     "cycle's thread in plan order, so every rank issues its "
                     "collectives in one order.")
+knobs.register("HOROVOD_METRICS_PORT", 0, int,
+               help="Port for the background HTTP metrics server serving "
+                    "Prometheus text-format /metrics and a /healthz that "
+                    "reflects stall/elastic state; 0 disables. Bound on "
+                    "every process; in a world of several processes rank "
+                    "0 additionally serves cluster-wide sums aggregated "
+                    "from the other ranks' snapshots over the c10d store.")
+knobs.register("HOROVOD_METRICS_DUMP", "", str,
+               help="Path for periodic JSON metrics-snapshot dumps (written "
+                    "atomically every HOROVOD_METRICS_DUMP_INTERVAL seconds "
+                    "and once more at shutdown); empty disables.")
+knobs.register("HOROVOD_METRICS_DUMP_INTERVAL", 30.0, float,
+               help="Seconds between JSON snapshot dumps (see "
+                    "HOROVOD_METRICS_DUMP).")
+knobs.register("HOROVOD_METRICS_AGG_INTERVAL", 5.0, float,
+               help="A world of several processes: seconds between the "
+                    "other ranks' metrics-snapshot publications to the "
+                    "c10d store for rank 0's /metrics aggregation.")
 knobs.register("HOROVOD_TIMELINE", "", str,
                help="Path of the Chrome-trace timeline that init starts "
                     "(and shutdown ends); 'DYNAMIC' waits for "

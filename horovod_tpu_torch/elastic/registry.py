@@ -16,8 +16,10 @@ fan-out-with-failure-isolation semantics the elastic driver gives
 training hosts.
 
 The registry is deliberately protocol-only (no sockets, no threads of
-its own). The port has no serving fleet yet (ROADMAP A.11); the class is
-here so that fleet finds it, and its tests hold it to the JAX package's.
+its own). Its caller is the serving fleet
+(:class:`~horovod_tpu_torch.serving.fleet.ServingFleet`), which joins,
+drains and kills its replicas here; its tests hold it to the JAX
+package's.
 """
 
 from __future__ import annotations

@@ -711,7 +711,7 @@ def commit_plan_after_snapshot(directory: str, plan: ResizePlan,
 
 
 # ---------------------------------------------------------------------------
-# resize metrics + the topology gauges
+# resize metrics (the topology gauges are metrics.publish_topology_gauges)
 # ---------------------------------------------------------------------------
 
 _last_resize: Optional[Dict[str, Any]] = None
@@ -721,28 +721,6 @@ def last_resize_info() -> Optional[Dict[str, Any]]:
     """The last committed resize (direction/worlds/step/duration), or
     None."""
     return _last_resize
-
-
-def publish_topology_gauges() -> None:
-    """(Re)publish the world-shape gauges from the live runtime (the JAX
-    package's ``metrics.publish_topology_gauges``). No-op when the runtime
-    is not initialized."""
-    import horovod_tpu_torch as htt
-    from horovod_tpu_torch import metrics as M
-    from horovod_tpu_torch.runtime.context import get_context
-    if not htt.is_initialized():
-        return
-    ctx = get_context()
-    M.gauge("hvd_world_size",
-            "Ranks in the global process set (live topology; republished "
-            "at every resize commit)", aggregation="leader").set(ctx.size)
-    M.gauge("hvd_local_size",
-            "Ranks on this process's host").set(ctx.local_size)
-    M.gauge("hvd_process_count", "Processes in the world",
-            aggregation="leader").set(ctx.size)
-    M.gauge("hvd_dcn_slices",
-            "Slices along the DCN mesh tier (1 = single slice / collapsed "
-            "axis)", aggregation="leader").set(ctx.topology.dcn_size)
 
 
 def _record_resize(plan: ResizePlan, seconds: float) -> None:
@@ -763,7 +741,7 @@ def _record_resize(plan: ResizePlan, seconds: float) -> None:
         "dead_ranks": list(plan.dead_ranks),
         "seconds": round(float(seconds), 4),
     }
-    publish_topology_gauges()
+    M.publish_topology_gauges()
 
 
 # ---------------------------------------------------------------------------

@@ -1,25 +1,42 @@
-"""Metrics registry and Prometheus text export.
+"""Metrics registry and its exports: Prometheus text, ``/healthz`` and
+JSON.
 
-The port's copy of the registry part of ``horovod_tpu/metrics.py``
-(l.59-530): one thread-safe registry of labelled counters, gauges and
-fixed-bucket histograms (stdlib only), the snapshot the public
-``metrics_snapshot()`` returns, the Prometheus text exposition
-(``render_snapshot``) and the cross-process merge (``merge_snapshots``).
-The names and semantics are the JAX package's, so one dashboard reads
-both.
+The port's copy of ``horovod_tpu/metrics.py``: one thread-safe registry
+of labelled counters, gauges and fixed-bucket histograms (stdlib only),
+the snapshot the public ``metrics_snapshot()`` returns, the Prometheus
+text exposition (``render_snapshot``) and the cross-process merge
+(``merge_snapshots``), exported three ways:
 
-Not ported yet (ROADMAP A.13b): the HTTP server with ``/metrics`` and
-``/healthz``, the periodic JSON dumper and the cross-rank aggregator.
+- a background HTTP server (``HOROVOD_METRICS_PORT``, :class:`MetricsServer`)
+  serving ``/metrics`` and a ``/healthz`` (:func:`health_snapshot`) with
+  the stall, preemption, fault-domain, straggler, goodput, world, serving
+  and fleet blocks;
+- a periodic JSON dump (``HOROVOD_METRICS_DUMP``, :class:`SnapshotDumper`,
+  atomic, every ``HOROVOD_METRICS_DUMP_INTERVAL`` seconds and at
+  shutdown);
+- the public ``metrics_snapshot()``.
+
+In a world of several processes the ranks but 0 publish their snapshot
+to the c10d store every ``HOROVOD_METRICS_AGG_INTERVAL`` seconds
+(:class:`ClusterAggregator`, :class:`_Publisher`) and rank 0's
+``/metrics`` serves the merged sums. ``init`` starts the exports the
+knobs ask for (:func:`init_from_env`) and ``shutdown`` stops them
+(:func:`stop_exports`). The names and semantics are the JAX package's,
+so one dashboard reads both; the artifact store's ``/healthz`` block
+waits for that store (ROADMAP A.13b).
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import threading
+import time
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+from horovod_tpu_torch.config import knobs
 from horovod_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("horovod_tpu_torch.metrics")
@@ -471,10 +488,13 @@ def histogram(name: str, help: str = "", labelnames: Sequence[str] = (),
 def metrics_snapshot(aggregate: bool = False) -> Dict[str, Any]:
     """Public snapshot API: every registered metric's current value as
     plain dicts, plus the ``goodput`` block while the accountant runs.
-    ``aggregate`` is accepted for the JAX package's signature; the
-    cross-rank aggregator waits for ROADMAP A.13b, so the snapshot is this
-    process's alone."""
-    snap = _registry.snapshot()
+    With ``aggregate=True`` on rank 0 of a world of several processes,
+    the other ranks' published snapshots are merged in (what rank 0's
+    ``/metrics`` serves)."""
+    if aggregate and _aggregator is not None and _aggregator.is_leader:
+        snap = _aggregator.merged_snapshot()
+    else:
+        snap = _registry.snapshot()
     from horovod_tpu_torch.goodput import accountant as _goodput
     if _goodput.enabled():
         snap["goodput"] = _goodput.goodput_report()
@@ -513,12 +533,24 @@ _install_lock = threading.Lock()
 
 def _install_default_collectors() -> None:
     """The gauges read when the metrics are scraped (``init`` installs
-    them once): the coordinator's queued bytes."""
+    them once): the stall inspector's outstanding handles and the
+    coordinator's queued bytes."""
     global _default_collectors_installed
     with _install_lock:
         if _default_collectors_installed:
             return
         _default_collectors_installed = True
+
+    g_outstanding = gauge(
+        "hvd_outstanding_handles",
+        "Async collective handles issued but not yet completed "
+        "(stall-inspector tracked set)")
+
+    def _collect_outstanding():
+        from horovod_tpu_torch.stall_inspector import get_stall_inspector
+        g_outstanding.set(get_stall_inspector().pending_count())
+
+    _registry.register_collector(_collect_outstanding)
 
     g_queued = gauge(
         "hvd_queued_bytes",
@@ -533,3 +565,428 @@ def _install_default_collectors() -> None:
         g_queued.set(coord.queue.queued_bytes() if coord is not None else 0)
 
     _registry.register_collector(_collect_queued)
+
+
+# ---------------------------------------------------------------------------
+# topology-derived gauges: published at init and again at a resize commit,
+# so "the world changed at step N" is an edge in the time series
+# ---------------------------------------------------------------------------
+
+def publish_topology_gauges() -> None:
+    """(Re)publish the world-shape gauges from the live runtime. Called
+    from ``init`` and by the resize commit (``elastic/resize.py``). Every
+    rank is a process of its own, so ``hvd_process_count`` is the world
+    size. No-op when the runtime is not initialized."""
+    from horovod_tpu_torch.runtime import context as _ctx_mod
+    ctx = _ctx_mod._context
+    if ctx is None:
+        return
+    gauge("hvd_world_size",
+          "Ranks in the global process set (live topology; republished "
+          "at every resize commit)", aggregation="leader").set(ctx.size)
+    gauge("hvd_local_size",
+          "Ranks on this process's host").set(ctx.local_size)
+    gauge("hvd_process_count", "Processes in the world",
+          aggregation="leader").set(ctx.size)
+    gauge("hvd_dcn_slices",
+          "Slices along the DCN mesh tier (1 = single slice / collapsed "
+          "axis)", aggregation="leader").set(ctx.topology.dcn_size)
+
+
+def _world_block() -> Optional[Dict[str, Any]]:
+    """The /healthz ``world`` payload: the live topology plus the last
+    resize, if any; None outside an initialized runtime."""
+    from horovod_tpu_torch.runtime import context as _ctx_mod
+    ctx = _ctx_mod._context
+    if ctx is None:
+        return None
+    out: Dict[str, Any] = {
+        "size": int(ctx.size),
+        "processes": int(ctx.size),
+        "dcn_slices": int(ctx.topology.dcn_size),
+        "mesh_axes": [str(a) for a in ctx.topology.flat_axes],
+        "resizes": int(_counter_value("hvd_elastic_resizes_total")),
+    }
+    from horovod_tpu_torch.elastic import resize as _resize
+    last = _resize.last_resize_info()
+    if last is not None:
+        out["last_resize"] = last
+    return out
+
+
+# ---------------------------------------------------------------------------
+# health: the /healthz payload
+# ---------------------------------------------------------------------------
+
+def health_snapshot() -> Dict[str, Any]:
+    """Operator liveness view: 'ok' (all clear), 'degraded' (ops
+    outstanding past the stall-warn threshold, or an optional site shed by
+    the fault domain), 'draining' (a preemption is armed) or 'unhealthy'
+    (the stall inspector crossed its shutdown threshold). Elastic and
+    checkpoint totals ride along as history and never flip the status.
+    The straggler, goodput, world, serving and fleet blocks appear when
+    their subsystem is live in this process."""
+    from horovod_tpu_torch.stall_inspector import get_stall_inspector
+    insp = get_stall_inspector()
+    warned = insp.warned_count()
+    if insp.stalled_shutdown:
+        status = "unhealthy"
+    elif warned:
+        status = "degraded"
+    else:
+        status = "ok"
+    from horovod_tpu_torch.resilience import preemption as _preemption
+    handler = _preemption.active_handler()
+    preempting = bool(handler is not None and handler.requested)
+    if preempting and status == "ok":
+        status = "draining"
+    from horovod_tpu_torch.resilience import faults as _faults
+    domain = _faults.fault_domain()
+    fd = domain.snapshot()
+    fd["retries"] = domain.retry_summary()
+    if fd["state"] == _faults.DEGRADED and status == "ok":
+        status = "degraded"
+    from horovod_tpu_torch.tracing import straggler as _straggler
+    det = _straggler.active_detector()
+    from horovod_tpu_torch.goodput import accountant as _goodput
+    gp = _goodput.health_block()
+    out: Dict[str, Any] = {
+        "status": status,
+        "stall": {"outstanding": insp.pending_count(),
+                  "warned": warned,
+                  "stalled_shutdown": insp.stalled_shutdown},
+        "elastic": {
+            "resets": int(_counter_value("hvd_elastic_resets_total")),
+            "worker_failures": int(
+                _counter_value("hvd_elastic_worker_failures_total"))},
+        "checkpoint": {
+            # _counter_value reads gauges as well (Metric.value)
+            "inflight": int(_counter_value("hvd_checkpoint_inflight")),
+            "last_step": int(_counter_value("hvd_checkpoint_last_step")),
+            "commits": int(_counter_value("hvd_checkpoint_commits_total")),
+            "failures": int(
+                _counter_value("hvd_checkpoint_failures_total")),
+        },
+        "preemption": {
+            "requested": preempting,
+            "stop_step": (handler.stop_step or 0) if handler else 0,
+        },
+        "fault_domain": fd,
+    }
+    if det is not None:
+        out["straggler"] = det.snapshot()
+    if gp is not None:
+        out["goodput"] = gp
+    world = _world_block()
+    if world is not None:
+        out["world"] = world
+    from horovod_tpu_torch import serving as _serving
+    sv = _serving.serving_stats()
+    if sv is not None:
+        out["serving"] = sv
+    fl = _serving.fleet_stats()
+    if fl is not None:
+        out["fleet"] = fl
+    return out
+
+
+# ---------------------------------------------------------------------------
+# HTTP export: /metrics (Prometheus text) + /healthz
+# ---------------------------------------------------------------------------
+
+class MetricsServer:
+    """Background HTTP server. Port 0 binds an ephemeral port; the bound
+    port is ``.port``. One daemon thread per connection
+    (``ThreadingHTTPServer``), so a slow scraper cannot block the next
+    one; the server starts in ``__init__``."""
+
+    def __init__(self, port: int, host: str = "0.0.0.0"):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):     # no per-request stderr lines
+                pass
+
+            def _send(self, code: int, body: bytes, ctype: str) -> None:
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self) -> None:
+                try:
+                    path = self.path.split("?")[0]
+                    if path == "/metrics":
+                        if (_aggregator is not None
+                                and _aggregator.is_leader):
+                            snap = _aggregator.merged_snapshot()
+                        else:
+                            snap = _registry.snapshot()
+                        self._send(
+                            200, render_snapshot(snap).encode(),
+                            "text/plain; version=0.0.4; charset=utf-8")
+                    elif path == "/healthz":
+                        h = health_snapshot()
+                        code = 503 if h["status"] == "unhealthy" else 200
+                        self._send(code, json.dumps(h).encode(),
+                                   "application/json")
+                    elif path == "/":
+                        self._send(
+                            200, b"horovod_tpu_torch metrics: /metrics "
+                            b"/healthz", "text/plain")
+                    else:
+                        self._send(404, b"not found", "text/plain")
+                except Exception:
+                    logger.exception("metrics request failed")
+                    counter("hvd_metrics_request_failures_total",
+                            "Metrics HTTP requests that errored").inc()
+                    try:
+                        self._send(500, b"internal error", "text/plain")
+                    except Exception:
+                        # the peer hung up before the error reply; the
+                        # failure is already logged and counted
+                        logger.debug("metrics 500 reply not delivered",
+                                     exc_info=True)
+
+        self._httpd = ThreadingHTTPServer((host, int(port)), Handler)
+        self._httpd.daemon_threads = True
+        self.port = self._httpd.server_address[1]
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, name="hvd-metrics-http",
+            daemon=True)
+        self._thread.start()
+        logger.info("metrics server listening on :%d", self.port)
+
+    def stop(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        self._thread.join(timeout=5)
+
+
+# ---------------------------------------------------------------------------
+# periodic JSON snapshot dump (HOROVOD_METRICS_DUMP)
+# ---------------------------------------------------------------------------
+
+class SnapshotDumper:
+    """Writes the snapshot as JSON every ``interval`` seconds and once at
+    stop. Atomic (tmp + rename): a sidecar never reads a torn file, and a
+    crashed run keeps its last complete dump."""
+
+    def __init__(self, path: str, interval: float):
+        self.path = path
+        self.interval = max(float(interval), 0.05)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._loop, name="hvd-metrics-dump", daemon=True)
+        self._thread.start()
+
+    def _write(self) -> None:
+        payload = {"time": time.time(), "pid": os.getpid(),
+                   "health": health_snapshot(),
+                   "metrics": metrics_snapshot()}
+        tmp = self.path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(payload, f, indent=1)
+        os.replace(tmp, self.path)
+
+    def _write_counted(self, what: str) -> None:
+        try:
+            self._write()
+        except Exception:
+            logger.exception("%s failed", what)
+            counter("hvd_metrics_dump_failures_total",
+                    "Snapshot dump attempts that errored").inc()
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval):
+            self._write_counted("metrics dump")
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self._write_counted("final metrics dump")   # never lose the tail
+
+
+# ---------------------------------------------------------------------------
+# cross-rank aggregation over the c10d store (rank 0 merges)
+# ---------------------------------------------------------------------------
+
+class ClusterAggregator:
+    """The ranks but 0 publish their local snapshot under a key of their
+    own; rank 0 merges whatever snapshots are present when it is scraped
+    (a rank that has not published yet contributes nothing: a scrape
+    never blocks on a peer). ``kv`` is a ``DistributedKV`` (or anything
+    with its ``set(key, value, overwrite)`` and ``try_get(key)``)."""
+
+    def __init__(self, kv, process_index: int, process_count: int,
+                 prefix: str = "hvd/metrics"):
+        self._kv = kv
+        self.process_index = process_index
+        self.process_count = process_count
+        self.is_leader = process_index == 0
+        self._prefix = prefix
+
+    def _key(self, idx: int) -> str:
+        return f"{self._prefix}/p{idx}"
+
+    def publish(self) -> None:
+        # overwrite=True: the store's set is write-once by default, and
+        # this key is republished every interval
+        self._kv.set(self._key(self.process_index),
+                     json.dumps(_registry.snapshot()), overwrite=True)
+
+    def merged_snapshot(self) -> Dict[str, Any]:
+        snaps = [_registry.snapshot()]
+        for i in range(self.process_count):
+            if i == self.process_index:
+                continue
+            try:
+                raw = self._kv.try_get(self._key(i))
+            except Exception:
+                continue                 # a dead peer: serve what we have
+            if raw:
+                try:
+                    snaps.append(json.loads(raw))
+                except Exception:
+                    logger.warning("unparseable metrics snapshot from "
+                                   "process %d", i)
+        return merge_snapshots(snaps)
+
+
+class _Publisher:
+    """The periodic publishing thread of a rank other than 0."""
+
+    def __init__(self, aggregator: ClusterAggregator, interval: float):
+        self._agg = aggregator
+        self.interval = max(float(interval), 0.05)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._loop, name="hvd-metrics-pub", daemon=True)
+        self._thread.start()
+
+    def _loop(self) -> None:
+        from horovod_tpu_torch.resilience import faults
+        while not self._stop.wait(self.interval):
+            try:
+                if faults.should_shed("metrics"):
+                    # degraded: publication is optional traffic, skipped
+                    # (rank 0 serves this rank's last snapshot) until the
+                    # fault domain's probe heals the site
+                    continue
+                self._agg.publish()
+            except Exception:
+                logger.exception("metrics publish failed")
+                counter("hvd_metrics_publish_failures_total",
+                        "KV-store snapshot publications that errored").inc()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5)
+        try:
+            self._agg.publish()         # the final publication
+        except Exception:
+            # a lost final publication leaves rank 0 merging a stale
+            # snapshot of this rank: visible, not silent
+            logger.warning("final metrics publication failed; rank 0 "
+                           "serves this rank's last interval",
+                           exc_info=True)
+            counter("hvd_metrics_publish_failures_total",
+                    "KV-store snapshot publications that errored").inc()
+
+
+# ---------------------------------------------------------------------------
+# lifecycle: wired from init()/shutdown()
+# ---------------------------------------------------------------------------
+
+_server: Optional[MetricsServer] = None
+_dumper: Optional[SnapshotDumper] = None
+_publisher: Optional[_Publisher] = None
+_aggregator: Optional[ClusterAggregator] = None
+_lifecycle_lock = threading.Lock()
+
+
+def start_metrics_server(port: int, host: str = "0.0.0.0") -> MetricsServer:
+    """Start (or return) the process's metrics HTTP server."""
+    global _server
+    with _lifecycle_lock:
+        if _server is None:
+            _install_default_collectors()
+            _server = MetricsServer(port, host=host)
+        return _server
+
+
+def get_metrics_server() -> Optional[MetricsServer]:
+    return _server
+
+
+def init_from_env() -> None:
+    """Called from ``init``: start whichever exports the
+    ``HOROVOD_METRICS_*`` knobs enable. Idempotent across init/shutdown
+    cycles in one process."""
+    global _dumper, _publisher, _aggregator
+    from horovod_tpu_torch.utils import schedhooks
+    _install_default_collectors()
+    rank, world = schedhooks.process_world()
+    with _lifecycle_lock:
+        # aggregation first, so a server started below serves the merged
+        # view from its first scrape
+        if _aggregator is None and world > 1:
+            try:
+                from horovod_tpu_torch.utils.kvstore import distributed_kv
+                # a connection of its own: a c10d client runs one call at
+                # a time, and the step path's store calls must not queue
+                # behind a publication (or it behind their waits)
+                kv = distributed_kv(site="metrics", own_connection=True)
+                if kv is not None:
+                    _aggregator = ClusterAggregator(kv, rank, world)
+                    if not _aggregator.is_leader:
+                        _publisher = _Publisher(
+                            _aggregator,
+                            knobs.get("HOROVOD_METRICS_AGG_INTERVAL"))
+            except Exception:
+                logger.exception("metrics aggregation unavailable")
+        dump = knobs.get("HOROVOD_METRICS_DUMP")
+        if dump and _dumper is None:
+            # launchers export ONE dump path to every rank; the ranks but
+            # 0 suffix theirs so they do not clobber rank 0's
+            if world > 1 and rank > 0:
+                dump = f"{dump}.p{rank}"
+            _dumper = SnapshotDumper(
+                dump, knobs.get("HOROVOD_METRICS_DUMP_INTERVAL"))
+    port = int(knobs.get("HOROVOD_METRICS_PORT"))
+    if port > 0:
+        try:
+            start_metrics_server(port)
+        except OSError as e:
+            # ranks on one host share the launcher's port: the first binds
+            # it, the others take an ephemeral port (logged) rather than
+            # failing init with EADDRINUSE
+            logger.warning("metrics port %d unavailable (%s); binding an "
+                           "ephemeral port instead", port, e)
+            try:
+                srv = start_metrics_server(0)
+                logger.warning("metrics server listening on ephemeral "
+                               "port %d", srv.port)
+            except Exception:
+                logger.exception("metrics server failed to start; "
+                                 "continuing without HTTP export")
+
+
+def stop_exports() -> None:
+    """Stop the server, dumper and publisher (the final dump and
+    publication included). The registry keeps its values: counters keep
+    their totals across init/shutdown cycles, as in any Prometheus
+    client."""
+    global _server, _dumper, _publisher, _aggregator
+    with _lifecycle_lock:
+        server, _server = _server, None
+        dumper, _dumper = _dumper, None
+        publisher, _publisher = _publisher, None
+        _aggregator = None
+    if publisher is not None:
+        publisher.stop()
+    if dumper is not None:
+        dumper.stop()
+    if server is not None:
+        server.stop()

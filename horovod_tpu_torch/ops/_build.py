@@ -54,6 +54,10 @@ SIGNATURES = {
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 build_logs: Dict[str, str] = {}
+# nvcc builds this process has run (a serving engine counts the ones that
+# ran while it was constructed and served its first decode step)
+builds_run = 0
+_count_lock = threading.Lock()
 
 
 def nvcc() -> str:
@@ -86,6 +90,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     yet, one ``nvcc`` per source, all started together. Returns the
     seconds each build took (0.0 for one already built); raises with the
     compiler's output when any build fails."""
+    global builds_run
     names = list(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -108,6 +113,8 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             failed.append(f"{n} (nvcc exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)
+        with _count_lock:
+            builds_run += 1
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return seconds

@@ -75,12 +75,13 @@ The hooks are called from the product code paths themselves
 (``AsyncCheckpointer`` calls ``on_commit``; ``train_loop`` calls
 ``on_step``; ``DistributedKV`` calls ``on_kv``; the checkpoint
 filesystem helpers call ``on_fs``), so what the chaos drills exercise is
-the real recovery machinery, not a simulation of it. The hooks of
-subsystems the port does not have yet (``on_store_load``,
-``on_data_request``, ``on_replica_dispatch``/``replica_slow_s``: the
-artifact store, the data service, the serving fleet) exist as in the JAX
-package and nothing calls them yet; ``train_loop`` raises ``NotImplementedError`` when the armed spec
-holds one of their faults (:func:`unported_faults`), so a drill is never
+the real recovery machinery, not a simulation of it. The serving fleet's
+router calls ``on_replica_dispatch`` and ``replica_slow_s`` on its
+dispatch path. The hooks of subsystems the port does not have yet
+(``on_store_load``, ``on_data_request``: the artifact store, the data
+service) exist as in the JAX package and nothing calls them yet;
+``train_loop`` raises ``NotImplementedError`` when the armed spec holds
+one of their faults (:func:`unported_faults`), so a drill is never
 skipped silently. With no spec installed every hook is a no-op costing
 one attribute read.
 """
@@ -227,12 +228,12 @@ def active() -> Optional[ChaosSpec]:
 
 
 # Faults whose subsystem the port does not have yet, with its ROADMAP item:
-# the artifact store and the data service (A.13b), the serving fleet
-# (A.11). host_loss, slice_loss and host_return reach the live resize
-# through ResizeCoordinator.poll (elastic/resize.py).
+# the artifact store and the data service (A.13b). host_loss, slice_loss
+# and host_return reach the live resize through ResizeCoordinator.poll
+# (elastic/resize.py); replica_kill and replica_slow the serving fleet's
+# router (serving/router.py).
 _UNPORTED_FAULTS = (("store_corrupt", "A.13b"),
-                    ("data_worker_kill", "A.13b"),
-                    ("replica_kill", "A.11"), ("replica_slow", "A.11"))
+                    ("data_worker_kill", "A.13b"))
 
 
 def unported_faults() -> List[Tuple[str, str]]:

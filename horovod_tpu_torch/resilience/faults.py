@@ -29,8 +29,8 @@ does not die: it enters ``degraded`` and sheds that site's traffic
 and fail loudly with a flight recording. Shed sites are probed on a
 cadence (``HOROVOD_FAULT_PROBE_SECONDS``); one success heals the site, an
 empty shed set restores ``healthy``. The state is published as the
-``hvd_fault_domain_state`` gauge (the ``/healthz`` block that serves it
-waits for ROADMAP A.13b).
+``hvd_fault_domain_state`` gauge and as the ``fault_domain`` block of
+``/healthz`` (``metrics.health_snapshot``).
 """
 
 from __future__ import annotations

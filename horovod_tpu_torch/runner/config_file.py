@@ -7,9 +7,9 @@ runner/common/util/config_parser.py — section structure
 params/autotune/timeline/stall_check/logging; launch.py config-file flag).
 Keys set CLI-argument defaults; anything given explicitly on the command
 line wins over the file (the reference's ``override_args`` mechanism).
-The keys of the launcher flags the port lacks (the ``autotune`` and
-``metrics`` sections: subsystems not ported yet, ROADMAP A.13b) are
-unknown keys and raise.
+The keys of the launcher flags the port lacks (the ``autotune`` section:
+the online tuner, not ported yet, ROADMAP A.13b) are unknown keys and
+raise.
 
 Example::
 
@@ -24,6 +24,9 @@ Example::
       mark_cycles: true
     stall_check:
       enabled: false
+    metrics:
+      port: 9090
+      dump: metrics.json
     logging:
       level: DEBUG
     elastic:
@@ -135,11 +138,12 @@ class _ConfigApplier:
 
 _KNOWN_KEYS = {
     None: {"params", "timeline", "stall_check", "logging", "elastic",
-           "trace", "mesh_shape", "num_proc", "hosts"},
+           "metrics", "trace", "mesh_shape", "num_proc", "hosts"},
     "params": {"fusion_threshold_mb", "cycle_time_ms", "cache_capacity",
                "hierarchical_allreduce", "torus_allreduce"},
     "timeline": {"filename", "mark_cycles"},
     "stall_check": {"enabled"},
+    "metrics": {"port", "dump"},
     "trace": {"enabled", "dir", "profile"},
     "logging": {"level"},
     "elastic": {"min_np", "max_np", "slots", "reset_limit", "grace_seconds",
@@ -164,7 +168,7 @@ def set_args_from_config(parser: argparse.ArgumentParser, args,
     apply = _ConfigApplier(parser, args, overrides)
     _check_keys(config, None)
     for name in ("params", "timeline", "stall_check", "logging", "elastic",
-                 "trace"):
+                 "metrics", "trace"):
         _check_keys(_section(config, name), name)
 
     params = _section(config, "params")
@@ -175,6 +179,10 @@ def set_args_from_config(parser: argparse.ArgumentParser, args,
     timeline = _section(config, "timeline")
     apply.set("timeline_filename", timeline.get("filename"))
     apply.set("timeline_mark_cycles", timeline.get("mark_cycles"))
+
+    metrics = _section(config, "metrics")
+    apply.set("metrics_port", metrics.get("port"))
+    apply.set("metrics_dump", metrics.get("dump"))
 
     trace_cfg = _section(config, "trace")
     apply.set("trace", trace_cfg.get("enabled"))

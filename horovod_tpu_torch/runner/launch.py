@@ -30,10 +30,11 @@ Runtime knobs are forwarded 1:1 as HOROVOD_* env vars, mirroring the
 reference's flag->env convention (launch.py:356-544), for the knobs the
 port reads: among them the control plane's ``--fusion-threshold[-mb]``,
 ``--cycle-time-ms``, ``--cache-capacity``, ``--timeline-filename`` and
-``--timeline-mark-cycles``, set as the JAX launcher sets them. The JAX
-launcher's flags of subsystems not ported yet (``--autotune[-log-file]``,
-``--metrics-port``, ``--metrics-dump``: ROADMAP A.13b) are absent, so
-argparse refuses them. There is no ``--tpu``: the TPU-pod launch has no
+``--timeline-mark-cycles``, and the metrics exports' ``--metrics-port``
+and ``--metrics-dump``, set as the JAX launcher sets them. The JAX
+launcher's flags of the online tuner, not ported yet
+(``--autotune[-log-file]``: ROADMAP A.13b), are absent, so argparse
+refuses them. There is no ``--tpu``: the TPU-pod launch has no
 GPU counterpart.
 """
 
@@ -166,6 +167,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--trace-profile", default=None, metavar="SPEC",
                    help="Profile capture window, 'steps:N[@S]' "
                         "(HOROVOD_TRACE_PROFILE).")
+    p.add_argument("--metrics-port", type=int, default=None,
+                   help="HTTP /metrics + /healthz server port on every "
+                        "worker (HOROVOD_METRICS_PORT).")
+    p.add_argument("--metrics-dump", default=None,
+                   help="Periodic JSON metrics-snapshot dump path "
+                        "(HOROVOD_METRICS_DUMP).")
     p.add_argument("--stall-check-disable", action="store_true")
     p.add_argument("--log-level", default=None)
     p.add_argument("--mesh-shape", default=None,
@@ -232,6 +239,10 @@ def env_from_args(args) -> dict:
     if getattr(args, "trace_profile", None):
         _check_profile_spec(args.trace_profile)
         env["HOROVOD_TRACE_PROFILE"] = args.trace_profile
+    if args.metrics_port is not None:
+        env["HOROVOD_METRICS_PORT"] = str(args.metrics_port)
+    if args.metrics_dump:
+        env["HOROVOD_METRICS_DUMP"] = args.metrics_dump
     if args.stall_check_disable:
         env["HOROVOD_STALL_CHECK_DISABLE"] = "1"
     if args.elastic_grace_seconds is not None:

@@ -33,13 +33,15 @@ local. A group that fails to form raises.
 ``init`` also drives the goodput accountant's ``init`` phase
 (``goodput/accountant.py``), turns the span recorder on under
 ``HOROVOD_TRACE=1`` (``tracing/spans.py``), starts the timeline under
-``HOROVOD_TIMELINE=path`` (``timeline.py``) and installs the metrics'
-scrape-time collectors, as the JAX ``init`` does. The eager API's
+``HOROVOD_TIMELINE=path`` (``timeline.py``), starts the metrics exports
+the ``HOROVOD_METRICS_*`` knobs ask for (``metrics.init_from_env``) and
+publishes the topology gauges, as the JAX ``init`` does. The eager API's
 fusion-cycle coordinator (``ops/coordinator.py``) is made at the first
 ``*_async`` call and kept on ``Context.coordinator``; ``shutdown``
 flushes its queue and stops it before the process groups go, then ends a
-timeline ``init`` started. Not ported yet: the metrics server and the
-trace export and merge at ``shutdown`` (ROADMAP A.13b).
+timeline ``init`` started and stops the metrics exports (a final dump
+and publication). Not ported yet: the trace export and merge at
+``shutdown`` (ROADMAP A.13b).
 """
 
 from __future__ import annotations
@@ -293,8 +295,9 @@ def init(device="cuda", backend: Optional[str] = None,
         _context = ctx
         from horovod_tpu_torch import metrics as _metrics
         from horovod_tpu_torch import timeline as _timeline
-        _metrics._install_default_collectors()
         _timeline.init_from_env()
+        _metrics.init_from_env()
+        _metrics.publish_topology_gauges()
         _goodput.init_end()
         return _context
 
@@ -307,8 +310,10 @@ def shutdown() -> None:
             return
         if _context.coordinator is not None:
             _context.coordinator.shutdown()
+        from horovod_tpu_torch import metrics as _metrics
         from horovod_tpu_torch import timeline as _timeline
         _timeline.stop_if_from_env()
+        _metrics.stop_exports()
         if dist.is_initialized():
             if _context.owns_group:
                 dist.destroy_process_group()

@@ -13,10 +13,13 @@ bodies —
   through ``kv_cache.paged_decode_attention`` (the CUDA paged-decode
   kernel on the card, the plain version on the CPU).
 
-PyTorch runs eagerly, so there is no AOT build and no artifact store:
-``stats()`` keeps ``builds = 0`` and ``store_outcomes = {}`` so its keys
-match the JAX engine's. The layer ``lax.scan`` becomes a Python loop
-over the stacked layer leaves, and the page pool is updated in place.
+PyTorch runs eagerly, so there is no AOT build and no artifact store.
+``builds`` counts instead the ``nvcc`` builds (``ops/_build.py``) that ran
+while the engine was constructed and served its first decode step: 0 on
+a warm build directory, and always 0 on the CPU. ``store_outcomes`` stays
+``{}`` so ``stats()`` has the JAX engine's keys. The layer ``lax.scan``
+becomes a Python loop over the stacked layer leaves, and the page pool is
+updated in place.
 
 Tensor parallelism (``cfg.tp_axis``): one engine per rank of the mesh's
 ``tp`` axis (``init(mesh_shape=..., axis_names=...)``), each holding its
@@ -30,12 +33,22 @@ scheduler on the same requests.
 Speculative decoding (``HOROVOD_SERVE_DRAFT`` = ``ngram[:N]`` or
 ``truncate:N``, ``HOROVOD_SERVE_SPEC_K`` drafts a step): the verify step
 is the decode body at ``slots * (K+1)`` rows, each slot's block-table row
-repeated K+1 times with lengths ``len_s .. len_s + K``; the
-``truncate:N`` draft is the decode body through the first N layers,
-writing those layers' K/V into the shared pool in place (verify
-rewrites the same positions). :func:`load_for_serving` is the
-train-to-serve handoff: the parameters of the newest committed training
-snapshot, checked against the serving config.
+repeated K+1 times with lengths ``len_s .. len_s + K``, and its row-wise
+operations taken in row chunks of ``slots`` (below); the ``truncate:N``
+draft is the decode body through the first N layers, writing those
+layers' K/V into the shared pool in place (verify rewrites the same
+positions). The verify rows are the decode rows bit for bit, on the CPU
+and on CUDA. A GEMM library picks its algorithm by shape: on an H100 the
+MLP's output product (K = d_ff) at M = ``slots * (K+1)`` is not bitwise
+its M = ``slots`` result, and the other products (K = d_model) differ
+now and then by one bf16 step where their f32 sums round apart; so does
+the RMS norm's row mean (the reduction's layout follows the row count).
+So the verify step runs every GEMM and every norm's mean in chunks of
+``slots`` rows, each of the decode step's shape; the paged attention,
+RoPE and the elementwise operations are row-independent.
+:func:`load_for_serving` is the train-to-serve handoff: the parameters of
+the newest committed training snapshot, checked against the serving
+config.
 """
 
 from __future__ import annotations
@@ -47,7 +60,7 @@ import torch
 
 from horovod_tpu_torch.config import knobs
 from horovod_tpu_torch.models import transformer as tfm
-from horovod_tpu_torch.ops import collectives
+from horovod_tpu_torch.ops import _build, collectives
 from horovod_tpu_torch.parallel import tensor_parallel as tp_lib
 from horovod_tpu_torch.serving import kv_cache as kvc
 from horovod_tpu_torch.utils.device import resolve_device
@@ -131,23 +144,48 @@ def _rope_rows(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def _qkv(cfg, lp, h):
+def _by_rows(fn, x: torch.Tensor, rows: Optional[int]) -> torch.Tensor:
+    """``fn(x)``, or ``fn`` over ``x`` in chunks of ``rows`` rows (the
+    speculative verify step's chunks of the decode step's shape) when
+    ``rows`` is set and ``x`` has more."""
+    if rows is None or x.shape[0] <= rows:
+        return fn(x)
+    return torch.cat([fn(c) for c in x.split(rows)])
+
+
+def _norm(x: torch.Tensor, scale: torch.Tensor,
+          rows: Optional[int] = None) -> torch.Tensor:
+    """``models.transformer._rmsnorm``, its row mean taken in chunks of
+    ``rows`` rows when ``rows`` is set (``_by_rows``); the same operations
+    in the same order otherwise."""
+    x32 = x.float()
+    sq = x32 * x32
+    mean = _by_rows(lambda t: t.mean(dim=-1, keepdim=True), sq, rows)
+    return (x32 * torch.rsqrt(mean + 1e-6) * scale).to(x.dtype)
+
+
+def _qkv(cfg, lp, h, rows: Optional[int] = None):
     dt = cfg.dtype
-    q = tp_lib.column_parallel(h, lp["wq"].to(dt))
-    k = tp_lib.column_parallel(h, lp["wk"].to(dt))
-    v = tp_lib.column_parallel(h, lp["wv"].to(dt))
+    q, k, v = (_by_rows(lambda t, w=lp[name].to(dt):
+                        tp_lib.column_parallel(t, w), h, rows)
+               for name in ("wq", "wk", "wv"))
     hl = q.shape[-1] // cfg.head_dim
     shp = tuple(h.shape[:-1]) + (hl, cfg.head_dim)
     return q.reshape(shp), k.reshape(shp), v.reshape(shp)
 
 
-def _mlp(cfg, lp, x):
+def _mlp(cfg, lp, x, rows: Optional[int] = None):
+    """The MLP block; ``rows`` runs its norm's mean and its products in
+    chunks of that many rows (``_by_rows``)."""
     dt = cfg.dtype
-    h = tfm._rmsnorm(x, lp["mlp_norm"])
+    w_in, w_out = lp["w_in"].to(dt), lp["w_out"].to(dt)
+    h = _norm(x, lp["mlp_norm"], rows)
     # jax.nn.gelu defaults to the tanh approximation; torch's to the erf form
     u = torch.nn.functional.gelu(
-        tp_lib.column_parallel(h, lp["w_in"].to(dt)), approximate="tanh")
-    return tp_lib.row_parallel(u, lp["w_out"].to(dt), cfg.tp_axis)
+        _by_rows(lambda t: tp_lib.column_parallel(t, w_in), h, rows),
+        approximate="tanh")
+    return _by_rows(lambda t: tp_lib.row_parallel(t, w_out, cfg.tp_axis),
+                    u, rows)
 
 
 def _gather_logits(cfg, x, head):
@@ -166,7 +204,8 @@ def _layer(params: Dict[str, Any], i: int) -> Dict[str, torch.Tensor]:
 def _decode_body(cfg: tfm.TransformerConfig, params: Any,
                  k_pages: torch.Tensor, v_pages: torch.Tensor,
                  block_tables: torch.Tensor, lengths: torch.Tensor,
-                 tokens: torch.Tensor, *, n_layers: Optional[int] = None
+                 tokens: torch.Tensor, *, n_layers: Optional[int] = None,
+                 rows: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decode step over all slots: tokens ``[S]``, lengths ``[S]``
     (tokens already cached, the position this token lands at). Each layer
@@ -180,8 +219,9 @@ def _decode_body(cfg: tfm.TransformerConfig, params: Any,
     row i of a slot sees exactly the drafts before it. ``n_layers``
     truncates the stack to layers ``0..n-1`` plus the shared final norm
     and head: the ``truncate:N`` draft, whose K/V writes to those layers
-    of the shared pool verify later rewrites (with the same values on
-    the CPU; on CUDA up to the last bits of GEMMs of another M)."""
+    of the shared pool verify later rewrites with the same values.
+    ``rows`` runs the GEMMs and the norms' means in chunks of that many
+    rows (``_by_rows``; the verify step passes ``slots``)."""
     scale = cfg.head_dim ** -0.5
     x = tp_lib.vocab_parallel_embed(
         tokens, params["embed"].to(cfg.dtype), cfg.tp_axis)    # [S, D]
@@ -193,19 +233,21 @@ def _decode_body(cfg: tfm.TransformerConfig, params: Any,
     for i in range(cfg.n_layers if n_layers is None else n_layers):
         lp = _layer(params, i)
         kp, vp = k_pages[i], v_pages[i]
-        h = tfm._rmsnorm(x, lp["attn_norm"])
-        q, k, v = _qkv(cfg, lp, h)                              # [S, H, Dh]
+        h = _norm(x, lp["attn_norm"], rows)
+        q, k, v = _qkv(cfg, lp, h, rows)                        # [S, H, Dh]
         q = _rope_rows(q, lengths)
         k = _rope_rows(k, lengths)
         kvc.write_token_kv(kp, vp, k, v, block_tables, lengths, valid=valid)
         o = kvc.paged_decode_attention(q, kp, vp, block_tables, attend,
                                        scale)
         o = o.to(x.dtype).reshape(x.shape[0], -1)
-        x = x + tp_lib.row_parallel(o, lp["wo"].to(cfg.dtype),
-                                    cfg.tp_axis).to(x.dtype)
-        x = x + _mlp(cfg, lp, x).to(x.dtype)
-    x = tfm._rmsnorm(x, params["final_norm"])
-    logits = _gather_logits(cfg, x, params["head"])            # [S, V] f32
+        wo = lp["wo"].to(cfg.dtype)
+        x = x + _by_rows(lambda t: tp_lib.row_parallel(t, wo, cfg.tp_axis),
+                         o, rows).to(x.dtype)
+        x = x + _mlp(cfg, lp, x, rows).to(x.dtype)
+    x = _norm(x, params["final_norm"], rows)
+    logits = _by_rows(lambda t: _gather_logits(cfg, t, params["head"]),
+                      x, rows)                                  # [S, V] f32
     next_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
     return next_tokens, logits
 
@@ -232,7 +274,7 @@ def _prefill_body(cfg: tfm.TransformerConfig, params: Any,
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         kp, vp = k_pages[i], v_pages[i]
-        h = tfm._rmsnorm(x, lp["attn_norm"])
+        h = _norm(x, lp["attn_norm"])
         q, k, v = _qkv(cfg, lp, h)                              # [C, H, Dh]
         q = _rope_rows(q, pos)
         k = _rope_rows(k, pos)
@@ -250,7 +292,7 @@ def _prefill_body(cfg: tfm.TransformerConfig, params: Any,
         x = x + tp_lib.row_parallel(o, lp["wo"].to(cfg.dtype),
                                     cfg.tp_axis).to(x.dtype)
         x = x + _mlp(cfg, lp, x).to(x.dtype)
-    x = tfm._rmsnorm(x, params["final_norm"])
+    x = _norm(x, params["final_norm"])
     last = x[max(int(n_real) - 1, 0)]                           # [D]
     logits = _gather_logits(cfg, last, params["head"])         # [V] f32
     next_token = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -286,6 +328,7 @@ class ServeEngine:
                  draft: Optional[str] = None,
                  spec_k: Optional[int] = None):
         _check_cfg(cfg)
+        builds_before = _build.builds_run
         self.cfg = cfg
         self.device = resolve_device(device)
         self.slots = int(slots or knobs.get("HOROVOD_SERVE_SLOTS"))
@@ -334,7 +377,10 @@ class ServeEngine:
         self.cow_copies = 0
         self.params = self._place(params)
         self.k_pages, self.v_pages = self.pool.alloc_arrays()
-        self.builds = 0
+        # nvcc builds since construction began, counted up to the end of
+        # the first decode-shaped step
+        self.builds = _build.builds_run - builds_before
+        self._builds_from: Optional[int] = builds_before
         self.store_outcomes: Dict[str, str] = {}
         # f32 logits of the most recent prefill chunk, decode, draft or
         # verify step
@@ -369,6 +415,13 @@ class ServeEngine:
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _count_builds(self) -> None:
+        """Close the build count after the first decode-shaped step (the
+        first to launch the paged-decode kernel)."""
+        if self._builds_from is not None:
+            self.builds = _build.builds_run - self._builds_from
+            self._builds_from = None
 
     # -- slot API (driven by the scheduler at step boundaries) ---------------
     def reserve(self, n_tokens_worst_case: int,
@@ -497,7 +550,9 @@ class ServeEngine:
                 self._tensor(bt_np), self._tensor(ln_np),
                 self._tensor(np.asarray(tokens, np.int32)))
         self.tables.lengths[active] += 1
-        return nxt.cpu().numpy()
+        out = nxt.cpu().numpy()
+        self._count_builds()
+        return out
 
     # -- speculative decode (draft K, verify all K in one step) --------------
     @torch.inference_mode()
@@ -532,6 +587,7 @@ class ServeEngine:
             drafts[:, i] = nxt
             toks = np.where(active, nxt, 0).astype(np.int32)
             ln_np = ln_np + active.astype(np.int32)
+        self._count_builds()
         return drafts
 
     @torch.inference_mode()
@@ -541,11 +597,9 @@ class ServeEngine:
         last accepted token, ``drafts[s]`` its K proposed continuations.
         Runs the decode body once at ``slots * (K+1)`` rows: row (s, i)
         consumes draft i (row 0 the accepted token) at position
-        ``len_s + i``. Returns ``out [slots, K+1]``: out[s, i] is the
-        token sequential decode emits after consuming rows 0..i (bitwise
-        on the CPU; on CUDA the M = ``slots * (K+1)`` GEMMs can differ
-        from decode's M = ``slots`` in the last bits, and so flip a
-        near-tie).
+        ``len_s + i``, its GEMMs and norm means in chunks of ``slots``
+        rows. Returns ``out [slots, K+1]``: out[s, i] is, bitwise, the
+        token sequential decode emits after consuming rows 0..i.
 
         Lengths of active slots advance by K+1; the scheduler keeps the
         accepted prefix and calls :meth:`rollback` with the rejected
@@ -574,9 +628,11 @@ class ServeEngine:
             nxt, self.last_logits = _decode_body(
                 self.cfg, self.params, self.k_pages, self.v_pages,
                 self._tensor(bt), self._tensor(ln.astype(np.int32)),
-                self._tensor(toks))
+                self._tensor(toks), rows=self.slots)
         self.tables.lengths[active] += k + 1
-        return nxt.cpu().numpy().reshape(self.slots, k + 1)
+        out = nxt.cpu().numpy().reshape(self.slots, k + 1)
+        self._count_builds()
+        return out
 
     def rollback(self, slot: int, n_rejected: int) -> None:
         """Accept-prefix rollback: drop the rejected speculative suffix of

@@ -23,10 +23,9 @@ position earlier, so the committed tokens are the sequential-decode
 tokens, 1 to K+1 a step; EOS and the generation cap cut the accepted run
 where sequential decode would stop, and the rejected suffix rolls the
 slot's length back (``engine.rollback``). The tokens are the sequential
-ones bitwise on the CPU. On CUDA the verify step's ``slots * (K+1)``
-rows go through GEMMs of another M than the decode step's ``slots``,
-whose last bits can differ (the MLP output GEMM on an H100), so a
-near-tie argmax can flip: there they are equal up to such ties.
+ones bitwise, on the CPU and on CUDA: the verify step takes the one GEMM
+whose last bits depend on M on an H100 (the MLP's output product) in
+chunks of the decode step's shape (``engine.spec_step``).
 
 The ``hvd_serve_*`` metrics (requests by lifecycle edge, prefill and
 decode tokens, queue depth, batch occupancy, and TTFT and TPOT on
@@ -293,7 +292,7 @@ class ServeScheduler:
         """Draft-then-verify decode point, accept-prefix per slot: draft
         i is confirmed while it equals the verify step's own emission one
         position back, so the appended run is the sequential greedy
-        sequence (on CUDA, up to near-ties; see the module docstring);
+        sequence;
         EOS and the generation cap cut it where sequential decode would
         stop, and the rejected suffix rolls the slot's length back."""
         eng = self.engine

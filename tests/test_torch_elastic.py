@@ -711,13 +711,16 @@ def test_elastic_end_to_end_training(port_world):
 
 def test_resize_faults_are_no_longer_unported():
     """host_loss, slice_loss and host_return reach ResizeCoordinator.poll
-    now; the artifact store's and the data service's faults still wait
-    for A.13b."""
+    now, and replica_kill and replica_slow the serving fleet's router; the
+    artifact store's and the data service's faults still wait for
+    A.13b."""
     from horovod_tpu_torch.resilience import chaos
     try:
         chaos.install({"host_loss": {"host": 1, "at_step": 2},
                        "slice_loss": {"slice": 1, "at_step": 3},
                        "host_return": {"host": 1, "at_step": 4},
+                       "replica_kill": {"replica": 0},
+                       "replica_slow": {"replica": 1, "delay": 0.1},
                        "store_corrupt": {"fail_first": 1}})
         assert chaos.unported_faults() == [("store_corrupt", "A.13b")]
         assert [chaos.resize_notice(s) for s in range(6)] == [

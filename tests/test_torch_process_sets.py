@@ -321,7 +321,13 @@ def test_process_sets_on_a_2x2_mesh(world, case):
 def test_subgroup_allreduce_composes_with_torus(world, monkeypatch):
     """HOROVOD_TORUS_ALLREDUCE=1 makes the topology (cross, local), and a
     subgroup allreduce and the torus allreduce both work on it."""
+    from horovod_tpu.config import knobs as jknobs
     monkeypatch.setenv("HOROVOD_TORUS_ALLREDUCE", "1")
+    # An override left in this process would win over the environment:
+    # tests/test_faults.py's autotune follower (ParameterSynchronizer.apply)
+    # sets every tuned knob, these two among them, and leaves them set.
+    for name in ("HOROVOD_HIERARCHICAL_ALLREDUCE", "HOROVOD_TORUS_ALLREDUCE"):
+        jknobs.clear_override(name)
     try:
         ctx = hvd.init(devices=jax.devices()[:W])
         assert ctx.topology.is_hierarchical

@@ -116,11 +116,11 @@ def test_env_from_args_rejects_what_jax_rejects(argv, err):
 
 
 # The JAX launcher's flags whose knobs no module of the port reads yet
-# (the online tuner and the metrics server of ROADMAP A.13b), with a value
-# for each.
-UNPORTED_FLAGS = {
-    "--autotune": None, "--autotune-log-file": "at.csv",
-    "--metrics-port": "9090", "--metrics-dump": "m.json"}
+# (the online tuner of ROADMAP A.13b), with a value for each.
+UNPORTED_FLAGS = {"--autotune": None, "--autotune-log-file": "at.csv"}
+# The metrics exports' flags, with a value and the knob each sets.
+METRICS_FLAGS = {"--metrics-port": ("9090", "HOROVOD_METRICS_PORT"),
+                 "--metrics-dump": ("m.json", "HOROVOD_METRICS_DUMP")}
 # The control plane's flags (the coordinator and the timeline), with a
 # value for each.
 CONTROL_PLANE_FLAGS = {
@@ -135,10 +135,21 @@ def _flags(mod):
 
 def test_parser_has_jax_flags_but_tpu():
     """The JAX launcher's flags less ``--tpu`` and those of knobs the port
-    does not read (the online tuner's and the metrics server's); the
-    control plane's are there."""
+    does not read (the online tuner's); the control plane's and the
+    metrics exports' are there."""
     assert _flags(jlaunch) - _flags(launch) == {"--tpu"} | set(UNPORTED_FLAGS)
     assert _flags(launch) - _flags(jlaunch) == set()
+
+
+@pytest.mark.parametrize("flag", sorted(METRICS_FLAGS))
+def test_metrics_flags_set_jax_env(flag):
+    """``--metrics-port`` and ``--metrics-dump`` set the environment the
+    JAX launcher sets for them."""
+    value, knob = METRICS_FLAGS[flag]
+    argv = [flag, value, "--", "python", "x.py"]
+    got = _env(launch, argv)
+    assert got == _env(jlaunch, argv)
+    assert got[knob] == value
 
 
 @pytest.mark.parametrize("flag", sorted(UNPORTED_FLAGS))
@@ -254,8 +265,24 @@ def test_config_file_rejections_match_jax(cfg, err):
 
 
 @pytest.mark.parametrize("cfg", [
-    {"autotune": {"enabled": True}}, {"autotune": {"log_file": "at.csv"}},
     {"metrics": {"port": 9090}}, {"metrics": {"dump": "m.json"}}])
+def test_config_file_metrics_keys_match_jax(cfg):
+    """The ``metrics`` section gives the JAX package's arguments and
+    environment."""
+    got = []
+    for mod, cmod in ((launch, config), (jlaunch, jconfig)):
+        parser = mod.build_parser()
+        args = parser.parse_args(["--", "python", "x.py"])
+        cmod.set_args_from_config(parser, args, cfg, set())
+        got.append((args.metrics_port, args.metrics_dump,
+                    {k: v for k, v in mod.env_from_args(args).items()
+                     if k.startswith("HOROVOD_METRICS")}))
+    assert got[0] == got[1]
+    assert got[0][2]
+
+
+@pytest.mark.parametrize("cfg", [
+    {"autotune": {"enabled": True}}, {"autotune": {"log_file": "at.csv"}}])
 def test_config_file_refuses_unported_knobs(cfg):
     """The JAX file's keys of knobs the port does not read raise, as a
     typo does."""

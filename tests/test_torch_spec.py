@@ -392,3 +392,65 @@ def test_handoff_messages_are_the_jax_messages():
     got = {"a": ((1,), "f"), "b": ((2,), "f"), "c": ((3,), "g")}
     want = {"b": ((3,), "f"), "c": ((3,), "h"), "d": ((1,), "f")}
     assert engine.tree_diff(got, want) == rules_compat.tree_diff(got, want)
+
+
+def test_chunked_verify_logits_are_the_decode_logits_bitwise():
+    """At ``slots * (K+1)`` rows the verify step's logits are, bit for bit,
+    the sequential decode steps' logits, and every GEMM of its body runs
+    in chunks of ``slots`` rows, the decode step's shape. d_ff = 2048
+    makes the point on this CPU too: there an [M, 2048] x [2048, 128]
+    f32 product at M = 20 is not bitwise its M = 4 rows, as the MLP's
+    output product at M = 40 is not its M = 8 rows on an H100."""
+    from horovod_tpu_torch import TransformerConfig, init_params
+    from horovod_tpu_torch.parallel import tensor_parallel as tp_lib
+    from horovod_tpu_torch.serving import engine as eng_mod
+    cfg = TransformerConfig(vocab_size=256, d_model=128, n_heads=4,
+                            head_dim=32, n_layers=2, d_ff=2048, max_seq=256,
+                            dp_axis=None, remat=False, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    k = 4
+    off = ServeEngine(cfg, params, device="cpu", **ts.ENGINE_KW)
+    spec = ServeEngine(cfg, params, device="cpu", draft="ngram:3",
+                       spec_k=k, **ts.ENGINE_KW)
+    rng = np.random.default_rng(0)
+    toks = np.zeros((off.slots, k + 1), np.int32)
+    for s in range(off.slots):
+        prompt = rng.integers(1, 255, int(rng.integers(5, 40))
+                              ).astype(np.int32)
+        for e in (off, spec):
+            slot = e.reserve(prompt.size + k + 1)
+            first = e.prefill(slot, prompt)
+        toks[slot] = rng.integers(1, 255, k + 1)
+        toks[slot, 0] = first
+    decode = []
+    for i in range(k + 1):
+        off.decode_step(toks[:, i])
+        decode.append(off.last_logits.clone())
+    rows = []
+    row_parallel, column_parallel = tp_lib.row_parallel, tp_lib.column_parallel
+
+    def spy_row(x, w, axis):
+        rows.append(("row", tuple(w.shape), x.shape[0]))
+        return row_parallel(x, w, axis)
+
+    def spy_column(x, w):
+        rows.append(("column", tuple(w.shape), x.shape[0]))
+        return column_parallel(x, w)
+
+    try:
+        tp_lib.row_parallel, tp_lib.column_parallel = spy_row, spy_column
+        spec.spec_step(toks[:, 0], toks[:, 1:])
+    finally:
+        tp_lib.row_parallel, tp_lib.column_parallel = (row_parallel,
+                                                       column_parallel)
+    assert eng_mod.tp_lib is tp_lib
+    # per layer: q, k, v, o, the MLP's in and out products, each in K+1
+    # chunks of `slots` rows
+    assert len(rows) == 6 * (k + 1) * cfg.n_layers
+    assert {m for _, _, m in rows} == {off.slots}
+    assert sum(w == (cfg.d_ff, cfg.d_model) for _, w, _ in rows) == \
+        (k + 1) * cfg.n_layers
+    verify = spec.last_logits.reshape(off.slots, k + 1, -1)
+    for i in range(k + 1):
+        assert torch.equal(verify[:, i], decode[i]), i

@@ -1135,6 +1135,37 @@ def _dlpack_scenario(rank, sc, sets):
     return out
 
 
+def _metrics_agg_scenario(rank, sc, sets):
+    """The metrics exports across ranks: each rank adds ``rank + 1`` to
+    the counter ``sc["marker"]``; the ranks but 0 publish their snapshots
+    to the c10d store (``init`` started their publishers), and rank 0
+    scrapes its own ``/metrics`` until the merged sum holds every rank's
+    part (``sc["timeout_s"]``). Saves rank 0's merged value and whether
+    its scrape showed it; every rank then meets at a barrier."""
+    import time
+    import urllib.request
+    import torch.distributed as dist
+    from horovod_tpu_torch import metrics as M
+    M.counter(sc["marker"], "aggregation marker").inc(rank + 1)
+    want = sum(r + 1 for r in range(dist.get_world_size()))
+    merged, scraped = -1.0, False
+    if rank == 0:
+        srv = M.start_metrics_server(0, host="127.0.0.1")
+        deadline = time.monotonic() + sc.get("timeout_s", 20.0)
+        while time.monotonic() < deadline:
+            snap = M.metrics_snapshot(aggregate=True)
+            merged = snap[sc["marker"]]["series"][0]["value"]
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{srv.port}/metrics", timeout=10) as r:
+                scraped = f"{sc['marker']} {want}" in r.read().decode()
+            if merged == want and scraped:
+                break
+            time.sleep(0.05)
+    dist.barrier()
+    return {"merged": np.asarray(merged), "scraped": np.asarray(scraped),
+            "want": np.asarray(want)}
+
+
 _PHASE_SCENARIOS = {"call": _call_scenario, "topology": _topology_scenario,
                     "eager": _eager_scenario,
                     "adasum_opt": _adasum_opt_scenario,
@@ -1154,7 +1185,8 @@ _PHASE_SCENARIOS = {"call": _call_scenario, "topology": _topology_scenario,
                     "serve_tp": _serve_tp_scenario,
                     "coord": _coord_scenario,
                     "divergence": _divergence_scenario,
-                    "dlpack": _dlpack_scenario}
+                    "dlpack": _dlpack_scenario,
+                    "metrics_agg": _metrics_agg_scenario}
 
 
 def phase_worker(rank, world, port, phases, out_dir):
