@@ -13,6 +13,8 @@
                                    # only VGG-16 and Inception V3, on 4 cards
     python3 chip_smoke.py --data-parallel 4 --fleet-only
                                    # only the serving fleet, a replica a card
+    python3 chip_smoke.py --data-parallel 4 --observability-only
+                                   # only phase 14's window, merge and drill
 
 Phases, each of which raises (and so exits non-zero) when it fails:
 
@@ -179,6 +181,23 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     tokens, the same re-admission order) and the replica_slow drill;
     decode tokens/s, TTFT and TPOT p50/p99, each replica's join seconds
     and builds.
+14. observability (``observability ...`` lines): the flagship at full
+    width and depth built under each HOROVOD_TPU_MATMUL_PRECISION of
+    float32, tensorfloat32 and bfloat16 from the same weights and
+    batches, OBS_STEPS steps each through ``train_loop`` (step ms, flash
+    launches, the first loss bitwise float32's and the others within
+    OBS_LOSS_TOL, the TF32 flags off again after every step) and one
+    profiled step (device ms, and the CE backward's device ms: the kernels
+    launched inside ``blockwise_ce.backward``); a
+    HOROVOD_TRACE_PROFILE=steps:2@2 window over the fused flagship
+    (``profile_attribution.json`` present, no collective events in a world
+    of one, every bucket's device ms, step ms inside the window and out);
+    ResNet-50 through ``allreduce_async`` with HOROVOD_NUMERICS off and on
+    in turns (step ms, conv+BN launches, the aggregates' kernels per bin
+    from a profiled step of each), then one step's bins dispatched under
+    ``torch.cuda.set_sync_debug_mode("error")`` with a NaN in one
+    gradient, which the monitor's drain names by its bin entry and
+    parameter; and the run-ledger record ``shutdown`` writes, read back.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the
@@ -307,7 +326,16 @@ bare one-card engine's, each replica's weights and pool on its own card
 (``torch.cuda.memory_allocated``), decode tokens/s at 1 and N replicas
 and their ratio; the autoscaler grows 1 -> N under staggered arrivals;
 then one replica is killed and another drained, every request served
-with the bare tokens.
+with the bare tokens. Last, observability on N cards (``--data-parallel N
+--observability-only``: only this; ``observability data parallel:``
+line): the fused flagship through ``train_loop`` with the span recorder
+on and HOROVOD_TRACE_PROFILE=steps:OBS_DP_WINDOW@2: the observed overlap
+ratio, exposed collective ms a step, every bucket's device ms (each
+``hvd_bucket<i>`` label present), the NCCL kernels' device ms of each
+profiled step, and the step ms inside the window and out; the numerics
+drill through the coordinator on every rank (rank 0's NaN named on each);
+then ``shutdown``: rank 0's merged trace with a track per rank and their
+clock offsets, and a ledger record on every rank.
 """
 
 from __future__ import annotations
@@ -6189,6 +6217,695 @@ def fleet_n_cards(n: int, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training you can look into — the matmul precision knob, the
+# profile window, the numerics monitor and the run ledger
+# ---------------------------------------------------------------------------
+
+OBS_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "observability")
+OBS_STEPS = 4               # flagship steps at each matmul precision
+OBS_PRECISIONS = ("float32", "tensorfloat32", "bfloat16")
+# The losses of the three precisions from the same weights and batches:
+# the first is bitwise equal (the precision reaches only the CE backward's
+# f32 products); the later ones move by the rounding of those products
+# (TF32's 2^-11, bf16's 2^-8 relative) carried through SGD at lr 0.01, so
+# no two settings give the same later losses bitwise, and each stays within
+# OBS_LOSS_TOL of the float32 run's, on losses near ln(32768). Read on an
+# H100 80GB HBM3 (700 W): tensorfloat32 9.3e-5 off, bfloat16 1.8e-4.
+OBS_LOSS_TOL = 1e-3
+# The CE backward's device ms at tensorfloat32 and at bfloat16 under this
+# share of float32's: read 19.89 and 18.09 ms against 55.15 (0.36, 0.33)
+# on the same card; a knob that reached no product would read ~1.
+OBS_CE_FAST_SHARE = 0.6
+OBS_RESNET_ROUNDS = 3       # ResNet-50 steps with numerics off and on, in turns
+OBS_DP_WINDOW = 8           # profiled steps of the N-card window
+# The numerics drill's fusion threshold: ResNet-50's 102 MB of gradients
+# in more than 20 bins (19 at 4 MiB), so the default
+# HOROVOD_NUMERICS_CHECK_EVERY (10) falls due at least twice inside the
+# dispatch under the sync check.
+OBS_DRILL_FUSION = 2 << 20
+OBS_CE_LABEL = r"^blockwise_ce\.backward$"
+
+
+def obs_profile(fn, tag, tries: int = 3):
+    """Run ``fn()`` under torch.profiler (CPU and CUDA activity), export
+    its Chrome trace under OBS_ROOT and return the trace's events, read
+    back with the port's reader. A trace with no kernel events (the
+    profiler now and then hands back none) is taken again, up to
+    ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile
+    from horovod_tpu_torch.tracing import profile as tp
+    os.makedirs(OBS_ROOT, exist_ok=True)
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    for _ in range(tries):
+        with profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        path = os.path.join(OBS_ROOT, f"{tag}.trace.json")
+        prof.export_chrome_trace(path)
+        events = tp.read_trace_events(path)
+        if tp.on_device(events) or not torch.cuda.is_available():
+            return events
+    raise AssertionError(f"{tag}: the profiler saw no kernel events")
+
+
+def obs_device_ms(events) -> float:
+    """The device ms of every kernel, memcpy and memset of a trace."""
+    from horovod_tpu_torch.tracing import profile as tp
+    return sum(float(e["dur"]) for e in tp.device_op_events(events)) / 1e3
+
+
+def obs_flash_launches(fa, cfg, n_steps, what) -> dict:
+    """Each flash kernel launched at least once a layer a step since the
+    counts were reset."""
+    got = {k: fa.LAUNCHES[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                       "flash_bwd_dkv")}
+    if min(got.values()) < cfg.n_layers * n_steps:
+        raise AssertionError(f"{what}: flash launches {got} over {n_steps} "
+                             f"steps of {cfg.n_layers} layers")
+    return got
+
+
+def obs_flagship_batches(cfg, dev, n, rank=0, world=1, seed=1):
+    """``n`` of the flagship's batches (TRAIN_B x TRAIN_S a rank), this
+    rank's rows of the global one."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = slice(rank * TRAIN_B, (rank + 1) * TRAIN_B)
+    return [tuple(torch.randint(0, cfg.vocab_size, (TRAIN_B * world, TRAIN_S),
+                                generator=gen, device=dev)[rows]
+                  for _ in range(2)) for _ in range(n)]
+
+
+def obs_timed_loop(htt, step, state, batches):
+    """``train_loop`` over ``batches`` with a synchronize at each step's
+    end: (state, info, losses, step ms)."""
+    losses, stamps = [], []
+
+    def on_step(i, st, loss):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append(float(loss))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, info = htt.train_loop(step, state, batches, on_step=on_step)
+    if info["status"] != "completed" or info["final_step"] != len(batches):
+        raise AssertionError(f"train_loop info {info}")
+    return state, info, losses, [float(x) * 1e3
+                                 for x in np.diff([t0] + stamps)]
+
+
+def obs_precision(htt, fa, card, dev="cuda") -> dict:
+    """The flagship at full width and depth (8 x 2048, bf16,
+    ``mlp_recompute=True``) built under each HOROVOD_TPU_MATMUL_PRECISION
+    of OBS_PRECISIONS, from the same weights and batches: OBS_STEPS steps
+    through ``train_loop`` (step ms, losses, flash launches), then one
+    profiled step (device ms, and the CE backward's device ms: the
+    kernels launched inside its ``blockwise_ce.backward`` range). The
+    caller's TF32 flags must be back after every step."""
+    from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.tracing import profile as tp
+    cfg = flagship_cfg(htt.TransformerConfig, mlp_recompute=True,
+                       dp_axis="dp")
+    batches = obs_flagship_batches(cfg, dev, OBS_STEPS + 1)
+    out = {}
+    for name in OBS_PRECISIONS:
+        knobs.set_override("HOROVOD_TPU_MATMUL_PRECISION", name)
+        try:
+            init_fn, step = htt.make_transformer_train_step(
+                cfg, lambda ps: torch.optim.SGD(ps, lr=0.01, momentum=0.9),
+                device=dev)
+        finally:
+            knobs.clear_override("HOROVOD_TPU_MATMUL_PRECISION")
+        state = init_fn(htt.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), device=dev))
+        before = (torch.backends.cuda.matmul.allow_tf32,
+                  torch.backends.cudnn.allow_tf32)
+        fa.reset_launches()
+        state, _, losses, step_ms = obs_timed_loop(htt, step, state,
+                                                   batches[:OBS_STEPS])
+        launches = obs_flash_launches(fa, cfg, OBS_STEPS, f"precision {name}")
+        flags = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        if flags != before:
+            raise AssertionError(f"precision {name}: the step left the TF32 "
+                                 f"flags at {flags}, not {before}")
+        events = obs_profile(lambda: step(state, *batches[OBS_STEPS]),
+                             f"precision-{name}")
+        ce = tp.device_seconds_by_label(events, OBS_CE_LABEL)
+        if not ce:
+            raise AssertionError(f"precision {name}: no kernel was labelled "
+                                 f"blockwise_ce.backward in the profile")
+        out[name] = {"losses": losses, "step_ms": step_ms,
+                     "step_ms_mean_after_first": float(np.mean(step_ms[1:])),
+                     "device_ms": obs_device_ms(events),
+                     "ce_backward_device_ms": sum(ce.values()) * 1e3,
+                     "launches": launches}
+        del state, step, init_fn, events
+        torch.cuda.empty_cache()
+    ref = out["float32"]["losses"]
+    # CPU products stay IEEE f32 at every setting: these hold on the card
+    on_card = torch.device(dev).type == "cuda"
+    for i, a in enumerate(OBS_PRECISIONS):
+        for b in OBS_PRECISIONS[i + 1:]:
+            if on_card and out[a]["losses"][1:] == out[b]["losses"][1:]:
+                raise AssertionError(f"precision {a} and {b}: the same losses "
+                                     f"{out[a]['losses']} bitwise")
+    f32_ce = out["float32"]["ce_backward_device_ms"]
+    for name in OBS_PRECISIONS[1:]:
+        share = out[name]["ce_backward_device_ms"] / f32_ce
+        out[name]["ce_backward_share_of_float32"] = share
+        if on_card and share > OBS_CE_FAST_SHARE:
+            raise AssertionError(f"precision {name}: CE backward "
+                                 f"{out[name]['ce_backward_device_ms']} ms, "
+                                 f"{share:.3f} of float32's {f32_ce}")
+    for name in OBS_PRECISIONS:
+        got = out[name]["losses"]
+        if not all(np.isfinite(got)):
+            raise AssertionError(f"precision {name}: losses {got}")
+        if got[0] != ref[0]:
+            raise AssertionError(f"precision {name}: first loss {got[0]} is "
+                                 f"not float32's {ref[0]}")
+        diff = max(abs(a - b) for a, b in zip(got, ref))
+        out[name]["max_loss_diff_vs_float32"] = diff
+        if diff > OBS_LOSS_TOL:
+            raise AssertionError(f"precision {name}: losses {got} off "
+                                 f"float32's {ref} by {diff}")
+    out["loss_tol"] = OBS_LOSS_TOL
+    out["ce_fast_share"] = OBS_CE_FAST_SHARE
+    out["card"] = card
+    log("observability precision: " + json.dumps(out))
+    return out
+
+
+def obs_window_one(htt, fa, card, dev="cuda") -> dict:
+    """HOROVOD_TRACE_PROFILE=steps:2@2 over the fused flagship (buckets
+    launched from the gradient hooks) for 5 steps through ``train_loop``
+    in a world of one: the attribution file under the trace dir, no
+    collective events (a world of one reduces nothing), the buckets whose
+    packing ran on the device labelled (the device ms of each), and the
+    step ms inside the window beside the others (the profiler slows the
+    steps it traces)."""
+    from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.parallel import distributed as D
+    d = os.path.join(OBS_ROOT, "trace-one")
+    knobs.set_override("HOROVOD_TRACE_DIR", d)
+    knobs.set_override("HOROVOD_TRACE_PROFILE", "steps:2@2")
+    try:
+        cfg = flagship_cfg(htt.TransformerConfig, mlp_recompute=True,
+                           dp_axis="dp")
+        state, step = flagship_fused_step(htt, cfg, dev, seed=0)
+        fa.reset_launches()
+        state, _, losses, step_ms = obs_timed_loop(
+            htt, step, state, obs_flagship_batches(cfg, dev, 5))
+        launches = obs_flash_launches(fa, cfg, 5, "profile window")
+        n_buckets = D.last_wire_trace()["n_buckets"]
+    finally:
+        knobs.clear_override("HOROVOD_TRACE_PROFILE")
+        knobs.clear_override("HOROVOD_TRACE_DIR")
+    path = os.path.join(d, "profile", "profile_attribution.json")
+    with open(path) as f:
+        a = json.load(f)
+    # a world of one reduces nothing on the card (gloo's world of one
+    # still runs its ops, on the CPU)
+    cuda = torch.device(dev).type == "cuda"
+    quiet = a["collective_events"] == 0 or not cuda
+    if a["profiled_steps"] != 2 or not quiet or a["device_op_events"] == 0 \
+            or a["device"] is not cuda:
+        raise AssertionError(f"profile window (world 1): {a}")
+    labels = [b["bucket"] for b in a["per_bucket"]]
+    if not labels or not set(labels) <= {f"hvd_bucket{k}"
+                                         for k in range(n_buckets)}:
+        raise AssertionError(f"profile window (world 1): buckets {labels}, "
+                             f"{n_buckets} launched")
+    window = [s * 1e3 for s in a["window_step_seconds"]]
+    out = {"attribution_file": os.path.relpath(path, OBS_ROOT),
+           "device_reading": a["device"],
+           "unlaunched_device_events": a["unlaunched_device_events"],
+           "profiled_steps": a["profiled_steps"],
+           "device_op_events": a["device_op_events"],
+           "collective_events": a["collective_events"],
+           "observed_overlap_ratio": a["observed_overlap_ratio"],
+           "compute_ms_per_step": a["compute_seconds"] * 1e3 / 2,
+           "buckets": n_buckets, "buckets_labelled": len(labels),
+           "bucket_device_ms": [round(b["device_seconds"] * 1e3, 4)
+                                for b in a["per_bucket"]],
+           "step_ms": step_ms, "window_step_ms": window,
+           "step_ms_outside_window": [m for i, m in enumerate(step_ms)
+                                      if i not in (1, 2)],
+           "losses": losses, "launches": launches, "card": card}
+    del state, step
+    torch.cuda.empty_cache()
+    log("observability window (world 1): " + json.dumps(out))
+    return out
+
+
+def obs_resnet_hooks(htt, model, poison):
+    """Reference Horovod's torch idiom through the coordinator, each
+    gradient named by its parameter (``grad.<name>``); ``poison["i"]``
+    (when set) makes that gradient's first value NaN before its
+    enqueue. Returns ``(sync, hooks)``."""
+    names = [n for n, _ in model.named_parameters()]
+    params = list(model.parameters())
+    handles = {}
+
+    def hook(i):
+        def fn(p):
+            if poison.get("i") == i:
+                p.grad.view(-1)[0] = float("nan")
+            handles[i] = htt.allreduce_async(p.grad, op=htt.Average,
+                                             name=f"grad.{names[i]}")
+        return fn
+
+    hooks = [p.register_post_accumulate_grad_hook(hook(i))
+             for i, p in enumerate(params)]
+
+    def sync():
+        for i, p in enumerate(params):
+            p.grad.copy_(htt.synchronize(handles.pop(i)))
+
+    return sync, hooks
+
+
+def obs_numerics(htt, cb, card, dev="cuda", batch=RESNET_B,
+                 image=224) -> dict:
+    """ResNet-50 (``fused_conv_bn=True``) with each gradient through
+    ``allreduce_async`` from its hook (the coordinator's cycle thread):
+    OBS_RESNET_ROUNDS steps with HOROVOD_NUMERICS off and on in turns
+    (step ms; conv+BN launches every step), the cycle thread's host time
+    in the monitor split into the aggregates and the cadence drains
+    (perf_counter around ``_observe_numerics`` and the drains it runs:
+    the CPU profiler does not see a thread started before it); then on a
+    coordinator
+    without its thread, one step whose bins (OBS_DRILL_FUSION apart) are
+    dispatched under ``torch.cuda.set_sync_debug_mode("error")`` and
+    torch.profiler at the default HOROVOD_NUMERICS_CHECK_EVERY, so the
+    cadence's drains run inside the check (no synchronizing call on the
+    dispatch path; the aggregates' launches and device ms a bin), one
+    gradient poisoned with a NaN, which a drain names; then the
+    aggregates of the step's gradients as one bin, one level and through
+    blocks, timed in turns."""
+    from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.goodput import numerics
+    from horovod_tpu_torch.ops import coordinator as coord_mod
+    from horovod_tpu_torch.ops.coordinator import Coordinator
+    from horovod_tpu_torch.runtime.context import get_context
+    from horovod_tpu_torch.tracing import profile as tp
+    ctx = get_context()
+    model = htt.ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                         fused_conv_bn=True, device=dev, seed=3)
+    names = [n for n, _ in model.named_parameters()]
+    sgd = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    poison = {}
+    hsync, hooks = obs_resnet_hooks(htt, model, poison)
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+
+    def one_step(seed, update=True):
+        x, y = api_batch(ctx.device, seed, 0, batch, image)
+        resnet_loss(model, x, y).backward()
+        hsync()
+        if update:
+            sgd.step()
+        sgd.zero_grad()
+
+    out = {"gradients": len(names)}
+    ms = {"off": [], "on": []}
+    spent = {"observe_s": 0.0, "drain_s": 0.0, "ids_s": 0.0, "bins": 0,
+             "drains": 0, "ids": 0}
+    real_observe = coord_mod._observe_numerics
+    real_drain = numerics.NumericsMonitor._drain
+    real_ids = numerics._ids
+
+    def timed_ids(*a):
+        # segment ids are built only for a bin layout not seen lately
+        t = time.perf_counter()
+        try:
+            return real_ids(*a)
+        finally:
+            spent["ids_s"] += time.perf_counter() - t
+            spent["ids"] += 1
+
+    def timed_observe(*a):
+        t = time.perf_counter()
+        try:
+            return real_observe(*a)
+        finally:
+            spent["observe_s"] += time.perf_counter() - t
+            spent["bins"] += 1
+
+    def timed_drain(self, wait):
+        t = time.perf_counter()
+        try:
+            return real_drain(self, wait)
+        finally:
+            spent["drain_s"] += time.perf_counter() - t
+            spent["drains"] += 1
+
+    try:
+        one_step(70)                                        # warm-up
+        coord_mod._observe_numerics = timed_observe
+        numerics.NumericsMonitor._drain = timed_drain
+        numerics._ids = timed_ids
+        for rnd in range(OBS_RESNET_ROUNDS + 1):
+            for mode in ("off", "on"):
+                knobs.set_override("HOROVOD_NUMERICS", mode == "on")
+                try:
+                    cb.reset_launches()
+                    sync()
+                    t0 = time.perf_counter()
+                    one_step(71 + rnd)
+                    sync()
+                    if rnd:
+                        ms[mode].append((time.perf_counter() - t0) * 1e3)
+                    check_launches(cb, ctx.device, f"numerics {mode}")
+                finally:
+                    knobs.clear_override("HOROVOD_NUMERICS")
+        coord_mod._observe_numerics = real_observe
+        numerics.NumericsMonitor._drain = real_drain
+        numerics._ids = real_ids
+        steps_on = OBS_RESNET_ROUNDS + 1
+        # per step with the monitor on (warm-up round included); every
+        # drain here ran inside an observation, on the cycle thread
+        out["on_step_host_split"] = {
+            "bins": spent["bins"] / steps_on,
+            "cadence_drains": spent["drains"] / steps_on,
+            "aggregates_host_ms": (spent["observe_s"] - spent["drain_s"])
+            * 1e3 / steps_on,
+            "drains_host_ms": spent["drain_s"] * 1e3 / steps_on,
+            # two id builds a new layout, inside the aggregates' time
+            "layout_builds": spent["ids"] / 2 / steps_on,
+            "layout_build_host_ms": spent["ids_s"] * 1e3 / steps_on}
+        out["step_ms"] = ms
+        out["step_ms_median"] = {k: float(np.median(v))
+                                 for k, v in ms.items()}
+        mon = numerics.get_monitor()
+        out["monitor_drains_so_far"] = mon.drains if mon else None
+        if mon is not None and mon.anomalies:
+            raise AssertionError(f"numerics: clean steps fired "
+                                 f"{mon.anomalies}")
+        # the drill, on a coordinator without its thread: the bins of one
+        # step dispatched under the sync debug mode at the default cadence,
+        # an explicit drain after it for the rows still in flight
+        own = Coordinator(ctx, start_thread=False)
+        saved, ctx.coordinator = ctx.coordinator, own
+        mon = numerics.NumericsMonitor()
+        numerics.install(mon)
+        k = len(names) // 2
+        poison["i"] = k
+        knobs.set_override("HOROVOD_NUMERICS", True)
+        knobs.set_override("HOROVOD_FUSION_THRESHOLD", OBS_DRILL_FUSION)
+        try:
+            x, y = api_batch(ctx.device, 90, 0, batch, image)
+            resnet_loss(model, x, y).backward()
+            bins0 = own.stats.dispatched_programs
+            sync()
+
+            def dispatch():
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    own.run_cycle()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+
+            events = obs_profile(dispatch, "numerics-drill", tries=1)
+            dispatched = own.stats.dispatched_programs - bins0
+            agg = tp.device_events_by_label(events, r"^hvd_numerics$").get(
+                "hvd_numerics", [])
+            observed, cadence_drains = mon._observed, mon.drains
+            in_cadence = len(mon.anomalies)
+            hsync()
+            mon.drain()
+            fired = list(mon.anomalies)
+        finally:
+            knobs.clear_override("HOROVOD_FUSION_THRESHOLD")
+            knobs.clear_override("HOROVOD_NUMERICS")
+            poison.clear()
+            sgd.zero_grad()
+            own.shutdown()
+            ctx.coordinator = saved
+        if observed != dispatched or cadence_drains < 2 \
+                or cadence_drains != dispatched // mon.check_every:
+            raise AssertionError(f"numerics drill: {dispatched} bins under "
+                                 f"the sync check, {observed} observed, "
+                                 f"{cadence_drains} cadence drains at "
+                                 f"every {mon.check_every}")
+        hits = [(a["step"], b) for a in fired for b in a.get("buckets", ())]
+        if len(fired) != 1 or [b["label"] for _, b in hits] != [
+                f"grad.{names[k]}"]:
+            raise AssertionError(f"numerics drill: poisoned "
+                                 f"grad.{names[k]}, fired {fired}")
+        if dev == "cuda" and not agg:
+            raise AssertionError("numerics drill: no kernel labelled "
+                                 "hvd_numerics in the dispatch's profile")
+        out["drill"] = {"poisoned": f"grad.{names[k]}",
+                        "bins_dispatched_under_sync_check": dispatched,
+                        "cadence_drains_under_sync_check": cadence_drains,
+                        "check_every": mon.check_every,
+                        "named_by_a_cadence_drain": in_cadence == 1,
+                        "sync_debug_mode": "error",
+                        "aggregate_launches_per_bin": len(agg) / dispatched,
+                        "aggregate_device_ms_per_bin": sum(
+                            float(e["dur"]) for e in agg) / 1e3 / dispatched,
+                        "anomaly": fired[0]}
+        # the aggregates of the step's gradients as one bin, straight to
+        # the tensors' slots and through blocks, in turns (CUDA events)
+        numels = [p.numel() for p in model.parameters()]
+        flat = torch.randn(sum(numels), device=ctx.device)
+        ms = {0: [], numerics.SEGMENT_BLOCK: []}
+        for blk in (0, numerics.SEGMENT_BLOCK, numerics.SEGMENT_BLOCK, 0):
+            ms[blk].append(cuda_ms(lambda i: numerics.bin_aggregates(
+                flat, numels, block=blk), 10))
+        out["bin_aggregates_ms"] = {
+            "elements": flat.numel(), "tensors": len(numels),
+            "one_level": ms[0],
+            f"blocks_of_{numerics.SEGMENT_BLOCK}": ms[numerics.SEGMENT_BLOCK]}
+        del flat
+    finally:
+        coord_mod._observe_numerics = real_observe
+        numerics.NumericsMonitor._drain = real_drain
+        numerics._ids = real_ids
+        for h in hooks:
+            h.remove()
+    out["card"] = card
+    log("observability numerics: " + json.dumps(out))
+    return out
+
+
+def observability_world_one(htt, fa, cb, card, dev="cuda") -> None:
+    """Phase 14 in a world of one: the precision knob, the profile
+    window, the numerics monitor on ResNet-50 and the run ledger (the
+    record ``shutdown`` writes, read back)."""
+    from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.goodput import ledger, numerics
+    import shutil
+    shutil.rmtree(OBS_ROOT, ignore_errors=True)
+    os.makedirs(OBS_ROOT, exist_ok=True)
+    path = os.path.join(OBS_ROOT, "ledger.jsonl")
+    knobs.set_override("HOROVOD_GOODPUT_LEDGER", path)
+    t0 = time.perf_counter()
+    try:
+        ctx = htt.init(device=dev)
+        try:
+            if ctx.backend != ("nccl" if dev == "cuda" else "gloo"):
+                raise AssertionError(f"backend {ctx.backend}")
+            obs_precision(htt, fa, card, dev)
+            obs_window_one(htt, fa, card, dev)
+            obs_numerics(htt, cb, card, dev)
+        finally:
+            htt.shutdown()
+    finally:
+        knobs.clear_override("HOROVOD_GOODPUT_LEDGER")
+        numerics.install(None)
+    rows = ledger.read_ledger(path)
+    if len(rows) != 1:
+        raise AssertionError(f"ledger: {len(rows)} records in {path}")
+    rec = rows[0]
+    want_chip = torch.cuda.get_device_name(0) if dev == "cuda" else "cpu"
+    if rec["chip"] != want_chip or rec["world_size"] != 1 \
+            or rec["numerics"]["anomalies"] != 1 \
+            or len(rec["knob_fingerprint"]) != 16:
+        raise AssertionError(f"ledger record: {rec}")
+    log("observability ledger (world 1): " + json.dumps({
+        "keys": sorted(rec), "chip": rec["chip"],
+        "world_size": rec["world_size"], "numerics": rec["numerics"],
+        "goodput_fraction": rec["goodput"].get("goodput_fraction"),
+        "wire": rec["wire"], "seconds": time.perf_counter() - t0,
+        "card": card}))
+
+
+def obs_step_nccl_ms(events, label=r"^obs_step(\d+)$"):
+    """Per profiled step, the NCCL kernels' device ms: the kernels that
+    started inside the host range of each ``obs_step<i>`` annotation
+    (each range ends in a synchronize, so its step's kernels run inside
+    it)."""
+    import re
+    from horovod_tpu_torch.tracing import profile as tp
+    pat = re.compile(label)
+    steps = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                    int(pat.match(e["name"]).group(1)))
+                   for e in events if e.get("ph") == "X"
+                   and e.get("cat") == "user_annotation"
+                   and pat.match(str(e.get("name", ""))))
+    coll, _ = tp.classify(events)
+    out = {}
+    for lo, hi, i in steps:
+        out[i] = sum(float(e["dur"]) for e in coll
+                     if lo <= float(e["ts"]) < hi) / 1e3
+    return [out[i] for i in sorted(out)]
+
+
+def observability_rank(rank, world, ports, results, device="cuda"):
+    """One rank of the N-card observability world: the fused flagship
+    (buckets launched from the gradient hooks) through ``train_loop``
+    under HOROVOD_TRACE_PROFILE=steps:OBS_DP_WINDOW@2 with the span
+    recorder on; the numerics drill through the coordinator (rank 0's
+    first tensor holds a NaN; every rank's monitor names it); then
+    ``shutdown`` (every rank's spans merged into rank 0's file, a ledger
+    record on every rank). Rank 0 puts the numbers on ``results``."""
+    import socket
+    import torch.distributed as dist
+    from torch.autograd.profiler import record_function
+    join_store_world(rank, world, ports, device)
+    import horovod_tpu_torch as htt
+    from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.goodput import ledger, numerics
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel import distributed as D
+    from horovod_tpu_torch.tracing import profile as tp
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    trace_dir = os.path.join(OBS_ROOT, "trace-dp")
+    ledger_path = os.path.join(OBS_ROOT, f"ledger-dp-{rank}.jsonl")
+    os.environ["HOROVOD_TRACE"] = "1"
+    for k, v in (("HOROVOD_TRACE_DIR", trace_dir),
+                 ("HOROVOD_TRACE_PROFILE", f"steps:{OBS_DP_WINDOW}@2"),
+                 ("HOROVOD_GOODPUT_LEDGER", ledger_path)):
+        knobs.set_override(k, v)
+    ctx = htt.init(device=device)
+    dev = ctx.device
+    out = {"world": world}
+    cfg = flagship_cfg(htt.TransformerConfig, mlp_recompute=True,
+                       dp_axis="dp")
+    state, step = flagship_fused_step(htt, cfg, dev, seed=rank)
+    count = [0]
+
+    def labelled(st, *batch):
+        # the step's device work ends inside its range
+        count[0] += 1
+        with record_function(f"obs_step{count[0]}"):
+            out = step(st, *batch)
+            torch.cuda.synchronize()
+        return out
+
+    n = OBS_DP_WINDOW + 3
+    fa.reset_launches()
+    state, _, losses, step_ms = obs_timed_loop(
+        htt, labelled, state, obs_flagship_batches(cfg, dev, n, rank, world))
+    obs_flash_launches(fa, cfg, n, f"observability rank {rank}")
+    n_buckets = D.last_wire_trace()["n_buckets"]
+    prof_dir = os.path.join(trace_dir, "profile", f"rank{rank}")
+    with open(os.path.join(prof_dir, "profile_attribution.json")) as f:
+        a = json.load(f)
+    events = tp.read_trace_events(tp.find_trace_files(prof_dir)[-1])
+    nccl_ms = obs_step_nccl_ms(events)
+    knobs.clear_override("HOROVOD_TRACE_PROFILE")
+    del state, step, events
+    torch.cuda.empty_cache()
+    # the numerics drill on every rank
+    knobs.set_override("HOROVOD_NUMERICS", True)
+    mon = numerics.NumericsMonitor()
+    numerics.install(mon)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    xs = [torch.randn(s, generator=gen, device=dev)
+          for s in ((4096, 1024), (1024,), (333, 77))]
+    if rank == 0:
+        xs[0][17, 3] = float("nan")
+    handles = [htt.allreduce_async(x, op=htt.Average, name=f"drill.{i}")
+               for i, x in enumerate(xs)]
+    for h in handles:
+        htt.synchronize(h)
+    mon.drain()
+    fired = list(mon.anomalies)
+    knobs.clear_override("HOROVOD_NUMERICS")
+    labels = [b["label"] for a_ in fired for b in a_["buckets"]]
+    if labels != ["drill.0"]:
+        raise AssertionError(f"rank {rank}: numerics drill fired {fired}")
+    t_shut = time.perf_counter()
+    htt.shutdown()
+    out["shutdown_s"] = time.perf_counter() - t_shut
+    for k in ("HOROVOD_TRACE_DIR", "HOROVOD_GOODPUT_LEDGER"):
+        knobs.clear_override(k)
+    numerics.install(None)
+    (rec,) = ledger.read_ledger(ledger_path)
+    if rec["world_size"] != world or rec["numerics"]["anomalies"] != 1:
+        raise AssertionError(f"rank {rank}: ledger record {rec}")
+    if rank == 0:
+        merged = os.path.join(
+            trace_dir, f"merged-{socket.gethostname()}-p0.trace.json")
+        with open(merged) as f:
+            data = json.load(f)
+        tracks = sorted(e["pid"] for e in data["traceEvents"]
+                        if e.get("ph") == "M"
+                        and e["name"] == "process_name")
+        per_track = {str(p): sum(1 for e in data["traceEvents"]
+                                 if e.get("ph") == "X" and e["pid"] == p)
+                     for p in tracks}
+        labels = [b["bucket"] for b in a["per_bucket"]]
+        want = [f"hvd_bucket{k}" for k in range(n_buckets)]
+        if a["device"] is not (device == "cuda") \
+                or a["observed_overlap_ratio"] is None or labels != want \
+                or any(b["device_seconds"] <= 0 for b in a["per_bucket"]) \
+                or tracks != list(range(world)) \
+                or min(per_track.values()) == 0:
+            raise AssertionError(
+                f"observability data parallel: attribution {a}, tracks "
+                f"{tracks} {per_track}")
+        window = [s * 1e3 for s in a["window_step_seconds"]]
+        out.update({
+            "losses": losses, "step_ms": step_ms,
+            "window_step_ms": window,
+            "step_ms_outside_window": [m for i, m in enumerate(step_ms)
+                                       if not 1 <= i <= OBS_DP_WINDOW],
+            # the last window step's wall time less its time in the
+            # window: the profiler's stop, export and attribution
+            "window_close_ms": step_ms[OBS_DP_WINDOW] - window[-1],
+            "profiled_steps": a["profiled_steps"],
+            "device_reading": a["device"],
+            "unlaunched_device_events": a["unlaunched_device_events"],
+            "observed_overlap_ratio": a["observed_overlap_ratio"],
+            "exposed_collective_ms_per_step":
+                a["exposed_collective_seconds_per_step"] * 1e3,
+            "collective_ms_per_step":
+                a["collective_seconds"] * 1e3 / a["profiled_steps"],
+            "collective_events": a["collective_events"],
+            "buckets": len(labels), "sync_buckets": n_buckets,
+            "bucket_device_ms": {b["bucket"]: b["device_seconds"] * 1e3
+                                 for b in a["per_bucket"]},
+            "nccl_device_ms_by_step": nccl_ms,
+            "nccl_ms_spread": (max(nccl_ms) / min(nccl_ms)
+                               if nccl_ms and min(nccl_ms) > 0 else None),
+            "merged_tracks": tracks, "spans_per_track": per_track,
+            "clock_offsets_us": data["metadata"]["clock_offsets_us"],
+            "numerics_drill": fired[0],
+            "ledger_keys": sorted(rec),
+            "ledger_chip": rec["chip"]})
+        results.put(out)
+    dist.destroy_process_group()
+
+
+def observability_world(n, card, **kw) -> None:
+    """``observability_rank`` in ``n`` spawned processes; the
+    ``observability data parallel:`` line."""
+    import shutil
+    shutil.rmtree(OBS_ROOT, ignore_errors=True)
+    (out,) = spawn_world(observability_rank, n, 1, 900, **kw)
+    out["card"] = card
+    log("observability data parallel: " + json.dumps(out))
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an "
@@ -6204,16 +6921,18 @@ def main(argv) -> int:
     cp_only = argv[2:] == ["--control-plane-only"]
     zoo_only = argv[2:] == ["--zoo-only"]
     fleet_only = argv[2:] == ["--fleet-only"]
+    obs_only = argv[2:] == ["--observability-only"]
     if argv:
         if len(argv) not in (2, 3) or argv[0] != "--data-parallel" or \
                 (len(argv) == 3 and not (resilient_only or api_only
                                          or launcher_only or mp_only
                                          or cp_only or zoo_only
-                                         or fleet_only)):
+                                         or fleet_only or obs_only)):
             print("usage: chip_smoke.py [--data-parallel N "
                   "[--resilient-only | --api-only | --launcher-only | "
                   "--model-parallel-only | --control-plane-only | "
-                  "--zoo-only | --fleet-only]]", file=sys.stderr)
+                  "--zoo-only | --fleet-only | --observability-only]]",
+                  file=sys.stderr)
             return 2
         n_dp = int(argv[1])
         if not 2 <= n_dp <= torch.cuda.device_count():
@@ -6248,7 +6967,7 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if n_dp:
         only = (resilient_only or api_only or launcher_only or mp_only
-                or cp_only or zoo_only or fleet_only)
+                or cp_only or zoo_only or fleet_only or obs_only)
         if not only:
             collectives_n_cards(n_dp, card)
             data_parallel(n_dp, card)
@@ -6266,6 +6985,8 @@ def main(argv) -> int:
             zoo_data_parallel(n_dp, card)
         if not only or fleet_only:
             fleet_n_cards(n_dp, card)
+        if not only or obs_only:
+            observability_world(n_dp, card)
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -6338,6 +7059,11 @@ def main(argv) -> int:
     # phase 13: the serving fleet and the metrics export on one card
     torch.cuda.empty_cache()
     fleet_world_one(htt, fa, card)
+
+    # phase 14: the matmul precision knob, the profile window, the
+    # numerics monitor and the run ledger
+    torch.cuda.empty_cache()
+    observability_world_one(htt, fa, cb, card)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",

@@ -122,6 +122,10 @@ class KnobRegistry:
     def knobs(self) -> Dict[str, Knob]:
         return dict(self._knobs)
 
+    def snapshot(self) -> Dict[str, Any]:
+        """Every registered knob's resolved value."""
+        return {k: self.get(k) for k in self._knobs}
+
 
 knobs = KnobRegistry()
 
@@ -297,6 +301,29 @@ knobs.register("HOROVOD_TPU_MESH_SHAPE", "", str,
 knobs.register("HOROVOD_TPU_MESH_AXES", "", str,
                help="Comma-separated axis names matching "
                     "HOROVOD_TPU_MESH_SHAPE.")
+knobs.register("HOROVOD_TPU_MATMUL_PRECISION", "default", str,
+               help="Precision of the f32 products and convolutions of "
+                    "each train step the trainers build, under the JAX "
+                    "package's names (precision.py): 'float32'/'highest' "
+                    "(IEEE f32), 'tensorfloat32'/'high' (TF32), "
+                    "'bfloat16' (bf16 inputs, f32 accumulation: the "
+                    "port's own f32 products, the blockwise CE's, take "
+                    "bf16 inputs; cuBLAS's other f32 products and cuDNN's "
+                    "convolutions have no bf16 flag and take TF32), and "
+                    "the dot-algorithm presets F32_F32_F32, TF32_TF32_F32 "
+                    "and BF16_BF16_F32. Read when the step is built; a "
+                    "name jax.default_matmul_precision refuses is refused "
+                    "there. The step sets torch's CUDA flags on entry and "
+                    "restores the caller's on exit, never "
+                    "torch.set_float32_matmul_precision: CPU products stay "
+                    "IEEE f32. The cuBLAS and cuDNN flags are process-wide "
+                    "while a step runs: a serving fleet's threads in the "
+                    "same process run their f32 products in TF32 "
+                    "meanwhile (a warning says so when the step is built). 'default' changes nothing, which on the card "
+                    "means torch's own defaults: f32 products in IEEE, "
+                    "cuDNN convolutions in TF32. The hand-written kernels "
+                    "(flash attention, conv+BN's f32 route) ignore the "
+                    "knob, as Pallas kernels ignore JAX's.")
 
 # Resilience knobs (resilience/: async off-step-path checkpointing,
 # preemption-aware auto-resume, chaos drills), read when an
@@ -394,17 +421,71 @@ knobs.register("HOROVOD_TRACE_DIR", "", str,
                help="Directory of flight recordings; empty = '.hvdtrace' "
                     "under the working directory.")
 knobs.register("HOROVOD_TRACE_PROFILE", "", str,
-               help="Profiler capture window 'steps:N[@S]'. Not ported "
-                    "yet (ROADMAP A.13b): train_loop raises when set.")
+               help="Programmatic torch.profiler capture window of "
+                    "train_loop: 'steps:N' (capture N steps starting at "
+                    "step 2, skipping the first) or 'steps:N@S' (starting "
+                    "at step S). The exported Chrome trace is parsed with "
+                    "a stdlib-only reader, device ops are classified "
+                    "collective (NCCL kernels) vs compute, and the observed "
+                    "overlap ratio, exposed-collective seconds and "
+                    "per-bucket (hvd_bucket<i>) device seconds are written "
+                    "to profile_attribution.json under the trace dir's "
+                    "'profile' folder and exported as the "
+                    "hvd_overlap_observed_ratio and "
+                    "hvd_step_exposed_collective_seconds gauges "
+                    "(tracing/profile.py). One window per loop. Empty "
+                    "disables.")
 knobs.register("HOROVOD_GOODPUT", True, bool,
                help="Goodput accountant: every second of run wall time is "
                     "attributed to one phase (init, compile, step_compute, "
                     "exposed_collective, input_wait, checkpoint, restart, "
                     "degraded, idle); goodput_report() reads it.")
+knobs.register("HOROVOD_GOODPUT_LEDGER", "", str,
+               help="Path of the append-only per-run JSONL ledger "
+                    "(goodput/ledger.py): one record per run at shutdown() "
+                    "with the goodput phase breakdown, numerics summary, "
+                    "wire and serving blocks and the knob fingerprint. "
+                    "The history regression_report() reads. Empty "
+                    "disables.")
+knobs.register("HOROVOD_GOODPUT_REGRESSION_TOLERANCE", 0.05, float,
+               help="Regression sentinel (goodput.ledger."
+                    "regression_report): allowed fractional drop of "
+                    "throughput vs the best prior BENCH round, and "
+                    "absolute drop of goodput fraction vs the best "
+                    "prior ledger record, before the verdict flips to "
+                    "'regress' (0.05 = 5%).")
 knobs.register("HOROVOD_NUMERICS", False, bool,
-               help="Numerics-health telemetry. Not ported yet (ROADMAP "
-                    "A.13b): train_loop and the eager coordinator raise "
-                    "when it is set.")
+               help="Numerics-health telemetry (goodput/numerics.py): the "
+                    "eager coordinator's allreduce bins give per-tensor "
+                    "nonfinite counts and squared norms (a segmented "
+                    "reduction over each fused buffer, a fixed number of "
+                    "launches a bin) and train_loop the loss; streaming "
+                    "detectors (loss spike, grad-norm explosion, nonfinite "
+                    "localized to its tensor) fire flight recordings and "
+                    "hvd_numerics_anomalies_total. Read when a bin's plan "
+                    "is made (it keys the plan) and when train_loop "
+                    "starts.")
+knobs.register("HOROVOD_NUMERICS_CHECK_EVERY", 10, int,
+               help="Numerics monitor cadence: buffered device scalars "
+                    "are converted and run through the detectors every "
+                    "this many observations, so the forced device->host "
+                    "sync happens at the cadence, not per step.")
+knobs.register("HOROVOD_NUMERICS_ACTION", "warn", str,
+               choices=("warn", "degrade", "abort"),
+               help="Response when a numerics detector fires (a flight "
+                    "recording + counter always ship): 'warn' logs "
+                    "only; 'degrade' sheds the optional 'numerics' "
+                    "fault-domain site so /healthz flips to degraded "
+                    "until a clean check heals it; 'abort' raises "
+                    "NumericsAnomalyError into the training loop.")
+knobs.register("HOROVOD_NUMERICS_SPIKE_SIGMA", 6.0, float,
+               help="Loss-spike detector threshold: anomaly when a loss "
+                    "lands this many trailing standard deviations above "
+                    "its EWMA mean (after warmup).")
+knobs.register("HOROVOD_NUMERICS_GRADNORM_FACTOR", 10.0, float,
+               help="Grad-norm explosion threshold: anomaly when the "
+                    "global gradient norm exceeds this multiple of its "
+                    "trailing EWMA (after warmup).")
 knobs.register("HOROVOD_VERIFY_STEP", "0", str,
                choices=("0", "1", "strict"),
                help="IR-tier step verification at train_loop start. Not "

@@ -9,8 +9,12 @@ checkpoint's device->host copy and restore). It is published as the
 the ``goodput`` block of ``metrics_snapshot()``, and
 :func:`goodput_report`.
 
-Not ported yet (ROADMAP A.13b): ``numerics`` (the anomaly detectors) and
-``ledger`` (the per-run JSONL record and the regression sentinel).
+:mod:`numerics` feeds per-tensor nonfinite counts and squared norms (the
+eager coordinator's allreduce bins) and the loss (``train_loop``) to
+streaming anomaly detectors (loss spike, grad-norm explosion, nonfinite
+localized to its tensor) that fire flight recordings. :mod:`ledger` is the
+append-only per-run JSONL record written at ``shutdown()`` and the
+regression sentinel over it.
 """
 
 from horovod_tpu_torch.goodput.accountant import (  # noqa: F401
@@ -27,4 +31,11 @@ from horovod_tpu_torch.goodput.accountant import (  # noqa: F401
     phase_scope,
     reset_for_tests,
     set_phase,
+)
+from horovod_tpu_torch.goodput.ledger import (  # noqa: F401,E402
+    append_record,
+    build_record,
+    read_ledger,
+    regression_report,
+    write_on_shutdown,
 )

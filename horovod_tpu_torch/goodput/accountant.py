@@ -1,8 +1,8 @@
 """Time-attribution accountant: the goodput state machine.
 
 The port's copy of ``horovod_tpu/goodput/accountant.py``: the same phase
-catalog, attribution primitives and report. The run ledger that the JAX
-package marks at ``init`` waits for ROADMAP A.13b.
+catalog, attribution primitives and report; ``init_begin`` re-arms the
+run ledger's once-per-run record (``goodput/ledger.py``).
 
 One process-global wall-clock timeline, partitioned so that every second
 since the accountant's epoch is attributed to exactly ONE phase — the
@@ -227,6 +227,8 @@ def init_begin() -> None:
     enter the ``init`` phase (idempotent across init/shutdown cycles —
     the accumulator, like the metrics registry, survives in-process)."""
     global _enabled
+    from horovod_tpu_torch.goodput import ledger as _ledger
+    _ledger._mark_run_start()
     _enabled = bool(knobs.get("HOROVOD_GOODPUT"))
     if not _enabled:
         return

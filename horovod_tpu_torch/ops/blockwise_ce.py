@@ -12,8 +12,10 @@ pass.
 The chunk products accumulate in f32, as the JAX package's
 ``preferred_element_type=f32`` does: the logits as a bf16 GEMM with an
 f32 result on the card, a product of widened inputs elsewhere; the
-backward's products in f32. They are plain PyTorch matmuls: the JAX
-package computes them outside any Pallas kernel too. The last chunk is
+backward's products in f32, which a train step's matmul precision
+(``precision.py``) runs in TF32, or with bf16 inputs, on the card. They
+are plain PyTorch matmuls: the JAX package computes them outside any
+Pallas kernel too. The last chunk is
 narrower when the block does not divide the vocabulary; the JAX package
 pads it with columns masked to -inf, which contribute nothing either way.
 
@@ -28,7 +30,9 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 import torch
+from torch.autograd.profiler import record_function
 
+from horovod_tpu_torch import precision
 from horovod_tpu_torch.config import knobs
 from horovod_tpu_torch.ops import collectives
 
@@ -48,14 +52,32 @@ def _head_chunks(head: torch.Tensor, block: int
 
 
 def _chunk_logits(x: torch.Tensor, x32: torch.Tensor,
-                  head_c: torch.Tensor) -> torch.Tensor:
+                  head_c: torch.Tensor, bf16: bool = False) -> torch.Tensor:
     """One chunk's f32 logits ``[N, width]`` (x32: the hidden states
     widened to f32). bf16 on the card takes the tensor cores with an f32
     result (``preferred_element_type=f32`` in the JAX package); elsewhere
-    the widened product. Both sum exact bf16 products in f32."""
+    the widened product. Both sum exact bf16 products in f32. ``bf16``:
+    f32 inputs are rounded to bf16 first (the 'bfloat16' precision)."""
     if x.is_cuda and x.dtype == head_c.dtype == torch.bfloat16:
         return torch.mm(x, head_c, out_dtype=torch.float32)
+    if bf16:
+        return _bf16_mm(x, head_c)
     return torch.matmul(x32, head_c.float())
+
+
+def _bf16_inputs(t: torch.Tensor) -> bool:
+    """Whether an f32 product on ``t``'s device takes bf16 inputs: on the
+    card inside a step run under the 'bfloat16' matmul precision. Read in
+    the forward, on the step's thread: the backward runs on autograd's
+    device thread, which the step's (per-thread) mode does not reach."""
+    return t.is_cuda and precision.current() == "bf16"
+
+
+def _bf16_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of the inputs rounded to bf16, accumulated and returned
+    in f32."""
+    return torch.mm(a.to(torch.bfloat16), b.to(torch.bfloat16),
+                    out_dtype=torch.float32)
 
 
 class _LseParts(torch.autograd.Function):
@@ -77,9 +99,10 @@ class _LseParts(torch.autograd.Function):
         tgt = torch.zeros((n,), dtype=torch.float32, device=x.device)
         rows = torch.arange(n, device=x.device)
         x32 = x.float()
+        bf16 = _bf16_inputs(x32)
         col0 = 0
         for head_c in chunks:
-            logits = _chunk_logits(x, x32, head_c)
+            logits = _chunk_logits(x, x32, head_c, bf16)
             width = head_c.shape[1]
             m_new = torch.maximum(m, logits.amax(dim=-1))
             se = se * torch.exp(m - m_new) + torch.exp(
@@ -92,11 +115,18 @@ class _LseParts(torch.autograd.Function):
             col0 += width
         ctx.save_for_backward(x, head, labels, m)
         ctx.block = block
+        ctx.bf16 = bf16
         ctx.mark_non_differentiable(m)
         return m, se, tgt
 
     @staticmethod
     def backward(ctx, dm, dse, dtgt):
+        # the label lets a profile sum this backward's device time
+        with record_function("blockwise_ce.backward"):
+            return _LseParts._backward(ctx, dm, dse, dtgt)
+
+    @staticmethod
+    def _backward(ctx, dm, dse, dtgt):
         del dm                        # the max shift is numerics-only
         x, head, labels, m = ctx.saved_tensors
         n = x.shape[0]
@@ -109,11 +139,12 @@ class _LseParts(torch.autograd.Function):
         dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
         dheads = []
         rows = torch.arange(n, device=x.device)
+        bf16 = ctx.bf16
         col0 = 0
         for head_c in chunks:
             # Recompute this chunk's logits instead of keeping them: one
             # [N, block] working set, no [N, V] residual.
-            logits = _chunk_logits(x, x32, head_c)
+            logits = _chunk_logits(x, x32, head_c, bf16)
             width = head_c.shape[1]
             dlogits = dse[:, None] * torch.exp(logits - m[:, None])
             idx = labels - col0
@@ -122,8 +153,12 @@ class _LseParts(torch.autograd.Function):
                 (rows, idx.clamp(0, width - 1)),
                 torch.where(in_chunk, dtgt, torch.zeros_like(dtgt)),
                 accumulate=True)
-            dheads.append(x32.t() @ dlogits)
-            dx.addmm_(dlogits, head_c.float().t())
+            if bf16:
+                dheads.append(_bf16_mm(x.t(), dlogits))
+                dx.add_(_bf16_mm(dlogits, head_c.t()))
+            else:
+                dheads.append(x32.t() @ dlogits)
+                dx.addmm_(dlogits, head_c.float().t())
             col0 += width
         dhead = torch.cat(dheads, dim=1)
         return dx.to(x.dtype), dhead.to(head.dtype), None, None

@@ -65,9 +65,12 @@ HOROVOD_BATCH_D2D_MEMCOPIES, HOROVOD_ENABLE_ASYNC_COMPLETION,
 HOROVOD_NUM_STREAMS, HOROVOD_ELASTIC (a dispatch failure becomes
 ``HorovodInternalError``), HOROVOD_HIERARCHICAL_ALLREDUCE/_TORUS_ALLREDUCE,
 HOROVOD_HIERARCHICAL_ALLGATHER, HOROVOD_DCN_SCHEDULE,
-HOROVOD_GRADIENT_COMPRESSION. HOROVOD_AUTOTUNE, HOROVOD_ARTIFACT_STORE and
-HOROVOD_NUMERICS raise: the online tuner, the compiled-artifact store and
-the numerics monitor are ROADMAP A.13b's.
+HOROVOD_GRADIENT_COMPRESSION, HOROVOD_NUMERICS (a global-set allreduce bin
+then gives its entries' nonfinite counts and squared norms to the numerics
+monitor, ``goodput/numerics.py``: a segmented reduction over each reduced
+fusion buffer, a fixed number of launches a bin, device tensors until the
+monitor drains). HOROVOD_AUTOTUNE and HOROVOD_ARTIFACT_STORE raise: the
+online tuner and the compiled-artifact store are ROADMAP A.13b's.
 """
 
 from __future__ import annotations
@@ -80,6 +83,7 @@ from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.autograd.profiler import record_function
 
 from horovod_tpu_torch.config import knobs
 from horovod_tpu_torch.ops.divergence import DivergenceError
@@ -91,8 +95,7 @@ logger = get_logger("horovod_tpu_torch.coordinator")
 
 _UNPORTED_KNOBS = {
     "HOROVOD_AUTOTUNE": "the online tuner",
-    "HOROVOD_ARTIFACT_STORE": "the compiled-artifact store",
-    "HOROVOD_NUMERICS": "the numerics monitor"}
+    "HOROVOD_ARTIFACT_STORE": "the compiled-artifact store"}
 
 
 class DuplicateNameError(ValueError):
@@ -204,14 +207,17 @@ class FusedPlan:
     fusion buffers are the coordinator's (:class:`FusionBuffers`), not the
     plan's, so the memory they pin does not grow with the plans cached."""
 
-    __slots__ = ("op_type", "path", "batch", "groups")
+    __slots__ = ("op_type", "path", "batch", "groups", "stats")
 
     def __init__(self, op_type: str, path: str, batch: bool,
-                 groups: List[Tuple[torch.dtype, List[int], List[int]]]):
+                 groups: List[Tuple[torch.dtype, List[int], List[int]]],
+                 stats: bool = False):
         self.op_type = op_type
         self.path = path
         self.batch = batch
         self.groups = groups
+        # the bin gives its numerics aggregates (HOROVOD_NUMERICS)
+        self.stats = stats
 
 
 class FusionBuffers:
@@ -733,13 +739,16 @@ class Coordinator:
                         return make_plan()
 
                     plan = self.cache.get_or_build(sig, _build)
+                    flats = [] if plan.stats else None
                     if tl.active:
                         with tl.span(label, DISPATCH, mirror=False):
                             outs = self._run_plan(plan, entries, lane,
-                                                  cpu_watch)
+                                                  cpu_watch, flats)
                     else:
                         outs = self._run_plan(plan, entries, lane,
-                                              cpu_watch)
+                                              cpu_watch, flats)
+                    if flats is not None:
+                        _observe_numerics(names, outs, flats)
                     self.stats.fused_tensors_max = max(
                         self.stats.fused_tensors_max, len(entries))
                     if e0.op_type == "allreduce":
@@ -778,8 +787,13 @@ class Coordinator:
                 e.handle._set_result(out, event, watch)
             return None
         except Exception as exc:   # resolve handles with the failure
-            if knobs.get("HOROVOD_ELASTIC") and \
-                    not isinstance(exc, DivergenceError):
+            from horovod_tpu_torch.goodput.numerics import \
+                NumericsAnomalyError
+            # An elastic rewrap would turn HOROVOD_NUMERICS_ACTION=abort
+            # into a rollback and replay of the same poisoned batch: the
+            # anomaly reaches synchronize() as it is.
+            if knobs.get("HOROVOD_ELASTIC") and not isinstance(
+                    exc, (DivergenceError, NumericsAnomalyError)):
                 from horovod_tpu_torch.elastic.exceptions import \
                     HorovodInternalError
                 if not isinstance(exc, HorovodInternalError):
@@ -834,10 +848,15 @@ class Coordinator:
             wire_tier = _compr.active_wire_tier()
         rows = tuple(e.rows for e in entries) \
             if e0.op_type == "allgather" else ()
+        # Numerics aggregates ride global-set allreduce bins only
+        # (gradient-like traffic whose outputs are every rank's).
+        from horovod_tpu_torch.goodput import numerics as _numerics
+        with_stats = (e0.op_type == "allreduce" and global_set
+                      and _numerics.ingraph_enabled())
         sig = (e0.op_type, e0.op, _pset_id(pset), e0.prescale_factor,
                e0.postscale_factor, e0.root_rank, shapes, dtypes, batch,
                hier and not joined, joined, hier_gather, wire_tier,
-               dcn_tiered, rows)
+               dcn_tiered, rows, with_stats)
         # Wire-bytes accounting of the bin (hvd_grad_wire_bytes_total):
         # what the reduction moves after compression against the logical
         # (uncompressed, per-rank) payload.
@@ -878,18 +897,21 @@ class Coordinator:
                               else max(rows[i]) * _numel(shp[1:]))
             return FusedPlan(op_type, path, batch,
                              [(dt, idxs, numels)
-                              for dt, (idxs, numels) in groups.items()])
+                              for dt, (idxs, numels) in groups.items()],
+                             with_stats)
 
         return sig, make_plan, (logical_nbytes, wire_nbytes)
 
     # -- running a plan --------------------------------------------------------
     def _run_plan(self, plan: FusedPlan, entries: List[Entry],
-                  lane: Optional[int], watch=None) -> List[torch.Tensor]:
+                  lane: Optional[int], watch=None,
+                  flats: Optional[list] = None) -> List[torch.Tensor]:
         """The results of one bin, in entry order: each dtype group packed
         into the coordinator's persistent buffer of its dtype and lane, one
         collective per buffer, then copied out of it (the next bin reuses
         the buffer, so a view into it would change under a handle that
-        still holds it)."""
+        still holds it). ``flats`` collects ``(entry indices, reduced flat
+        buffer)`` of each fused group (the numerics aggregates' input)."""
         xs = [e.x for e in entries]
         if plan.op_type == "allgather":
             return self._run_gather(plan, entries, lane, watch)
@@ -916,6 +938,8 @@ class Coordinator:
                 continue
             if red.data_ptr() == buf.data_ptr():
                 red = red.clone()           # copy out of the fusion buffer
+            if flats is not None:
+                flats.append((idxs, red))
             for i, piece in zip(idxs, red.split(numels)):
                 outs[i] = piece.view(xs[i].shape)
         return outs
@@ -1088,6 +1112,39 @@ def _divcheck_generation() -> int:
 
 def _pset_id(pset) -> int:
     return 0 if pset is None else pset.process_set_id
+
+
+def _observe_numerics(names: List[str], outs: List[torch.Tensor],
+                      flats: list) -> None:
+    """Give the numerics monitor one bin's per-entry nonfinite counts and
+    squared norms: a segmented reduction over each reduced flat buffer
+    (``flats``; the entries outside them packed by dtype first), device
+    tensors all, and labels in the order of the counts."""
+    from horovod_tpu_torch.goodput import numerics as _numerics
+    monitor = _numerics.get_monitor()
+    if monitor is None:
+        return
+    covered = {i for idxs, _ in flats for i in idxs}
+    by_dtype: "OrderedDict[torch.dtype, List[int]]" = OrderedDict()
+    for i, o in enumerate(outs):
+        if i not in covered:
+            by_dtype.setdefault(o.dtype, []).append(i)
+    groups = list(flats) + [
+        (idxs, outs[idxs[0]] if len(idxs) == 1
+         else torch.cat([outs[i].reshape(-1) for i in idxs]))
+        for idxs in by_dtype.values()]
+    nfs, sqs, order = [], [], []
+    # the label lets a profile count the aggregates' launches and time
+    with record_function("hvd_numerics"):
+        for idxs, flat in groups:
+            nf, sq = _numerics.bin_aggregates(
+                flat, [outs[i].numel() for i in idxs])
+            nfs.append(nf)
+            sqs.append(sq)
+            order += idxs
+        if len(groups) > 1:
+            nfs, sqs = [torch.cat(nfs)], [torch.cat(sqs)]
+    monitor.observe_bin([names[i] for i in order], nfs[0], sqs[0])
 
 
 def _numel(shape) -> int:

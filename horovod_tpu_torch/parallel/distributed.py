@@ -73,6 +73,7 @@ from typing import (Any, Callable, Dict, Iterator, List, NamedTuple,
                     Optional, Sequence, Tuple)
 
 import torch
+from torch.autograd.profiler import record_function
 
 from horovod_tpu_torch import compression as compr
 from horovod_tpu_torch.autotune import resolve_bucket_bytes
@@ -288,13 +289,15 @@ class _PendingBucket:
 
 
 def _tier_part(buf: torch.Tensor, specs, idxs, res_leaves, tier, op,
-               world: int, codec) -> Tuple[_Part, int, int]:
+               world: int, codec, scope: str = "hvd_tier"
+               ) -> Tuple[_Part, int, int]:
     """One dtype group of a two-level bucket: reduce-scatter over the fast
     axes, (compensate,) encode and SUM the owned shard over the DCN axis,
     decode with the averaging folded in, start the all-gather. Returns the
     part and its (wire, DCN-stage) bytes. The stages before the gather are
     ordered on the launching stream; each collective keeps its buffers
-    alive until it has completed."""
+    alive until it has completed. ``scope`` labels the three stages for
+    profiles (``<scope>_rs``, ``<scope>_xdcn``, ``<scope>_ag``)."""
     from horovod_tpu_torch.ops.collectives import (_all_gather,
                                                    _reduce_scatter)
     ctx = context.get_context()
@@ -308,36 +311,39 @@ def _tier_part(buf: torch.Tensor, specs, idxs, res_leaves, tier, op,
              if compressed else chunk * dtype.itemsize)
     if pad:
         buf = torch.cat([buf, buf.new_zeros(pad)])
-    shard = _reduce_scatter(buf, ReduceOp.SUM, gi)
+    with record_function(f"{scope}_rs"):
+        shard = _reduce_scatter(buf, ReduceOp.SUM, gi)
     off = gi.index * chunk
-    if compressed:
-        if res_leaves is not None:
-            rbuf, _ = flatten_for_fusion([res_leaves[i].to(dtype)
-                                          for i in idxs])
-            if pad:
-                rbuf = torch.cat([rbuf, rbuf.new_zeros(pad)])
-            shard.add_(rbuf[off:off + chunk])
-        wire, scale = codec.encode(shard, axes=(dcn_axis,), world=gd.size)
-        work, red = collectives.wire_sum_async(wire, axis=dcn_axis)
-        collectives.wait_work(work)
-        post = (1.0 / world) if (op == ReduceOp.AVERAGE and world != 1) \
-            else None
-        out = codec.decode(red, scale, dtype, postscale=post)
-        if res_leaves is not None:
-            res_full = buf.new_zeros(orig + pad)
-            res_full[off:off + chunk] = shard - codec.decode(wire, scale,
-                                                             dtype)
-            for i, r in zip(idxs, unflatten_from_fusion(res_full[:orig],
-                                                        specs)):
-                res_leaves[i].copy_(r)
-    else:
-        collectives.allreduce_async(shard, axis=dcn_axis).wait()
-        out = shard.div_(world) if (op == ReduceOp.AVERAGE
-                                    and world != 1) else shard
-        if res_leaves is not None:
-            for i in idxs:                    # lossless: nothing lost
-                res_leaves[i].zero_()
-    work, full = _all_gather(out, gi, async_op=True)
+    with record_function(f"{scope}_xdcn"):
+        if compressed:
+            if res_leaves is not None:
+                rbuf, _ = flatten_for_fusion([res_leaves[i].to(dtype)
+                                              for i in idxs])
+                if pad:
+                    rbuf = torch.cat([rbuf, rbuf.new_zeros(pad)])
+                shard.add_(rbuf[off:off + chunk])
+            wire, scale = codec.encode(shard, axes=(dcn_axis,), world=gd.size)
+            work, red = collectives.wire_sum_async(wire, axis=dcn_axis)
+            collectives.wait_work(work)
+            post = (1.0 / world) if (op == ReduceOp.AVERAGE and world != 1) \
+                else None
+            out = codec.decode(red, scale, dtype, postscale=post)
+            if res_leaves is not None:
+                res_full = buf.new_zeros(orig + pad)
+                res_full[off:off + chunk] = shard - codec.decode(wire, scale,
+                                                                 dtype)
+                for i, r in zip(idxs, unflatten_from_fusion(res_full[:orig],
+                                                            specs)):
+                    res_leaves[i].copy_(r)
+        else:
+            collectives.allreduce_async(shard, axis=dcn_axis).wait()
+            out = shard.div_(world) if (op == ReduceOp.AVERAGE
+                                        and world != 1) else shard
+            if res_leaves is not None:
+                for i in idxs:                    # lossless: nothing lost
+                    res_leaves[i].zero_()
+    with record_function(f"{scope}_ag"):
+        work, full = _all_gather(out, gi, async_op=True)
     return (_Part(idxs, specs, dtype, work, full, done_n=orig),
             2 * orig * dtype.itemsize + stage, stage)
 
@@ -346,7 +352,8 @@ def _wire_bucket_launch(leaves: List[torch.Tensor],
                         res_leaves: Optional[List[torch.Tensor]], axes,
                         op: ReduceOp, world: int, codec, leaf_comp,
                         prescale: Optional[float] = None,
-                        batch: bool = True, tier=None) -> _PendingBucket:
+                        batch: bool = True, tier=None,
+                        scope: str = "hvd_tier") -> _PendingBucket:
     """Start one bucket's sync (the JAX ``_wire_bucket_reduce``). Per
     dtype: pack into a fresh buffer (times ``prescale``), add the residual,
     encode, start the wire SUM; the new residual, compensated minus the
@@ -356,7 +363,8 @@ def _wire_bucket_launch(leaves: List[torch.Tensor],
     first goes through the per-leaf ``leaf_comp`` and ``batch=False``
     (HOROVOD_BATCH_D2D_MEMCOPIES=0) reduces leaf by leaf. ``tier=(fast
     axes, dcn axis)`` runs every dtype group through the two-level
-    schedule (:func:`_tier_part`) instead."""
+    schedule (:func:`_tier_part`, its stages labelled ``<scope>_rs`` /
+    ``_xdcn`` / ``_ag``) instead."""
     ef = res_leaves is not None
     axes = _mesh_axes(axes)
     sync = bool(axes)
@@ -393,7 +401,7 @@ def _wire_bucket_launch(leaves: List[torch.Tensor],
         part_ctxs = [ctxs[i] for i in idxs] if ctxs is not None else None
         if tier is not None:
             part, wb, db = _tier_part(buf, specs, idxs, res_leaves, tier,
-                                      op, world, codec)
+                                      op, world, codec, scope)
             part.ctxs = part_ctxs
             parts.append(part)
             wire_bytes += wb
@@ -520,14 +528,21 @@ class _GradSync:
     def launch(self, k: int, grads: List[torch.Tensor],
                residuals: Optional[List[torch.Tensor]],
                prescale: Optional[float] = None) -> _PendingBucket:
+        """Start bucket ``k``'s sync inside ``record_function(
+        "hvd_bucket<k>")`` (the two-level tier's stages inside
+        ``hvd_bucket<k>_rs`` / ``_xdcn`` / ``_ag``), the labels a profile
+        attributes the bucket's device time by (``tracing/profile.py``)."""
         axes, _ = self.buckets[k]
-        if self.op == ReduceOp.ADASUM:
-            return _adasum_bucket_launch(grads, axes, self.leaf_comp,
-                                         prescale)
-        return _wire_bucket_launch(
-            grads, residuals if self.ef else None, axes, self.op,
-            _axes_world(axes), self.codec if axes else None,
-            self.leaf_comp, prescale, self.batch, self.tiers[axes])
+        scope = f"hvd_bucket{k}"
+        with record_function(scope):
+            if self.op == ReduceOp.ADASUM:
+                return _adasum_bucket_launch(grads, axes, self.leaf_comp,
+                                             prescale)
+            return _wire_bucket_launch(
+                grads, residuals if self.ef else None, axes, self.op,
+                _axes_world(axes), self.codec if axes else None,
+                self.leaf_comp, prescale, self.batch, self.tiers[axes],
+                scope)
 
 
 def _on_grad_ready(launcher_ref, i: int, _param) -> None:

@@ -13,12 +13,18 @@ and the optimizer update in each bucket's epilogue (``DistributedApply``);
 ``data_parallel_train_step`` trains any ``nn.Module`` (ResNet) through a
 ``DistributedOptimizer``.
 
+Each of the three reads ``HOROVOD_TPU_MATMUL_PRECISION`` when it builds
+the step, as the JAX package's ``jit_step`` does, and runs every step
+under it (``precision.py``).
+
 ``train_loop`` is the resilient step loop of the JAX package
 (``horovod_tpu/parallel/trainer.py:203-385``): restore before step 1,
 snapshots off the step path, preemption quiesce with the resumable exit
-code, step stats, goodput phases, spans, the chaos hook and straggler
-detection. Its verify-step, artifact-store, profile-window and numerics
-hooks are not ported yet: the knobs that turn them on raise.
+code, step stats, goodput phases, spans, the chaos hook, straggler
+detection, the ``HOROVOD_TRACE_PROFILE`` capture window
+(``tracing/profile.py``) and the numerics monitor's loss feed
+(``goodput/numerics.py``). Its verify-step and artifact-store hooks are
+not ported yet: the knobs that turn them on raise.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from typing import Any, Callable, Iterable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from horovod_tpu_torch import precision
 from horovod_tpu_torch.functions import broadcast_parameters
 from horovod_tpu_torch.models import transformer as tfm
 from horovod_tpu_torch.ops import collectives
@@ -165,7 +172,7 @@ def make_transformer_train_step(
         return (TrainState(state.step + 1, state.params, state.opt_state),
                 loss.detach())
 
-    return init_fn, train_step
+    return init_fn, precision.wrap_step(train_step)
 
 
 def make_transformer_train_step_fused(
@@ -240,7 +247,7 @@ def make_transformer_train_step_fused(
             p.grad = None
         return TrainState(state.step + 1, params, opt_state), loss.detach()
 
-    return init_fn, train_step
+    return init_fn, precision.wrap_step(train_step)
 
 
 def data_parallel_train_step(
@@ -319,7 +326,7 @@ def data_parallel_train_step(
             loss = collectives.allreduce_(loss, ReduceOp.AVERAGE)
         return TrainState(state.step + 1, state.params, state.opt_state), loss
 
-    return init_fn, train_step, put_batch
+    return init_fn, precision.wrap_step(train_step), put_batch
 
 
 def _unported_loop_knobs() -> None:
@@ -331,11 +338,7 @@ def _unported_loop_knobs() -> None:
              str(knobs.get("HOROVOD_VERIFY_STEP")) in ("1", "strict"),
              "A.15"),
             ("HOROVOD_ARTIFACT_STORE",
-             bool(knobs.get("HOROVOD_ARTIFACT_STORE")), "A.13b"),
-            ("HOROVOD_TRACE_PROFILE",
-             bool(knobs.get("HOROVOD_TRACE_PROFILE")), "A.13b"),
-            ("HOROVOD_NUMERICS", bool(knobs.get("HOROVOD_NUMERICS")),
-             "A.13b")):
+             bool(knobs.get("HOROVOD_ARTIFACT_STORE")), "A.13b")):
         if on:
             raise NotImplementedError(
                 f"train_loop: {name} turns on a hook that is not yet "
@@ -389,10 +392,17 @@ def train_loop(
 
     Every step feeds the goodput phases (input_wait, step_compute,
     checkpoint, restart), a ``train.step`` span, the chaos hook and, in a
-    world larger than one, the straggler detector. ``HOROVOD_VERIFY_STEP``
-    in {1, strict}, ``HOROVOD_ARTIFACT_STORE``, ``HOROVOD_TRACE_PROFILE``
-    and ``HOROVOD_NUMERICS`` raise ``NotImplementedError``: their hooks
-    are not ported yet (ROADMAP A.15, A.13b). So do the data service's
+    world larger than one, the straggler detector.
+    ``HOROVOD_TRACE_PROFILE=steps:N[@S]`` opens a torch.profiler window at
+    the end of step S-1 and closes it N steps later
+    (``tracing.profile.StepProfiler``; closed in the loop's ``finally``
+    too). ``HOROVOD_NUMERICS=1`` hands each step's loss to the numerics
+    monitor (a device tensor, converted at the monitor's cadence) and
+    drains it when the loop ends; under ``HOROVOD_NUMERICS_ACTION=abort``
+    an anomaly raises ``NumericsAnomalyError`` out of the loop.
+    ``HOROVOD_VERIFY_STEP`` in {1, strict} and ``HOROVOD_ARTIFACT_STORE``
+    raise ``NotImplementedError``: their hooks are not ported yet
+    (ROADMAP A.15, A.13b). So do the data service's
     ``HOROVOD_FAULT_HEARTBEAT_SECONDS`` and ``HOROVOD_FAULT_WORKER_DEADLINE``
     and an armed chaos spec with a fault of a subsystem not ported yet
     (``chaos.unported_faults``).
@@ -407,12 +417,14 @@ def train_loop(
     from horovod_tpu_torch.callbacks import StepStats
     from horovod_tpu_torch.config import knobs
     from horovod_tpu_torch.goodput import accountant as _goodput
+    from horovod_tpu_torch.goodput import numerics as _numerics
     from horovod_tpu_torch.parallel.distributed import (
         record_step_wire_metrics)
     from horovod_tpu_torch.resilience import chaos
     from horovod_tpu_torch.resilience.preemption import RESUMABLE_EXIT_CODE
     from horovod_tpu_torch.tracing import spans as trace
     from horovod_tpu_torch.tracing import straggler as _straggler
+    from horovod_tpu_torch.tracing.profile import StepProfiler
 
     _unported_loop_knobs()
     owned_checkpointer = False
@@ -433,6 +445,7 @@ def train_loop(
     stats = step_stats or StepStats()
     info = {"status": "completed", "exit_code": 0, "restored": False}
     step = int(state.step) if hasattr(state, "step") else 0
+    profiler = None
     try:
         if checkpointer is not None:
             # Goodput: restore time is 'restart', the cost a preemption
@@ -445,6 +458,8 @@ def train_loop(
         info["start_step"] = step
         # Straggler detection: from_env returns None in a world of one.
         straggler = _straggler.active_detector() or _straggler.from_env()
+        profiler = StepProfiler.from_env()
+        monitor = _numerics.get_monitor()
         stats.begin()
         batch_it = iter(batches)
         reserved = False
@@ -487,6 +502,12 @@ def train_loop(
             row = stats.end()
             if straggler is not None and row:
                 straggler.observe_step(row["step_time_s"])
+            if profiler is not None:
+                profiler.on_step_end(step)
+            if monitor is not None:
+                # a device tensor buffered; converted at the monitor's
+                # cadence, not per step
+                monitor.observe_step(step, loss=loss)
             if on_step is not None:
                 on_step(step, state, loss)
             if checkpointer is not None:
@@ -500,11 +521,16 @@ def train_loop(
                         reserved = True
                     checkpointer.maybe_save(step, state)
         info["final_step"] = step
+        if monitor is not None:
+            monitor.drain()                 # flush the buffered tail
         if checkpointer is not None:
             with _goodput.phase_scope(_goodput.CHECKPOINT):
                 checkpointer.wait()         # drain queued async writes
     finally:
         _goodput.set_phase(_goodput.IDLE)
+        if profiler is not None:
+            profiler.stop()     # idempotent: an exception mid-window must
+            #                     not leave the profiler running
         if owned_handler:
             preemption.close()
         if owned_checkpointer:

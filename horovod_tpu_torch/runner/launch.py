@@ -42,13 +42,13 @@ from __future__ import annotations
 
 import argparse
 import os
-import re
 import shlex
 import subprocess
 import sys
 import time
 from typing import Dict, List, Optional
 
+from horovod_tpu_torch.tracing import profile
 from horovod_tpu_torch.version import __version__
 
 # The ranks of a world get this long to follow the first one out before
@@ -185,16 +185,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _check_profile_spec(spec: str) -> None:
-    """'steps:N' or 'steps:N@S' (the JAX package's tracing.profile
-    grammar); raises ValueError in the launcher, not in every worker."""
-    s = (spec or "").strip()
-    if s and s != "0" and not re.fullmatch(r"steps:(\d+)(?:@(\d+))?", s):
-        raise ValueError(
-            f"HOROVOD_TRACE_PROFILE={spec!r}: expected 'steps:N' or "
-            f"'steps:N@S' (capture N steps starting at step S)")
-
-
 def env_from_args(args) -> dict:
     """The HOROVOD_* environment of every worker: the JAX launcher's for
     the same argv (its per-run secret and trace id are minted anew)."""
@@ -237,7 +227,8 @@ def env_from_args(args) -> dict:
     if getattr(args, "trace_dir", None):
         env["HOROVOD_TRACE_DIR"] = args.trace_dir
     if getattr(args, "trace_profile", None):
-        _check_profile_spec(args.trace_profile)
+        # raises in the launcher, not in every worker
+        profile.parse_profile_spec(args.trace_profile)
         env["HOROVOD_TRACE_PROFILE"] = args.trace_profile
     if args.metrics_port is not None:
         env["HOROVOD_METRICS_PORT"] = str(args.metrics_port)

@@ -39,9 +39,11 @@ publishes the topology gauges, as the JAX ``init`` does. The eager API's
 fusion-cycle coordinator (``ops/coordinator.py``) is made at the first
 ``*_async`` call and kept on ``Context.coordinator``; ``shutdown``
 flushes its queue and stops it before the process groups go, then ends a
-timeline ``init`` started and stops the metrics exports (a final dump
-and publication). Not ported yet: the trace export and merge at
-``shutdown`` (ROADMAP A.13b).
+timeline ``init`` started, exports the merged trace of every rank's spans
+under ``HOROVOD_TRACE=1`` (``tracing/merge.py``, over the c10d store),
+writes the run-ledger record under ``HOROVOD_GOODPUT_LEDGER``
+(``goodput/ledger.py``) and stops the metrics exports (a final dump and
+publication), in the JAX ``shutdown``'s order.
 """
 
 from __future__ import annotations
@@ -313,6 +315,23 @@ def shutdown() -> None:
         from horovod_tpu_torch import metrics as _metrics
         from horovod_tpu_torch import timeline as _timeline
         _timeline.stop_if_from_env()
+        # The trace export before the metrics plane goes down: every rank
+        # publishes its span summary, rank 0 writes the merged file into
+        # the trace dir (best-effort, never raises).
+        from horovod_tpu_torch.tracing import spans as _spans
+        if _spans.enabled():
+            from horovod_tpu_torch.tracing import merge as _merge
+            from horovod_tpu_torch.utils.kvstore import distributed_kv
+            _merge.export_on_shutdown(
+                kv=distributed_kv(site="trace_merge")
+                if _context.size > 1 else None,
+                process_index=_context.rank,
+                process_count=_context.size)
+            _spans.disable()
+        # The run-ledger record (the final goodput report and numerics
+        # summary); a no-op unless HOROVOD_GOODPUT_LEDGER is set.
+        from horovod_tpu_torch.goodput import ledger as _ledger
+        _ledger.write_on_shutdown()
         _metrics.stop_exports()
         if dist.is_initialized():
             if _context.owns_group:

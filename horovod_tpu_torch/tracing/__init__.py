@@ -7,9 +7,13 @@
                   degraded paths.
 - ``straggler`` : per-rank step-time skew over the c10d store: which RANK
                   is slow, exported as ``hvd_straggler_skew_seconds``.
-
-Not ported yet (ROADMAP A.13b): ``merge`` (the cross-rank trace merge) and
-``profile`` (profiler capture windows).
+- ``merge``     : the cross-rank trace merge over the c10d store: one
+                  Perfetto file, a track per rank, clock offsets from the
+                  wall-clock epoch anchors (``shutdown()`` exports it).
+- ``profile``   : ``torch.profiler`` capture windows
+                  (``HOROVOD_TRACE_PROFILE=steps:N[@S]``) and their
+                  attribution: observed overlap, exposed collective time,
+                  device seconds per gradient bucket.
 
 Usage::
 

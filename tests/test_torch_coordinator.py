@@ -647,8 +647,7 @@ def test_fusion_threshold_parse_forms(monkeypatch):
 
 
 @pytest.mark.parametrize("knob,value", [("HOROVOD_AUTOTUNE", "1"),
-                                        ("HOROVOD_ARTIFACT_STORE", "/tmp/s"),
-                                        ("HOROVOD_NUMERICS", "1")])
+                                        ("HOROVOD_ARTIFACT_STORE", "/tmp/s")])
 def test_unported_knobs_make_the_coordinator_raise(port_ctx, monkeypatch,
                                                    knob, value):
     from horovod_tpu_torch.ops.coordinator import Coordinator

@@ -2,14 +2,15 @@
 straggler detector against the JAX package, on the CPU.
 
 Replays the cases of ``tests/test_metrics.py``, ``tests/test_tracing.py``
-and ``tests/test_goodput.py`` that the port covers (the HTTP server,
-``/healthz``, the aggregator, trace merge, profile windows, numerics and
-the ledger wait for ROADMAP A.13). Where both packages take the same
-input, both run and their outputs must be equal: the Prometheus text of
-the same registry operations, the merge of the same snapshots, the span
-names and categories of the same ``train_loop`` run (checkpoint,
-preemption and step spans), the goodput phases that run charges, the
-straggler view of the same step times.
+and ``tests/test_goodput.py`` that this file covers (the HTTP server,
+``/healthz`` and the aggregator are ``test_torch_metrics_export.py``'s;
+the trace merge, profile windows, numerics and the ledger are
+``test_torch_{merge,profile,numerics,ledger}.py``'s). Where both
+packages take the same input, both run and their outputs must be equal:
+the Prometheus text of the same registry operations, the merge of the
+same snapshots, the span names and categories of the same ``train_loop``
+run (checkpoint, preemption and step spans), the goodput phases that run
+charges, the straggler view of the same step times.
 
 The whole module runs under a time limit of its own (``LIMIT_S``).
 """

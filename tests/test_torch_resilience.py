@@ -599,12 +599,39 @@ def test_train_loop_checkpoints_restores_and_preempts_like_jax(tmp_path):
     assert port == jax_
 
 
+def test_train_loop_honours_profile_and_numerics_with_checkpoints(
+        monkeypatch, tmp_path):
+    """The profile window and the numerics monitor beside the resilient
+    loop's checkpoints: the mini step's NaN loss at step 3 is one anomaly,
+    the snapshots still commit, and the window covers steps 2 and 3."""
+    from horovod_tpu_torch.goodput import numerics
+    monkeypatch.setenv("HOROVOD_TRACE_DIR", str(tmp_path / "trace"))
+    monkeypatch.setenv("HOROVOD_TRACE_PROFILE", "steps:2@2")
+    monkeypatch.setenv("HOROVOD_NUMERICS", "1")
+    monkeypatch.setenv("HOROVOD_NUMERICS_CHECK_EVERY", "1")
+    numerics.reset_for_tests()
+    try:
+        ck = AsyncCheckpointer(str(tmp_path / "ckpt"), interval=2)
+        state, info = htt.train_loop(
+            _slow_mini_step, {"w": 0.0, "step": 0},
+            [1.0, 2.0, float("nan"), 4.0], checkpointer=ck)
+        ck.close()
+        summary = numerics.get_monitor().summary()
+    finally:
+        numerics.reset_for_tests()
+    assert info["final_step"] == 4 and info["status"] == "completed"
+    assert summary["by_kind"] == {"nonfinite": 1}
+    assert summary["last"]["step"] == 3
+    assert list_committed_steps(str(tmp_path / "ckpt"))
+    a = json.loads((tmp_path / "trace" / "profile" /
+                    "profile_attribution.json").read_text())
+    assert a["profiled_steps"] == 2
+
+
 def test_train_loop_hooks_that_are_not_ported_raise(monkeypatch):
     for knob, value in (("HOROVOD_VERIFY_STEP", "1"),
                         ("HOROVOD_VERIFY_STEP", "strict"),
                         ("HOROVOD_ARTIFACT_STORE", "/tmp/store"),
-                        ("HOROVOD_TRACE_PROFILE", "steps:2"),
-                        ("HOROVOD_NUMERICS", "1"),
                         ("HOROVOD_FAULT_HEARTBEAT_SECONDS", "1.5"),
                         ("HOROVOD_FAULT_WORKER_DEADLINE", "20")):
         monkeypatch.setenv(knob, value)

@@ -296,9 +296,7 @@ def test_train_loop_hooks_of_later_slices_raise(monkeypatch):
     are ported: tests/test_torch_resilience.py)."""
     state = trainer.TrainState(0, {}, None)
     for knob, value, item in (("HOROVOD_VERIFY_STEP", "1", "A.15"),
-                              ("HOROVOD_ARTIFACT_STORE", "/s", "A.13"),
-                              ("HOROVOD_TRACE_PROFILE", "steps:2", "A.13"),
-                              ("HOROVOD_NUMERICS", "1", "A.13")):
+                              ("HOROVOD_ARTIFACT_STORE", "/s", "A.13")):
         monkeypatch.setenv(knob, value)
         with pytest.raises(NotImplementedError, match=item):
             htt.train_loop(lambda s, b: (s, 0.0), state, [1])
@@ -308,6 +306,38 @@ def test_train_loop_hooks_of_later_slices_raise(monkeypatch):
         lambda s, b: (trainer.TrainState(s.step + 1, {}, None), b), state,
         [7, 8], on_step=lambda i, s, loss: seen.append((i, loss)))
     assert seen == [(1, 7), (2, 8)] and info["final_step"] == 2
+
+
+def test_train_loop_honours_trace_profile_and_numerics(monkeypatch,
+                                                      tmp_path):
+    """HOROVOD_TRACE_PROFILE opens a profiler window over the flagship's
+    steps 2 and 3, and HOROVOD_NUMERICS hands each step's loss to the
+    numerics monitor, which finds them clean (the losses JAX's trainer
+    gives are finite: tests/test_torch_numerics.py holds the monitor)."""
+    import json
+    from horovod_tpu_torch.goodput import numerics
+    monkeypatch.setenv("HOROVOD_TRACE_DIR", str(tmp_path))
+    monkeypatch.setenv("HOROVOD_TRACE_PROFILE", "steps:2@2")
+    monkeypatch.setenv("HOROVOD_NUMERICS", "1")
+    monkeypatch.setenv("HOROVOD_NUMERICS_CHECK_EVERY", "2")
+    numerics.reset_for_tests()
+    try:
+        cfg = _cfg()
+        params = htt.init_params(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu")
+        init_fn, step = trainer.make_transformer_train_step(
+            cfg, _sgd, device="cpu")
+        state, info = htt.train_loop(step, init_fn(params), _batches(4))
+        mon = numerics.get_monitor()
+        assert info["final_step"] == 4
+        # two at the cadence, one at the loop's end
+        assert mon.drains == 3 and mon.summary()["anomalies"] == 0
+    finally:
+        numerics.reset_for_tests()
+    a = json.loads((tmp_path / "profile" /
+                    "profile_attribution.json").read_text())
+    assert a["profiled_steps"] == 2 and a["device_op_events"] > 0
+    assert a["collective_events"] == 0 and a["per_bucket"] == []
 
 
 def test_runtime_and_trainer_default_to_cuda_and_raise_without_a_gpu():

@@ -1166,6 +1166,62 @@ def _metrics_agg_scenario(rank, sc, sets):
             "want": np.asarray(want)}
 
 
+def _observe_scenario(rank, sc, sets):
+    """The observability hooks in a world of several ranks: ``train_loop``
+    over this rank's rows of ``sc["batches"]`` (global ``(x, y)`` numpy
+    pairs) of a three-layer MLP through DistributedOptimizer, under the
+    phase's HOROVOD_TRACE_PROFILE, HOROVOD_NUMERICS and bucket knobs; then,
+    with ``sc["nan"]``, two ``allreduce_async`` through the coordinator,
+    rank 0's first holding a NaN, and the monitor drained; then arms
+    ``sc["clock_skew"]`` seconds of chaos clock skew on rank 1 for the
+    trace merge that ``shutdown`` exports. Saves the loop's info, the
+    profile attribution (JSON text, "" when none was written), the
+    monitor's anomalies (JSON) and this rank's span epoch."""
+    import json
+    from horovod_tpu_torch.goodput import numerics
+    from horovod_tpu_torch.parallel import trainer
+    from horovod_tpu_torch.resilience import chaos
+    from horovod_tpu_torch.tracing import profile
+    from horovod_tpu_torch.tracing import spans
+    torch.manual_seed(0)
+    model = torch.nn.Sequential(
+        torch.nn.Linear(16, 32), torch.nn.ReLU(), torch.nn.Linear(32, 32),
+        torch.nn.ReLU(), torch.nn.Linear(32, 4))
+    opt = htt.DistributedOptimizer(torch.optim.SGD(model.parameters(),
+                                                   lr=0.01))
+
+    def loss_fn(m, x, y):
+        return ((m(x) - y) ** 2).mean()
+
+    init_fn, step, put = trainer.data_parallel_train_step(loss_fn, opt,
+                                                          device="cpu")
+    state = init_fn(model)
+    batches = [put((torch.from_numpy(x), torch.from_numpy(y)))
+               for x, y in sc["batches"]]
+    with spans.span("observe.train", cat="train"):
+        state, info = htt.train_loop(step, state, batches)
+    out = {"final_step": info["final_step"], "n_buckets": len(opt.buckets)}
+    path = os.path.join(profile._default_log_dir(),
+                        "profile_attribution.json")
+    out["attribution"] = open(path).read() if os.path.exists(path) else ""
+    mon = numerics.get_monitor()
+    if sc.get("nan"):
+        x = torch.ones(4, 8)
+        if rank == 0:
+            x[1, 2] = float("nan")
+        h1 = htt.allreduce_async(x, name="num_bad", op=htt.Sum)
+        h2 = htt.allreduce_async(torch.ones(3), name="num_good", op=htt.Sum)
+        htt.synchronize(h1)
+        htt.synchronize(h2)
+        mon.drain()
+    out["anomalies"] = json.dumps(mon.anomalies if mon is not None else [])
+    if sc.get("clock_skew"):
+        chaos.install({"clock_skew": {"offset": sc["clock_skew"],
+                                      "hosts": [1]}})
+    out["epoch_unix"] = spans.epoch_unix()
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
 _PHASE_SCENARIOS = {"call": _call_scenario, "topology": _topology_scenario,
                     "eager": _eager_scenario,
                     "adasum_opt": _adasum_opt_scenario,
@@ -1186,7 +1242,8 @@ _PHASE_SCENARIOS = {"call": _call_scenario, "topology": _topology_scenario,
                     "coord": _coord_scenario,
                     "divergence": _divergence_scenario,
                     "dlpack": _dlpack_scenario,
-                    "metrics_agg": _metrics_agg_scenario}
+                    "metrics_agg": _metrics_agg_scenario,
+                    "observe": _observe_scenario}
 
 
 def phase_worker(rank, world, port, phases, out_dir):
