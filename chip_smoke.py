@@ -15,6 +15,8 @@
                                    # only the serving fleet, a replica a card
     python3 chip_smoke.py --data-parallel 4 --observability-only
                                    # only phase 14's window, merge and drill
+    python3 chip_smoke.py --data-parallel 4 --store-only
+                                   # only phase 15's worlds on the store
 
 Phases, each of which raises (and so exits non-zero) when it fails:
 
@@ -198,6 +200,22 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     ``torch.cuda.set_sync_debug_mode("error")`` with a NaN in one
     gradient, which the monitor's drain names by its bin entry and
     parameter; and the run-ledger record ``shutdown`` writes, read back.
+15. the compiled-artifact store (``artifact store (world 1):``): each
+    incarnation a child process with an empty build directory of its own
+    (``_build.BUILD_DIR`` set in the child under ``build/artifact_store``,
+    removed after the phase) on one fresh store there: (a) cold, the six
+    kernels built by nvcc and published (each build's seconds); (b) warm,
+    all six written from the store, no nvcc, each library's sha256 the
+    cold one's, each kernel held against its plain version at phase 2's
+    main shapes and tolerances (ms to resolve each, compile seconds
+    saved); (c) the flagship at phase 4's configuration, 2 steps through
+    ``train_loop``, cold (in (a)'s child) then warm on a fresh build
+    directory: ``store_step`` miss then hit, no nvcc in the warm child,
+    the losses and parameters bitwise; (d) a warm fleet of one serves 4 of
+    phase 3's requests, ``builds == 0``, ``store_outcomes`` hit, the tokens
+    bitwise phase 3's; (e) chaos: ``store_corrupt`` (one logged miss, one
+    rebuild, a republish, the steps bitwise) and ``fs_transient`` scope
+    store (retried, nothing fails).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the
@@ -335,7 +353,13 @@ ratio, exposed collective ms a step, every bucket's device ms (each
 profiled step, and the step ms inside the window and out; the numerics
 drill through the coordinator on every rank (rank 0's NaN named on each);
 then ``shutdown``: rank 0's merged trace with a track per rank and their
-clock offsets, and a ledger record on every rank.
+clock offsets, and a ledger record on every rank. Last, the artifact
+store on N cards (``--data-parallel N --store-only``: only this;
+``artifact store data parallel:`` line): N ranks of the data-parallel
+flagship start together on a cold store, each on an empty build
+directory of its own, and every entry ends valid with no rank having
+read a torn one; then N ranks on the warm store run no nvcc build, and
+their losses are bitwise the cold world's.
 """
 
 from __future__ import annotations
@@ -1145,6 +1169,8 @@ def serve_flagship(htt, fa, kvc, card):
         raise AssertionError(
             f"paged_decode launched {launches['paged_decode']} times over "
             f"{steps} decode steps of {cfg.n_layers} layers")
+    PHASE3_SERVED[:] = [(r.prompt.tolist(), list(r.tokens)) for r in
+                        sorted(done, key=lambda r: r.rid)[:STORE_SERVE_N]]
     gen_tokens = st["generated_tokens"]
     ttft = [r.ttft * 1e3 for r in done]
     tpot = [t * 1e3 for r in done for t in r.tpot]
@@ -6906,6 +6932,365 @@ def observability_world(n, card, **kw) -> None:
     log("observability data parallel: " + json.dumps(out))
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the compiled-artifact store
+# ---------------------------------------------------------------------------
+
+STORE_ROOT = os.path.join(HERE, "build", "artifact_store")
+STORE_STEPS = 2             # flagship steps through train_loop, cold and warm
+STORE_SERVE_N = 4           # phase 3's requests the warm fleet serves
+STORE_CHILD_S = 600         # one incarnation's deadline
+PHASE3_SERVED = []          # (prompt, tokens) of phase 3's first requests
+
+
+def lib_digests(_build) -> dict:
+    import hashlib
+    return {n: hashlib.sha256(_build.library_path(n).read_bytes()
+                              ).hexdigest() for n in _build.SOURCES}
+
+
+def store_counts(_build, store) -> dict:
+    st = store.stats()
+    return {"builds_run": _build.builds_run,
+            "resolved": dict(_build.resolved),
+            "store": {k: st[k] for k in ("hits", "misses", "publishes",
+                                         "errors", "compile_seconds_saved",
+                                         "entries", "size_bytes")},
+            "miss_reasons": dict(store.miss_reasons)}
+
+
+def store_train(htt, fa, rank, world) -> dict:
+    """The flagship at phase 4's configuration (full width and depth;
+    ``world`` ranks of TRAIN_B rows each) through ``train_loop`` for
+    STORE_STEPS steps on the store: ``store_step``, the losses (float hex)
+    and a digest of the parameters after the steps, the flash launches."""
+    import hashlib
+    from horovod_tpu_torch.utils import tree as tree_util
+    cfg = flagship_cfg(htt.TransformerConfig, mlp_recompute=True,
+                       dp_axis="dp")
+    htt.init()
+    params = htt.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    init_fn, step = htt.make_transformer_train_step(
+        cfg, lambda ps: torch.optim.SGD(ps, lr=0.01, momentum=0.9),
+        device="cuda")
+    state = init_fn(params)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = slice(rank * TRAIN_B, (rank + 1) * TRAIN_B)
+    batches = [tuple(torch.randint(0, cfg.vocab_size,
+                                   (TRAIN_B * world, TRAIN_S), generator=gen,
+                                   device="cuda")[rows] for _ in range(2))
+               for _ in range(STORE_STEPS)]
+    losses = []
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    state, info = htt.train_loop(
+        step, state, batches,
+        on_step=lambda i, s_, loss: losses.append(float(loss).hex()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fa.LAUNCHES[k] for k in
+                ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    h = hashlib.sha256()
+    for t in tree_util.tree_leaves(state.params):
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    htt.shutdown()
+    if info.get("final_step") != STORE_STEPS or any(
+            launches[k] < cfg.n_layers * STORE_STEPS for k in launches):
+        raise AssertionError(f"store train: info {info}, launches "
+                             f"{launches}")
+    return {"store_step": info.get("store_step"), "losses": losses,
+            "params_sha256": h.hexdigest(), "wall_s": wall,
+            "launches": launches}
+
+
+def store_warm_checks(fa, kvc, sq, cb, sc) -> dict:
+    """Each kernel resolved from the store held against its plain version
+    at phase 2's main shapes and tolerances; the largest errors."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    errs = {"paged_decode": check_kernel(
+        fa, kvc, gen, kvh=16, dtype=torch.bfloat16,
+        timed=False)["max_abs_err"]}
+    errs.update(check_flash(fa, sq, gen, b=TRAIN_B, s_q=TRAIN_S,
+                            s_k=TRAIN_S, h=16, d=64, dtype=torch.bfloat16
+                            )["max_abs_err"])
+    _, _, m, k, n, prologue, _ = next(
+        c for c in resnet50_convs() if c[:2] == (1, "conv3"))
+    conv = check_conv(cb, gen, m, k, n, prologue, torch.bfloat16,
+                      "stage 1 conv3 (store)")["max_abs_err"]
+    errs["conv_bn_fwd"] = max(conv[nm][0] for nm in ("y", "s1", "s2"))
+    errs["conv_bn_bwd"] = max(conv[nm][0] for nm in
+                              ("dx", "dw", "dinv", "dshift"))
+    x = torch.randn((PROBE_ROWS, PROBE_COLS), device="cuda", generator=gen
+                    ).to(torch.bfloat16)
+    got = sc.stream_copy(x)
+    if not torch.equal(got.view(torch.uint8), sc.stream_copy_plain(
+            x, torch.empty_like(x)).view(torch.uint8)):
+        raise AssertionError("store: stream_copy differs from its plain "
+                             "version")
+    errs["stream_copy"] = 0.0
+    return errs
+
+
+def store_serve(htt, fa, served) -> dict:
+    """A fleet of one on the flagship (phase 3's weights) serves phase 3's
+    first requests: builds, store outcomes, join seconds, the tokens."""
+    from horovod_tpu_torch.serving import Request, ServingFleet
+    cfg = flagship_cfg(htt.TransformerConfig)
+    params = htt.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    fleet = ServingFleet(fleet_engine_maker(cfg, params, ["cuda:0"]),
+                         replicas=1, max_replicas=1)
+    eng = fleet.replicas[0].engine
+    reqs = [Request(rid=i, prompt=np.asarray(p, np.int32),
+                    max_new_tokens=len(t)) for i, (p, t) in enumerate(served)]
+    done, wall, launches, steps = fleet_run(fleet, fa, reqs)
+    # phase 3's tokens stand for the bare engine's
+    fleet_check("store fleet of one", done,
+                {i: list(t) for i, (_, t) in enumerate(served)},
+                n_layers=cfg.n_layers, launches=launches, steps=steps)
+    return {"builds": eng.builds, "store_outcomes": dict(eng.store_outcomes),
+            "joins": fleet_joins(fleet), "tokens_equal_phase3": True,
+            "requests": len(done), "paged_decode_launches": launches,
+            "decode_steps": steps, "wall_s": wall}
+
+
+def store_child(rank, world, ports, results, part, build_dir, store_dir,
+                served=(), device="cuda"):
+    """One incarnation of phase 15 in a process of its own: the store at
+    ``store_dir``, an empty build directory (``build_dir``, with the rank
+    in a world of several), then ``part``: ``cold`` (build all six and
+    publish, then the flagship's steps), ``warm`` (resolve all six from
+    the store and hold each against its plain version), ``train``,
+    ``serve`` (``served``: phase 3's prompts and tokens), ``chaos`` or
+    ``dp`` (the flagship's steps, rank ``rank`` of ``world``)."""
+    from pathlib import Path
+    os.environ["HOROVOD_ARTIFACT_STORE"] = store_dir
+    import horovod_tpu_torch as htt
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops import conv_bn as cb
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import stream_copy as sc
+    from horovod_tpu_torch.parallel import sequence as sq
+    from horovod_tpu_torch.resilience import chaos
+    from horovod_tpu_torch.serving import kv_cache as kvc
+    from horovod_tpu_torch.store import artifact_store
+    _build.BUILD_DIR = Path(build_dir + (f"-rank{rank}" if world > 1
+                                         else ""))
+    # the CUDA context first, so that no resolve time below pays for it
+    torch.zeros(1, device=f"cuda:{rank}" if device == "cuda" else device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if world > 1:
+        join_store_world(rank, world, ports, device)
+    store = artifact_store.from_env()
+    rec = {"rank": rank, "part": part}
+    if part == "cold":
+        t0 = time.perf_counter()
+        rec["nvcc_s"] = _build.build_all()
+        rec["build_wall_s"] = time.perf_counter() - t0
+        rec["sha256"] = lib_digests(_build)
+        rec["after_build"] = store_counts(_build, store)
+        rec["train"] = store_train(htt, fa, rank, world)
+    elif part == "warm":
+        t0 = time.perf_counter()
+        _build.build_all()
+        rec["resolve_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["resolve_ms"] = {n: t * 1e3 for n, t in
+                             _build.resolve_seconds.items()}
+        rec["sha256"] = lib_digests(_build)
+        rec["after_resolve"] = store_counts(_build, store)
+        rec["max_abs_err"] = store_warm_checks(fa, kvc, sq, cb, sc)
+    elif part in ("train", "dp"):
+        rec["train"] = store_train(htt, fa, rank, world)
+    elif part == "serve":
+        rec["serve"] = store_serve(htt, fa, served)
+    elif part == "chaos":
+        chaos.install({"store_corrupt": {"fail_first": 1}})
+        _build.build_all(["flash_fwd", "flash_bwd"])
+        chaos.install(None)
+        rec["corrupt"] = store_counts(_build, store)
+        rec["train"] = store_train(htt, fa, rank, world)
+        chaos.install({"fs_transient": {"fail_first": 1, "scope": "store"}})
+        before = store_counts(_build, store)
+        _build.build_all(["paged_decode", "stream_copy", "conv_bn_fwd",
+                          "conv_bn_bwd"])
+        rec["fs_injected"] = chaos.active()._store_fs_failed
+        chaos.install(None)
+        rec["fs_before"], rec["fs_after"] = before, store_counts(_build,
+                                                                 store)
+    rec["final"] = store_counts(_build, store)
+    results.put(rec)
+    if world > 1:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+
+
+def store_incarnation(part, tag, root, store_dir, world=1, **kw):
+    return spawn_world(store_child, world, world, STORE_CHILD_S, part,
+                       os.path.join(root, f"build-{tag}"), store_dir, **kw)
+
+
+def check_store(what, cond, detail) -> None:
+    if not cond:
+        raise AssertionError(f"artifact store {what}: {detail}")
+
+
+def check_entries(store_dir) -> dict:
+    """Every entry of the store valid (payload hashes to its header);
+    the entries by kind."""
+    from horovod_tpu_torch.store import artifact_store
+    headers = artifact_store.read_entry_headers(store_dir)
+    bad = [h["file"] for h in headers if not h["payload_ok"]]
+    check_store("entries", headers and not bad, f"invalid entries {bad}")
+    kinds = {}
+    for h in headers:
+        kinds[h["kind"]] = kinds.get(h["kind"], 0) + 1
+    return {"entries": len(headers), "by_kind": kinds,
+            "bytes": sum(h["payload_bytes"] for h in headers)}
+
+
+def artifact_store_world_one(card) -> dict:
+    """Phase 15 on one card (module docstring): five incarnations, one
+    after another, on one fresh store; one ``artifact store (world 1):``
+    line."""
+    import shutil
+    shutil.rmtree(STORE_ROOT, ignore_errors=True)
+    os.makedirs(STORE_ROOT)
+    store_dir = os.path.join(STORE_ROOT, "store")
+    try:
+        cold = store_incarnation("cold", "cold", STORE_ROOT, store_dir)[0]
+        built = cold["after_build"]
+        check_store("cold", built["builds_run"] == 6
+                    and built["store"]["publishes"] == 6
+                    and set(built["resolved"].values()) == {"built"}, built)
+        check_store("cold train", cold["train"]["store_step"] == "miss",
+                    cold["train"])
+        warm = store_incarnation("warm", "warm", STORE_ROOT, store_dir)[0]
+        res = warm["after_resolve"]
+        check_store("warm", res["builds_run"] == 0
+                    and res["store"]["hits"] == 6
+                    and set(res["resolved"].values()) == {"store"}, res)
+        check_store("warm bytes", warm["sha256"] == cold["sha256"],
+                    "a library differs from the cold one")
+        train = store_incarnation("train", "train", STORE_ROOT,
+                                  store_dir)[0]
+        check_store("warm train", train["train"]["store_step"] == "hit"
+                    and train["final"]["builds_run"] == 0, train)
+        check_store("warm train losses", all(
+            train["train"][k] == cold["train"][k]
+            for k in ("losses", "params_sha256")),
+            f"{train['train']} != {cold['train']}")
+        serve = store_incarnation("serve", "serve", STORE_ROOT, store_dir,
+                                  served=list(PHASE3_SERVED))[0]["serve"]
+        check_store("warm serve", serve["builds"] == 0
+                    and serve["store_outcomes"] == {"serve_decode": "hit"},
+                    serve)
+        chaos_rec = store_incarnation("chaos", "chaos", STORE_ROOT,
+                                      store_dir)[0]
+        cor = chaos_rec["corrupt"]
+        check_store("store_corrupt", cor["builds_run"] == 1
+                    and cor["miss_reasons"] == {"corrupt": 1}
+                    and cor["store"]["publishes"] == 1
+                    and cor["resolved"] == {"flash_fwd": "built",
+                                            "flash_bwd": "store"}, cor)
+        check_store("store_corrupt losses", all(
+            chaos_rec["train"][k] == cold["train"][k]
+            for k in ("losses", "params_sha256"))
+            and chaos_rec["train"]["store_step"] == "hit", chaos_rec["train"])
+        fs_b, fs_a = chaos_rec["fs_before"], chaos_rec["fs_after"]
+        check_store("fs_transient", chaos_rec["fs_injected"] == 1
+                    and fs_a["builds_run"] == fs_b["builds_run"]
+                    and fs_a["store"]["errors"] == 0
+                    and fs_a["store"]["hits"] == fs_b["store"]["hits"] + 4,
+                    (fs_b, fs_a))
+        entries = check_entries(store_dir)
+    finally:
+        shutil.rmtree(STORE_ROOT, ignore_errors=True)
+    line = {
+        "cold": {"nvcc_s": cold["nvcc_s"], "build_wall_s":
+                 cold["build_wall_s"], "publishes":
+                 built["store"]["publishes"], "train": cold["train"]},
+        "warm": {"hits": res["store"]["hits"],
+                 "builds_run": res["builds_run"],
+                 "resolve_ms": warm["resolve_ms"],
+                 "resolve_wall_ms": warm["resolve_wall_ms"],
+                 "compile_seconds_saved":
+                     res["store"]["compile_seconds_saved"],
+                 "libraries_bitwise_cold": True,
+                 "max_abs_err": warm["max_abs_err"]},
+        "train_warm": {**train["train"],
+                       "builds_run": train["final"]["builds_run"],
+                       "losses_bitwise_cold": True},
+        "serve_warm": serve,
+        "chaos": {"store_corrupt": {
+            "miss_reasons": cor["miss_reasons"],
+            "rebuilt": cor["builds_run"], "republished":
+                cor["store"]["publishes"], "losses_bitwise_cold": True},
+            "fs_transient": {"injected": chaos_rec["fs_injected"],
+                             "errors": fs_a["store"]["errors"],
+                             "retries_absorbed": True}},
+        "store": entries, "card": card}
+    log("artifact store (world 1): " + json.dumps(line))
+    return line
+
+
+def artifact_store_world(n, card, **kw) -> dict:
+    """``--data-parallel N --store-only``: N ranks of the data-parallel
+    flagship on a cold store, each with an empty build directory, then N
+    more on the warm store; one ``artifact store data parallel:`` line."""
+    import shutil
+    root = STORE_ROOT + "-dp"
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    store_dir = os.path.join(root, "store")
+    try:
+        t0 = time.perf_counter()
+        cold = sorted(store_incarnation("dp", "cold", root, store_dir,
+                                        world=n, **kw),
+                      key=lambda r: r["rank"])
+        cold_s = time.perf_counter() - t0
+        entries = check_entries(store_dir)
+        for r in cold:
+            f = r["final"]
+            check_store(f"cold rank {r['rank']}",
+                        "corrupt" not in f["miss_reasons"]
+                        and f["store"]["errors"] == 0
+                        and r["train"]["store_step"] == "miss", f)
+        t0 = time.perf_counter()
+        warm = sorted(store_incarnation("dp", "warm", root, store_dir,
+                                        world=n, **kw),
+                      key=lambda r: r["rank"])
+        warm_s = time.perf_counter() - t0
+        for c, w in zip(cold, warm):
+            check_store(f"warm rank {w['rank']}",
+                        w["final"]["builds_run"] == 0
+                        and w["train"]["store_step"] == "hit"
+                        and w["train"]["losses"] == c["train"]["losses"]
+                        and w["train"]["params_sha256"]
+                        == c["train"]["params_sha256"],
+                        (c["train"], w["train"], w["final"]))
+        entries_after = check_entries(store_dir)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    line = {
+        "world": n, "cold_world_s": cold_s, "warm_world_s": warm_s,
+        "cold_builds_by_rank": [r["final"]["builds_run"] for r in cold],
+        "cold_resolved_by_rank": [r["final"]["resolved"] for r in cold],
+        "cold_miss_reasons_by_rank": [r["final"]["miss_reasons"]
+                                      for r in cold],
+        "warm_builds_by_rank": [r["final"]["builds_run"] for r in warm],
+        "warm_resolved_by_rank": [r["final"]["resolved"] for r in warm],
+        "losses_bitwise_cold_world": True,
+        "losses": cold[0]["train"]["losses"],
+        "step_wall_s_cold": [r["train"]["wall_s"] for r in cold],
+        "step_wall_s_warm": [r["train"]["wall_s"] for r in warm],
+        "store": entries, "store_after_warm": entries_after, "card": card}
+    log("artifact store data parallel: " + json.dumps(line))
+    return line
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an "
@@ -6922,16 +7307,19 @@ def main(argv) -> int:
     zoo_only = argv[2:] == ["--zoo-only"]
     fleet_only = argv[2:] == ["--fleet-only"]
     obs_only = argv[2:] == ["--observability-only"]
+    store_only = argv[2:] == ["--store-only"]
     if argv:
         if len(argv) not in (2, 3) or argv[0] != "--data-parallel" or \
                 (len(argv) == 3 and not (resilient_only or api_only
                                          or launcher_only or mp_only
                                          or cp_only or zoo_only
-                                         or fleet_only or obs_only)):
+                                         or fleet_only or obs_only
+                                         or store_only)):
             print("usage: chip_smoke.py [--data-parallel N "
                   "[--resilient-only | --api-only | --launcher-only | "
                   "--model-parallel-only | --control-plane-only | "
-                  "--zoo-only | --fleet-only | --observability-only]]",
+                  "--zoo-only | --fleet-only | --observability-only | "
+                  "--store-only]]",
                   file=sys.stderr)
             return 2
         n_dp = int(argv[1])
@@ -6967,7 +7355,8 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if n_dp:
         only = (resilient_only or api_only or launcher_only or mp_only
-                or cp_only or zoo_only or fleet_only or obs_only)
+                or cp_only or zoo_only or fleet_only or obs_only
+                or store_only)
         if not only:
             collectives_n_cards(n_dp, card)
             data_parallel(n_dp, card)
@@ -6987,6 +7376,8 @@ def main(argv) -> int:
             fleet_n_cards(n_dp, card)
         if not only or obs_only:
             observability_world(n_dp, card)
+        if not only or store_only:
+            artifact_store_world(n_dp, card)
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -7064,6 +7455,10 @@ def main(argv) -> int:
     # numerics monitor and the run ledger
     torch.cuda.empty_cache()
     observability_world_one(htt, fa, cb, card)
+
+    # phase 15: the compiled-artifact store, in processes of their own
+    torch.cuda.empty_cache()
+    artifact_store_world_one(card)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",

@@ -492,9 +492,22 @@ knobs.register("HOROVOD_VERIFY_STEP", "0", str,
                     "ported yet (ROADMAP A.15): train_loop raises on 1 or "
                     "strict.")
 knobs.register("HOROVOD_ARTIFACT_STORE", "", str,
-               help="Persistent compiled-artifact store. Not ported yet "
-                    "(ROADMAP A.13b): train_loop and the eager coordinator "
-                    "raise when it is set.")
+               help="Directory of the persistent compiled-artifact store: "
+                    "the nvcc-built kernel libraries, the eager "
+                    "coordinator's fused plans and the train step's and "
+                    "serving engine's kernel manifests, shared by every "
+                    "process pointed at it, so a resumed or respawned rank "
+                    "or a joining replica runs no nvcc build on a warm "
+                    "store. Entries publish with the crash-safe "
+                    ".tmp-then-rename protocol; corrupt, truncated or "
+                    "version-skewed entries log and fall back to a build. "
+                    "Empty disables the store.")
+knobs.register("HOROVOD_ARTIFACT_STORE_MAX_BYTES", 2 * 1024 * 1024 * 1024,
+               _parse_size,
+               help="Size budget of the compiled-artifact store: after each "
+                    "publish, oldest-mtime entries are evicted (LRU — hits "
+                    "re-touch mtime) until the store fits. Accepts kb/mb/gb "
+                    "suffixes. 0 = unlimited.")
 
 # Eager-API knobs (eager.py, stall_inspector.py), read at each handle's
 # start and wait. The same names and defaults as the JAX package's.

@@ -20,15 +20,16 @@ Record schema (``"schema": 1``, the JAX package's keys)::
       "collective_fingerprints": {},
       "wire": {"tier", "logical_bytes", "wire_bytes", "n_buckets",
                "error_feedback", "schedule", "dcn_wire_bytes"}|null,
-      "artifact_store": null,
+      "artifact_store": {"hits", "misses", "publishes", "evictions",
+                         "compile_seconds_saved"}|null,
       "serve": {"engine": {...}, "scheduler": {...}}|null,
       "bench": {<a benchmark's JSON line>}|null
     }
 
 ``collective_fingerprints`` stays empty (the JAX package fills it from
 its IR verifier's collective-order registry, which the port does not
-have) and ``artifact_store`` null until the compiled-artifact store is
-ported (ROADMAP A.13b.4). The fingerprint hashes the port's own knobs.
+have); ``artifact_store`` is null when ``HOROVOD_ARTIFACT_STORE`` is
+unset. The fingerprint hashes the port's own knobs.
 
 **Regression sentinel** (:func:`regression_report`): compares the newest
 run against the histories in the directory it is given: the
@@ -82,6 +83,17 @@ def knob_fingerprint() -> str:
     snap = knobs.snapshot()
     raw = json.dumps(snap, sort_keys=True, default=str)
     return hashlib.sha256(raw.encode()).hexdigest()[:16]
+
+
+def _artifact_store_summary() -> Optional[Dict[str, Any]]:
+    """The compiled-artifact store's tallies of this run, or None when
+    HOROVOD_ARTIFACT_STORE is unset."""
+    from horovod_tpu_torch.store import artifact_store as _artifact_store
+    st = _artifact_store.store_stats()
+    if st is None:
+        return None
+    return {k: st[k] for k in ("hits", "misses", "publishes", "evictions",
+                               "compile_seconds_saved")}
 
 
 def _collective_fingerprints() -> Dict[str, str]:
@@ -155,7 +167,7 @@ def build_record(bench: Optional[Dict[str, Any]] = None,
         "knob_fingerprint": knob_fingerprint(),
         "collective_fingerprints": _collective_fingerprints(),
         "wire": _wire_summary(),
-        "artifact_store": None,
+        "artifact_store": _artifact_store_summary(),
         "serve": _serve_summary(),
         "bench": bench,
     }

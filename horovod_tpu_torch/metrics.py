@@ -22,8 +22,8 @@ to the c10d store every ``HOROVOD_METRICS_AGG_INTERVAL`` seconds
 ``/metrics`` serves the merged sums. ``init`` starts the exports the
 knobs ask for (:func:`init_from_env`) and ``shutdown`` stops them
 (:func:`stop_exports`). The names and semantics are the JAX package's,
-so one dashboard reads both; the artifact store's ``/healthz`` block
-waits for that store (ROADMAP A.13b).
+so one dashboard reads both, the artifact store's ``/healthz`` block
+included.
 """
 
 from __future__ import annotations
@@ -624,8 +624,8 @@ def health_snapshot() -> Dict[str, Any]:
     the fault domain), 'draining' (a preemption is armed) or 'unhealthy'
     (the stall inspector crossed its shutdown threshold). Elastic and
     checkpoint totals ride along as history and never flip the status.
-    The straggler, goodput, world, serving and fleet blocks appear when
-    their subsystem is live in this process."""
+    The straggler, goodput, world, artifact-store, serving and fleet
+    blocks appear when their subsystem is live in this process."""
     from horovod_tpu_torch.stall_inspector import get_stall_inspector
     insp = get_stall_inspector()
     warned = insp.warned_count()
@@ -680,6 +680,15 @@ def health_snapshot() -> Dict[str, Any]:
     world = _world_block()
     if world is not None:
         out["world"] = world
+    # The artifact store's tallies and the compile seconds it saved this
+    # process: absent when HOROVOD_ARTIFACT_STORE is unset.
+    from horovod_tpu_torch.store import artifact_store as _artifact_store
+    st = _artifact_store.store_stats()
+    if st is not None:
+        out["artifact_store"] = {
+            k: st[k] for k in ("hits", "misses", "evictions", "publishes",
+                               "compile_seconds_saved", "size_bytes",
+                               "entries")}
     from horovod_tpu_torch import serving as _serving
     sv = _serving.serving_stats()
     if sv is not None:

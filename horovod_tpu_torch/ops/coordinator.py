@@ -69,8 +69,19 @@ HOROVOD_GRADIENT_COMPRESSION, HOROVOD_NUMERICS (a global-set allreduce bin
 then gives its entries' nonfinite counts and squared norms to the numerics
 monitor, ``goodput/numerics.py``: a segmented reduction over each reduced
 fusion buffer, a fixed number of launches a bin, device tensors until the
-monitor drains). HOROVOD_AUTOTUNE and HOROVOD_ARTIFACT_STORE raise: the
-online tuner and the compiled-artifact store are ROADMAP A.13b's.
+monitor drains). HOROVOD_AUTOTUNE raises: the online tuner is ROADMAP
+A.13b's.
+
+HOROVOD_ARTIFACT_STORE: a plan the cache misses is read from the
+compiled-artifact store (``store/artifact_store.py``, kind
+``eager_fused``, components ``{sig, mesh, knobs}``) before a plan is
+made, and a plan made is published, so a warm process makes no plan
+(``ExecutableCache.snapshot()``'s ``builds == 0``, ``store_hits`` the
+plans the store served), the JAX package's contract. A plan is host
+data: planning a ResNet-50 step's 161 gradient sizes took 13.2-35.5 us on
+the host of an H100 machine (PERF.md, control plane), so the tier keeps
+that contract and saves no measurable time; the JAX store saves an XLA
+compile here.
 """
 
 from __future__ import annotations
@@ -93,9 +104,7 @@ from horovod_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("horovod_tpu_torch.coordinator")
 
-_UNPORTED_KNOBS = {
-    "HOROVOD_AUTOTUNE": "the online tuner",
-    "HOROVOD_ARTIFACT_STORE": "the compiled-artifact store"}
+_UNPORTED_KNOBS = {"HOROVOD_AUTOTUNE": "the online tuner"}
 
 
 class DuplicateNameError(ValueError):
@@ -219,6 +228,25 @@ class FusedPlan:
         # the bin gives its numerics aggregates (HOROVOD_NUMERICS)
         self.stats = stats
 
+    def to_json(self) -> Dict[str, Any]:
+        """The plan as the artifact store keeps it (dtypes by name)."""
+        return {"op_type": self.op_type, "path": self.path,
+                "batch": self.batch, "stats": self.stats,
+                "groups": [[str(dt).replace("torch.", ""), list(idxs),
+                            list(numels)] for dt, idxs, numels in self.groups]}
+
+    @classmethod
+    def from_json(cls, obj: Dict[str, Any]) -> "FusedPlan":
+        groups = []
+        for name, idxs, numels in obj["groups"]:
+            dt = getattr(torch, name)
+            if not isinstance(dt, torch.dtype):
+                raise ValueError(f"not a dtype: {name!r}")
+            groups.append((dt, [int(i) for i in idxs],
+                           [int(n) for n in numels]))
+        return cls(str(obj["op_type"]), str(obj["path"]),
+                   bool(obj["batch"]), groups, bool(obj["stats"]))
+
 
 class FusionBuffers:
     """The persistent fusion buffers of one coordinator, one per (device,
@@ -267,7 +295,13 @@ class FusionBuffers:
 class ExecutableCache:
     """LRU of fused plans keyed by bin signature: the response cache's
     steady-state fast path (response_cache.h:45), where a hit re-dispatches
-    with nothing to rebuild. Capacity = HOROVOD_CACHE_CAPACITY."""
+    with nothing to rebuild. Capacity = HOROVOD_CACHE_CAPACITY.
+
+    With HOROVOD_ARTIFACT_STORE set, a miss whose caller gives the
+    signature's canonical form (``store_sig``) reads the plan from the
+    store before it calls ``make``, and publishes a plan it made.
+    ``builds`` counts the calls of ``make``, ``store_hits`` the misses the
+    store served."""
 
     def __init__(self, capacity: int):
         from horovod_tpu_torch import metrics as M
@@ -276,6 +310,8 @@ class ExecutableCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        self.builds = 0                 # plans made by make()
+        self.store_hits = 0             # misses the artifact store served
         self._lock = threading.Lock()
         self._m_hits = M.counter(
             "hvd_cache_hits_total",
@@ -289,9 +325,11 @@ class ExecutableCache:
         self._m_size = M.gauge("hvd_cache_size",
                                "Fused plans currently cached")
 
-    def get_or_build(self, sig: Tuple, builder: Callable[[], FusedPlan]
-                     ) -> FusedPlan:
-        """The cached plan for ``sig``; a miss pays ``builder()``."""
+    def get_or_build(self, sig: Tuple, make: Callable[[], FusedPlan],
+                     store_sig: Any = None) -> FusedPlan:
+        """The cached plan for ``sig``; a miss reads the artifact store
+        (when it is on and ``store_sig`` is given), else pays
+        ``make()``."""
         with self._lock:
             if sig in self._d:
                 self._d.move_to_end(sig)
@@ -300,7 +338,21 @@ class ExecutableCache:
                 return self._d[sig]
             self.misses += 1
             self._m_misses.inc()
-        plan = builder()
+        store = key = plan = None
+        if store_sig is not None:
+            store, key = _plan_store_key(store_sig)
+            if store is not None:
+                plan = _load_plan(store, key)
+        if plan is not None:
+            with self._lock:
+                self.store_hits += 1
+        else:
+            plan = make()
+            with self._lock:
+                self.builds += 1
+            if store is not None:
+                store.publish_blob(key, plan.to_json(),
+                                   extra_meta={"label": "eager_fused"})
         with self._lock:
             self._d[sig] = plan
             self._d.move_to_end(sig)
@@ -315,12 +367,43 @@ class ExecutableCache:
         """Atomic read of the counters (one lock acquisition)."""
         with self._lock:
             return {"hits": self.hits, "misses": self.misses,
-                    "evictions": self.evictions, "size": len(self._d),
+                    "evictions": self.evictions, "builds": self.builds,
+                    "store_hits": self.store_hits, "size": len(self._d),
                     "capacity": self.capacity}
 
     def __len__(self) -> int:
         with self._lock:
             return len(self._d)
+
+
+def _plan_store_key(store_sig: Any):
+    """(store, key) of a plan's artifact-store entry, or (None, None)
+    when the store is off or the key cannot be made."""
+    try:
+        from horovod_tpu_torch.store import artifact_store as _store
+        store = _store.from_env()
+        if store is None:
+            return None, None
+        return store, store.key(
+            "eager_fused", sig=repr(store_sig),
+            mesh=_store.mesh_fingerprint(),
+            knobs=_store.program_knob_fingerprint())
+    except Exception:
+        logger.debug("artifact-store key unavailable", exc_info=True)
+        return None, None
+
+
+def _load_plan(store, key) -> Optional[FusedPlan]:
+    """The store's plan for ``key``, or None (a miss: build as usual)."""
+    obj = store.load_blob(key)
+    if obj is None:
+        return None
+    try:
+        return FusedPlan.from_json(obj)
+    except (KeyError, TypeError, ValueError, AttributeError) as e:
+        logger.warning("artifact store: eager plan %s unreadable (%s); "
+                       "building it", key, e)
+        return None
 
 
 @dataclasses.dataclass
@@ -738,7 +821,8 @@ class Coordinator:
                                 return make_plan()
                         return make_plan()
 
-                    plan = self.cache.get_or_build(sig, _build)
+                    plan = self.cache.get_or_build(
+                        sig, _build, store_sig=_store_sig(sig, e0))
                     flats = [] if plan.stats else None
                     if tl.active:
                         with tl.span(label, DISPATCH, mirror=False):
@@ -1112,6 +1196,20 @@ def _divcheck_generation() -> int:
 
 def _pset_id(pset) -> int:
     return 0 if pset is None else pset.process_set_id
+
+
+def _store_sig(sig: Tuple, e0: "Entry") -> Tuple:
+    """A bin signature in a form equal in every process and every world of
+    the same shape: the process set by its ranks (its id is the order of
+    registration) and dtypes by name. The rest is ints, floats, strings,
+    bools and tuples of them already."""
+    pset = e0.process_set
+    ranks = None if pset is None or pset.ranks is None \
+        else tuple(pset.ranks)
+    return tuple(
+        ("ranks", ranks) if i == 2
+        else tuple(str(d).replace("torch.", "") for d in v) if i == 7
+        else v for i, v in enumerate(sig))
 
 
 def _observe_numerics(names: List[str], outs: List[torch.Tensor],

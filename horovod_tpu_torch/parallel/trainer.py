@@ -23,8 +23,10 @@ snapshots off the step path, preemption quiesce with the resumable exit
 code, step stats, goodput phases, spans, the chaos hook, straggler
 detection, the ``HOROVOD_TRACE_PROFILE`` capture window
 (``tracing/profile.py``) and the numerics monitor's loss feed
-(``goodput/numerics.py``). Its verify-step and artifact-store hooks are
-not ported yet: the knobs that turn them on raise.
+(``goodput/numerics.py``). With ``HOROVOD_ARTIFACT_STORE`` set it serves
+the step's kernels from the compiled-artifact store before step 1
+(``_adopt_store_step``). Its verify-step hook is not ported yet
+(ROADMAP A.15): ``HOROVOD_VERIFY_STEP`` raises.
 """
 
 from __future__ import annotations
@@ -333,16 +335,10 @@ def _unported_loop_knobs() -> None:
     """Raise for a knob that turns on a train_loop hook the port does
     not have yet: a run must never skip such a hook silently."""
     from horovod_tpu_torch.config import knobs
-    for name, on, item in (
-            ("HOROVOD_VERIFY_STEP",
-             str(knobs.get("HOROVOD_VERIFY_STEP")) in ("1", "strict"),
-             "A.15"),
-            ("HOROVOD_ARTIFACT_STORE",
-             bool(knobs.get("HOROVOD_ARTIFACT_STORE")), "A.13b")):
-        if on:
-            raise NotImplementedError(
-                f"train_loop: {name} turns on a hook that is not yet "
-                f"ported to horovod_tpu_torch (ROADMAP {item}); unset it")
+    if str(knobs.get("HOROVOD_VERIFY_STEP")) in ("1", "strict"):
+        raise NotImplementedError(
+            "train_loop: HOROVOD_VERIFY_STEP turns on a hook that is not "
+            "yet ported to horovod_tpu_torch (ROADMAP A.15); unset it")
     for name in ("HOROVOD_FAULT_HEARTBEAT_SECONDS",
                  "HOROVOD_FAULT_WORKER_DEADLINE"):
         if knobs.is_set(name):
@@ -400,9 +396,11 @@ def train_loop(
     monitor (a device tensor, converted at the monitor's cadence) and
     drains it when the loop ends; under ``HOROVOD_NUMERICS_ACTION=abort``
     an anomaly raises ``NumericsAnomalyError`` out of the loop.
-    ``HOROVOD_VERIFY_STEP`` in {1, strict} and ``HOROVOD_ARTIFACT_STORE``
-    raise ``NotImplementedError``: their hooks are not ported yet
-    (ROADMAP A.15, A.13b). So do the data service's
+    ``HOROVOD_ARTIFACT_STORE`` serves the step's kernels from the
+    compiled-artifact store before step 1, or records and publishes them
+    after it (``info["store_step"]``: hit | miss | error).
+    ``HOROVOD_VERIFY_STEP`` in {1, strict} raises ``NotImplementedError``:
+    its hook is not ported yet (ROADMAP A.15). So do the data service's
     ``HOROVOD_FAULT_HEARTBEAT_SECONDS`` and ``HOROVOD_FAULT_WORKER_DEADLINE``
     and an armed chaos spec with a fault of a subsystem not ported yet
     (``chaos.unported_faults``).
@@ -456,6 +454,10 @@ def train_loop(
                 step, state = restored
                 info["restored"] = True
         info["start_step"] = step
+        from horovod_tpu_torch.store import artifact_store as _store
+        if _store.enabled():
+            train_step, batches = _adopt_store_step(
+                train_step, state, batches, info)
         # Straggler detection: from_env returns None in a world of one.
         straggler = _straggler.active_detector() or _straggler.from_env()
         profiler = StepProfiler.from_env()
@@ -536,3 +538,33 @@ def train_loop(
         if owned_checkpointer:
             checkpointer.close()            # joins the writer thread
     return state, info
+
+
+def _adopt_store_step(train_step, state, batches, info):
+    """HOROVOD_ARTIFACT_STORE: key the step on the first batch's shapes
+    and adopt it through the store (``store.artifact_store.adopt_step``):
+    on a hit every kernel the stored step loaded is resolved now, from
+    the store, so the first step runs no ``nvcc``; on a miss the first
+    step records the kernels it loads and publishes them. Returns
+    ``(step, batches)`` with the peeked batch chained back in front;
+    ``info["store_step"]`` records hit | miss | disabled | error. Never
+    raises: a store fault leaves the step as it was."""
+    import itertools
+    from horovod_tpu_torch.store import artifact_store as _store
+    it = iter(batches)
+    try:
+        first = next(it)
+    except StopIteration:
+        return train_step, iter(())
+    args = (state,) + (first if isinstance(first, tuple) else (first,))
+    try:
+        stepper, outcome = _store.adopt_step(train_step, args,
+                                             label="train_step")
+    except Exception as e:
+        from horovod_tpu_torch.utils.logging import get_logger
+        get_logger().warning(
+            "HOROVOD_ARTIFACT_STORE: step adoption failed (%s: %s); the "
+            "step runs as built", type(e).__name__, e)
+        stepper, outcome = train_step, "error"
+    info["store_step"] = outcome
+    return stepper, itertools.chain([first], it)

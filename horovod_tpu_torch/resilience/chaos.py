@@ -38,7 +38,7 @@ programmatically) arms precise failures inside a real run:
 - ``store_corrupt``: ``{"fail_first": N}`` or ``{"p": 0.2, "seed": 3}``
   — the artifact store treats the entry it is reading as corrupted
   (bit-rot drill): the load must log, count a miss, and fall back to
-  recompile — never crash (``horovod_tpu/store/``);
+  a build — never crash (``horovod_tpu_torch/store/``);
 - ``data_worker_kill``: ``{"worker": i, "after_batches": N}`` — the
   data-service worker ``i`` dies abruptly after serving N batch
   requests (sockets reset mid-epoch; consumers must reshard
@@ -77,12 +77,13 @@ The hooks are called from the product code paths themselves
 filesystem helpers call ``on_fs``), so what the chaos drills exercise is
 the real recovery machinery, not a simulation of it. The serving fleet's
 router calls ``on_replica_dispatch`` and ``replica_slow_s`` on its
-dispatch path. The hooks of subsystems the port does not have yet
-(``on_store_load``, ``on_data_request``: the artifact store, the data
-service) exist as in the JAX package and nothing calls them yet;
-``train_loop`` raises ``NotImplementedError`` when the armed spec holds
-one of their faults (:func:`unported_faults`), so a drill is never
-skipped silently. With no spec installed every hook is a no-op costing
+dispatch path. The artifact store (``store/artifact_store.py``) calls
+``on_fs`` at its ``store_read``/``store_write``/``store_rename`` points and
+``on_store_load`` after each read. The hook of the subsystem the port
+does not have yet (``on_data_request``: the data service) exists as in
+the JAX package and nothing calls it yet; ``train_loop`` raises
+``NotImplementedError`` when the armed spec holds its fault
+(:func:`unported_faults`), so a drill is never skipped silently. With no spec installed every hook is a no-op costing
 one attribute read.
 """
 
@@ -228,12 +229,12 @@ def active() -> Optional[ChaosSpec]:
 
 
 # Faults whose subsystem the port does not have yet, with its ROADMAP item:
-# the artifact store and the data service (A.13b). host_loss, slice_loss
-# and host_return reach the live resize through ResizeCoordinator.poll
-# (elastic/resize.py); replica_kill and replica_slow the serving fleet's
-# router (serving/router.py).
-_UNPORTED_FAULTS = (("store_corrupt", "A.13b"),
-                    ("data_worker_kill", "A.13b"))
+# the data service (A.13b). host_loss, slice_loss and host_return reach the
+# live resize through ResizeCoordinator.poll (elastic/resize.py);
+# replica_kill and replica_slow the serving fleet's router
+# (serving/router.py); store_corrupt and fs_transient with scope store the
+# artifact store (store/artifact_store.py).
+_UNPORTED_FAULTS = (("data_worker_kill", "A.13b"),)
 
 
 def unported_faults() -> List[Tuple[str, str]]:
@@ -243,11 +244,8 @@ def unported_faults() -> List[Tuple[str, str]]:
     spec = active()
     if spec is None or not spec.armed():
         return []
-    out = [(name, item) for name, item in _UNPORTED_FAULTS
-           if getattr(spec, name)]
-    if spec.fs_transient and spec.fs_transient.get("scope") == "store":
-        out.append(("fs_transient scope store", "A.13b"))
-    return out
+    return [(name, item) for name, item in _UNPORTED_FAULTS
+            if getattr(spec, name)]
 
 
 def _inject_metric(action: str) -> None:

@@ -13,11 +13,22 @@ bodies —
   through ``kv_cache.paged_decode_attention`` (the CUDA paged-decode
   kernel on the card, the plain version on the CPU).
 
-PyTorch runs eagerly, so there is no AOT build and no artifact store.
-``builds`` counts instead the ``nvcc`` builds (``ops/_build.py``) that ran
-while the engine was constructed and served its first decode step: 0 on
-a warm build directory, and always 0 on the CPU. ``store_outcomes`` stays
-``{}`` so ``stats()`` has the JAX engine's keys. The layer ``lax.scan``
+PyTorch runs eagerly, so the engine compiles no step ahead of time: what
+it builds are the kernel libraries its steps launch (``ops/_build.py``).
+``builds`` counts the ``nvcc`` builds that ran while the engine was
+constructed and served its first decode step: 0 on a warm build
+directory or a warm artifact store, and always 0 on the CPU. With
+``HOROVOD_ARTIFACT_STORE`` set, an engine on the card resolves those
+libraries while it is constructed, and ``store_outcomes[label]`` (kind
+``serve`` in the JAX engine, the kernel entries here) says how, under the
+JAX engine's labels whose step launches a kernel: ``serve_decode``, and
+with speculative decoding ``serve_verify_k<K>`` and ``serve_draft_l<N>``,
+each the paged-decode kernel. ``hit``: the store wrote the library;
+``miss``: ``nvcc`` built it (then published); ``local``: it was in the
+build directory already; ``error``: it could not be resolved (the first
+launch then builds or raises). The JAX engine's ``serve_prefill_<b>``
+and ``serve_cow_copy`` have no entry: the port's prefill attention and
+page copy are plain PyTorch. The layer ``lax.scan
 becomes a Python loop over the stacked layer leaves, and the page pool is
 updated in place.
 
@@ -195,6 +206,12 @@ def _gather_logits(cfg, x, head):
     if cfg.tp_axis:
         logits = collectives.all_gather(logits, cfg.tp_axis, axis=-1)
     return logits
+
+
+def _launches_kernels(device: torch.device) -> bool:
+    """Whether an engine on ``device`` launches the CUDA kernels (the CPU
+    runs their plain versions)."""
+    return device.type == "cuda"
 
 
 def _layer(params: Dict[str, Any], i: int) -> Dict[str, torch.Tensor]:
@@ -377,11 +394,11 @@ class ServeEngine:
         self.cow_copies = 0
         self.params = self._place(params)
         self.k_pages, self.v_pages = self.pool.alloc_arrays()
+        self.store_outcomes: Dict[str, str] = self._adopt_kernels()
         # nvcc builds since construction began, counted up to the end of
         # the first decode-shaped step
         self.builds = _build.builds_run - builds_before
         self._builds_from: Optional[int] = builds_before
-        self.store_outcomes: Dict[str, str] = {}
         # f32 logits of the most recent prefill chunk, decode, draft or
         # verify step
         self.last_logits: Optional[torch.Tensor] = None
@@ -391,6 +408,37 @@ class ServeEngine:
             "(%.1f MiB KV pool), prefill buckets %s", self.device,
             self.slots, pool_pages, self.page,
             self.pool.nbytes() / 2 ** 20, self.buckets)
+
+    def _kernel_labels(self) -> Dict[str, str]:
+        """The JAX engine's step labels whose port launches a kernel, each
+        with its kernel."""
+        labels = {"serve_decode": "paged_decode"}
+        if self.spec_k:
+            labels[f"serve_verify_k{self.spec_k}"] = "paged_decode"
+            if self.draft_mode == "truncate":
+                labels[f"serve_draft_l{self.draft_n}"] = "paged_decode"
+        return labels
+
+    def _adopt_kernels(self) -> Dict[str, str]:
+        """Resolve the kernels of the engine's steps through the artifact
+        store (module docstring); ``{label: outcome}``, empty when the
+        store is off or the engine launches no kernel. Never raises."""
+        from horovod_tpu_torch.store import artifact_store as _store
+        if not _store.enabled() or not _launches_kernels(self.device):
+            return {}
+        how: Dict[str, str] = {}
+        out = {}
+        for label, kernel in self._kernel_labels().items():
+            if kernel not in how:
+                try:
+                    how[kernel] = {"store": "hit", "built": "miss",
+                                   "local": "local"}[_build.resolve(kernel)]
+                except Exception as e:
+                    logger.warning("serve: kernel %s not resolved (%s: %s)",
+                                   kernel, type(e).__name__, e)
+                    how[kernel] = "error"
+            out[label] = how[kernel]
+        return out
 
     def _place(self, params: Any) -> Any:
         def tensors(tree):

@@ -18,10 +18,13 @@ device is ``cuda:0``.
 and a warm replica loads them from the artifact store. The port compiles
 nothing per engine: its steps run eagerly and its one kernel on this path,
 paged decode, is built by ``nvcc`` once per build directory
-(``ops/_build.py``). ``engine.builds`` counts the ``nvcc`` builds that ran
-while the engine was constructed and served its first decode step, so a
-replica grown on a warm build directory reports 0, and one that had to
-build the kernel reports the builds it paid for.
+(``ops/_build.py``), or written from the artifact store when
+``HOROVOD_ARTIFACT_STORE`` points every replica at one directory
+(``engine.store_outcomes``). ``engine.builds`` counts the ``nvcc`` builds
+that ran while the engine was constructed and served its first decode
+step, so a replica grown on a warm build directory or a warm store
+reports 0, and one that had to build the kernel reports the builds it
+paid for.
 
 Lifecycle states::
 

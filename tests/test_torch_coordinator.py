@@ -649,11 +649,37 @@ def test_fusion_threshold_parse_forms(monkeypatch):
 @pytest.mark.parametrize("knob,value", [("HOROVOD_AUTOTUNE", "1"),
                                         ("HOROVOD_ARTIFACT_STORE", "/tmp/s")])
 def test_unported_knobs_make_the_coordinator_raise(port_ctx, monkeypatch,
-                                                   knob, value):
+                                                   tmp_path, knob, value):
+    """HOROVOD_AUTOTUNE still raises (the online tuner is A.13b's); the
+    artifact store is ported: a coordinator built with it dispatches, a
+    plan it built is published, and a fresh coordinator reads the plan
+    back instead of building it."""
+    import torch
+    import horovod_tpu_torch as htt
     from horovod_tpu_torch.ops.coordinator import Coordinator
-    monkeypatch.setenv(knob, value)
-    with pytest.raises(NotImplementedError, match="A.13b"):
-        Coordinator(port_ctx, start_thread=False)
+    from horovod_tpu_torch.store import artifact_store
+    if knob == "HOROVOD_AUTOTUNE":
+        monkeypatch.setenv(knob, value)
+        with pytest.raises(NotImplementedError, match="A.13b"):
+            Coordinator(port_ctx, start_thread=False)
+        return
+    monkeypatch.setenv(knob, str(tmp_path / value.strip("/")))
+    artifact_store.reset_for_tests()
+    try:
+        counts = []
+        for _ in range(2):
+            coord = _manual(port_ctx)
+            h = htt.allreduce_async(torch.ones(3), name="st")
+            coord.run_cycle()
+            torch.testing.assert_close(h.wait(), torch.ones(3))
+            snap = coord.cache.snapshot()
+            counts.append((snap["builds"], snap["store_hits"]))
+            coord.shutdown()
+            port_ctx.coordinator = None
+        assert counts == [(1, 0), (0, 1)]
+        assert artifact_store.store_stats()["publishes"] == 1
+    finally:
+        artifact_store.reset_for_tests()
 
 
 def test_reset_resolves_queued_handles_and_stays_usable(port_ctx):

@@ -711,8 +711,9 @@ def test_elastic_end_to_end_training(port_world):
 
 def test_resize_faults_are_no_longer_unported():
     """host_loss, slice_loss and host_return reach ResizeCoordinator.poll
-    now, and replica_kill and replica_slow the serving fleet's router; the
-    artifact store's and the data service's faults still wait for
+    now, replica_kill and replica_slow the serving fleet's router, and
+    store_corrupt the artifact store's read (its first read here is
+    refused as corrupt); the data service's fault still waits for
     A.13b."""
     from horovod_tpu_torch.resilience import chaos
     try:
@@ -721,8 +722,11 @@ def test_resize_faults_are_no_longer_unported():
                        "host_return": {"host": 1, "at_step": 4},
                        "replica_kill": {"replica": 0},
                        "replica_slow": {"replica": 1, "delay": 0.1},
-                       "store_corrupt": {"fail_first": 1}})
-        assert chaos.unported_faults() == [("store_corrupt", "A.13b")]
+                       "store_corrupt": {"fail_first": 1},
+                       "data_worker_kill": {"worker": 0}})
+        assert chaos.unported_faults() == [("data_worker_kill", "A.13b")]
+        assert [chaos.on_store_load("entry") for _ in range(2)] == [
+            True, False]
         assert [chaos.resize_notice(s) for s in range(6)] == [
             None, None, {"kind": "host_loss", "host": 1},
             {"kind": "slice_loss", "slice": 1},

@@ -628,15 +628,30 @@ def test_train_loop_honours_profile_and_numerics_with_checkpoints(
     assert a["profiled_steps"] == 2
 
 
-def test_train_loop_hooks_that_are_not_ported_raise(monkeypatch):
+def test_train_loop_hooks_that_are_not_ported_raise(monkeypatch, tmp_path):
+    """The hooks of the step verifier and the data service raise; the
+    artifact store's is ported, so its knob runs the loop with the store
+    (a cold store: the step misses and its manifest is published)."""
+    from horovod_tpu_torch.store import artifact_store
     for knob, value in (("HOROVOD_VERIFY_STEP", "1"),
                         ("HOROVOD_VERIFY_STEP", "strict"),
-                        ("HOROVOD_ARTIFACT_STORE", "/tmp/store"),
+                        ("HOROVOD_ARTIFACT_STORE", str(tmp_path / "store")),
                         ("HOROVOD_FAULT_HEARTBEAT_SECONDS", "1.5"),
                         ("HOROVOD_FAULT_WORKER_DEADLINE", "20")):
         monkeypatch.setenv(knob, value)
-        with pytest.raises(NotImplementedError, match=knob):
-            htt.train_loop(_mini_step, {"w": 0.0, "step": 0}, [1.0])
+        if knob == "HOROVOD_ARTIFACT_STORE":
+            artifact_store.reset_for_tests()
+            try:
+                _, info = htt.train_loop(_mini_step, {"w": 0.0, "step": 0},
+                                         [1.0])
+                stats = artifact_store.store_stats()
+            finally:
+                artifact_store.reset_for_tests()
+            assert info["store_step"] == "miss" and info["final_step"] == 1
+            assert stats["publishes"] == 1 and stats["entries"] == 1
+        else:
+            with pytest.raises(NotImplementedError, match=knob):
+                htt.train_loop(_mini_step, {"w": 0.0, "step": 0}, [1.0])
         monkeypatch.delenv(knob)
 
 
@@ -670,15 +685,17 @@ def test_train_loop_reserves_once_the_optimizer_has_its_state(tmp_path):
 
 
 def test_train_loop_chaos_faults_of_unported_subsystems_raise():
-    """The artifact store's and the data service's faults raise; the
-    serving fleet's replica faults fire on its router's dispatch path, so
-    train_loop runs with them armed, as the JAX loop does."""
+    """The data service's fault raises; the serving fleet's replica faults
+    fire on its router's dispatch path and the artifact store's
+    (``store_corrupt``, ``fs_transient`` with scope store) in the store
+    (tests/test_torch_artifact_store.py), so train_loop runs with them
+    armed, as the JAX loop does."""
     for fault, value, item in (
-            ("store_corrupt", {"fail_first": 1}, "A.13b"),
+            ("store_corrupt", {"fail_first": 1}, None),
             ("data_worker_kill", {"worker": 0, "after_batches": 1},
              "A.13b"),
             ("replica_kill", {"replica": 0, "after_requests": 1}, None),
-            ("fs_transient", {"fail_first": 1, "scope": "store"}, "A.13b")):
+            ("fs_transient", {"fail_first": 1, "scope": "store"}, None)):
         chaos.install({fault: value})
         try:
             if item is None:

@@ -290,17 +290,27 @@ def test_sync_gradients_fuses_and_scales(monkeypatch):
         htt.shutdown()
 
 
-def test_train_loop_hooks_of_later_slices_raise(monkeypatch):
-    """The loop's hooks that are not ported yet raise, naming their
-    ROADMAP item, when a knob turns them on (checkpointing and preemption
-    are ported: tests/test_torch_resilience.py)."""
+def test_train_loop_hooks_of_later_slices_raise(monkeypatch, tmp_path):
+    """The loop's hook that is not ported yet (the step verifier) raises,
+    naming its ROADMAP item, when its knob turns it on; the artifact
+    store's hook is ported: the first loop on a store misses and
+    publishes the step's manifest, the next one hits (checkpointing and
+    preemption: tests/test_torch_resilience.py)."""
+    from horovod_tpu_torch.store import artifact_store
     state = trainer.TrainState(0, {}, None)
-    for knob, value, item in (("HOROVOD_VERIFY_STEP", "1", "A.15"),
-                              ("HOROVOD_ARTIFACT_STORE", "/s", "A.13")):
-        monkeypatch.setenv(knob, value)
-        with pytest.raises(NotImplementedError, match=item):
-            htt.train_loop(lambda s, b: (s, 0.0), state, [1])
-        monkeypatch.delenv(knob)
+    monkeypatch.setenv("HOROVOD_VERIFY_STEP", "1")
+    with pytest.raises(NotImplementedError, match="A.15"):
+        htt.train_loop(lambda s, b: (s, 0.0), state, [1])
+    monkeypatch.delenv("HOROVOD_VERIFY_STEP")
+    monkeypatch.setenv("HOROVOD_ARTIFACT_STORE", str(tmp_path / "store"))
+    artifact_store.reset_for_tests()
+    try:
+        outcomes = [htt.train_loop(lambda s, b: (s, 0.0), state,
+                                   [1])[1]["store_step"] for _ in range(2)]
+    finally:
+        artifact_store.reset_for_tests()
+    assert outcomes == ["miss", "hit"]
+    monkeypatch.delenv("HOROVOD_ARTIFACT_STORE")
     seen = []
     state, info = htt.train_loop(
         lambda s, b: (trainer.TrainState(s.step + 1, {}, None), b), state,

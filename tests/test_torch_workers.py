@@ -987,7 +987,8 @@ def _coord_scenario(rank, sc, sets):
     so (a world of several ranks always is), or, with ``lazy``, the
     context's own from ``get_coordinator`` (its cycle thread in a world
     of one). Saves the script's record as JSON (with ``thread``: whether
-    a cycle thread ran, and still runs after ``shutdown``) and each kept
+    a cycle thread ran, and still runs after ``shutdown``), the plan
+    cache's ``builds`` and ``store_hits`` (``store_counts``) and each kept
     value."""
     import json
     from horovod_tpu_torch.ops.coordinator import Coordinator, get_coordinator
@@ -1004,13 +1005,16 @@ def _coord_scenario(rank, sc, sets):
     if sc.get("det"):
         coord.deterministic = True
     res = run_coord_script(sc, _PortCoordAPI(rank, sc, sets, coord))
+    snap = coord.cache.snapshot()
     alive = coord._thread is not None and coord._thread.is_alive()
     coord.shutdown()
     res["thread"] = [alive, coord._thread is not None
                      and coord._thread.is_alive()]
     ctx.coordinator = None
     out = {"record": np.asarray(json.dumps({k: v for k, v in res.items()
-                                            if k != "values"}))}
+                                            if k != "values"})),
+           # the plans made and the plans the artifact store served
+           "store_counts": np.asarray([snap["builds"], snap["store_hits"]])}
     for key, v in res["values"].items():
         if isinstance(v, list):
             for i, e in enumerate(v):
