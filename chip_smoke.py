@@ -17,6 +17,10 @@
                                    # only phase 14's window, merge and drill
     python3 chip_smoke.py --data-parallel 4 --store-only
                                    # only phase 15's worlds on the store
+    python3 chip_smoke.py --data-only
+                                   # only phases 1 and 16, on one card
+    python3 chip_smoke.py --data-parallel 4 --data-only
+                                   # only phase 16's data path, on 4 cards
 
 Phases, each of which raises (and so exits non-zero) when it fails:
 
@@ -216,6 +220,29 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     bitwise phase 3's; (e) chaos: ``store_corrupt`` (one logged miss, one
     rebuild, a republish, the steps bitwise) and ``fs_transient`` scope
     store (retried, nothing fails).
+16. the data path (``data ...`` and ``estimator`` lines, after the data
+    path's optional packages present): (a) ``data loader resnet50:``
+    phase 4b's ResNet-50 (128 images of 224^2 a card, fused conv+BN)
+    through ``train_loop``, fed once by ``AsyncDataLoaderMixin`` +
+    ``ShardedArrayLoader`` from seeded host arrays (bf16, pinned staging,
+    a copy stream) and once by the same batches already on the card:
+    losses bitwise equal, step ms of both, ms a batch of a pinned copy,
+    and from torch.profiler over loaded steps the HtoD copies' device ms
+    and the part of it overlapped with kernels; each rank's rows of the
+    first global batch gathered against the global batch; the conv+BN
+    launch counts of the loaded run; (b) ``data service train:`` phase
+    4's flagship train cell through ``train_loop`` fed by a
+    ``ResilientDataIterator`` over 3 ``DataWorker`` processes (a registry
+    here, an ``ElasticSampler``), once clean and once with
+    ``HOROVOD_CHAOS_SPEC`` ``data_worker_kill`` (worker 1 after 2
+    requests): losses bitwise equal, at least one worker death and
+    reshard, the seconds from the kill to the reshard, step ms, the
+    goodput input-wait share, the flash launch counts; then one pass of
+    ``distribute`` over a source-sharded service, every sample once;
+    (c) ``estimator:`` ``TpuEstimator.fit`` of the MNIST MLP through a
+    ``TpuExecutor`` of one worker on the card, 3 epochs: the history
+    decreasing, ``predict`` on the card against the CPU within
+    ``DATA_PREDICT_TOL``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the
@@ -359,7 +386,14 @@ store on N cards (``--data-parallel N --store-only``: only this;
 flagship start together on a cold store, each on an empty build
 directory of its own, and every entry ends valid with no rank having
 read a torn one; then N ranks on the warm store run no nvcc build, and
-their losses are bitwise the cold world's.
+their losses are bitwise the cold world's. Last, the data path on N
+cards (``--data-parallel N --data-only``: only this; ``data loader
+resnet50 data parallel:``, ``data service train data parallel rank
+<r>:`` and ``estimator data parallel:`` lines): phase 16's (a) and (b)
+in an N-card world (each rank's slices concatenating bitwise to the
+global batch, the drill's losses bitwise on every rank, ``distribute``
+feeding the N ranks every sample once), then (c) with N executor workers
+over NCCL.
 """
 
 from __future__ import annotations
@@ -2617,19 +2651,21 @@ def spawn_world(target, world, n_results, deadline_s, *args, **kw):
     return out
 
 
+def merged(ivs):
+    """Sorted, disjoint [start, end] intervals covering ``ivs``."""
+    out = []
+    for a, b in sorted(ivs):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
 def nccl_overlap(prof):
     """From a profiled step's device events: the NCCL kernels' device ms,
     the part of it during which a compute kernel also ran, and the
     compute kernels' ms (copies and memsets count as neither)."""
-    def merged(ivs):
-        out = []
-        for a, b in sorted(ivs):
-            if out and a <= out[-1][1]:
-                out[-1][1] = max(out[-1][1], b)
-            else:
-                out.append([a, b])
-        return out
-
     nccl, comp = [], []
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -7291,6 +7327,519 @@ def artifact_store_world(n, card, **kw) -> dict:
     return line
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the data path (the loaders, the data service, the estimator)
+# ---------------------------------------------------------------------------
+
+DATA_STEPS = 5              # ResNet-50 steps of each run of (a), after a warm-up
+DATA_H2D_ITERS = 10         # timed pinned copies of one batch's images
+DATA_PROFILED_STEPS = 2     # loaded steps under torch.profiler in (a)
+DATA_SERVICE_STEPS = 8      # flagship steps of each run of (b), after a warm-up
+DATA_WORKERS = 3            # DataWorker processes of each run of (b)
+DATA_KILL = {"data_worker_kill": {"worker": 1, "after_batches": 2}}
+DATA_KEY = b"\x05" * 32     # the data service's HMAC key
+DATA_EST_ROWS = 4096        # MNIST-shaped rows the estimator fits in (c)
+DATA_EST_BATCH = 128
+DATA_EST_EPOCHS = 3
+DATA_PREDICT_TOL = 1e-4     # predict on the card against the CPU, share of
+                            # the largest |logit| (f32, TF32 off)
+DATA_ROOT = os.path.join(HERE, "build", "data_path")
+DATA_WORLD_S = 600          # the N-card data world's deadline
+
+
+def data_packages() -> dict:
+    """The versions of the data path's optional packages on this machine
+    (null where one is absent)."""
+    import importlib.metadata
+    out = {}
+    for m in ("pyarrow", "fsspec", "cloudpickle"):
+        try:
+            out[m] = importlib.metadata.version(m)
+        except importlib.metadata.PackageNotFoundError:
+            out[m] = None
+    return out
+
+
+def copy_overlap(prof) -> dict:
+    """From a profiled window's device events: the host-to-device copies'
+    device ms and the part of it during which a kernel also ran."""
+    copies, comp = [], []
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        a, b = ev.time_range.start, ev.time_range.end
+        name = ev.name.lower()
+        if b <= a or name.startswith("memset"):
+            continue
+        if name.startswith("memcpy"):
+            if "htod" in name:
+                copies.append((a, b))
+            continue
+        comp.append((a, b))
+    copy_m, comp_m = merged(copies), merged(comp)
+    overlap = sum(max(0.0, min(b, d) - max(a, c))
+                  for a, b in copy_m for c, d in comp_m)
+    return {"h2d_ms": sum(b - a for a, b in copy_m) / 1e3,
+            "h2d_overlapped_ms": overlap / 1e3, "h2d_copies": len(copies)}
+
+
+def data_resnet_run(htt, cb, dev, batches):
+    """``resnet_step`` fed by ``batches`` (a loader or a list of resident
+    batches): a warm-up step, then ``train_loop`` over the rest, the
+    conv+BN launch counts zeroed just before it and read just after."""
+    state, step, _ = resnet_step(htt, dev, seed=0)
+    it = iter(batches)
+    state, loss = step(state, *next(it))                    # warm-up
+    torch.cuda.synchronize()
+    losses, stamps = [float(loss)], []
+
+    def on_step(i, st, loss_t):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append(float(loss_t))
+
+    cb.reset_launches()
+    t0 = time.perf_counter()
+    state, info = htt.train_loop(step, state, it, on_step=on_step)
+    torch.cuda.synchronize()
+    launches = {k: cb.LAUNCHES[k] for k in ("conv_bn_fwd", "conv_bn_bwd")}
+    if info["final_step"] != DATA_STEPS + 1 or info["status"] != "completed":
+        raise AssertionError(f"train_loop info {info}")
+    for name, n in launches.items():
+        if n < RESNET50_CONVS * DATA_STEPS:
+            raise AssertionError(f"{name} launched {n} times over "
+                                 f"{DATA_STEPS} steps")
+    step_ms = [float(x) * 1e3 for x in np.diff([t0] + stamps)]
+    return losses, step_ms, launches, state, step
+
+
+def data_loader_resnet(htt, cb, rank, world, dev="cuda") -> dict:
+    """(a) The ResNet-50 cell fed by ``AsyncDataLoaderMixin`` +
+    ``ShardedArrayLoader`` from seeded host arrays (bf16 images, made on
+    the card from a seed and moved to the host), against the same batches
+    already resident on the card; the rank's rows of the first global
+    batch gathered from every rank against the global batch."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from horovod_tpu_torch.data import (AsyncDataLoaderMixin,
+                                        ShardedArrayLoader)
+
+    class Loader(AsyncDataLoaderMixin, ShardedArrayLoader):
+        pass
+
+    gb = RESNET_B * world
+    n = (DATA_STEPS + 1) * gb
+    gen = torch.Generator(device=dev).manual_seed(2)
+    images = torch.rand((n, 224, 224, 3), generator=gen, device=dev
+                        ).to(torch.bfloat16).cpu()
+    labels = torch.randint(0, 1000, (n,), generator=gen,
+                           device=dev).cpu().numpy()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        resident = list(ShardedArrayLoader([images, labels], gb, device=dev,
+                                           seed=0))
+        torch.cuda.synchronize()
+        order = np.arange(n)
+        np.random.RandomState(0).shuffle(order)
+        want = [images[torch.from_numpy(order[:gb])].to(dev),
+                torch.from_numpy(labels[order[:gb]]).to(dev)]
+        slices_equal = True
+        for mine, whole in zip(resident[0], want):
+            got = torch.empty_like(whole)
+            if world > 1:
+                dist.all_gather_into_tensor(got, mine.contiguous())
+            else:
+                got.copy_(mine)
+            slices_equal &= bool(torch.equal(got, whole))
+        del want
+        res_losses, res_ms, _, _, _ = data_resnet_run(htt, cb, dev, resident)
+        del resident
+        torch.cuda.empty_cache()
+        loaded_losses, loaded_ms, launches, state, step = data_resnet_run(
+            htt, cb, dev, Loader([images, labels], gb, device=dev, seed=0,
+                                 prefetch_depth=2))
+        # one batch's images, pinned, to the card
+        local = images[:RESNET_B].clone().pin_memory()
+        h2d_ms = cuda_ms(lambda i: local.to(dev, non_blocking=True),
+                         DATA_H2D_ITERS)
+        # loaded steps under the profiler: the prefetch thread's copies
+        # against the step's kernels
+        loader = Loader([images, labels], gb, device=dev, seed=0,
+                        prefetch_depth=2)
+        loader.set_epoch(1)
+        it = iter(loader)
+        state, _ = step(state, *next(it))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(DATA_PROFILED_STEPS):
+                state, _ = step(state, *next(it))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        it.close()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return {"losses_loaded": loaded_losses, "losses_resident": res_losses,
+            "losses_bitwise_equal": loaded_losses == res_losses,
+            "step_ms_loaded": loaded_ms, "step_ms_resident": res_ms,
+            "h2d_ms_per_batch": h2d_ms,
+            "h2d_gb_per_s": local.numel() * 2 / h2d_ms / 1e6,
+            "batch_mb": local.numel() * 2 / 1e6,
+            "profiled_steps": DATA_PROFILED_STEPS,
+            "profiled_wall_ms": wall_ms, **copy_overlap(prof),
+            "launches": launches, "slices_equal_global": slices_equal}
+
+
+def data_worker_child(index, size, cfgs, n_samples, vocab, seed, kill,
+                      stamp):
+    """One data-service host process (no CUDA): a random-access
+    ``DataWorker`` over the whole token dataset on ``cfgs[0]``'s registry
+    and a source-sharded one over sample ids on ``cfgs[1]``'s, serving
+    until the registries shut down. With ``kill`` it runs under
+    ``HOROVOD_CHAOS_SPEC``, and the first kill writes its wall time to
+    ``stamp``."""
+    import threading
+    if kill:
+        os.environ["HOROVOD_CHAOS_SPEC"] = json.dumps(kill)
+    from horovod_tpu_torch.data import compute_service as dcs
+    samples = np.random.RandomState(seed).randint(
+        0, vocab, size=(n_samples, 2, TRAIN_S)).astype(np.int64)
+    kill_fn = dcs.DataWorker.kill
+
+    def stamped_kill(self):
+        if not os.path.exists(stamp):
+            with open(stamp, "w") as f:
+                f.write(repr(time.time()))
+        kill_fn(self)
+
+    dcs.DataWorker.kill = stamped_kill
+    ra_cfg, stream_cfg = (dcs.ComputeConfig.from_dict(c) for c in cfgs)
+    threading.Thread(
+        target=dcs.compute_worker_fn,
+        args=(stream_cfg, lambda i, n: [np.int64(k) for k in
+                                        range(i, n_samples, n)]),
+        kwargs={"index": index, "size": size}, daemon=True).start()
+    dcs.compute_worker_fn(ra_cfg, lambda i, n: samples, index=index,
+                          size=size, random_access=True)
+
+
+def start_data_services(world):
+    """For each run of (b) (clean, kill): two registries in this process
+    and ``DATA_WORKERS`` child processes serving them."""
+    from horovod_tpu_torch.data.compute_service import (ComputeConfig,
+                                                        ComputeService)
+    os.environ.setdefault("HVD_TPU_ADVERTISE_HOST", "127.0.0.1")
+    os.makedirs(DATA_ROOT, exist_ok=True)
+    ctx = torch.multiprocessing.get_context("spawn")
+    n_samples = DATA_SERVICE_STEPS * TRAIN_B * world
+    vocab = flagship_cfg(dict).get("vocab_size")
+    specs, svcs, procs = {}, [], []
+    for name, kill in (("clean", None), ("kill", DATA_KILL)):
+        pair = [ComputeService(1, DATA_WORKERS, key=DATA_KEY)
+                for _ in range(2)]
+        svcs += pair
+        cfgs = [ComputeConfig(1, DATA_WORKERS, "compute", s.start(),
+                              DATA_KEY, timeout=120.0).to_dict()
+                for s in pair]
+        stamp = os.path.join(DATA_ROOT, f"{name}.killed")
+        if os.path.exists(stamp):
+            os.remove(stamp)
+        for i in range(DATA_WORKERS):
+            p = ctx.Process(target=data_worker_child,
+                            args=(i, DATA_WORKERS, cfgs, n_samples, vocab, 7,
+                                  kill, stamp), daemon=True)
+            p.start()
+            procs.append(p)
+        specs[name] = {"cfgs": cfgs, "stamp": stamp, "kill": kill,
+                       "n_samples": n_samples}
+    return specs, svcs, procs
+
+
+def stop_data_services(specs, svcs, procs) -> None:
+    from horovod_tpu_torch.data.compute_service import ComputeConfig
+    for spec in specs.values():
+        for c in spec["cfgs"]:
+            try:
+                ComputeConfig.from_dict(c).compute_client().shutdown()
+            except OSError:
+                pass
+    for p in procs:
+        p.join(timeout=30)
+        if p.is_alive():
+            p.kill()
+            p.join(timeout=10)
+    for s in svcs:
+        s.stop()
+
+
+def data_counter(M, name) -> float:
+    snap = M.metrics_snapshot()
+    return sum(s["value"] for s in snap[name]["series"]) if name in snap \
+        else 0.0
+
+
+def data_service_run(htt, fa, dev, rank, world, spec) -> dict:
+    """(b) The flagship train cell (phase 4's configuration) through
+    ``train_loop`` fed by a ``ResilientDataIterator`` over the run's
+    ``DATA_WORKERS`` workers with an ``ElasticSampler``: a warm-up step on
+    a batch of its own, then ``DATA_SERVICE_STEPS`` steps, each batch
+    staged to the card by ``PinnedStager``; flash launch counts zeroed
+    just before the loop and read just after."""
+    from horovod_tpu_torch import metrics as M
+    from horovod_tpu_torch.data.compute_service import (
+        ComputeConfig, ResilientDataIterator, data_service)
+    from horovod_tpu_torch.data.data_loader import PinnedStager
+    from horovod_tpu_torch.elastic.sampler import ElasticSampler
+    from horovod_tpu_torch.resilience import chaos
+    cfg = flagship_cfg(htt.TransformerConfig, mlp_recompute=True,
+                       dp_axis="dp")
+    params = htt.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    init_fn, step = htt.make_transformer_train_step(
+        cfg, lambda ps: torch.optim.SGD(ps, lr=0.01, momentum=0.9),
+        device=dev)
+    state = init_fn(params)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    warm = tuple(torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S),
+                               generator=gen, device=dev) for _ in range(2))
+    state, loss = step(state, *warm)
+    torch.cuda.synchronize()
+    losses, stamps, resharded_at = [float(loss)], [], []
+    service = ComputeConfig.from_dict(spec["cfgs"][0])
+    sampler = ElasticSampler(spec["n_samples"], shuffle=True, seed=0,
+                             rank=rank, num_replicas=world)
+    stager = PinnedStager(dev)
+    deaths0 = data_counter(M, "hvd_data_worker_deaths_total")
+    reshards0 = data_counter(M, "hvd_data_reshards_total")
+    with data_service(service, rank) as workers:
+        it = ResilientDataIterator(workers, sampler, TRAIN_B, key=DATA_KEY,
+                                   client=service.compute_client())
+
+    def feed():
+        seen = reshards0
+        for items in it:
+            now = data_counter(M, "hvd_data_reshards_total")
+            if now > seen:
+                resharded_at.append(time.time())
+                seen = now
+            a = np.stack(items)
+            yield stager.finish(stager.stage((a[:, 0], a[:, 1])))
+
+    def on_step(i, st, loss_t):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append(float(loss_t))
+
+    chaos.install(spec["kill"])
+    fa.reset_launches()
+    g0 = htt.goodput_report()
+    t0 = time.perf_counter()
+    try:
+        state, info = htt.train_loop(step, state, feed(), on_step=on_step)
+        torch.cuda.synchronize()
+    finally:
+        chaos.install(None)
+        it.close()
+    g1 = htt.goodput_report()
+    launches = {k: fa.LAUNCHES[k]
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    if info["final_step"] != DATA_SERVICE_STEPS + 1 or \
+            info["status"] != "completed":
+        raise AssertionError(f"train_loop info {info}")
+    for name, n in launches.items():
+        if n < cfg.n_layers * DATA_SERVICE_STEPS:
+            raise AssertionError(f"{name} launched {n} times over "
+                                 f"{DATA_SERVICE_STEPS} steps")
+    wait = (g1["phases"].get("input_wait", 0.0)
+            - g0["phases"].get("input_wait", 0.0))
+    total = g1["total_seconds"] - g0["total_seconds"]
+    killed_at = None
+    if os.path.exists(spec["stamp"]):
+        with open(spec["stamp"]) as f:
+            killed_at = float(f.read())
+    del state, params
+    return {"losses": losses,
+            "step_ms": [float(x) * 1e3 for x in np.diff([t0] + stamps)],
+            "worker_deaths": data_counter(
+                M, "hvd_data_worker_deaths_total") - deaths0,
+            "reshards": data_counter(M, "hvd_data_reshards_total")
+            - reshards0,
+            "kill_to_reshard_s": (resharded_at[0] - killed_at
+                                  if killed_at and resharded_at else None),
+            "input_wait_share": wait / total if total > 0 else None,
+            "processed": len(set(sampler.processed_indices)),
+            "launches": launches}
+
+
+def data_rank_runs(htt, cb, fa, rank, world, specs, dev="cuda"):
+    """(a) and (b) on one rank of an initialized world, then this rank's
+    pass over the clean run's source-sharded stream (``distribute``)."""
+    from horovod_tpu_torch.data.compute_service import (ComputeConfig,
+                                                        distribute)
+    a = data_loader_resnet(htt, cb, rank, world, dev)
+    torch.cuda.empty_cache()
+    b = {}
+    for name in ("clean", "kill"):
+        b[name] = data_service_run(htt, fa, dev, rank, world, specs[name])
+        torch.cuda.empty_cache()
+    ids = sorted(int(x) for x in distribute(
+        ComputeConfig.from_dict(specs["clean"]["cfgs"][1]), rank,
+        job="pass0"))
+    return a, b, ids
+
+
+def data_rank(rank, world, ports, results, specs):
+    """One rank of the N-card data world."""
+    join_store_world(rank, world, ports, "cuda")
+    import horovod_tpu_torch as htt
+    from horovod_tpu_torch.ops import conv_bn as cb
+    from horovod_tpu_torch.ops import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = htt.init()
+    if ctx.backend != "nccl" or htt.size() != world:
+        raise AssertionError(f"expected an NCCL world of {world}")
+    results.put((rank,) + data_rank_runs(htt, cb, fa, rank, world, specs))
+    htt.shutdown()
+    torch.distributed.destroy_process_group()
+
+
+def report_data(card, ranks, world, specs) -> None:
+    """Check (a) and (b) on every rank and print their lines."""
+    ranks = sorted(ranks, key=lambda r: r[0])
+    label = "" if world == 1 else " data parallel"
+    for rank, a, b, _ in ranks:
+        if not a["losses_bitwise_equal"]:
+            raise AssertionError(f"rank {rank}: loaded losses "
+                                 f"{a['losses_loaded']} != resident "
+                                 f"{a['losses_resident']}")
+        if not a["slices_equal_global"]:
+            raise AssertionError(f"rank {rank}: the ranks' slices do not "
+                                 f"concatenate to the global batch")
+        if b["clean"]["losses"] != b["kill"]["losses"]:
+            raise AssertionError(f"rank {rank}: killed losses "
+                                 f"{b['kill']['losses']} != clean "
+                                 f"{b['clean']['losses']}")
+        if b["kill"]["worker_deaths"] < 1 or b["kill"]["reshards"] < 1 \
+                or b["clean"]["worker_deaths"] != 0:
+            raise AssertionError(f"rank {rank}: deaths/reshards "
+                                 f"{b['kill']['worker_deaths']}/"
+                                 f"{b['kill']['reshards']} killed, "
+                                 f"{b['clean']['worker_deaths']} clean")
+    ids = sorted(i for r in ranks for i in r[3])
+    n = specs["clean"]["n_samples"]
+    if ids != list(range(n)):
+        raise AssertionError(f"distribute served {len(ids)} ids, not each "
+                             f"of {n} once")
+    a = ranks[0][1]
+    log(f"data loader resnet50{label}: " + json.dumps(
+        {"world": world, "batch_per_card": RESNET_B, "image": 224,
+         "steps": DATA_STEPS, **a,
+         "step_ms_loaded_median": pct(a["step_ms_loaded"], 50),
+         "step_ms_resident_median": pct(a["step_ms_resident"], 50),
+         "slices_equal_global_every_rank": all(
+             r[1]["slices_equal_global"] for r in ranks),
+         "losses_bitwise_every_rank": all(
+             r[1]["losses_bitwise_equal"] for r in ranks),
+         "card": card}))
+    for rank, _, b, mine in ranks:
+        log(f"data service train{label} rank {rank}: " + json.dumps(
+            {"world": world, "batch_per_card": TRAIN_B, "seq": TRAIN_S,
+             "steps": DATA_SERVICE_STEPS, "workers": DATA_WORKERS,
+             "chaos": DATA_KILL, "clean": b["clean"], "kill": b["kill"],
+             "losses_bitwise_equal": b["clean"]["losses"]
+             == b["kill"]["losses"],
+             "distribute_ids": len(mine), "card": card}))
+
+
+def estimator_run(card, n) -> None:
+    """(c) ``TpuEstimator.fit`` on the MNIST MLP through a ``TpuExecutor``
+    of ``n`` workers on the cards (NCCL), twice on the same pool (the
+    first fit pays each worker's one-time costs: imports at the first
+    optimizer step, CUDA modules, communicators), then ``predict`` on the
+    card against the CPU."""
+    from horovod_tpu_torch.integrations import TpuEstimator, TpuExecutor
+    from horovod_tpu_torch.models.mlp import MLP
+    rng = np.random.RandomState(0)
+    x = rng.rand(DATA_EST_ROWS, 28, 28).astype(np.float32)
+    proj = rng.randn(28 * 28, 10).astype(np.float32)
+    y = np.argmax(x.reshape(len(x), -1) @ proj, axis=1).astype(np.int64)
+    t0 = time.perf_counter()
+    with TpuExecutor(n) as ex:
+        up_s = time.perf_counter() - t0
+        cards = ex.run(torch.cuda.current_device)
+        est = TpuEstimator(
+            MLP(device="cpu"), loss="classification",
+            batch_size=DATA_EST_BATCH, epochs=DATA_EST_EPOCHS, lr=1e-3,
+            num_workers=n, executor=ex)
+        fit_s, models = [], []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            models.append(est.fit(x, y))
+            fit_s.append(time.perf_counter() - t1)
+        peak = ex.run(torch.cuda.max_memory_allocated)
+    model = models[0]
+    hist = model.history
+    if cards != list(range(n)) or min(peak) <= 0:
+        raise AssertionError(f"estimator workers on cards {cards}, peak "
+                             f"bytes {peak}")
+    if not all(b < a for a, b in zip(hist, hist[1:])):
+        raise AssertionError(f"estimator history not decreasing: {hist}")
+    on_card = model.predict(x[:256])
+    on_cpu = model.predict(x[:256], device="cpu")
+    err = float(np.abs(on_card - on_cpu).max() / np.abs(on_cpu).max())
+    if not err <= DATA_PREDICT_TOL:
+        raise AssertionError(f"predict on the card vs the CPU: {err}")
+    log(f"estimator{'' if n == 1 else ' data parallel'}: " + json.dumps(
+        {"workers": n, "worker_cards": cards, "rows": DATA_EST_ROWS,
+         "batch": DATA_EST_BATCH, "epochs": DATA_EST_EPOCHS,
+         "history": hist, "pool_start_s": up_s, "fit_s": fit_s,
+         "second_fit_history_equal": models[1].history == hist,
+         "worker_peak_gb": [p / 2 ** 30 for p in peak],
+         "predict_card_vs_cpu": err, "tolerance": DATA_PREDICT_TOL,
+         "card": card}))
+
+
+def data_world_one(htt, cb, fa, card) -> None:
+    """Phase 16 on one card: (a) and (b) in a world of one in this
+    process (the data workers start first, as processes of their own),
+    then (c)."""
+    log("data path packages: " + json.dumps(data_packages()))
+    t0 = time.perf_counter()
+    specs, svcs, procs = start_data_services(1)
+    try:
+        ctx = htt.init()
+        if ctx.backend != "nccl" or htt.size() != 1:
+            raise AssertionError("expected an NCCL world of one")
+        out = (0,) + data_rank_runs(htt, cb, fa, 0, 1, specs)
+        htt.shutdown()
+    finally:
+        stop_data_services(specs, svcs, procs)
+    report_data(card, [out], 1, specs)
+    torch.cuda.empty_cache()
+    estimator_run(card, 1)
+    log(f"data path (world 1): {time.perf_counter() - t0:.1f} s")
+
+
+def data_world(n, card) -> None:
+    """``--data-parallel N --data-only``: (a) and (b) in an N-card world
+    (one process a card; the data workers are processes of this one),
+    then (c) with N executor workers."""
+    log("data path packages: " + json.dumps(data_packages()))
+    t0 = time.perf_counter()
+    specs, svcs, procs = start_data_services(n)
+    try:
+        ranks = spawn_world(data_rank, n, n, DATA_WORLD_S, specs)
+    finally:
+        stop_data_services(specs, svcs, procs)
+    report_data(card, ranks, n, specs)
+    estimator_run(card, n)
+    log(f"data path (world {n}): {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an "
@@ -7299,6 +7848,9 @@ def main(argv) -> int:
     if argv[:1] == ["--worker"] and len(argv) == 3:
         return worker_main(argv[1], argv[2])
     n_dp = 0
+    data_one = argv == ["--data-only"]
+    if data_one:
+        argv = []
     resilient_only = argv[2:] == ["--resilient-only"]
     api_only = argv[2:] == ["--api-only"]
     launcher_only = argv[2:] == ["--launcher-only"]
@@ -7308,18 +7860,19 @@ def main(argv) -> int:
     fleet_only = argv[2:] == ["--fleet-only"]
     obs_only = argv[2:] == ["--observability-only"]
     store_only = argv[2:] == ["--store-only"]
+    data_only = argv[2:] == ["--data-only"]
     if argv:
         if len(argv) not in (2, 3) or argv[0] != "--data-parallel" or \
                 (len(argv) == 3 and not (resilient_only or api_only
                                          or launcher_only or mp_only
                                          or cp_only or zoo_only
                                          or fleet_only or obs_only
-                                         or store_only)):
-            print("usage: chip_smoke.py [--data-parallel N "
+                                         or store_only or data_only)):
+            print("usage: chip_smoke.py [--data-only | --data-parallel N "
                   "[--resilient-only | --api-only | --launcher-only | "
                   "--model-parallel-only | --control-plane-only | "
                   "--zoo-only | --fleet-only | --observability-only | "
-                  "--store-only]]",
+                  "--store-only | --data-only]]",
                   file=sys.stderr)
             return 2
         n_dp = int(argv[1])
@@ -7356,7 +7909,7 @@ def main(argv) -> int:
     if n_dp:
         only = (resilient_only or api_only or launcher_only or mp_only
                 or cp_only or zoo_only or fleet_only or obs_only
-                or store_only)
+                or store_only or data_only)
         if not only:
             collectives_n_cards(n_dp, card)
             data_parallel(n_dp, card)
@@ -7378,6 +7931,14 @@ def main(argv) -> int:
             observability_world(n_dp, card)
         if not only or store_only:
             artifact_store_world(n_dp, card)
+        if not only or data_only:
+            data_world(n_dp, card)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if data_one:
+        data_world_one(htt, cb, fa, card)
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -7459,6 +8020,11 @@ def main(argv) -> int:
     # phase 15: the compiled-artifact store, in processes of their own
     torch.cuda.empty_cache()
     artifact_store_world_one(card)
+
+    # phase 16: the data path: the loaders, the data service with its
+    # worker-kill drill, and the estimator through the executor
+    torch.cuda.empty_cache()
+    data_world_one(htt, cb, fa, card)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",

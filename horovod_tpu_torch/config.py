@@ -399,13 +399,11 @@ knobs.register("HOROVOD_FAULT_PROBE_SECONDS", 5.0, float,
                help="How often a shed optional site gets one probe "
                     "operation through (degraded mode heals on success).")
 knobs.register("HOROVOD_FAULT_HEARTBEAT_SECONDS", 2.0, float,
-               help="Cadence of a data-service worker's heartbeat. The "
-                    "data service is not ported yet (ROADMAP A.13b): "
-                    "train_loop raises when this is set.")
+               help="Cadence of a data-service worker's heartbeat to "
+                    "its registry (data/compute_service.py).")
 knobs.register("HOROVOD_FAULT_WORKER_DEADLINE", 10.0, float,
                help="Heartbeat age after which a data-service worker is "
-                    "declared dead. Not ported yet (ROADMAP A.13b): "
-                    "train_loop raises when this is set.")
+                    "declared dead; also a consumer's socket timeout.")
 
 # Tracing and goodput knobs (tracing/, goodput/), read at init and when
 # the recorder is enabled.

@@ -339,12 +339,6 @@ def _unported_loop_knobs() -> None:
         raise NotImplementedError(
             "train_loop: HOROVOD_VERIFY_STEP turns on a hook that is not "
             "yet ported to horovod_tpu_torch (ROADMAP A.15); unset it")
-    for name in ("HOROVOD_FAULT_HEARTBEAT_SECONDS",
-                 "HOROVOD_FAULT_WORKER_DEADLINE"):
-        if knobs.is_set(name):
-            raise NotImplementedError(
-                f"train_loop: {name} tunes the data service, which is not "
-                f"yet ported to horovod_tpu_torch (ROADMAP A.13b); unset it")
     from horovod_tpu_torch.resilience import chaos
     unported = chaos.unported_faults()
     if unported:
@@ -400,10 +394,12 @@ def train_loop(
     compiled-artifact store before step 1, or records and publishes them
     after it (``info["store_step"]``: hit | miss | error).
     ``HOROVOD_VERIFY_STEP`` in {1, strict} raises ``NotImplementedError``:
-    its hook is not ported yet (ROADMAP A.15). So do the data service's
+    its hook is not ported yet (ROADMAP A.15). So would an armed chaos
+    spec with a fault of a subsystem not ported yet
+    (``chaos.unported_faults``; none is left). The data service's knobs
     ``HOROVOD_FAULT_HEARTBEAT_SECONDS`` and ``HOROVOD_FAULT_WORKER_DEADLINE``
-    and an armed chaos spec with a fault of a subsystem not ported yet
-    (``chaos.unported_faults``).
+    tune its workers and consumers (``data.compute_service``), which feed
+    the loop through ``batches``.
 
     Returns ``(state, info)`` where ``info`` carries ``status``
     ('completed' | 'preempted'), ``exit_code`` (0 or the resumable 75),

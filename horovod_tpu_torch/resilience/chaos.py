@@ -79,12 +79,13 @@ the real recovery machinery, not a simulation of it. The serving fleet's
 router calls ``on_replica_dispatch`` and ``replica_slow_s`` on its
 dispatch path. The artifact store (``store/artifact_store.py``) calls
 ``on_fs`` at its ``store_read``/``store_write``/``store_rename`` points and
-``on_store_load`` after each read. The hook of the subsystem the port
-does not have yet (``on_data_request``: the data service) exists as in
-the JAX package and nothing calls it yet; ``train_loop`` raises
-``NotImplementedError`` when the armed spec holds its fault
-(:func:`unported_faults`), so a drill is never skipped silently. With no spec installed every hook is a no-op costing
-one attribute read.
+``on_store_load`` after each read. The data service's workers
+(``data/compute_service.py``) call ``on_data_request`` per request.
+``train_loop`` raises ``NotImplementedError`` when the armed spec holds
+a fault of a subsystem the port does not have yet
+(:func:`unported_faults`, now empty), so a drill is never skipped
+silently. With no spec installed every hook is a no-op costing one
+attribute read.
 """
 
 from __future__ import annotations
@@ -229,12 +230,13 @@ def active() -> Optional[ChaosSpec]:
 
 
 # Faults whose subsystem the port does not have yet, with its ROADMAP item:
-# the data service (A.13b). host_loss, slice_loss and host_return reach the
-# live resize through ResizeCoordinator.poll (elastic/resize.py);
-# replica_kill and replica_slow the serving fleet's router
-# (serving/router.py); store_corrupt and fs_transient with scope store the
-# artifact store (store/artifact_store.py).
-_UNPORTED_FAULTS = (("data_worker_kill", "A.13b"),)
+# none. host_loss, slice_loss and host_return reach the live resize through
+# ResizeCoordinator.poll (elastic/resize.py); replica_kill and replica_slow
+# the serving fleet's router (serving/router.py); store_corrupt and
+# fs_transient with scope store the artifact store
+# (store/artifact_store.py); data_worker_kill the data service's workers
+# (data/compute_service.py, DataWorker._chaos_check).
+_UNPORTED_FAULTS: Tuple[Tuple[str, str], ...] = ()
 
 
 def unported_faults() -> List[Tuple[str, str]]:

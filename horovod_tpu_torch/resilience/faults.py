@@ -553,3 +553,16 @@ class RetryingKV:
 
     def delete(self, key: str) -> None:
         self.inner.delete(key)
+
+
+# ---------------------------------------------------------------------------
+# data-plane supervision helpers (compute_service heartbeats)
+# ---------------------------------------------------------------------------
+
+def heartbeat_interval_s() -> float:
+    return max(float(knobs.get("HOROVOD_FAULT_HEARTBEAT_SECONDS")), 0.05)
+
+
+def worker_deadline_s() -> float:
+    return max(float(knobs.get("HOROVOD_FAULT_WORKER_DEADLINE")),
+               heartbeat_interval_s())

@@ -13,8 +13,8 @@ stdlib-only probe over SSH that connects BACK to the driver (trying every
 candidate driver address in order), reports its hostname, and learns which
 of ITS OWN interfaces routes to the driver — ``getsockname()`` on the
 connected socket. That address becomes the host's
-``HVD_TPU_ADVERTISE_HOST`` (the JAX package's data-service registry
-reads it; the port's data service is ROADMAP A.13b), with no manual env
+``HVD_TPU_ADVERTISE_HOST`` (the data-service registry and workers of
+``data/compute_service.py`` read it), with no manual env
 preparation. Reports are HMAC-signed with the per-run secret
 (shipped on the probe's ssh stdin, never the command line) so a network
 peer cannot spoof a host's advertise address or fake a dead host's

@@ -713,8 +713,8 @@ def test_resize_faults_are_no_longer_unported():
     """host_loss, slice_loss and host_return reach ResizeCoordinator.poll
     now, replica_kill and replica_slow the serving fleet's router, and
     store_corrupt the artifact store's read (its first read here is
-    refused as corrupt); the data service's fault still waits for
-    A.13b."""
+    refused as corrupt), and data_worker_kill the data service's workers:
+    no fault is left unported."""
     from horovod_tpu_torch.resilience import chaos
     try:
         chaos.install({"host_loss": {"host": 1, "at_step": 2},
@@ -724,7 +724,9 @@ def test_resize_faults_are_no_longer_unported():
                        "replica_slow": {"replica": 1, "delay": 0.1},
                        "store_corrupt": {"fail_first": 1},
                        "data_worker_kill": {"worker": 0}})
-        assert chaos.unported_faults() == [("data_worker_kill", "A.13b")]
+        assert chaos.unported_faults() == []
+        assert [chaos.on_data_request(w, 1) for w in (0, 1)] == [
+            True, False]
         assert [chaos.on_store_load("entry") for _ in range(2)] == [
             True, False]
         assert [chaos.resize_notice(s) for s in range(6)] == [

@@ -629,9 +629,11 @@ def test_train_loop_honours_profile_and_numerics_with_checkpoints(
 
 
 def test_train_loop_hooks_that_are_not_ported_raise(monkeypatch, tmp_path):
-    """The hooks of the step verifier and the data service raise; the
-    artifact store's is ported, so its knob runs the loop with the store
-    (a cold store: the step misses and its manifest is published)."""
+    """The step verifier's hook raises; the artifact store's is ported,
+    so its knob runs the loop with the store (a cold store: the step
+    misses and its manifest is published); so is the data service's, so
+    its two knobs run the loop and tune its heartbeat and deadline."""
+    from horovod_tpu_torch.resilience import faults
     from horovod_tpu_torch.store import artifact_store
     for knob, value in (("HOROVOD_VERIFY_STEP", "1"),
                         ("HOROVOD_VERIFY_STEP", "strict"),
@@ -649,6 +651,13 @@ def test_train_loop_hooks_that_are_not_ported_raise(monkeypatch, tmp_path):
                 artifact_store.reset_for_tests()
             assert info["store_step"] == "miss" and info["final_step"] == 1
             assert stats["publishes"] == 1 and stats["entries"] == 1
+        elif knob.startswith("HOROVOD_FAULT_"):
+            _, info = htt.train_loop(_mini_step, {"w": 0.0, "step": 0},
+                                     [1.0])
+            assert info["final_step"] == 1 and info["status"] == "completed"
+            assert (faults.heartbeat_interval_s(),
+                    faults.worker_deadline_s()) == (
+                (1.5, 10.0) if knob.endswith("SECONDS") else (2.0, 20.0))
         else:
             with pytest.raises(NotImplementedError, match=knob):
                 htt.train_loop(_mini_step, {"w": 0.0, "step": 0}, [1.0])
@@ -685,27 +694,42 @@ def test_train_loop_reserves_once_the_optimizer_has_its_state(tmp_path):
 
 
 def test_train_loop_chaos_faults_of_unported_subsystems_raise():
-    """The data service's fault raises; the serving fleet's replica faults
-    fire on its router's dispatch path and the artifact store's
+    """No fault's subsystem is left unported: the serving fleet's replica
+    faults fire on its router's dispatch path, the artifact store's
     (``store_corrupt``, ``fs_transient`` with scope store) in the store
-    (tests/test_torch_artifact_store.py), so train_loop runs with them
-    armed, as the JAX loop does."""
-    for fault, value, item in (
-            ("store_corrupt", {"fail_first": 1}, None),
-            ("data_worker_kill", {"worker": 0, "after_batches": 1},
-             "A.13b"),
-            ("replica_kill", {"replica": 0, "after_requests": 1}, None),
-            ("fs_transient", {"fail_first": 1, "scope": "store"}, None)):
+    (tests/test_torch_artifact_store.py) and ``data_worker_kill`` in a
+    ``DataWorker`` of the data service, so train_loop runs with each
+    armed, as the JAX loop does; the armed kill then fires in a worker,
+    which its consumer declares dead."""
+    from horovod_tpu_torch.data.compute_service import (
+        DataWorker, ResilientDataIterator)
+    from horovod_tpu_torch.elastic.sampler import ElasticSampler
+    for fault, value in (
+            ("store_corrupt", {"fail_first": 1}),
+            ("data_worker_kill", {"worker": 0, "after_batches": 1}),
+            ("replica_kill", {"replica": 0, "after_requests": 1}),
+            ("fs_transient", {"fail_first": 1, "scope": "store"})):
         chaos.install({fault: value})
         try:
-            if item is None:
-                _, info = htt.train_loop(_mini_step, {"w": 0.0, "step": 0},
-                                         [1.0])
-                assert info["final_step"] == 1
-            else:
-                with pytest.raises(NotImplementedError, match=item):
-                    htt.train_loop(_mini_step, {"w": 0.0, "step": 0},
-                                   [1.0])
+            assert chaos.unported_faults() == []
+            _, info = htt.train_loop(_mini_step, {"w": 0.0, "step": 0},
+                                     [1.0])
+            assert info["final_step"] == 1
+            if fault == "data_worker_kill":
+                workers = [DataWorker(lambda i, n: list(range(8)), i, 2,
+                                      random_access=True) for i in range(2)]
+                addrs = [w.start() for w in workers]
+                try:
+                    with ResilientDataIterator(
+                            addrs, ElasticSampler(8, shuffle=False, rank=0,
+                                                  num_replicas=1),
+                            batch_size=4) as it:
+                        batches = list(it)
+                finally:
+                    for w in workers:
+                        w.stop()
+                assert batches == [[0, 1, 2, 3], [4, 5, 6, 7]]
+                assert workers[0]._dead and not workers[1]._dead
         finally:
             chaos.install(None)
     # not armed in this incarnation: it could not fire, nothing skipped
