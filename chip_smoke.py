@@ -21,6 +21,8 @@
                                    # only phases 1 and 16, on one card
     python3 chip_smoke.py --data-parallel 4 --data-only
                                    # only phase 16's data path, on 4 cards
+    python3 chip_smoke.py --data-parallel 4 --autotune-only
+                                   # only phase 17's tuner and sweep, on 4 cards
 
 Phases, each of which raises (and so exits non-zero) when it fails:
 
@@ -243,6 +245,23 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     ``TpuExecutor`` of one worker on the card, 3 epochs: the history
     decreasing, ``predict`` on the card against the CPU within
     ``DATA_PREDICT_TOL``.
+17. the online tuner (``autotune ...`` lines): (a) ``autotune (world
+    1):`` ResNet-50 (``fused_conv_bn=True``, 128 images) stepped through
+    the coordinator from the gradient hooks (phase 10's path) with
+    HOROVOD_AUTOTUNE on (warmup 1, 3 cycles a sample, 8 samples, a CSV
+    log), the card synchronized before each ``StepStats.end``, until the
+    tuner converges: each sample's knobs and score, the converged knobs
+    (every value inside its box), the tuner's host us an update, cycles
+    and conv+BN launches a step, the peak memory after the first step
+    and after tuning; its losses and parameters bitwise an untuned run's
+    of as many steps; then the median step ms of AT_TIMED_STEPS steps at
+    the defaults and at the converged knobs, in turns; every override
+    cleared after. (b) ``autotune bucket auto (world 1):``
+    HOROVOD_GRADIENT_BUCKET_BYTES=auto on a fresh cache: a miss gives 25
+    MiB and one warning; ``sweep_bucket_bytes`` measures the five
+    candidates (a profiled step each) and caches the winner, which a
+    fresh ``DistributedOptimizer`` resolves; a child process on the same
+    HOROVOD_ARTIFACT_STORE gets the sweep warm, measuring nothing.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the
@@ -393,7 +412,18 @@ resnet50 data parallel:``, ``data service train data parallel rank
 in an N-card world (each rank's slices concatenating bitwise to the
 global batch, the drill's losses bitwise on every rank, ``distribute``
 feeding the N ranks every sample once), then (c) with N executor workers
-over NCCL.
+over NCCL. Last, the online tuner on N cards (``--data-parallel N
+--autotune-only``: only this; ``autotune data parallel:`` line): phase
+17's tuned ResNet-50 steps in a deterministic world, rank 0 tuning and
+the others applying its knobs at the same cycles over the c10d store:
+every rank's knob history equal, the ms of a publish and of an apply a
+cycle, each step's synced gradients and new parameters against a
+``DistributedOptimizer`` model given the same state within
+cp_resnet_steps' tolerances (another bin size may sum in another order),
+every rank's parameters bitwise equal; then ``sweep_bucket_bytes`` over
+the five candidates, AT_SWEEP_STEPS profiled steps each (the exposed
+NCCL ms with its spread, the collectives), and every rank resolving rank
+0's winner through a fresh ``DistributedOptimizer``.
 """
 
 from __future__ import annotations
@@ -7840,6 +7870,503 @@ def data_world(n, card) -> None:
     log(f"data path (world {n}): {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the online tuner and the bucket auto-resolution
+# ---------------------------------------------------------------------------
+
+AT_ROOT = os.path.join(HERE, "build", "autotune")
+AT_WARMUP = 1               # HOROVOD_AUTOTUNE_WARMUP_SAMPLES of the drill
+AT_STEPS_PER_SAMPLE = 3     # coordinator cycles a sample
+AT_SAMPLES = 8              # HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES
+AT_MAX_STEPS = 40           # ResNet-50 steps the tuner may take to converge
+AT_TIMED_STEPS = 5          # steps at the defaults and at the converged knobs
+AT_SWEEP_STEPS = 3          # profiled steps a bucket candidate on N cards
+AT_SWEEP_STEPS_ONE = 1      # the same on one card (NCCL launches nothing)
+AT_WORLD_S = 900            # the N-card world's deadline
+AT_TUNED = ("HOROVOD_FUSION_THRESHOLD", "HOROVOD_CYCLE_TIME",
+            "HOROVOD_HIERARCHICAL_ALLREDUCE", "HOROVOD_TORUS_ALLREDUCE")
+
+
+def at_knobs(knobs, log_path, on=True) -> None:
+    """The drill's tuner settings as overrides (cleared by the caller)."""
+    knobs.set_override("HOROVOD_AUTOTUNE", on)
+    knobs.set_override("HOROVOD_AUTOTUNE_WARMUP_SAMPLES", AT_WARMUP)
+    knobs.set_override("HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE",
+                       AT_STEPS_PER_SAMPLE)
+    knobs.set_override("HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES", AT_SAMPLES)
+    knobs.set_override("HOROVOD_AUTOTUNE_LOG", log_path if on else "")
+
+
+def at_in_box(point) -> bool:
+    """Every tuned value inside the tuner's box."""
+    return (0 <= int(point["HOROVOD_FUSION_THRESHOLD"]) <= 64 << 20
+            and 1.0 <= float(point["HOROVOD_CYCLE_TIME"]) <= 100.0
+            and all(isinstance(point[k], bool) for k in AT_TUNED[2:]))
+
+
+def at_resnet_steps(htt, C, cb, rank, world, dev, batch, image, n_steps,
+                    out, tuned=True):
+    """ResNet-50 (``fused_conv_bn=True``, seed 3) SGD steps through the
+    coordinator from the gradient hooks (``cp_hooked_sync``), each timed
+    by ``StepStats`` after a synchronize: until the tuner converges (at
+    most AT_MAX_STEPS) when ``n_steps`` is None, else ``n_steps``. On
+    several cards a second model takes the first's state before each step
+    and steps through ``DistributedOptimizer``: its synced gradients and
+    new parameters are held within API_MEAN_REL_TOL / PARAM_REL_TOL
+    (cp_resnet_steps' tolerances). Fills ``out`` with each step's cycles
+    and conv+BN launches, the tuner's points, scores (rank 0) and host us
+    an update, and the knob sync's ms; returns (losses, parameters,
+    model, sgd, sync, hooks)."""
+    import copy
+    from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.ops.coordinator import get_coordinator
+    from horovod_tpu_torch.runtime.context import get_context
+    ctx = get_context()
+    coord = get_coordinator(ctx)
+    mgr = coord.autotune
+    if tuned and not (mgr.enabled or coord._param_sync is not None):
+        raise AssertionError("autotune: the coordinator does not tune")
+    points, update_us, kv_ms = [], [], {"publish": [], "apply": []}
+    update = mgr.update
+
+    def timed_update(nbytes):
+        t0 = time.perf_counter()
+        changed = update(nbytes)
+        update_us.append((time.perf_counter() - t0) * 1e6)
+        if changed:
+            points.append({k: knobs.get(k) for k in AT_TUNED})
+        return changed
+
+    mgr.update = timed_update
+    sync_ = coord._param_sync
+    if sync_ is not None:
+        for name in ("publish", "apply"):
+            def timed(*a, _f=getattr(sync_, name), _n=name):
+                t0 = time.perf_counter()
+                _f(*a)
+                kv_ms[_n].append((time.perf_counter() - t0) * 1e3)
+            setattr(sync_, name, timed)
+    models = [htt.ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                           fused_conv_bn=True, device=dev, seed=3)
+              for _ in range(2 if world > 1 else 1)]
+    params = [list(m.parameters()) for m in models]
+    sgds = [torch.optim.SGD(ps, lr=0.01, momentum=0.9) for ps in params]
+    dopt = htt.DistributedOptimizer(sgds[1], op=htt.Average) \
+        if world > 1 else None
+    hsync, hooks = cp_hooked_sync(htt, params[0])
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    stats = htt.StepStats()
+    losses, cycles, launches, errs = [], [], [], []
+    step = 0
+    while (step < n_steps if n_steps is not None
+           else not (mgr.converged and (sync_ is None or sync_.done))
+           and step < AT_MAX_STEPS):
+        x, y = api_batch(dev, 70 + step, rank, batch, image)
+        if dopt is not None and step:
+            with torch.no_grad():
+                for a, b in zip(models[0].state_dict().values(),
+                                models[1].state_dict().values()):
+                    b.copy_(a)
+            sgds[1].load_state_dict(copy.deepcopy(sgds[0].state_dict()))
+        c0 = coord.stats.cycles
+        cb.reset_launches()
+        sync()
+        stats.begin()
+        loss = resnet_loss(models[0], x, y)
+        loss.backward()
+        hsync()
+        sgds[0].step()
+        sync()
+        stats.end()
+        launches.append(check_launches(cb, dev, f"autotune step {step}"))
+        cycles.append(coord.stats.cycles - c0)
+        losses.append(loss.detach().clone())
+        if dopt is not None:
+            resnet_loss(models[1], x, y).backward()
+            dopt.step()
+            for what, got, ref, rel in (
+                    ("grad", [p.grad for p in params[0]],
+                     [p.grad for p in params[1]], API_MEAN_REL_TOL),
+                    ("param", [p.detach() for p in params[0]],
+                     [p.detach() for p in params[1]], PARAM_REL_TOL)):
+                err, share = leaf_errors(got, [r.double() for r in ref], rel)
+                errs.append({"step": step, "what": what, "max_abs_err": err,
+                             "share_of_limit": share})
+                if share > 1:
+                    raise AssertionError(
+                        f"autotune step {step}: {what}s off "
+                        f"DistributedOptimizer's by {err} ({share} of the "
+                        f"limit)")
+            dopt.zero_grad()
+        sgds[0].zero_grad()
+        step += 1
+    mgr.update = update
+    if dopt is not None:
+        dopt._launcher.remove_hooks()
+        del models[1], params[1], sgds[1], dopt
+    out.update(steps=step, cycles_per_step=cycles,
+               conv_bn_launches_per_step=launches,
+               tuner_update_us_median=(float(np.median(update_us))
+                                       if update_us else None),
+               tuner_update_us_max=max(update_us) if update_us else None,
+               tuner_updates=len(update_us), points=points)
+    if errs:
+        out["vs_distributed_optimizer"] = {
+            w: max(e["share_of_limit"] for e in errs if e["what"] == w)
+            for w in ("grad", "param")}
+    if sync_ is not None:
+        out["kv_ms_per_cycle"] = {k: (float(np.median(v)) if v else None)
+                                  for k, v in kv_ms.items()}
+        out["kv_cycles"] = {k: len(v) for k, v in kv_ms.items()}
+        out["history"] = json.dumps(sync_.history, sort_keys=True)
+    return losses, params[0], models[0], sgds[0], hsync, hooks
+
+
+def at_timed_turns(htt, model, sgd, hsync, rank, dev, batch, image,
+                   converged) -> dict:
+    """Median step ms (host clock, after a synchronize) of AT_TIMED_STEPS
+    steps at the defaults and at the converged knobs, in turns."""
+    from horovod_tpu_torch.config import knobs
+    ms = {"defaults": [], "converged": []}
+    for i in range(2 * AT_TIMED_STEPS + 2):
+        label = ("defaults", "converged")[i % 2]
+        for k in AT_TUNED:
+            if label == "converged":
+                knobs.set_override(k, converged[k])
+            else:
+                knobs.clear_override(k)
+        x, y = api_batch(dev, 200 + i, rank, batch, image)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resnet_loss(model, x, y).backward()
+        hsync()
+        sgd.step()
+        torch.cuda.synchronize()
+        if i >= 2:
+            ms[label].append((time.perf_counter() - t0) * 1e3)
+        sgd.zero_grad()
+    for k in AT_TUNED:
+        knobs.clear_override(k)
+    return {f"step_ms_{k}": float(np.median(v)) for k, v in ms.items()} | {
+        f"step_ms_{k}_all": v for k, v in ms.items()}
+
+
+def at_measure(htt, model, params, rank, dev, batch, image, steps, root):
+    """``measure(bucket_bytes)`` for ``sweep_bucket_bytes``: one warm-up
+    step and then ``steps`` steps, each a ``StepProfiler`` window of its
+    own, through a ``DistributedOptimizer`` at that bucket size; a
+    ``profiled_step_row`` each. The ranks meet at a barrier before each
+    window, so no rank's NCCL kernels wait out another's trace export."""
+    import shutil
+    import torch.distributed as dist
+    from horovod_tpu_torch import autotune
+    from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.tracing.profile import (StepProfiler,
+                                                   read_trace_events)
+
+    def measure(bucket_bytes):
+        knobs.set_override("HOROVOD_GRADIENT_BUCKET_BYTES", bucket_bytes)
+        opt = htt.DistributedOptimizer(torch.optim.SGD(params, lr=0.01),
+                                       op=htt.Average)
+        try:
+            sizes = [sum(params[i].numel() * params[i].element_size()
+                         for i in b) for b in opt.buckets]
+            rows = []
+            for s in range(steps + 1):
+                x, y = api_batch(dev, 300 + s, rank, batch, image)
+                prof = None
+                if s:
+                    if dist.is_initialized():
+                        dist.barrier()
+                    prof = StepProfiler(1, 1, log_dir=os.path.join(
+                        root, f"rank{rank}-{bucket_bytes >> 20}-{s}"))
+                    prof.on_step_end(0)
+                resnet_loss(model, x, y).backward()
+                opt.step()
+                opt.zero_grad()
+                if prof is not None:
+                    prof.on_step_end(1)
+                    rows.append(autotune.profiled_step_row(
+                        read_trace_events(prof.trace_path), sizes,
+                        device=dev.type == "cuda"))
+                    shutil.rmtree(prof.log_dir, ignore_errors=True)
+            return rows
+        finally:
+            opt._launcher.remove_hooks()
+            knobs.clear_override("HOROVOD_GRADIENT_BUCKET_BYTES")
+
+    return measure
+
+
+def at_sweep_summary(rec) -> dict:
+    """A sweep record's candidates in ms."""
+    return {str(int(bb) >> 20) + "MiB": {
+        "exposed_nccl_ms": r["exposed_comm_s"] * 1e3,
+        "exposed_nccl_ms_spread": [v * 1e3 for v in
+                                   r["exposed_comm_s_spread"]],
+        "nccl_ms": r["comm_s"] * 1e3, "collectives": r["collectives"]}
+        for bb, r in rec["sweep"]["candidates"].items()}
+
+
+def at_resolved(htt, params) -> int:
+    """The bucket size a fresh ``DistributedOptimizer`` resolved (the
+    ``hvd_gradient_bucket_bytes`` gauge), its hooks removed."""
+    from horovod_tpu_torch import metrics as M
+    opt = htt.DistributedOptimizer(torch.optim.SGD(params, lr=0.01),
+                                   op=htt.Average)
+    opt._launcher.remove_hooks()
+    return int(M.get_registry().get(
+        "hvd_gradient_bucket_bytes").value)
+
+
+def at_store_child(rank, world, ports, results, leaves, store_dir, cache,
+                   workload):
+    """A fresh process on the artifact store of phase 17 (b): the sweep
+    of the same model and world comes warm, measuring nothing."""
+    os.environ["HOROVOD_ARTIFACT_STORE"] = store_dir
+    os.environ["HOROVOD_BUCKET_AUTO_CACHE"] = cache
+    from horovod_tpu_torch import autotune
+
+    def measure(bucket_bytes):
+        raise AssertionError("the warm sweep measured a candidate")
+
+    rec = autotune.sweep_bucket_bytes(measure, 1, workload=workload,
+                                      leaves=leaves)
+    results.put({"warm": rec["warm"],
+                 "measured_candidates": rec["measured_candidates"],
+                 "winner_bucket_bytes": rec["winner_bucket_bytes"],
+                 "cache": autotune.bucket_cache_load()})
+
+
+def at_bucket_auto_one(htt, model, params, dev, batch, image, out) -> None:
+    """Phase 17 (b) in a world of one."""
+    import logging
+    import shutil
+    from horovod_tpu_torch import autotune
+    from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.store import artifact_store
+    root = os.path.join(AT_ROOT, "bucket_auto")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    store_dir = os.path.join(root, "store")
+    knobs.set_override("HOROVOD_BUCKET_AUTO_CACHE",
+                       os.path.join(root, "bucket_auto.json"))
+    knobs.set_override("HOROVOD_ARTIFACT_STORE", store_dir)
+    artifact_store.reset_for_tests()
+    warnings = []
+    handler = logging.Handler(logging.WARNING)
+    handler.emit = lambda rec: warnings.append(rec.getMessage())
+    logger = logging.getLogger("horovod_tpu_torch.autotune")
+    logger.addHandler(handler)
+    leaves = [(tuple(p.shape), p.dtype) for p in params]
+    try:
+        knobs.set_override("HOROVOD_GRADIENT_BUCKET_BYTES", "auto")
+        miss = [at_resolved(htt, params) for _ in range(2)]
+        if miss != [autotune.DEFAULT_BUCKET_BYTES] * 2 or len(warnings) != 1:
+            raise AssertionError(f"bucket auto miss: {miss}, {warnings}")
+        knobs.clear_override("HOROVOD_GRADIENT_BUCKET_BYTES")
+        t0 = time.perf_counter()
+        rec = autotune.sweep_bucket_bytes(
+            at_measure(htt, model, params, 0, dev, batch, image,
+                       AT_SWEEP_STEPS_ONE, root),
+            1, workload="resnet50", leaves=leaves)
+        sweep_s = time.perf_counter() - t0
+        knobs.set_override("HOROVOD_GRADIENT_BUCKET_BYTES", "auto")
+        hit = at_resolved(htt, params)
+        if rec["warm"] or hit != rec["winner_bucket_bytes"]:
+            raise AssertionError(f"bucket auto: sweep {rec['warm']}, "
+                                 f"resolved {hit}")
+        (child,) = spawn_world(
+            at_store_child, 1, 1, 300,
+            [(s, str(d).replace("torch.", "")) for s, d in leaves],
+            store_dir, os.path.join(root, "child_cache.json"), "resnet50")
+        sig = autotune.grad_signature(leaves, 1)
+        if not (child["warm"] and child["measured_candidates"] == 0
+                and child["winner_bucket_bytes"] == hit
+                and child["cache"] == {sig: hit}):
+            raise AssertionError(f"bucket auto child: {child}")
+    finally:
+        logger.removeHandler(handler)
+        for k in ("HOROVOD_GRADIENT_BUCKET_BYTES", "HOROVOD_ARTIFACT_STORE",
+                  "HOROVOD_BUCKET_AUTO_CACHE"):
+            knobs.clear_override(k)
+        artifact_store.reset_for_tests()
+    out.update(miss_bytes=miss[0], miss_warnings=len(warnings),
+               sweep_seconds=sweep_s, candidates=at_sweep_summary(rec),
+               winner_bucket_bytes=rec["winner_bucket_bytes"],
+               resolved_by_fresh_optimizer=hit,
+               measured_candidates=rec["measured_candidates"],
+               child=child)
+
+
+def autotune_world_one(htt, cb, card, dev="cuda", batch=RESNET_B,
+                       image=224) -> None:
+    """Phase 17 in a world of one: (a) the tuned run and its untuned
+    twin, the timed turns; (b) the bucket auto-resolution."""
+    import shutil
+    from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.ops import collectives as C
+    shutil.rmtree(AT_ROOT, ignore_errors=True)
+    os.makedirs(AT_ROOT)
+    log_path = os.path.join(AT_ROOT, "autotune.csv")
+    t0 = time.perf_counter()
+    out = {"card": card}
+    try:
+        at_knobs(knobs, log_path)
+        ctx = htt.init(device=dev)
+        dev_ = ctx.device
+        torch.cuda.reset_peak_memory_stats()
+        tuned_out = {}
+        losses, params, model, sgd, hsync, hooks = at_resnet_steps(
+            htt, C, cb, 0, 1, dev_, batch, image, None, tuned_out)
+        coord = ctx.coordinator
+        mgr = coord.autotune
+        out["peak_gb_tuned_run"] = torch.cuda.max_memory_allocated() / 1e9
+        out["fusion_buffer_bytes"] = coord.buffers.nbytes()
+        with open(log_path) as f:
+            rows = [r.split(",") for r in f.read().strip().splitlines()]
+        converged = {k: knobs.get(k) for k in AT_TUNED}
+        if not mgr.converged or len(rows) != AT_SAMPLES:
+            raise AssertionError(f"autotune: converged {mgr.converged}, "
+                                 f"{len(rows)} CSV rows")
+        if not all(at_in_box(p) for p in tuned_out["points"] + [converged]):
+            raise AssertionError(f"autotune: a point outside the box: "
+                                 f"{tuned_out['points']}")
+        out.update(tuned_out, converged=converged,
+                   scores=[float(r[1]) for r in rows])
+        out.update(at_timed_turns(htt, model, sgd, hsync, 0, dev_, batch,
+                                  image, converged))
+        for h in hooks:
+            h.remove()
+        del model, sgd, params
+        htt.shutdown()
+        torch.cuda.empty_cache()
+        # the untuned twin: as many steps from the same weights and batches
+        at_knobs(knobs, log_path, on=False)
+        htt.init(device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        twin = {}
+        ref, ref_params, model, _, _, hooks = at_resnet_steps(
+            htt, C, cb, 0, 1, dev_, batch, image, tuned_out["steps"], twin,
+            tuned=False)
+        out["peak_gb_untuned_run"] = torch.cuda.max_memory_allocated() / 1e9
+        out["losses"] = [float(v) for v in losses]
+        if not all(torch.equal(a, b) for a, b in zip(losses, ref)):
+            raise AssertionError(f"autotune: tuned losses {out['losses']} "
+                                 f"differ from the untuned run's "
+                                 f"{[float(v) for v in ref]}")
+        out["losses_bitwise_untuned"] = len(ref)
+        for h in hooks:
+            h.remove()
+        bucket = {}
+        at_bucket_auto_one(htt, model, ref_params, dev_, batch, image,
+                           bucket)
+        del model, ref_params
+    finally:
+        htt.shutdown()
+        knobs.clear_all_overrides()
+    if knobs._overrides:
+        raise AssertionError(f"autotune: overrides left {knobs._overrides}")
+    out["overrides_cleared"] = True
+    out["seconds"] = time.perf_counter() - t0
+    log("autotune (world 1): " + json.dumps(out))
+    bucket["card"] = card
+    log("autotune bucket auto (world 1): " + json.dumps(bucket))
+
+
+def autotune_rank(rank, world, ports, results, device="cuda",
+                  batch=RESNET_B, image=224):
+    """One rank of ``--data-parallel N --autotune-only``."""
+    import torch.distributed as dist
+    join_store_world(rank, world, ports, device)
+    import horovod_tpu_torch as htt
+    from horovod_tpu_torch import autotune
+    from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.ops import conv_bn as cb
+    from horovod_tpu_torch.store import artifact_store
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = os.path.join(AT_ROOT, "data_parallel")
+    at_knobs(knobs, os.path.join(root, f"autotune-rank{rank}.csv"))
+    knobs.set_override("HOROVOD_BUCKET_AUTO_CACHE",
+                       os.path.join(root, "bucket_auto.json"))
+    knobs.set_override("HOROVOD_ARTIFACT_STORE", os.path.join(root, "store"))
+    artifact_store.reset_for_tests()
+    ctx = htt.init(device=device)
+    dev = ctx.device
+    out = {"rank": rank, "world": world}
+    t0 = time.perf_counter()
+    _, params, model, sgd, _, hooks = at_resnet_steps(
+        htt, C, cb, rank, world, dev, batch, image, None, out)
+    coord = ctx.coordinator
+    if rank == 0:
+        with open(os.path.join(root, "autotune-rank0.csv")) as f:
+            out["scores"] = [float(r.split(",")[1])
+                             for r in f.read().strip().splitlines()]
+    out["converged"] = bool(coord.autotune.converged)
+    out["tuning"] = bool(coord.autotune.enabled)
+    out["sync_done"] = bool(coord._param_sync.done)
+    out["knobs"] = {k: knobs.get(k) for k in AT_TUNED}
+    if not same_on_every_rank(C, params):
+        raise AssertionError("autotune: parameters differ between ranks")
+    out["params_bitwise_equal"] = True
+    out["tune_seconds"] = time.perf_counter() - t0
+    for h in hooks:
+        h.remove()
+    del sgd
+    t0 = time.perf_counter()
+    rec = autotune.sweep_bucket_bytes(
+        at_measure(htt, model, params, rank, dev, batch, image,
+                   AT_SWEEP_STEPS, root),
+        world, workload="resnet50",
+        leaves=[(tuple(p.shape), p.dtype) for p in params])
+    out["sweep_seconds"] = time.perf_counter() - t0
+    out["candidates"] = at_sweep_summary(rec)
+    out["winner_bucket_bytes"] = rec["winner_bucket_bytes"]
+    knobs.set_override("HOROVOD_GRADIENT_BUCKET_BYTES", "auto")
+    out["resolved"] = at_resolved(htt, params)
+    results.put(out)
+    htt.shutdown()
+    knobs.clear_all_overrides()
+    dist.destroy_process_group()
+
+
+def autotune_world(n, card, **kw) -> None:
+    """``autotune_rank`` in ``n`` spawned processes; the ``autotune data
+    parallel:`` line (rank 0's numbers, every rank's history and
+    resolution checked equal)."""
+    import shutil
+    shutil.rmtree(os.path.join(AT_ROOT, "data_parallel"),
+                  ignore_errors=True)
+    os.makedirs(os.path.join(AT_ROOT, "data_parallel"))
+    ranks = sorted(spawn_world(autotune_rank, n, n, AT_WORLD_S, **kw),
+                   key=lambda r: r["rank"])
+    lead = ranks[0]
+    if not (lead["converged"] and lead["tuning"]
+            and not any(r["tuning"] for r in ranks[1:])
+            and all(r["sync_done"] for r in ranks)):
+        raise AssertionError(f"autotune data parallel: not converged or "
+                             f"not leader-tuned: {ranks}")
+    if len({r["history"] for r in ranks}) != 1 or \
+            len({json.dumps(r["knobs"], sort_keys=True)
+                 for r in ranks}) != 1:
+        raise AssertionError("autotune data parallel: the ranks' knob "
+                             "histories differ")
+    resolved = [r["resolved"] for r in ranks]
+    if resolved != [lead["winner_bucket_bytes"]] * n:
+        raise AssertionError(f"autotune data parallel: resolutions "
+                             f"{resolved}, rank 0's winner "
+                             f"{lead['winner_bucket_bytes']}")
+    out = {k: v for k, v in lead.items() if k not in ("rank", "history")}
+    out.update(card=card, history_cycles=len(json.loads(lead["history"])),
+               histories_equal=True, resolved_every_rank=resolved,
+               follower_kv_ms_per_cycle=[r["kv_ms_per_cycle"]
+                                         for r in ranks[1:]],
+               winners_by_rank=[r["winner_bucket_bytes"] for r in ranks])
+    log("autotune data parallel: " + json.dumps(out))
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an "
@@ -7861,18 +8388,20 @@ def main(argv) -> int:
     obs_only = argv[2:] == ["--observability-only"]
     store_only = argv[2:] == ["--store-only"]
     data_only = argv[2:] == ["--data-only"]
+    autotune_only = argv[2:] == ["--autotune-only"]
     if argv:
         if len(argv) not in (2, 3) or argv[0] != "--data-parallel" or \
                 (len(argv) == 3 and not (resilient_only or api_only
                                          or launcher_only or mp_only
                                          or cp_only or zoo_only
                                          or fleet_only or obs_only
-                                         or store_only or data_only)):
+                                         or store_only or data_only
+                                         or autotune_only)):
             print("usage: chip_smoke.py [--data-only | --data-parallel N "
                   "[--resilient-only | --api-only | --launcher-only | "
                   "--model-parallel-only | --control-plane-only | "
                   "--zoo-only | --fleet-only | --observability-only | "
-                  "--store-only | --data-only]]",
+                  "--store-only | --data-only | --autotune-only]]",
                   file=sys.stderr)
             return 2
         n_dp = int(argv[1])
@@ -7909,7 +8438,7 @@ def main(argv) -> int:
     if n_dp:
         only = (resilient_only or api_only or launcher_only or mp_only
                 or cp_only or zoo_only or fleet_only or obs_only
-                or store_only or data_only)
+                or store_only or data_only or autotune_only)
         if not only:
             collectives_n_cards(n_dp, card)
             data_parallel(n_dp, card)
@@ -7933,6 +8462,8 @@ def main(argv) -> int:
             artifact_store_world(n_dp, card)
         if not only or data_only:
             data_world(n_dp, card)
+        if not only or autotune_only:
+            autotune_world(n_dp, card)
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -8025,6 +8556,11 @@ def main(argv) -> int:
     # worker-kill drill, and the estimator through the executor
     torch.cuda.empty_cache()
     data_world_one(htt, cb, fa, card)
+
+    # phase 17: the online tuner on the coordinator's cycles and the
+    # bucket auto-resolution
+    torch.cuda.empty_cache()
+    autotune_world_one(htt, cb, card)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",

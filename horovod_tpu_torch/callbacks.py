@@ -196,9 +196,11 @@ class StepStats:
     time, bytes reduced, collective seconds and the collective-time
     fraction), feeds the ``hvd_step_duration_seconds`` histogram (which
     the auto checkpoint cadence tunes against), and rolls the window so
-    back-to-back ``end()`` calls measure consecutive steps. The wall time
-    is the host's: on the card a step's kernels may still be queued when
-    it ends, and the next step's wait absorbs them."""
+    back-to-back ``end()`` calls measure consecutive steps, and feeds
+    the online tuner (``autotune.feed_step_stats``). The wall time is the
+    host's: on the card a step's kernels may still be queued when it ends,
+    and the next step's wait absorbs them; synchronize the card before
+    ``end()`` where the time must hold the step's device work."""
 
     def __init__(self):
         self._m_steps = _metrics.counter(
@@ -236,6 +238,9 @@ class StepStats:
         }
         self._m_steps.inc()
         self._m_step_dur.observe(wall)
+        # the online tuner's v2 score (a no-op without an active tuner)
+        from horovod_tpu_torch import autotune as _autotune
+        _autotune.feed_step_stats(wall, coll)
         self.last = stats
         self.begin()
         return stats

@@ -75,6 +75,7 @@ class Knob:
     default: Any
     type: Callable[[str], Any]
     help: str = ""
+    tunable: bool = False         # the online tuner may override it
     choices: Optional[tuple] = None
 
 
@@ -86,10 +87,11 @@ class KnobRegistry:
         self._knobs: Dict[str, Knob] = {}
         self._overrides: Dict[str, Any] = {}
 
-    def register(self, name, default, type=str, help="", choices=None):
+    def register(self, name, default, type=str, help="", tunable=False,
+                 choices=None):
         if type is bool:
             type = _parse_bool
-        self._knobs[name] = Knob(name, default, type, help, choices)
+        self._knobs[name] = Knob(name, default, type, help, tunable, choices)
         return self._knobs[name]
 
     def get(self, name: str) -> Any:
@@ -118,6 +120,9 @@ class KnobRegistry:
 
     def clear_override(self, name: str) -> None:
         self._overrides.pop(name, None)
+
+    def clear_all_overrides(self) -> None:
+        self._overrides.clear()
 
     def knobs(self) -> Dict[str, Knob]:
         return dict(self._knobs)
@@ -242,16 +247,21 @@ knobs.register("HOROVOD_GRADIENT_BUCKET_BYTES", 25 * 1024 * 1024,
                     "bucket's collective is launched from the gradient "
                     "hooks as soon as its gradients are complete, so it "
                     "overlaps the rest of the backward. 0 = one fused sync "
-                    "per dtype after the backward. 'auto' = the 25 MiB "
-                    "default with a warning (the sweep cache is not "
-                    "ported).")
+                    "per dtype after the backward. 'auto' = the winner "
+                    "cached for (gradient shapes, world size) in "
+                    "HOROVOD_BUCKET_AUTO_CACHE by a measured sweep "
+                    "(autotune.sweep_bucket_bytes); a miss takes the 25 "
+                    "MiB default with a warning, and in a world of several "
+                    "ranks rank 0's resolution is adopted by every rank "
+                    "over the c10d store.")
 knobs.register("HOROVOD_GRADIENT_COMPRESSION", "none", str,
                choices=("none", "bf16", "fp16", "fp8_e4m3", "fp8_e5m2"),
                help="Wire dtype of the bucketed gradient collectives "
                     "(compression.WireCodec): each packed bucket is cast to "
                     "it before the SUM and decoded after; fp8 tiers carry "
                     "one global-amax scale per bucket. Overrides the tier "
-                    "implied by a compression= argument unless 'none'.")
+                    "implied by a compression= argument unless 'none'.",
+               tunable=True)
 knobs.register("HOROVOD_GRADIENT_ERROR_FEEDBACK", "auto", str,
                help="Error-feedback residual for lossy wire tiers: 'auto' "
                     "= on for fp8, off for bf16/fp16; '1' always; '0' "
@@ -264,15 +274,18 @@ knobs.register("HOROVOD_HIERARCHICAL_ALLREDUCE", False, bool,
                help="Two-level (cross, local) topology: init builds a "
                     "(hvd_cross, hvd_local) mesh with local = "
                     "LOCAL_WORLD_SIZE (or a balanced factor), the axes "
-                    "of hierarchical_allreduce.")
+                    "of hierarchical_allreduce.",
+               tunable=True)
 knobs.register("HOROVOD_HIERARCHICAL_ALLGATHER", False, bool,
                help="allgather over several axes gathers axis by axis, "
                     "innermost first; the result equals the flat "
-                    "gather's.")
+                    "gather's.",
+               tunable=True)
 knobs.register("HOROVOD_TORUS_ALLREDUCE", False, bool,
                help="Same topology as HOROVOD_HIERARCHICAL_ALLREDUCE: "
                     "reduce-scatter over local, allreduce over cross, "
-                    "allgather over local (torus_allreduce).")
+                    "allgather over local (torus_allreduce).",
+               tunable=True)
 knobs.register("HOROVOD_DCN_MESH", "", str,
                help="Two-tier mesh shape 'dcn,local' or "
                     "'dcn,cross,local', outermost first; the leading dim "
@@ -294,7 +307,8 @@ knobs.register("HOROVOD_DCN_SCHEDULE", "auto", str,
                     "the wire codec narrows), all-gather back; 'auto' "
                     "resolves 'flat' in the port until NVLink and the "
                     "network are measured on the card "
-                    "(autotune.resolve_dcn_schedule).")
+                    "(autotune.resolve_dcn_schedule).",
+               tunable=True)
 knobs.register("HOROVOD_TPU_MESH_SHAPE", "", str,
                help="Comma-separated mesh shape, e.g. '4,2'; empty = 1D "
                     "over all ranks.")
@@ -535,15 +549,18 @@ knobs.register("HOROVOD_FUSION_THRESHOLD", 128 * 1024 * 1024,
                     "Accepts size suffixes ('64MB') and, on hierarchical "
                     "meshes, the per-axis form 'local:64MB,cross:8MB'. In "
                     "a world of several ranks the queue also flushes when "
-                    "its bytes reach this (floored at 4 KiB).")
+                    "its bytes reach this (floored at 4 KiB).",
+               tunable=True)
 knobs.register("HOROVOD_FUSION_THRESHOLD_CROSS", 0, _parse_size,
                help="Bin capacity for collectives whose traffic crosses "
                     "the slow outer mesh axis; 0 falls back to "
-                    "HOROVOD_FUSION_THRESHOLD.")
+                    "HOROVOD_FUSION_THRESHOLD.",
+               tunable=True)
 knobs.register("HOROVOD_CYCLE_TIME", 1.0, float,
                help="Batching window in ms of the coordinator's cycle "
                     "thread (a world of one): the time it waits after the "
-                    "first enqueue before it drains the queue.")
+                    "first enqueue before it drains the queue.",
+               tunable=True)
 knobs.register("HOROVOD_CACHE_CAPACITY", 1024, int,
                help="Entries of the coordinator's LRU of fused plans (ref "
                     "global_state.h:89); an eviction frees the plan's "
@@ -609,9 +626,31 @@ knobs.register("HOROVOD_TPU_NATIVE", True, bool,
                     "use; a failed build raises. 0 selects the Python "
                     "planner and writer.")
 knobs.register("HOROVOD_AUTOTUNE", False, bool,
-               help="The online tuner of the fusion threshold and cycle "
-                    "time. Not ported yet (ROADMAP A.13b): the coordinator "
-                    "raises when it is set.")
+               help="The online Bayesian tuner (autotune.ParameterManager) "
+                    "of the coordinator's tunable knobs: fusion threshold, "
+                    "cycle time and the categorical knobs, scored after "
+                    "each cycle. In a world of several ranks rank 0 tunes "
+                    "and the others apply its values over the c10d store "
+                    "(ref parameter_manager.cc).")
+knobs.register("HOROVOD_AUTOTUNE_LOG", "", str,
+               help="CSV log of autotune samples (ref "
+                    "parameter_manager.cc:77-82).")
+knobs.register("HOROVOD_AUTOTUNE_WARMUP_SAMPLES", 3, int,
+               help="Autotune warmup discard count (ref common.h:119-124).")
+knobs.register("HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE", 10, int,
+               help="Coordinator cycles per autotune scoring sample.")
+knobs.register("HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES", 20, int,
+               help="Max Bayesian-optimization samples before convergence.")
+knobs.register("HOROVOD_AUTOTUNE_COMPRESSION", False, bool,
+               help="Include the wire-compression tier "
+                    "(HOROVOD_GRADIENT_COMPRESSION) as an ordinal dimension "
+                    "of the tuner, over "
+                    "autotune.COMPRESSION_TIER_CANDIDATES. Opt-in: the tier "
+                    "changes the wire's numerics, not only its speed.")
+knobs.register("HOROVOD_BUCKET_AUTO_CACHE", "", str,
+               help="JSON cache of HOROVOD_GRADIENT_BUCKET_BYTES=auto "
+                    "winners, keyed by (gradient shapes, world size). "
+                    "Empty = ~/.cache/horovod_tpu_torch/bucket_auto.json.")
 
 # Launcher and elastic knobs (runner/, elastic/): the JAX package's names
 # and defaults.

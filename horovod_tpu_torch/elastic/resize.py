@@ -14,7 +14,11 @@ where a lost host's ranks are processes:
    the SAME step;
 2. **drain** — outstanding eager handles are resolved with
    :class:`~horovod_tpu_torch.elastic.exceptions.ResizeInterrupt`
-   (``eager.reset_outstanding``);
+   (``eager.reset_outstanding``), and the coordinator's tuner trajectory
+   is archived under its world key (``autotune.ParameterManager.
+   archive_world_history``): the survivors' new coordinator, built for
+   its own world, starts afresh, and one built for this world again
+   resumes it;
 3. **snapshot** — a final synchronous checkpoint commits at the stop step
    on the OLD world (every rank writes its shard), then the
    :class:`ResizePlan` commits atomically next to it
@@ -925,10 +929,14 @@ class ResizeCoordinator:
                 "it. Run under hvdrun-torch (it hosts the store; "
                 "TORCHELASTIC_USE_AGENT_STORE=True) or keep rank 0's host")
 
-        # (2) outstanding eager handles resolve NOW, with the reason
+        # (2) outstanding eager handles resolve NOW, with the reason; the
+        # old coordinator's tuner trajectory is archived under its world
+        # key, so a grow-back to that world resumes it
         eager.reset_outstanding(ResizeInterrupt(
             f"world resize at step {step}: "
             f"{plan.old_world} -> {plan.new_world}"))
+        if ctx.coordinator is not None:
+            ctx.coordinator.autotune.archive_world_history()
 
         # (3) final synchronous snapshot, then the plan — strictly after
         if self.checkpointer is not None and state is not None:

@@ -69,8 +69,11 @@ HOROVOD_GRADIENT_COMPRESSION, HOROVOD_NUMERICS (a global-set allreduce bin
 then gives its entries' nonfinite counts and squared norms to the numerics
 monitor, ``goodput/numerics.py``: a segmented reduction over each reduced
 fusion buffer, a fixed number of launches a bin, device tensors until the
-monitor drains). HOROVOD_AUTOTUNE raises: the online tuner is ROADMAP
-A.13b's.
+monitor drains), HOROVOD_AUTOTUNE (the online tuner,
+``autotune.ParameterManager``, is fed each cycle's bytes and overrides the
+tunable knobs between cycles; in a world of several ranks rank 0 tunes and
+the others apply its values at the same cycle over the c10d store,
+``autotune.ParameterSynchronizer``).
 
 HOROVOD_ARTIFACT_STORE: a plan the cache misses is read from the
 compiled-artifact store (``store/artifact_store.py``, kind
@@ -103,8 +106,6 @@ from horovod_tpu_torch.tracing import spans as trace
 from horovod_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("horovod_tpu_torch.coordinator")
-
-_UNPORTED_KNOBS = {"HOROVOD_AUTOTUNE": "the online tuner"}
 
 
 class DuplicateNameError(ValueError):
@@ -416,14 +417,6 @@ class CycleStats:
     bytes_total: int = 0
 
 
-def _refuse_unported() -> None:
-    for name, what in _UNPORTED_KNOBS.items():
-        if knobs.get(name):
-            raise NotImplementedError(
-                f"{name} is set, but {what} is not ported yet (ROADMAP "
-                f"A.13b); unset it to use the coordinator")
-
-
 class Coordinator:
     """The cycle dispatcher (ref BackgroundThreadLoop operations.cc:405).
     One per Context, created lazily on the first ``*_async`` call;
@@ -431,7 +424,6 @@ class Coordinator:
 
     def __init__(self, ctx, start_thread: bool = True):
         from horovod_tpu_torch import metrics as M
-        _refuse_unported()
         self._ctx = ctx
         self.queue = TensorQueue()
         self.cache = ExecutableCache(knobs.get("HOROVOD_CACHE_CAPACITY"))
@@ -486,6 +478,32 @@ class Coordinator:
             else:                          # pragma: no cover - defensive
                 logger.warning("a world of several ranks without a c10d "
                                "store: divergence checking disabled")
+        from horovod_tpu_torch.autotune import (ParameterManager,
+                                                continuous_dims)
+        # A hierarchical mesh tunes the cross-axis threshold as one more
+        # dimension.
+        self.autotune = ParameterManager(
+            continuous=continuous_dims(ctx.topology.is_hierarchical),
+            world=ctx.size)
+        # Scores are timings, which differ between ranks, and a knob
+        # changes the bins: in a world of several ranks rank 0 tunes and
+        # the others apply its values at the same cycle boundary, which
+        # deterministic dispatch makes the same on every rank (ref
+        # controller.cc:40-54 SynchronizeParameters).
+        self._param_sync = None
+        if self.deterministic and self.autotune.enabled:
+            from horovod_tpu_torch.autotune import (
+                make_parameter_synchronizer)
+            sync = make_parameter_synchronizer()
+            if sync is None:
+                logger.warning(
+                    "HOROVOD_AUTOTUNE disabled: no c10d store for the "
+                    "cross-rank parameter synchronization")
+                self.autotune.disable()
+            else:
+                self._param_sync = sync
+                if not sync.is_leader:
+                    self.autotune.disable()
         self._min_threshold_cache: Optional[int] = None
         self._thread: Optional[threading.Thread] = None
         if start_thread and not self.deterministic:
@@ -645,6 +663,21 @@ class Coordinator:
         self._m_bins.observe(len(bins))
         self._m_bytes.inc(cycle_bytes)
         self._m_cycle_dur.observe(time.perf_counter() - t_cycle0)
+        self.autotune.update(cycle_bytes)
+        # The knob sync at the cycle boundary (the same on every rank): the
+        # leader publishes this cycle's values, the followers apply them
+        # before their next cycle.
+        if self._param_sync is not None and not self._param_sync.done:
+            if self._param_sync.is_leader:
+                self._param_sync.publish(self.stats.cycles,
+                                         self.autotune.converged)
+                if self._param_sync.frozen:
+                    # a degraded-mode freeze: the published-final values
+                    # are the trajectory's last word
+                    self.autotune.disable()
+            else:
+                self._param_sync.apply(self.stats.cycles)
+        # the knobs may have changed just above
         self._min_threshold_cache = None
         return len(bins)
 
@@ -1176,6 +1209,7 @@ class Coordinator:
             self.queue.mark_complete([e.name for e in leftover])
         self._lanes = []
         self.buffers.clear()
+        self.autotune.close()
 
 
 # Divergence-check key-prefix generation: the c10d store's keys outlive

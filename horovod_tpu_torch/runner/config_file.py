@@ -6,10 +6,8 @@ Reference parity: ``horovodrun --config-file`` (reference:
 runner/common/util/config_parser.py — section structure
 params/autotune/timeline/stall_check/logging; launch.py config-file flag).
 Keys set CLI-argument defaults; anything given explicitly on the command
-line wins over the file (the reference's ``override_args`` mechanism).
-The keys of the launcher flags the port lacks (the ``autotune`` section:
-the online tuner, not ported yet, ROADMAP A.13b) are unknown keys and
-raise.
+line wins over the file (the reference's ``override_args`` mechanism). An
+unknown key raises.
 
 Example::
 
@@ -19,6 +17,9 @@ Example::
       cache_capacity: 2048
       hierarchical_allreduce: false
       torus_allreduce: true
+    autotune:
+      enabled: true
+      log_file: autotune.csv
     timeline:
       filename: timeline.json
       mark_cycles: true
@@ -137,10 +138,12 @@ class _ConfigApplier:
 
 
 _KNOWN_KEYS = {
-    None: {"params", "timeline", "stall_check", "logging", "elastic",
-           "metrics", "trace", "mesh_shape", "num_proc", "hosts"},
+    None: {"params", "autotune", "timeline", "stall_check", "logging",
+           "elastic", "metrics", "trace", "mesh_shape", "num_proc",
+           "hosts"},
     "params": {"fusion_threshold_mb", "cycle_time_ms", "cache_capacity",
                "hierarchical_allreduce", "torus_allreduce"},
+    "autotune": {"enabled", "log_file"},
     "timeline": {"filename", "mark_cycles"},
     "stall_check": {"enabled"},
     "metrics": {"port", "dump"},
@@ -167,14 +170,18 @@ def set_args_from_config(parser: argparse.ArgumentParser, args,
     """Map the YAML sections onto parsed hvdrun args (file loses to CLI)."""
     apply = _ConfigApplier(parser, args, overrides)
     _check_keys(config, None)
-    for name in ("params", "timeline", "stall_check", "logging", "elastic",
-                 "metrics", "trace"):
+    for name in ("params", "autotune", "timeline", "stall_check",
+                 "logging", "elastic", "metrics", "trace"):
         _check_keys(_section(config, name), name)
 
     params = _section(config, "params")
     for key in ("fusion_threshold_mb", "cycle_time_ms", "cache_capacity",
                 "hierarchical_allreduce", "torus_allreduce"):
         apply.set(key, params.get(key))
+
+    autotune = _section(config, "autotune")
+    apply.set("autotune", autotune.get("enabled"))
+    apply.set("autotune_log_file", autotune.get("log_file"))
 
     timeline = _section(config, "timeline")
     apply.set("timeline_filename", timeline.get("filename"))

@@ -30,12 +30,11 @@ Runtime knobs are forwarded 1:1 as HOROVOD_* env vars, mirroring the
 reference's flag->env convention (launch.py:356-544), for the knobs the
 port reads: among them the control plane's ``--fusion-threshold[-mb]``,
 ``--cycle-time-ms``, ``--cache-capacity``, ``--timeline-filename`` and
-``--timeline-mark-cycles``, and the metrics exports' ``--metrics-port``
-and ``--metrics-dump``, set as the JAX launcher sets them. The JAX
-launcher's flags of the online tuner, not ported yet
-(``--autotune[-log-file]``: ROADMAP A.13b), are absent, so argparse
-refuses them. There is no ``--tpu``: the TPU-pod launch has no
-GPU counterpart.
+``--timeline-mark-cycles``, the online tuner's ``--autotune``
+(HOROVOD_AUTOTUNE=1) and ``--autotune-log-file`` (HOROVOD_AUTOTUNE_LOG),
+and the metrics exports' ``--metrics-port`` and ``--metrics-dump``, set as
+the JAX launcher sets them. There is no ``--tpu``: the TPU-pod launch has
+no GPU counterpart.
 """
 
 from __future__ import annotations
@@ -155,6 +154,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hierarchical-allreduce", action="store_true")
     p.add_argument("--torus-allreduce", action="store_true",
                    help="2D torus (local x cross) allreduce decomposition.")
+    p.add_argument("--autotune", action="store_true",
+                   help="Online Bayesian tuning of the coordinator's "
+                        "knobs (HOROVOD_AUTOTUNE=1).")
+    p.add_argument("--autotune-log-file", default=None,
+                   help="CSV log of the tuner's samples "
+                        "(HOROVOD_AUTOTUNE_LOG).")
     p.add_argument("--timeline-filename", default=None)
     p.add_argument("--timeline-mark-cycles", action="store_true")
     p.add_argument("--trace", action="store_true",
@@ -217,6 +222,10 @@ def env_from_args(args) -> dict:
         env["HOROVOD_HIERARCHICAL_ALLREDUCE"] = "1"
     if args.torus_allreduce:
         env["HOROVOD_TORUS_ALLREDUCE"] = "1"
+    if args.autotune:
+        env["HOROVOD_AUTOTUNE"] = "1"
+    if args.autotune_log_file:
+        env["HOROVOD_AUTOTUNE_LOG"] = args.autotune_log_file
     if args.timeline_filename:
         env["HOROVOD_TIMELINE"] = args.timeline_filename
     if args.timeline_mark_cycles:

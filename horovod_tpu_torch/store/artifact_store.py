@@ -608,10 +608,14 @@ def step_key_components(step_fn: Callable, args: Tuple[Any, ...]
     if leaves:
         from horovod_tpu_torch import autotune
         world = schedhooks.process_world()[1]
-        comps["grad_signature"] = autotune.grad_signature(leaves, world)
+        gsig = autotune.grad_signature(leaves, world)
+        comps["grad_signature"] = gsig
         if knobs.get("HOROVOD_GRADIENT_BUCKET_BYTES") == "auto":
+            # the cache alone: a key neither warns nor talks to the ranks
+            cached = autotune.bucket_cache_load().get(gsig)
             comps["resolved_bucket_bytes"] = int(
-                autotune.resolve_bucket_bytes(leaves, world))
+                cached if cached is not None
+                else autotune.DEFAULT_BUCKET_BYTES)
     return comps
 
 

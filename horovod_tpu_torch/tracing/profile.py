@@ -341,6 +341,26 @@ def attribute(events: Iterable[Dict[str, Any]], steps: int = 1,
     }
 
 
+def bucket_collective_seconds(events: Iterable[Dict[str, Any]],
+                              device: Optional[bool] = None
+                              ) -> Dict[str, Tuple[float, float]]:
+    """{bucket label: (collective device seconds, the part of them with
+    compute running)}: the collectives launched inside each
+    ``hvd_bucket<k>`` annotation, against every compute op of the trace
+    (what ``autotune.sweep_bucket_bytes`` scores a bucket size by)."""
+    events = list(events)
+    if device is None:
+        device = on_device(events)
+    comp_u = _union(_spans_of(classify(events, device)[1]))
+    out = {}
+    for label, evs in _by_label(events, _BUCKET_RE, device)[0].items():
+        coll_u = _union(_spans_of(
+            e for e in evs if COLLECTIVE_RE.search(str(e["name"]))))
+        out[label] = (_total(coll_u) / 1e6,
+                      _intersection(coll_u, comp_u) / 1e6)
+    return out
+
+
 def publish_gauges(attribution: Dict[str, Any]) -> None:
     """Surface the observed tier on the metrics plane."""
     from horovod_tpu_torch import metrics as M

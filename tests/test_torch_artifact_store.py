@@ -42,6 +42,7 @@ import torch
 
 import jax
 
+from horovod_tpu import autotune as jautotune
 from horovod_tpu.config import knobs as jknobs
 from horovod_tpu.store import artifact_store as jst
 import horovod_tpu_torch as htt
@@ -729,11 +730,15 @@ def test_step_manifest_of_an_edited_kernel_is_stale(kernels, fake_open,
         "hit"
 
 
-def test_step_key_moves_with_shapes_knobs_and_world(store):
+def test_step_key_moves_with_shapes_knobs_and_world(store, monkeypatch,
+                                                     tmp_path):
     from horovod_tpu_torch.parallel.trainer import TrainState
+    monkeypatch.setenv("HOROVOD_BUCKET_AUTO_CACHE",
+                       str(tmp_path / "bucket_auto.json"))
     state = TrainState(0, {"a": torch.zeros(4, 8)}, None)
     base = st.step_key_components(_kernel_step, (state, torch.zeros(2, 3)))
-    assert base["grad_signature"] == ((((4, 8), "torch.float32"),), 1)
+    assert base["grad_signature"] == jautotune.grad_signature(
+        [((4, 8), np.dtype(np.float32))], 1)
     other = st.step_key_components(_kernel_step, (state, torch.zeros(2, 4)))
     assert other["step"] != base["step"]
     state2 = TrainState(5, {"a": torch.ones(4, 8)}, None)

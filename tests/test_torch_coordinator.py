@@ -22,7 +22,9 @@ movement, MIN and MAX; within 1e-6 of the largest value for f32 sums.
 
 Not replayed: the sync-path executable-cache cases (l.177-265; the port's
 synchronous collectives compile nothing and use no plan cache, ROADMAP C)
-and the autotune cases (l.393-424, 629-744; the online tuner is A.13b's).
+and the autotune cases (l.393-424, 629-744): the tuner driven by the cycle
+is ``test_unported_knobs_make_the_coordinator_raise[HOROVOD_AUTOTUNE-1]``,
+the cross-rank synchronization is ``tests/test_torch_param_sync.py``.
 The JAX ``_pool`` of ``HOROVOD_NUM_STREAMS`` has no counterpart on the CPU
 (the port's lanes are CUDA streams), so that case holds bins and results.
 """
@@ -650,18 +652,41 @@ def test_fusion_threshold_parse_forms(monkeypatch):
                                         ("HOROVOD_ARTIFACT_STORE", "/tmp/s")])
 def test_unported_knobs_make_the_coordinator_raise(port_ctx, monkeypatch,
                                                    tmp_path, knob, value):
-    """HOROVOD_AUTOTUNE still raises (the online tuner is A.13b's); the
-    artifact store is ported: a coordinator built with it dispatches, a
-    plan it built is published, and a fresh coordinator reads the plan
-    back instead of building it."""
+    """Both knobs the coordinator once refused are ported. HOROVOD_AUTOTUNE
+    (tests/test_coordinator.py::test_autotune_driven_by_cycle): the
+    tuner is fed by the cycle, overrides the knobs the planner reads next
+    and converges. The artifact store: a coordinator built with it
+    dispatches, a plan it built is published, and a fresh coordinator
+    reads the plan back instead of building it."""
     import torch
     import horovod_tpu_torch as htt
-    from horovod_tpu_torch.ops.coordinator import Coordinator
+    from horovod_tpu_torch.config import knobs
     from horovod_tpu_torch.store import artifact_store
     if knob == "HOROVOD_AUTOTUNE":
-        monkeypatch.setenv(knob, value)
-        with pytest.raises(NotImplementedError, match="A.13b"):
-            Coordinator(port_ctx, start_thread=False)
+        for k, v in ((knob, value), ("HOROVOD_AUTOTUNE_WARMUP_SAMPLES", "0"),
+                     ("HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE", "1"),
+                     ("HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES", "3")):
+            monkeypatch.setenv(k, v)
+        coord = _manual(port_ctx)
+        assert coord.autotune.enabled and coord._param_sync is None
+        tuned = ("HOROVOD_FUSION_THRESHOLD", "HOROVOD_CYCLE_TIME")
+        before = tuple(knobs.get(k) for k in tuned)
+        try:
+            changed = False
+            for i in range(6):
+                h = htt.allreduce_async(torch.full((3,), float(i)),
+                                        op=htt.Sum, name=f"at{i}")
+                coord.run_cycle()
+                torch.testing.assert_close(h.wait(),
+                                           torch.full((3,), float(i)))
+                changed = changed or tuple(knobs.get(k)
+                                           for k in tuned) != before
+            assert changed and coord.autotune.converged
+            assert coord.autotune._samples == 3
+        finally:
+            coord.shutdown()
+            port_ctx.coordinator = None
+            knobs.clear_all_overrides()
         return
     monkeypatch.setenv(knob, str(tmp_path / value.strip("/")))
     artifact_store.reset_for_tests()

@@ -510,7 +510,8 @@ def test_allreduce_gradients_local_filter_and_error_feedback(world_of_one):
     assert all(torch.equal(o, g) for o, g in zip(out, grads.values()))
 
 
-def test_construction_rejects_and_warns(world_of_one, monkeypatch):
+def test_construction_rejects_and_warns(world_of_one, monkeypatch,
+                                        tmp_path):
     ps = _quad_model()
     sgd = torch.optim.SGD(ps, lr=0.1)
     with pytest.raises(ValueError, match="unknown wire-compression"):
@@ -533,9 +534,12 @@ def test_construction_rejects_and_warns(world_of_one, monkeypatch):
             warnings.append(msg % args)
 
     monkeypatch.setattr(autotune, "get_logger", lambda name: Logger())
-    monkeypatch.setattr(autotune, "_auto_warned", set())
+    monkeypatch.setattr(autotune, "_auto_miss_warned", set())
+    monkeypatch.setenv("HOROVOD_BUCKET_AUTO_CACHE",
+                       str(tmp_path / "bucket_auto.json"))
     for _ in range(2):
         opt = htt.DistributedOptimizer(torch.optim.SGD(_quad_model(),
                                                        lr=0.1))
     assert len(opt.buckets) == 1                     # 25 MiB holds them all
     assert len(warnings) == 1 and "25 MiB default" in warnings[0]
+    assert "sweep_bucket_bytes" in warnings[0]

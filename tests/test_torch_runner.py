@@ -115,9 +115,10 @@ def test_env_from_args_rejects_what_jax_rejects(argv, err):
             mod.env_from_args(args)
 
 
-# The JAX launcher's flags whose knobs no module of the port reads yet
-# (the online tuner of ROADMAP A.13b), with a value for each.
-UNPORTED_FLAGS = {"--autotune": None, "--autotune-log-file": "at.csv"}
+# The online tuner's flags (once refused), with a value and the knob each
+# sets.
+UNPORTED_FLAGS = {"--autotune": (None, "HOROVOD_AUTOTUNE"),
+                  "--autotune-log-file": ("at.csv", "HOROVOD_AUTOTUNE_LOG")}
 # The metrics exports' flags, with a value and the knob each sets.
 METRICS_FLAGS = {"--metrics-port": ("9090", "HOROVOD_METRICS_PORT"),
                  "--metrics-dump": ("m.json", "HOROVOD_METRICS_DUMP")}
@@ -134,10 +135,10 @@ def _flags(mod):
 
 
 def test_parser_has_jax_flags_but_tpu():
-    """The JAX launcher's flags less ``--tpu`` and those of knobs the port
-    does not read (the online tuner's); the control plane's and the
-    metrics exports' are there."""
-    assert _flags(jlaunch) - _flags(launch) == {"--tpu"} | set(UNPORTED_FLAGS)
+    """The JAX launcher's flags less ``--tpu``: the control plane's, the
+    online tuner's and the metrics exports' are there."""
+    assert set(UNPORTED_FLAGS) <= _flags(launch)
+    assert _flags(jlaunch) - _flags(launch) == {"--tpu"}
     assert _flags(launch) - _flags(jlaunch) == set()
 
 
@@ -153,15 +154,14 @@ def test_metrics_flags_set_jax_env(flag):
 
 
 @pytest.mark.parametrize("flag", sorted(UNPORTED_FLAGS))
-def test_unported_knob_flags_are_refused(flag, capsys):
-    """A flag whose knob nothing reads is refused, never accepted and
-    dropped."""
-    value = UNPORTED_FLAGS[flag]
+def test_unported_knob_flags_are_refused(flag):
+    """The online tuner's flags, once refused, set the environment the JAX
+    launcher sets for them: HOROVOD_AUTOTUNE=1 and HOROVOD_AUTOTUNE_LOG."""
+    value, knob = UNPORTED_FLAGS[flag]
     argv = [flag] + ([value] if value else []) + ["--", "python", "x.py"]
-    jlaunch.build_parser().parse_args(argv)
-    with pytest.raises(SystemExit):
-        launch.build_parser().parse_args(argv)
-    assert "unrecognized arguments" in capsys.readouterr().err
+    got = _env(launch, argv)
+    assert got == _env(jlaunch, argv)
+    assert got[knob] == (value or "1")
 
 
 @pytest.mark.parametrize("flag", sorted(CONTROL_PLANE_FLAGS))
@@ -226,8 +226,6 @@ def test_config_file_matches_jax(text, argv, tmp_path):
     got = vars(_apply(launch, config, text, argv, tmp_path))
     want = vars(_apply(jlaunch, jconfig, text, argv, tmp_path))
     want.pop("tpu")
-    for flag in UNPORTED_FLAGS:
-        want.pop(flag.lstrip("-").replace("-", "_"))
     assert got == want
     env = {k: v for k, v in _env_of(got).items() if k not in PER_RUN}
     assert all(isinstance(v, str) for v in env.values())
@@ -284,15 +282,20 @@ def test_config_file_metrics_keys_match_jax(cfg):
 @pytest.mark.parametrize("cfg", [
     {"autotune": {"enabled": True}}, {"autotune": {"log_file": "at.csv"}}])
 def test_config_file_refuses_unported_knobs(cfg):
-    """The JAX file's keys of knobs the port does not read raise, as a
-    typo does."""
-    parser = jlaunch.build_parser()
-    jconfig.set_args_from_config(
-        parser, parser.parse_args(["--", "python"]), cfg, set())
-    parser = launch.build_parser()
-    with pytest.raises(ValueError, match="unknown key"):
-        config.set_args_from_config(
-            parser, parser.parse_args(["--", "python"]), cfg, set())
+    """The ``autotune`` section, once refused, gives the JAX package's
+    arguments and environment (HOROVOD_AUTOTUNE, HOROVOD_AUTOTUNE_LOG)."""
+    got = []
+    for mod, cmod in ((launch, config), (jlaunch, jconfig)):
+        parser = mod.build_parser()
+        args = parser.parse_args(["--", "python"])
+        cmod.set_args_from_config(parser, args, cfg, set())
+        got.append((args.autotune, args.autotune_log_file,
+                    {k: v for k, v in mod.env_from_args(args).items()
+                     if k.startswith("HOROVOD_AUTOTUNE")}))
+    assert got[0] == got[1]
+    want = ({"HOROVOD_AUTOTUNE": "1"} if cfg["autotune"].get("enabled")
+            else {"HOROVOD_AUTOTUNE_LOG": "at.csv"})
+    assert got[0][2] == want
 
 
 @pytest.mark.parametrize("cfg", [

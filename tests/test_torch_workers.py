@@ -1226,6 +1226,125 @@ def _observe_scenario(rank, sc, sets):
     return {k: np.asarray(v) for k, v in out.items()}
 
 
+def _autotune_scenario(rank, sc, sets):
+    """The tuner across ranks, by ``sc["drill"]``:
+
+    - ``tune``: ``sc["steps"]`` eager allreduces, each synchronized (a
+      deterministic flush, so a cycle) with HOROVOD_AUTOTUNE on; saves
+      the synchronizer's history and flags, the tuner's, the sums and the
+      tunable knobs after the last cycle;
+    - ``dims``: the coordinator's tuner dimensions on this topology;
+    - ``prefix``: two ``make_parameter_synchronizer`` prefixes;
+    - ``shed``: rank 0 exhausts the ``autotune`` site, sets
+      HOROVOD_CYCLE_TIME and publishes cycle 3; rank 1 applies it;
+    - ``timeout``: rank 1 applies a cycle rank 0 never publishes, with a
+      timeout of ``sc["timeout_s"]``; saves the error's text;
+    - ``broadcast``: ``_broadcast_resolution`` of a per-rank value, and
+      ``resolve_bucket_bytes`` under 'auto' with a cache only rank 0 has.
+
+    Every rank meets at a barrier at the end; the tuner's overrides are
+    cleared."""
+    import json
+    import time
+    import torch.distributed as dist
+    from horovod_tpu_torch import autotune
+    from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.ops.coordinator import get_coordinator
+    from horovod_tpu_torch.resilience import faults
+    from horovod_tpu_torch.runtime.context import get_context
+    from horovod_tpu_torch.utils.kvstore import distributed_kv
+    drill, out = sc["drill"], {}
+    try:
+        if drill == "tune":
+            sums = []
+            for step in range(sc["steps"]):
+                h = htt.allreduce_async(
+                    torch.full((4,), float(rank + step)), op=htt.Sum,
+                    name=f"at/{step}")
+                sums.append(htt.synchronize(h).numpy())
+            coord = get_context().coordinator
+            sync = coord._param_sync
+            out = {"history": np.asarray(json.dumps(sync.history)),
+                   "prefix": np.asarray(sync._prefix),
+                   "is_leader": np.asarray(sync.is_leader),
+                   "done": np.asarray(sync.done),
+                   "tuning": np.asarray(coord.autotune.enabled),
+                   "converged": np.asarray(coord.autotune.converged),
+                   "samples": np.asarray(coord.autotune._samples),
+                   "sums": np.stack(sums),
+                   "knobs": np.asarray(json.dumps(
+                       autotune.ParameterSynchronizer._tunable_snapshot(),
+                       sort_keys=True))}
+        elif drill == "dims":
+            coord = get_coordinator(get_context())
+            out = {"hierarchical": np.asarray(
+                       get_context().topology.is_hierarchical),
+                   "dims": np.asarray(coord.autotune._opt.dims),
+                   "continuous": np.asarray(
+                       [d[0] for d in coord.autotune._continuous])}
+        elif drill == "prefix":
+            out = {"prefixes": np.asarray([
+                autotune.make_parameter_synchronizer()._prefix
+                for _ in range(2)])}
+        elif drill == "shed":
+            sync = autotune.ParameterSynchronizer(
+                distributed_kv(site="autotune"), leader=rank == 0,
+                prefix=sc["prefix"])
+            if rank == 0:
+                faults.register_policy(faults.RetryPolicy(
+                    site="autotune", deadline_s=5.0, base_backoff_s=0.001,
+                    max_backoff_s=0.002, max_attempts=1, jitter=0.0,
+                    critical=False))
+                try:
+                    faults.retry_call("autotune", lambda: (
+                        _ for _ in ()).throw(ConnectionError("UNAVAILABLE")))
+                except faults.RetryBudgetExhausted:
+                    pass
+                knobs.set_override("HOROVOD_CYCLE_TIME", 7.5)
+            shed = faults.should_shed("autotune")
+            if rank == 0:
+                sync.publish(3, converged=False)
+            else:
+                sync.apply(3)
+            out = {"done": np.asarray(sync.done),
+                   "frozen": np.asarray(sync.frozen),
+                   "shed": np.asarray(shed),
+                   "cycle_time": np.asarray(knobs.get("HOROVOD_CYCLE_TIME")),
+                   "history": np.asarray(json.dumps(sync.history))}
+        elif drill == "timeout":
+            text, seconds = "", 0.0
+            if rank == 1:
+                sync = autotune.ParameterSynchronizer(
+                    distributed_kv(site="autotune"), leader=False,
+                    prefix=sc["prefix"], timeout=sc["timeout_s"])
+                t0 = time.monotonic()
+                try:
+                    sync.apply(1)
+                except RuntimeError as e:
+                    text = str(e)
+                seconds = time.monotonic() - t0
+            out = {"error": np.asarray(text), "seconds": np.asarray(seconds)}
+        elif drill == "broadcast":
+            got = autotune._broadcast_resolution(
+                sc["sig"], sc["local"][rank])
+            knobs.set_override("HOROVOD_BUCKET_AUTO_CACHE",
+                               sc["caches"][rank])
+            knobs.set_override("HOROVOD_GRADIENT_BUCKET_BYTES", "auto")
+            if rank == 0:
+                autotune.bucket_cache_store(
+                    autotune.grad_signature(sc["leaves"], 2), sc["cached"])
+            dist.barrier()
+            resolved = autotune.resolve_bucket_bytes(sc["leaves"], 2)
+            out = {"adopted": np.asarray(got),
+                   "resolved": np.asarray(resolved),
+                   "missed": np.asarray(len(autotune._auto_miss_warned))}
+    finally:
+        knobs.clear_all_overrides()
+        faults.reset_for_tests()
+    dist.barrier()
+    return out
+
+
 _PHASE_SCENARIOS = {"call": _call_scenario, "topology": _topology_scenario,
                     "eager": _eager_scenario,
                     "adasum_opt": _adasum_opt_scenario,
@@ -1247,7 +1366,8 @@ _PHASE_SCENARIOS = {"call": _call_scenario, "topology": _topology_scenario,
                     "divergence": _divergence_scenario,
                     "dlpack": _dlpack_scenario,
                     "metrics_agg": _metrics_agg_scenario,
-                    "observe": _observe_scenario}
+                    "observe": _observe_scenario,
+                    "autotune": _autotune_scenario}
 
 
 def phase_worker(rank, world, port, phases, out_dir):
