@@ -350,7 +350,8 @@ Last, model parallelism on N cards (``--data-parallel N
 --model-parallel-only``: only these), one world whose ranks re-init on
 each configuration's mesh: tp N, sp N ring, sp N Ulysses, (tp 2, sp 2)
 ring, ep N with 8 experts and pp N with 4 microbatches, each of the
-flagship (no dp axis; the global batch 8 x 2048). Each ``model parallel
+flagship (no dp axis; the global batch 8 x 2048), then (dp 2, tp 2) on
+four cards (4 x 2048 a dp rank, 8 heads a card). Each ``model parallel
 <label>:`` line holds: the sharded step's loss and gathered gradients
 against the unsharded step on the same weights (rank 0 computes that
 first, keeps it on the host and frees the card) at full width and
@@ -361,7 +362,15 @@ width and depth through ``make_transformer_train_step`` (step ms,
 tokens/s, launches, also at nonzero offsets for the ring, peak memory)
 and one profiled step's NCCL device ms, the part overlapped with compute,
 and for the ring its exchange (SendRecv) ms against its flash kernels'
-ms. Then TP serving on a (tp N) mesh (``model parallel tpN_serve:``):
+ms. (dp 2, tp 2) has a second line, ``model parallel tp2_dp2_fused:``:
+``make_transformer_train_step_fused`` (the buckets of each group of sync
+axes launched from the gradient hooks, the update in their epilogues)
+against the unfused step, 1 + 4 steps each from the same weights and
+batches: at tier none the losses within FUSED_LOSS_REL_TOL and every
+rank's parameter shards within FUSED_UPDATE_REL_TOL of the update, then
+at fp8_e4m3 with error feedback (losses finite, the wire trace); step ms
+(median, range), tokens/s and flash launches a step of each run. Then TP
+serving on a (tp N) mesh (``model parallel tpN_serve:``):
 phase 3's 16 requests against the one-card engine on the same weights
 (tokens agreement, the first prefill's logits within MP_LOGIT_REL_TOL,
 decode tokens/s of both, paged-decode launches at H/N heads a card),
@@ -4178,7 +4187,11 @@ MP_CONFIGS = [
          cfg=dict(ep_axis="ep", num_experts=8)),
     dict(label="pp4", mesh=(4,), axes=("pp",),
          cfg=dict(pp_axis="pp", n_microbatches=4)),
+    dict(label="tp2_dp2", mesh=(2, 2), axes=("dp", "tp"),
+         cfg=dict(dp_axis="dp", tp_axis="tp"), fused=True),
 ]
+# the fused step against the unfused one: 1 + MP_FUSED_STEPS steps each
+MP_FUSED_STEPS = 4
 PLAIN_AXES = dict(dp_axis=None, tp_axis=None, sp_axis=None, ep_axis=None,
                   pp_axis=None)
 
@@ -4278,16 +4291,22 @@ def mp_parity(htt, fa, rank, cfg, dev, b, s, f32_tol=None):
 
 
 def mp_profile(step, state, batch, dev):
-    """One step profiled on rank 0: the NCCL kernels' device ms and their
-    overlap with compute, and the point-to-point (SendRecv) part against
-    the flash kernels' ms. An NCCL kernel runs from its launch until its
-    peers arrive, so its ms also holds the other ranks' lag."""
+    """One step profiled on rank 0: its wall ms, the NCCL kernels' device
+    ms and their overlap with compute, the point-to-point (SendRecv) part
+    against the flash kernels' ms, and the top device ops. An NCCL kernel
+    runs from its launch until its peers arrive, so its ms also holds the
+    other ranks' lag."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         state, _ = step(state, *batch)
         dev_sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
     out = nccl_overlap(prof)
+    out.update(wall_ms=wall_ms, top_device_ops=[
+        {"op": k[:70], "ms": us / 1e3, "calls": c}
+        for us, k, c in device_rows(prof)[:6]])
     p2p = flash = 0.0
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -4346,10 +4365,16 @@ def mp_timed(htt, fa, rank, cfg, dev, n_steps):
     step_s = np.diff([t0] + stamps)
     out = {"step_ms": [float(x) * 1e3 for x in step_s],
            "step_ms_mean": float(step_s.mean()) * 1e3,
+           "step_ms_median": float(np.median(step_s)) * 1e3,
+           "step_ms_range": [float(step_s.min()) * 1e3,
+                             float(step_s.max()) * 1e3],
            "tokens_per_s": TRAIN_B * TRAIN_S / float(step_s.mean()),
            "losses": [warm] + losses,
            "launches": {k: launches[k] for k in
                         ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
+           "flash_launches_per_step": {
+               k: launches[k] / n_steps for k in
+               ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
            "offset_launches": offsets,
            "peak_memory_gb": (torch.cuda.max_memory_allocated() / 2 ** 30
                               if torch.device(dev).type == "cuda"
@@ -4361,6 +4386,122 @@ def mp_timed(htt, fa, rank, cfg, dev, n_steps):
             out["ring_kernels_ms_per_step"] = [p["flash_kernels_ms"]
                                                for p in profs]
     return out
+
+
+def mp_fused(htt, fa, cfg, dev, n_steps=MP_FUSED_STEPS):
+    """``make_transformer_train_step_fused`` on the configuration's mesh
+    against ``make_transformer_train_step``, 1 + ``n_steps`` steps each
+    from the same weights and batches (SGD(0.01, momentum=0.9) and
+    EpilogueSGD(0.01, momentum=0.9)): at tier none the losses within
+    FUSED_LOSS_REL_TOL and this rank's parameter shards within
+    FUSED_UPDATE_REL_TOL of the unfused run's update, both the worst
+    over the ranks; then at fp8_e4m3 with error feedback (losses finite,
+    the wire trace). Each run's step ms (median, range), tokens/s and
+    flash launches a step are of the ``n_steps`` steps after the first;
+    one more step is profiled on rank 0 (``mp_profile``)."""
+    import dataclasses
+    import torch.distributed as dist
+    from horovod_tpu_torch.config import knobs
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.parallel import distributed as D
+    from horovod_tpu_torch.utils import tree as tree_util
+    plain = dataclasses.replace(cfg, **PLAIN_AXES)
+    kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+    def weights():
+        return tfm.shard_params(cfg, htt.init_params(
+            plain, torch.Generator(device=dev).manual_seed(0), device=dev))
+
+    batches = [[tfm.shard_batch(cfg, t) for t in
+                mp_batch(cfg, TRAIN_B, TRAIN_S, dev, 20 + i)]
+               for i in range(n_steps + 2)]
+
+    def run(fused):
+        if fused:
+            da = htt.distributed_apply(htt.EpilogueSGD(0.01, momentum=0.9),
+                                       sync_axes=tfm.grad_sync_axes(cfg))
+            init_fn, step = htt.make_transformer_train_step_fused(
+                cfg, da, device=dev)
+        else:
+            init_fn, step = htt.make_transformer_train_step(
+                cfg, lambda ps: torch.optim.SGD(ps, lr=0.01, momentum=0.9),
+                device=dev)
+        state = init_fn(weights())
+        state, loss = step(state, *batches[0])               # warm-up
+        losses, stamps = [float(loss)], []
+        htt.barrier()
+        fa.reset_launches()
+        dev_sync(dev)
+        t0 = time.perf_counter()
+        for batch in batches[1:-1]:
+            state, loss = step(state, *batch)
+            losses.append(float(loss))                   # synchronizes
+            stamps.append(time.perf_counter())
+        launches = dict(fa.LAUNCHES)
+        final = [t.detach().clone() for t in
+                 tree_util.tree_leaves(state.params)]
+        htt.barrier()
+        profiled = None
+        if htt.rank() == 0:
+            state, profiled = mp_profile(step, state, batches[-1], dev)
+        else:
+            state, _ = step(state, *batches[-1])
+        if not all(np.isfinite(x) for x in losses):
+            raise AssertionError(f"fused={fused}: non-finite loss {losses}")
+        if min(launches.get(k, 0) for k in kernels) < n_steps:
+            raise AssertionError(f"fused={fused}: flash launches "
+                                 f"{launches}")
+        step_s = np.diff([t0] + stamps)
+        res = {"losses": losses,
+               "step_ms": [float(x) * 1e3 for x in step_s],
+               "step_ms_median": float(np.median(step_s)) * 1e3,
+               "step_ms_range": [float(step_s.min()) * 1e3,
+                                 float(step_s.max()) * 1e3],
+               "tokens_per_s": TRAIN_B * TRAIN_S / float(np.median(step_s)),
+               "flash_launches_per_step": {k: launches[k] / n_steps
+                                           for k in kernels},
+               "profiled_step": profiled}
+        if fused:
+            trace = D.last_wire_trace()
+            res.update(tier=trace["tier"], buckets=trace["n_buckets"],
+                       wire_bytes=trace["wire_bytes"],
+                       logical_bytes=trace["logical_bytes"],
+                       error_feedback=trace["error_feedback"])
+        del state
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+        return res, final
+
+    unfused, want = run(False)
+    none, got = run(True)
+    initial = tree_util.tree_leaves(weights())
+    worst = torch.tensor(
+        [max(abs(a - b) / abs(b) for a, b in zip(none["losses"],
+                                                 unfused["losses"])),
+         update_rel_diff(got, want, initial)], dtype=torch.float64,
+        device=dev)
+    del got, want, initial
+    dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+    rel, upd = float(worst[0]), float(worst[1])
+    if rel > FUSED_LOSS_REL_TOL or upd > FUSED_UPDATE_REL_TOL:
+        raise AssertionError(
+            f"fused step at tier none on {tfm.mesh_axes(cfg)}: losses "
+            f"{none['losses']} against the unfused {unfused['losses']} "
+            f"differ by {rel}, parameters by {upd} of the update")
+    knobs.set_override("HOROVOD_GRADIENT_COMPRESSION", "fp8_e4m3")
+    try:
+        fp8, _ = run(True)
+    finally:
+        knobs.clear_override("HOROVOD_GRADIENT_COMPRESSION")
+    if not fp8["error_feedback"] or fp8["tier"] != "fp8_e4m3":
+        raise AssertionError(f"fused fp8 on {tfm.mesh_axes(cfg)}: wire "
+                             f"trace {fp8}")
+    return {"optimizer": "EpilogueSGD(0.01, momentum=0.9) against "
+                         "SGD(0.01, momentum=0.9)",
+            "batch": [TRAIN_B, TRAIN_S], "unfused": unfused,
+            "none": none, "fp8_e4m3": fp8,
+            "max_rel_loss_diff_vs_unfused": rel,
+            "max_param_diff_over_update_vs_unfused": upd}
 
 
 def mp_check_launches(label, cfg, res) -> None:
@@ -4556,11 +4697,16 @@ def mp_rank(rank, world, ports, results, configs, device="cuda", n_steps=3,
                                        *MP_NARROW_BATCH, f32_tol=tol),
                "timed": mp_timed(htt, fa, rank, cfg, dev, n_steps)}
         mp_check_launches(c["label"], c["cfg"], res)
+        if rank == 0:
+            results.put(res)
+        if c.get("fused"):
+            res = {"label": c["label"] + "_fused", "mesh": res["mesh"],
+                   **mp_fused(htt, fa, cfg, dev)}
+            if rank == 0:
+                results.put(res)
         htt.shutdown()
         if device == "cuda":
             torch.cuda.empty_cache()
-        if rank == 0:
-            results.put(res)
     if serve:
         ctx = htt.init(device=device, mesh_shape=(world,), axis_names=("tp",))
         dev = ctx.device
@@ -4587,7 +4733,8 @@ def model_parallel_world(n, card, configs=None, **kw) -> None:
     parallel <label>:`` line each."""
     configs = MP_CONFIGS if configs is None else configs
     serve = kw.get("serve", True)
-    out = spawn_world(mp_rank, n, len(configs) + int(serve), 1500, configs,
+    n_results = len(configs) + sum(bool(c.get("fused")) for c in configs)
+    out = spawn_world(mp_rank, n, n_results + int(serve), 900, configs,
                       **kw)
     for res in out:
         log(f"model parallel {res['label']}: " + json.dumps(

@@ -682,3 +682,31 @@ knobs.register("HOROVOD_AUTO_RESUME", 0, int,
                     "and restores from the latest committed checkpoint in "
                     "HOROVOD_CKPT_DIR. 0 disables (mirror: hvdrun-torch "
                     "--auto-resume).")
+
+# docs/knobs.md rows of knobs the port does not register, each with why:
+# hvdlint-torch's HVD403 (a documented knob the registry lacks) skips
+# exactly these.
+UNREGISTERED_DOC_KNOBS = {
+    "HOROVOD_COMPAT_DROPPABLE": "ROADMAP A.15.4 (handoff tier, HVD8xx)",
+    "HOROVOD_COMPAT_ROLLBACK_DEPTH": "ROADMAP A.15.4 (handoff tier, HVD8xx)",
+    "HOROVOD_COMPAT_STORE_KINDS": "ROADMAP A.15.4 (handoff tier, HVD8xx)",
+    "HOROVOD_COST_HBM_GB": "ROADMAP A.15.4 (cost tier, HVD7xx)",
+    "HOROVOD_COST_PAD_AMPLIFICATION": "ROADMAP A.15.4 (cost tier, HVD7xx)",
+    "HOROVOD_COST_PAD_MIN_WASTE": "ROADMAP A.15.4 (cost tier, HVD7xx)",
+    "HOROVOD_COST_REPLICATED_MIN_BYTES": "ROADMAP A.15.4 (cost tier, HVD7xx)",
+    "HOROVOD_COST_RESTREAM_MIN_BYTES": "ROADMAP A.15.4 (cost tier, HVD7xx)",
+    "HOROVOD_COST_RESTREAM_READS": "ROADMAP A.15.4 (cost tier, HVD7xx)",
+    "HOROVOD_COST_ROOFLINE_TOL": "ROADMAP A.15.4 (cost tier, HVD7xx)",
+    "HOROVOD_MODEL_BUDGET_SECONDS": "ROADMAP A.15.2 (model checker, HVD6xx)",
+    "HOROVOD_MODEL_MAX_CRASHES": "ROADMAP A.15.2 (model checker, HVD6xx)",
+    "HOROVOD_MODEL_SEED": "ROADMAP A.15.2 (model checker, HVD6xx)",
+    "HOROVOD_VERIFY_DONATION_MIN_BYTES":
+        "ROADMAP A.15.3 (HVD504, donation: no eager counterpart)",
+    "HOROVOD_VERIFY_RESHARD_MIN_BYTES":
+        "ROADMAP A.15.3 (HVD502, GSPMD resharding: no eager counterpart)",
+    "HOROVOD_FLASH_BLOCK_Q": "TPU only: the Pallas kernel's grid blocks",
+    "HOROVOD_FLASH_BLOCK_K": "TPU only: the Pallas kernel's grid blocks",
+    "HOROVOD_TPU_PALLAS": "TPU only: Pallas dispatch; the port's kernels "
+                          "are CUDA, chosen by the tensor's device",
+    "HOROVOD_TPU_DONATE_BUFFERS": "TPU only: XLA buffer donation",
+}

@@ -642,7 +642,7 @@ class Coordinator:
             self.queue.mark_complete([e.name for e in entries])
             raise
         try:
-            lanes = self._lanes_for(len(bins))
+            lanes = self._lanes_for_locked(len(bins))
             for i, b in enumerate(bins):
                 exc = self._dispatch_bin(b, i % len(lanes) if lanes else None,
                                          watch)
@@ -681,9 +681,10 @@ class Coordinator:
         self._min_threshold_cache = None
         return len(bins)
 
-    def _lanes_for(self, n_bins: int) -> List[Any]:
+    def _lanes_for_locked(self, n_bins: int) -> List[Any]:
         """The CUDA streams of HOROVOD_NUM_STREAMS > 1 (empty: each bin
-        goes on the dispatching thread's current stream)."""
+        goes on the dispatching thread's current stream). The caller
+        holds ``_cycle_lock``."""
         n = int(knobs.get("HOROVOD_NUM_STREAMS"))
         if n <= 1 or n_bins <= 1 or self._ctx.device.type != "cuda":
             return []
@@ -1207,7 +1208,8 @@ class Coordinator:
             for e in leftover:
                 e.handle._set_error(exc)
             self.queue.mark_complete([e.name for e in leftover])
-        self._lanes = []
+        with self._cycle_lock:
+            self._lanes = []
         self.buffers.clear()
         self.autotune.close()
 

@@ -24,7 +24,9 @@ backward instead.
 **The wire codec** (``compression.WireCodec``): with a tier active
 (``HOROVOD_GRADIENT_COMPRESSION`` or ``compression=``) each packed bucket
 is encoded to the wire dtype, summed over the ranks in that dtype
-(``collectives.wire_sum_async``) and decoded with the averaging folded in.
+(``collectives.wire_sum_async``; over a group of several axes one axis
+after another, as the JAX package's psums run, so the sum is rounded to
+the wire dtype once per axis) and decoded with the averaging folded in.
 The fp8 tiers carry an error-feedback residual: the quantization error of
 step t is added to step t+1's gradient. The residual is per rank and has
 each leaf's own shape (the JAX package's is ``[W, *shape]`` sharded over the
@@ -61,7 +63,7 @@ combined over each sync axis in turn; the dot products span the leaf.
 :class:`DistributedAdasumOptimizer` combines the inner optimizer's
 parameter deltas instead of the gradients (the reference's
 torch/optimizer.py:345), and :func:`distributed_value_and_grad` gives a
-loss and its synced gradients. Not ported: the online tuner (A.13b).
+loss and its synced gradients.
 """
 
 from __future__ import annotations
@@ -293,11 +295,12 @@ def _tier_part(buf: torch.Tensor, specs, idxs, res_leaves, tier, op,
                ) -> Tuple[_Part, int, int]:
     """One dtype group of a two-level bucket: reduce-scatter over the fast
     axes, (compensate,) encode and SUM the owned shard over the DCN axis,
-    decode with the averaging folded in, start the all-gather. Returns the
-    part and its (wire, DCN-stage) bytes. The stages before the gather are
-    ordered on the launching stream; each collective keeps its buffers
-    alive until it has completed. ``scope`` labels the three stages for
-    profiles (``<scope>_rs``, ``<scope>_xdcn``, ``<scope>_ag``)."""
+    decode with the averaging (1/``world``) folded in, start the
+    all-gather. Returns the part and its (wire, DCN-stage) bytes. The
+    stages before the gather are ordered on the launching stream; each
+    collective keeps its buffers alive until it has completed. ``scope``
+    labels the three stages for profiles (``<scope>_rs``,
+    ``<scope>_xdcn``, ``<scope>_ag``)."""
     from horovod_tpu_torch.ops.collectives import (_all_gather,
                                                    _reduce_scatter)
     ctx = context.get_context()
@@ -348,12 +351,26 @@ def _tier_part(buf: torch.Tensor, specs, idxs, res_leaves, tier, op,
             2 * orig * dtype.itemsize + stage, stage)
 
 
+def _wire_sum_by_axis(wire: torch.Tensor, axes: Tuple[str, ...]):
+    """Start the wire SUM over ``axes`` one axis after another, as the JAX
+    package's ``_wire_bucket_reduce`` psums (each axis's sum is rounded to
+    the wire dtype, so a group of several axes rounds once per axis);
+    every axis but the last has completed on return. Returns ``(handle,
+    out)`` as ``collectives.wire_sum_async``."""
+    red = wire
+    for ax in axes[:-1]:
+        work, red = collectives.wire_sum_async(red, axis=(ax,))
+        collectives.wait_work(work)
+    return collectives.wire_sum_async(red, axis=(axes[-1],))
+
+
 def _wire_bucket_launch(leaves: List[torch.Tensor],
                         res_leaves: Optional[List[torch.Tensor]], axes,
                         op: ReduceOp, world: int, codec, leaf_comp,
                         prescale: Optional[float] = None,
                         batch: bool = True, tier=None,
-                        scope: str = "hvd_tier") -> _PendingBucket:
+                        scope: str = "hvd_tier",
+                        divisor: Optional[int] = None) -> _PendingBucket:
     """Start one bucket's sync (the JAX ``_wire_bucket_reduce``). Per
     dtype: pack into a fresh buffer (times ``prescale``), add the residual,
     encode, start the wire SUM; the new residual, compensated minus the
@@ -364,11 +381,14 @@ def _wire_bucket_launch(leaves: List[torch.Tensor],
     (HOROVOD_BATCH_D2D_MEMCOPIES=0) reduces leaf by leaf. ``tier=(fast
     axes, dcn axis)`` runs every dtype group through the two-level
     schedule (:func:`_tier_part`, its stages labelled ``<scope>_rs`` /
-    ``_xdcn`` / ``_ag``) instead."""
+    ``_xdcn`` / ``_ag``) instead. An average divides by ``divisor`` where
+    one is given, else by the group's own ``world``; the encode's headroom
+    is always the group's ``world``."""
     ef = res_leaves is not None
     axes = _mesh_axes(axes)
     sync = bool(axes)
-    post = (1.0 / world) if (op == ReduceOp.AVERAGE and world != 1) else None
+    div = world if divisor is None else divisor
+    post = (1.0 / div) if (op == ReduceOp.AVERAGE and div != 1) else None
     parts: List[_Part] = []
     wire_bytes = dcn_bytes = 0
     logical = sum(_nbytes(g) for g in leaves)
@@ -401,7 +421,7 @@ def _wire_bucket_launch(leaves: List[torch.Tensor],
         part_ctxs = [ctxs[i] for i in idxs] if ctxs is not None else None
         if tier is not None:
             part, wb, db = _tier_part(buf, specs, idxs, res_leaves, tier,
-                                      op, world, codec, scope)
+                                      op, div, codec, scope)
             part.ctxs = part_ctxs
             parts.append(part)
             wire_bytes += wb
@@ -413,7 +433,7 @@ def _wire_bucket_launch(leaves: List[torch.Tensor],
                     [res_leaves[i].to(dtype) for i in idxs])
                 buf.add_(rbuf)
             wire, scale = codec.encode(buf, axes=axes, world=world)
-            work, red = collectives.wire_sum_async(wire, axis=axes)
+            work, red = _wire_sum_by_axis(wire, axes)
             if ef:
                 res_buf = buf - codec.decode(wire, scale, dtype)
                 for i, r in zip(idxs, unflatten_from_fusion(res_buf, specs)):
@@ -432,9 +452,8 @@ def _wire_bucket_launch(leaves: List[torch.Tensor],
                 res_leaves[i].zero_()
         wire_bytes += _nbytes(buf)
         parts.append(_Part(idxs, specs, dtype, work, buf, None, part_ctxs))
-    return _PendingBucket(len(leaves), parts, codec,
-                          post if sync else None, leaf_comp, logical,
-                          wire_bytes, dcn_bytes, tier is not None)
+    return _PendingBucket(len(leaves), parts, codec, post, leaf_comp,
+                          logical, wire_bytes, dcn_bytes, tier is not None)
 
 
 def _sync_leaves(gs: Sequence[torch.Tensor], axes, op: ReduceOp,
@@ -483,11 +502,14 @@ def _adasum_bucket_launch(leaves: List[torch.Tensor], axes, leaf_comp,
 class _GradSync:
     """The static wiring of one gradient sync: op, codec, error feedback
     and the bucket plan over a leaf list grouped by sync axes (groups in
-    order of their first leaf; a local group is one bucket)."""
+    order of their first leaf; a local group is one bucket). ``divisor``
+    replaces each group's own size as the average's divisor, local groups
+    included."""
 
     def __init__(self, leaves: Sequence[torch.Tensor],
                  groups: Dict[Tuple, List[int]], op: ReduceOp,
-                 compression, error_feedback: Optional[bool]):
+                 compression, error_feedback: Optional[bool],
+                 divisor: Optional[int] = None):
         op = check_supported(op)
         if op not in (ReduceOp.SUM, ReduceOp.AVERAGE, ReduceOp.ADASUM):
             raise NotImplementedError(
@@ -504,6 +526,7 @@ class _GradSync:
             compr.error_feedback_enabled(self.codec)
             if error_feedback is None else bool(error_feedback))
         self.batch = bool(knobs.get("HOROVOD_BATCH_D2D_MEMCOPIES"))
+        self.divisor = divisor
         self.buckets: List[Tuple[Tuple, List[int]]] = []
         # sync axes -> (fast axes, dcn axis) of the two-level schedule
         self.tiers: Dict[Tuple, Optional[Tuple[Tuple[str, ...], str]]] = {}
@@ -542,7 +565,7 @@ class _GradSync:
                 grads, residuals if self.ef else None, axes, self.op,
                 _axes_world(axes), self.codec if axes else None,
                 self.leaf_comp, prescale, self.batch, self.tiers[axes],
-                scope)
+                scope, self.divisor)
 
 
 def _on_grad_ready(launcher_ref, i: int, _param) -> None:
@@ -1129,11 +1152,12 @@ class DistributedApply:
         return (compr.error_feedback_enabled(codec)
                 if self._ef_override is None else bool(self._ef_override))
 
-    def _sync(self, tree) -> Tuple[Any, List[torch.Tensor], _GradSync]:
+    def _sync(self, tree, world: Optional[int] = None
+              ) -> Tuple[Any, List[torch.Tensor], _GradSync]:
         treedef, leaves, groups = _groups(tree, self.axis, self.sync_axes)
         return treedef, leaves, _GradSync(leaves, groups, self.op,
                                           self.compression,
-                                          self._ef_override)
+                                          self._ef_override, world)
 
     def init(self, params) -> DistributedApplyState:
         opt = self.optimizer
@@ -1147,11 +1171,15 @@ class DistributedApply:
         return DistributedApplyState(
             EpilogueOptState(opt.init_scalars(), slots), residual)
 
-    def attach(self, params) -> _BucketLauncher:
+    def attach(self, params, *, world: Optional[int] = None
+               ) -> _BucketLauncher:
         """Install the gradient hooks on ``params``' leaves (sorted-key
         order, the JAX package's leaf order); returns the launcher to pass
-        to :meth:`apply_attached`."""
-        _, leaves, sync = self._sync(params)
+        to :meth:`apply_attached`. ``world`` divides every leaf's sum by
+        that many ranks instead of by the size of the leaf's own sync
+        group (the trainer's 1/W over the whole mesh); the wire's encode
+        keeps the group's size."""
+        _, leaves, sync = self._sync(params, world)
         return _BucketLauncher(sync, leaves, hooks=True)
 
     def apply(self, params, grads, state: DistributedApplyState

@@ -7,9 +7,10 @@ allreduce per (axes, dtype) and axis over that axis's process group,
 NCCL on the card, then 1/W), and the optimizer update in place.
 ``make_transformer_train_step`` trains the flagship TransformerLM on any
 mesh of its axes (data, tensor, sequence, expert and pipeline
-parallelism); ``make_transformer_train_step_fused`` trains it
-data-parallel with the bucketed sync launched from the gradient hooks
-and the optimizer update in each bucket's epilogue (``DistributedApply``);
+parallelism); ``make_transformer_train_step_fused`` trains it on the
+same meshes with the bucketed sync launched from the gradient hooks
+(one set of buckets per group of sync axes) and the optimizer update in
+each bucket's epilogue (``DistributedApply``);
 ``data_parallel_train_step`` trains any ``nn.Module`` (ResNet) through a
 ``DistributedOptimizer``.
 
@@ -187,24 +188,26 @@ def make_transformer_train_step_fused(
     ``TrainState`` and signature as :func:`make_transformer_train_step`.
 
     ``apply_opt`` is a ``DistributedApply`` (``distributed_apply(
-    EpilogueSGD(...), sync_axes=grad_sync_axes(cfg))``). ``init_fn(params)``
-    broadcasts the leaves from rank 0, makes them require grad, installs
-    the gradient hooks and returns ``TrainState(0, params,
-    apply_opt.init(params))``. ``train_step`` runs ``loss.backward()``; the
-    hooks launch each bucket of the reverse sorted-key leaf list (the JAX
-    package's order, so the plans and the fp8 scales are the reference's)
-    once its gradients are complete, and the update of each bucket runs in
-    place as soon as its sync completes. The step binds ``dp_axis``, so
-    the loss is the global mean, as in :func:`make_transformer_train_step`.
-    The error-feedback residual rides ``state.opt_state``."""
+    EpilogueSGD(...), sync_axes=grad_sync_axes(cfg))``), whose leaves
+    sync in one group per tuple of sync axes. ``init_fn(params)`` takes
+    this rank's shard (``shard_params``), broadcasts each leaf from the
+    first rank of the axes it is replicated on, makes the leaves require
+    grad, installs the gradient hooks and returns ``TrainState(0, params,
+    apply_opt.init(params))``. ``train_step`` binds every axis of the
+    configuration and runs ``loss.backward()``; the hooks launch each
+    bucket of the reverse sorted-key leaf list (the JAX package's order,
+    so the plans and the fp8 scales are the reference's) once its
+    gradients are complete, and the update of each bucket runs in place
+    as soon as its sync completes. The loss is the global mean over every
+    token, and every leaf's sum is divided by W, the product of the mesh
+    axes, as in :func:`make_transformer_train_step`, so the two steps
+    update alike on every mesh. (The JAX fused step divides a leaf by its
+    own sync group's size, so there a leaf sharded over tp, ep or pp moves
+    by W over that size times the unfused step's update.) The fp8 encode
+    keeps the group's size as its headroom, so the wire bits and the
+    error-feedback residual (per rank, in ``state.opt_state``) are the
+    JAX fused step's."""
     from horovod_tpu_torch.parallel.distributed import DistributedApply
-    others = [a for a in tfm.mesh_axes(cfg) if a != cfg.dp_axis]
-    if others:
-        raise NotImplementedError(
-            f"make_transformer_train_step_fused: axes {others} (tensor, "
-            f"sequence, expert or pipeline parallelism) are not ported to "
-            f"the fused step (ROADMAP A.12c); use make_transformer_train_"
-            f"step, which takes every mesh axis")
     if not isinstance(apply_opt, DistributedApply):
         raise TypeError(
             "make_transformer_train_step_fused needs a DistributedApply "
@@ -213,19 +216,22 @@ def make_transformer_train_step_fused(
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
+    axes = tfm.mesh_axes(cfg)
     attached = {}
 
     def init_fn(params) -> TrainState:
         leaves = tree_util.tree_leaves(params)
         if any(t.device != dev for t in leaves):
             raise ValueError(f"init_fn: every parameter must be on {dev}")
-        if cfg.dp_axis:
-            broadcast_parameters(params, root_rank=0)
+        if axes:
+            tfm.check_mesh(cfg)
+            _broadcast_replicas(cfg, params)
         for t in leaves:
             t.requires_grad_(True)
         if "launcher" in attached:
             attached["launcher"].remove_hooks()
-        attached["launcher"] = apply_opt.attach(params)
+        attached["launcher"] = apply_opt.attach(params,
+                                                world=mesh_world(cfg))
         attached["leaves"] = leaves
         return TrainState(0, params, apply_opt.init(params))
 
@@ -240,7 +246,7 @@ def make_transformer_train_step_fused(
         launcher.bind(None, tree_util.tree_leaves(state.opt_state.residual)
                       if launcher.sync.ef else None)
         tokens, labels = _as_tokens(tokens, dev), _as_tokens(labels, dev)
-        with collectives.bind_axis(cfg.dp_axis):
+        with collectives.bind_axis(*axes):
             loss = tfm.loss_fn(cfg, state.params, tokens, labels)
             loss.backward()
         params, opt_state = apply_opt.apply_attached(launcher, state.params,

@@ -778,7 +778,10 @@ class AsyncCheckpointer:
             "Effective checkpoint cadence in steps", aggregation="leader")
         self._m_interval.set(self.cadence.interval)
         self._pool = _PinnedPool()
-        self._commit_kv = None             # the writer's own store client
+        # the writer's own store client: the writer sets it, close()
+        # clears it
+        self._commit_kv = None
+        self._commit_kv_lock = schedhooks.Lock()
         self.last_copy_seconds = 0.0       # device time of the last copy
         self._queue: "queue.Queue" = schedhooks.Queue()
         self._idle = schedhooks.Event()
@@ -1079,10 +1082,11 @@ class AsyncCheckpointer:
         runs one operation at a time, and the step path's store calls must
         not queue behind this barrier."""
         from horovod_tpu_torch.utils.kvstore import distributed_kv
-        if self._commit_kv is None:
-            self._commit_kv = distributed_kv(site="checkpoint_commit",
-                                             own_connection=True)
-        kv = self._commit_kv
+        with self._commit_kv_lock:
+            if self._commit_kv is None:
+                self._commit_kv = distributed_kv(site="checkpoint_commit",
+                                                 own_connection=True)
+            kv = self._commit_kv
         if kv is None:
             raise CheckpointCommitError(
                 f"{nproc}-rank checkpoint needs the c10d store of the "
@@ -1172,7 +1176,8 @@ class AsyncCheckpointer:
         self._queue.put(None)
         self._worker.join(timeout=max(self.commit_timeout, 5) + 30)
         self._pool.clear()
-        self._commit_kv = None
+        with self._commit_kv_lock:
+            self._commit_kv = None
 
     def __enter__(self):
         return self

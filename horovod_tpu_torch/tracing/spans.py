@@ -17,9 +17,8 @@ per-entry hot paths should guard attribute-dict construction with
 
 Timestamps are ``time.perf_counter()`` microseconds relative to a
 process epoch captured at ``enable()``; the epoch's wall-clock value
-(``epoch_unix``) travels with every export so a cross-rank merge can
-shift processes onto one timeline (the merge itself waits for ROADMAP
-A.13b).
+(``epoch_unix``) travels with every export so a cross-rank merge
+(``tracing/merge.py``) can shift processes onto one timeline.
 
 The port's copy of ``horovod_tpu/tracing/spans.py``: the same span names,
 categories, ring buffer, Chrome-trace export and flight recording.

@@ -290,11 +290,20 @@ def test_specs_and_sync_axes_match_jax(case):
     assert jtfm.mesh_axes(jcfg) == tfm.mesh_axes(cfg)
 
 
-def test_fused_step_keeps_data_parallelism_alone():
+def test_fused_step_needs_its_axes_on_the_mesh():
     cfg = htt.TransformerConfig(**{**jtp.BASE, "dtype": torch.float32},
                                 dp_axis="dp", tp_axis="tp")
-    with pytest.raises(NotImplementedError, match="A.12c"):
-        htt.make_transformer_train_step_fused(cfg, None, device="cpu")
+    htt.init(device="cpu")
+    try:
+        da = htt.distributed_apply(htt.EpilogueSGD(0.1),
+                                   sync_axes=tfm.grad_sync_axes(cfg))
+        init_fn, _ = htt.make_transformer_train_step_fused(cfg, da,
+                                                           device="cpu")
+        params = htt.init_params(cfg, device="cpu")
+        with pytest.raises(ValueError, match="axis_names"):
+            init_fn(params)
+    finally:
+        htt.shutdown()
 
 
 def test_a_model_parallel_step_needs_its_axes_on_the_mesh():

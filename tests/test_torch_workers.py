@@ -688,6 +688,48 @@ def _mp_train_scenario(rank, sc, sets):
     return out
 
 
+def _mp_fused_scenario(rank, sc, sets):
+    """``len(batches)`` steps of make_transformer_train_step_fused on the
+    mesh with distributed_apply(EpilogueSGD(0.05, momentum=0.9),
+    sync_axes=grad_sync_axes(cfg)) from the global ``params``, each step
+    on this rank's block of a global batch: the losses, the parameters
+    gathered after every step (``p<t>|<i>``), this rank's error-feedback
+    residual after the first step (``r|<i>``, local shapes) and how many
+    times each leaf's gradient hook fired in the last step."""
+    from horovod_tpu_torch.models import transformer as tfm
+    cfg = sc["cfg"]
+    da = htt.distributed_apply(htt.EpilogueSGD(0.05, momentum=0.9),
+                               sync_axes=tfm.grad_sync_axes(cfg))
+    init_fn, step = htt.make_transformer_train_step_fused(cfg, da,
+                                                          device="cpu")
+    state = init_fn(tfm.shard_params(
+        cfg, htt.params_from_numpy(sc["params"], device="cpu")))
+    fired = [0] * len(tree_util.tree_leaves(state.params))
+    hooks = [p.register_post_accumulate_grad_hook(
+        lambda _, i=i: fired.__setitem__(i, fired[i] + 1))
+        for i, p in enumerate(tree_util.tree_leaves(state.params))]
+    out = {"losses": []}
+    for t, (tokens, labels) in enumerate(sc["batches"]):
+        fired[:] = [0] * len(fired)
+        state, loss = step(state, tfm.shard_batch(cfg, tokens),
+                           tfm.shard_batch(cfg, labels))
+        out["losses"].append(float(loss))
+        full = tree_util.tree_leaves(tfm.gather_params(
+            cfg, tree_util.tree_map(lambda p: p.detach(), state.params)))
+        # copies: a replicated leaf gathers to the parameter itself, which
+        # the next step updates in place
+        out.update({f"p{t}|{i}": p.numpy().copy()
+                    for i, p in enumerate(full)})
+        if t == 0 and state.opt_state.residual:
+            out.update({f"r|{i}": r.numpy().copy() for i, r in enumerate(
+                tree_util.tree_leaves(state.opt_state.residual))})
+    for h in hooks:
+        h.remove()
+    out["losses"] = np.asarray(out["losses"])
+    out["hook_fires"] = np.asarray(fired)
+    return out
+
+
 def _ad_collectives_scenario(rank, sc, sets):
     """Each differentiable collective over the bound axes of ``axes`` on
     this rank's row ``x[rank]``: its output and the gradient of
@@ -1356,6 +1398,7 @@ _PHASE_SCENARIOS = {"call": _call_scenario, "topology": _topology_scenario,
                     "optimizer": _optimizer_scenario,
                     "mp_grads": _mp_grads_scenario,
                     "mp_train": _mp_train_scenario,
+                    "mp_fused": _mp_fused_scenario,
                     "ad_collectives": _ad_collectives_scenario,
                     "sync": _sync_scenario,
                     "attention": _attention_scenario,
