@@ -23,6 +23,8 @@
                                    # only phase 16's data path, on 4 cards
     python3 chip_smoke.py --data-parallel 4 --autotune-only
                                    # only phase 17's tuner and sweep, on 4 cards
+    python3 chip_smoke.py --model-only
+                                   # only phases 1, 18 and 10, on one card
 
 Phases, each of which raises (and so exits non-zero) when it fails:
 
@@ -262,6 +264,21 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     candidates (a profiled step each) and caches the winner, which a
     fresh ``DistributedOptimizer`` resolves; a child process on the same
     HOROVOD_ARTIFACT_STORE gets the sweep warm, measuring nothing.
+18. the protocol model checker (``model checker:`` line), on a machine
+    without JAX: ``hvdmodel-torch``'s nine built-in scenarios over the
+    port's real protocol code (the coordinator on the scheduler seam,
+    the checkpoint commit and rotation, the preemption stop step, the
+    elastic reconcile, the store brownout, the live resize, the fleet's
+    registry), MODEL_BUDGET_S each, with zero findings: each one's
+    schedules, transitions, status (exhausted, budget-bounded or
+    depth-bounded) and seconds; then the corpus's ``all_bad``
+    (``tests/modelcheck_torch/protocols.py``), each fixture caught by
+    exactly its code, its trace replayed twice to the same schedule;
+    afterwards the default hooks are installed again and a new
+    ``Coordinator``'s locks, events and cycle thread are the stdlib's.
+    ``--model-only`` runs phase 1, this phase and phase 10's world of
+    one (the coordinator on the seam: ResNet-50 through
+    ``allreduce_async`` bitwise equal to ``DistributedOptimizer``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the
@@ -8514,6 +8531,106 @@ def autotune_world(n, card, **kw) -> None:
     log("autotune data parallel: " + json.dumps(out))
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the protocol model checker
+# ---------------------------------------------------------------------------
+
+MODEL_BUDGET_S = 2.5          # exploration seconds per built-in scenario
+MODEL_CORPUS_BUDGET_S = 16.0  # for the corpus's eight bad fixtures
+MODEL_TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "build", "hvdmodel-torch")
+
+
+def model_checker(card) -> dict:
+    """Phase 18 (module docstring): ``model checker:`` line."""
+    import shutil
+    import threading
+
+    from horovod_tpu_torch.analysis import model
+    from horovod_tpu_torch.analysis.rules_model import status
+    from horovod_tpu_torch.ops.coordinator import Coordinator
+    from horovod_tpu_torch.utils import schedhooks
+    t0 = time.perf_counter()
+    out = {"jax_importable": _importable("jax"), "scenarios": {}}
+    for name, sc in model.builtin_scenarios().items():
+        t1 = time.perf_counter()
+        res = model.explore(sc, budget_s=MODEL_BUDGET_S)
+        if res.findings:
+            raise AssertionError(
+                f"model checker: built-in scenario {name}: "
+                + "; ".join(f"{f.code} {f.message}" for f in res.findings))
+        out["scenarios"][name] = {
+            "runs": res.runs, "transitions": res.transitions,
+            "status": status(res),
+            "seconds": round(time.perf_counter() - t1, 3)}
+    corpus = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "modelcheck_torch", "protocols.py")
+    shutil.rmtree(MODEL_TRACE_DIR, ignore_errors=True)
+    t1 = time.perf_counter()
+    results, traces = model.run_model([f"{corpus}:all_bad"],
+                                      budget_s=MODEL_CORPUS_BUDGET_S,
+                                      trace_dir=MODEL_TRACE_DIR)
+    caught = {}
+    for res in results:
+        got = [f.code for f in res.findings]
+        if got != list(res.scenario.codes):
+            raise AssertionError(
+                f"model checker: corpus fixture {res.scenario.name} gave "
+                f"{got}, declares {list(res.scenario.codes)}")
+        caught[res.scenario.name] = got[0]
+    for key, path in sorted(traces.items()):
+        first, second = model.replay_file(path), model.replay_file(path)
+        code = key.split(":")[1]
+        if first.violation is None or first.violation.code != code \
+                or second.violation is None \
+                or first.chosen != second.chosen:
+            raise AssertionError(
+                f"model checker: trace {path} did not replay to {code} "
+                f"twice with the same schedule")
+    if sorted(k.split(":")[0] for k in traces) != sorted(caught):
+        raise AssertionError(f"model checker: traces {sorted(traces)} for "
+                             f"fixtures {sorted(caught)}")
+    shutil.rmtree(MODEL_TRACE_DIR, ignore_errors=True)
+    out["corpus"] = {"caught": caught, "replayed_twice_equal": len(traces),
+                     "seconds": round(time.perf_counter() - t1, 3)}
+    # the checker and every phase before it ran without the JAX package
+    imported = sorted(m for m in sys.modules
+                      if m in ("jax", "horovod_tpu")
+                      or m.startswith(("jax.", "horovod_tpu.")))
+    if imported:
+        raise AssertionError(f"model checker: imported {imported}")
+    out["jax_imported"] = False
+    # afterwards: the production hooks, and a coordinator of stdlib parts
+    if type(schedhooks.hooks()) is not schedhooks.SchedulerHooks:
+        raise AssertionError("model checker: the model hooks stayed "
+                             "installed")
+    coord = Coordinator(model._StubCtx(), start_thread=True)
+    try:
+        lock_t = type(threading.Lock())
+        parts = {"queue._lock": coord.queue._lock,
+                 "cache._lock": coord.cache._lock,
+                 "_cycle_lock": coord._cycle_lock}
+        bad = [k for k, v in parts.items() if type(v) is not lock_t]
+        bad += [k for k in ("_shutdown", "_wake")
+                if type(getattr(coord, k)) is not threading.Event]
+        if type(coord._thread) is not threading.Thread:
+            bad.append("_thread")
+    finally:
+        coord.shutdown()
+    if bad:
+        raise AssertionError(f"model checker: a new Coordinator's {bad} "
+                             f"are not the stdlib's")
+    out.update(findings=0, hooks_default=True, coordinator_stdlib=True,
+               seconds=round(time.perf_counter() - t0, 3), card=card)
+    log("model checker: " + json.dumps(out))
+    return out
+
+
+def _importable(name: str) -> bool:
+    import importlib.util
+    return importlib.util.find_spec(name) is not None
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an "
@@ -8536,6 +8653,9 @@ def main(argv) -> int:
     store_only = argv[2:] == ["--store-only"]
     data_only = argv[2:] == ["--data-only"]
     autotune_only = argv[2:] == ["--autotune-only"]
+    model_one = argv == ["--model-only"]
+    if model_one:
+        argv = []
     if argv:
         if len(argv) not in (2, 3) or argv[0] != "--data-parallel" or \
                 (len(argv) == 3 and not (resilient_only or api_only
@@ -8544,7 +8664,8 @@ def main(argv) -> int:
                                          or fleet_only or obs_only
                                          or store_only or data_only
                                          or autotune_only)):
-            print("usage: chip_smoke.py [--data-only | --data-parallel N "
+            print("usage: chip_smoke.py [--data-only | --model-only | "
+                  "--data-parallel N "
                   "[--resilient-only | --api-only | --launcher-only | "
                   "--model-parallel-only | --control-plane-only | "
                   "--zoo-only | --fleet-only | --observability-only | "
@@ -8617,6 +8738,13 @@ def main(argv) -> int:
         return 0
     if data_one:
         data_world_one(htt, cb, fa, card)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if model_one:
+        model_checker(card)
+        control_plane_world_one(htt, cb, card)
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -8708,6 +8836,9 @@ def main(argv) -> int:
     # bucket auto-resolution
     torch.cuda.empty_cache()
     autotune_world_one(htt, cb, card)
+
+    # phase 18: the protocol model checker over the port's protocol code
+    model_checker(card)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",

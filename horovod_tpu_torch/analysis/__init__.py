@@ -17,11 +17,19 @@ The port's copy of the JAX package's AST tiers
 - HVD4xx  knob registry: raw HOROVOD_* env reads, docs drift against
           ``docs/knobs.md``, dead knobs.
 
-Not ported yet: the IR tier HVD5xx (ROADMAP A.15.3), the protocol model
-checker HVD6xx (A.15.2), the cost and handoff tiers HVD7xx/HVD8xx
-(A.15.4); the CLI refuses their flags. The analyzer is self-applied to
-``horovod_tpu_torch/`` against ``.hvdlint-torch-baseline.json``, which
-is empty. The package imports only the stdlib.
+- HVD6xx  protocol model checking (``--model``/``--replay``, console
+          alias ``hvdmodel-torch``): :mod:`model` explores the
+          schedules, crash points and message losses of the port's real
+          coordinator, checkpoint, preemption, elastic, resize and fleet
+          protocol code over the ``utils.schedhooks`` seam and a
+          simulated c10d store; :mod:`rules_model` is its catalog.
+
+Not ported yet: the IR tier HVD5xx (ROADMAP A.15.3), the cost and handoff
+tiers HVD7xx/HVD8xx (A.15.4); the CLI refuses their flags. The analyzer
+is self-applied to ``horovod_tpu_torch/`` against
+``.hvdlint-torch-baseline.json``, which is empty. The package imports
+only the stdlib, apart from :mod:`model`, which runs the port's protocol
+code and so needs torch.
 """
 
 from horovod_tpu_torch.analysis.engine import (  # noqa: F401

@@ -682,6 +682,29 @@ knobs.register("HOROVOD_AUTO_RESUME", 0, int,
                     "and restores from the latest committed checkpoint in "
                     "HOROVOD_CKPT_DIR. 0 disables (mirror: hvdrun-torch "
                     "--auto-resume).")
+knobs.register("HOROVOD_MODEL_BUDGET_SECONDS", 10.0, float,
+               help="hvdmodel-torch exploration budget: wall-clock seconds "
+                    "the protocol model checker (hvdlint-torch --model, "
+                    "HVD6xx) spends enumerating schedules, split evenly "
+                    "across the scenarios of one invocation. A bigger "
+                    "budget explores a strict superset of schedules, so "
+                    "tier-1 tests use seconds and the -m slow tier "
+                    "minutes.")
+knobs.register("HOROVOD_MODEL_MAX_CRASHES", 1, int,
+               help="hvdmodel-torch: ceiling on crash transitions injected "
+                    "per explored schedule (each crash kills one "
+                    "simulated process at a yield point, filesystem and "
+                    "store effects preserved). Scenarios declare their own "
+                    "crash budget; the effective value is the smaller of "
+                    "the two. 0 disables crash injection entirely.")
+knobs.register("HOROVOD_MODEL_SEED", 0, int,
+               help="hvdmodel-torch exploration-order seed: nonzero "
+                    "shuffles the order the DFS explores the alternative "
+                    "transitions branched from each decision point, "
+                    "diversifying the schedules a small budget reaches. "
+                    "0 = deterministic default order. Counterexample "
+                    "REPLAY ignores the seed: the recorded trace alone "
+                    "determines the run (hvdmodel-torch --replay).")
 
 # docs/knobs.md rows of knobs the port does not register, each with why:
 # hvdlint-torch's HVD403 (a documented knob the registry lacks) skips
@@ -697,9 +720,6 @@ UNREGISTERED_DOC_KNOBS = {
     "HOROVOD_COST_RESTREAM_MIN_BYTES": "ROADMAP A.15.4 (cost tier, HVD7xx)",
     "HOROVOD_COST_RESTREAM_READS": "ROADMAP A.15.4 (cost tier, HVD7xx)",
     "HOROVOD_COST_ROOFLINE_TOL": "ROADMAP A.15.4 (cost tier, HVD7xx)",
-    "HOROVOD_MODEL_BUDGET_SECONDS": "ROADMAP A.15.2 (model checker, HVD6xx)",
-    "HOROVOD_MODEL_MAX_CRASHES": "ROADMAP A.15.2 (model checker, HVD6xx)",
-    "HOROVOD_MODEL_SEED": "ROADMAP A.15.2 (model checker, HVD6xx)",
     "HOROVOD_VERIFY_DONATION_MIN_BYTES":
         "ROADMAP A.15.3 (HVD504, donation: no eager counterpart)",
     "HOROVOD_VERIFY_RESHARD_MIN_BYTES":

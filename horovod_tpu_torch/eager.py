@@ -337,11 +337,13 @@ def _axis():
     return axes if len(axes) > 1 else axes[0]
 
 
-def _joined_for(process_set) -> tuple:
-    """A snapshot of the registry that governs a call: the Context's for
-    the global set, the set's own otherwise."""
+def _joined_for(process_set, ctx=None) -> tuple:
+    """A snapshot of the registry that governs a call: the Context's
+    (``ctx``, default the live one) for the global set, the set's own
+    otherwise."""
     if process_set is None or process_set.process_set_id == 0:
-        return tuple(get_context().joined_ranks)
+        ctx = get_context() if ctx is None else ctx
+        return tuple(ctx.joined_ranks)
     return tuple(process_set.joined_ranks)
 
 

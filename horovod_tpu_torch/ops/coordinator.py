@@ -75,6 +75,13 @@ tunable knobs between cycles; in a world of several ranks rank 0 tunes and
 the others apply its values at the same cycle over the c10d store,
 ``autotune.ParameterSynchronizer``).
 
+**The scheduler seam.** The queue's, the plan cache's and the cycle's
+locks, the shutdown and wake events, the cycle thread and its batching
+sleep are made through ``utils.schedhooks``: the stdlib's own objects in
+production, the model checker's shims under ``analysis.model`` (its
+``coordinator`` scenario runs this class with only ``_dispatch_bin``
+stubbed).
+
 HOROVOD_ARTIFACT_STORE: a plan the cache misses is read from the
 compiled-artifact store (``store/artifact_store.py``, kind
 ``eager_fused``, components ``{sig, mesh, knobs}``) before a plan is
@@ -103,6 +110,7 @@ from horovod_tpu_torch.config import knobs
 from horovod_tpu_torch.ops.divergence import DivergenceError
 from horovod_tpu_torch.ops.reduce_ops import ReduceOp
 from horovod_tpu_torch.tracing import spans as trace
+from horovod_tpu_torch.utils import schedhooks
 from horovod_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("horovod_tpu_torch.coordinator")
@@ -149,7 +157,7 @@ class TensorQueue:
     rejects duplicate outstanding names, drains in FIFO order."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = schedhooks.Lock()
         self._entries: List[Entry] = []
         self._outstanding: set = set()
         self._bytes = 0                 # queued bytes every rank shares
@@ -313,7 +321,7 @@ class ExecutableCache:
         self.evictions = 0
         self.builds = 0                 # plans made by make()
         self.store_hits = 0             # misses the artifact store served
-        self._lock = threading.Lock()
+        self._lock = schedhooks.Lock()
         self._m_hits = M.counter(
             "hvd_cache_hits_total",
             "Fused-plan cache lookups served without rebuilding")
@@ -453,9 +461,9 @@ class Coordinator:
         self._m_dispatch = M.histogram(
             "hvd_dispatch_seconds", "Wall time of one bin dispatch "
             "(plan lookup, pack, collective launch, copy out)")
-        self._shutdown = threading.Event()
-        self._wake = threading.Event()
-        self._cycle_lock = threading.Lock()
+        self._shutdown = schedhooks.Event()
+        self._wake = schedhooks.Event()
+        self._cycle_lock = schedhooks.Lock()
         self._lanes: List[Any] = []
         # Several ranks must issue IDENTICAL collectives in IDENTICAL
         # order: dispatch is content-deterministic there (module
@@ -507,8 +515,8 @@ class Coordinator:
         self._min_threshold_cache: Optional[int] = None
         self._thread: Optional[threading.Thread] = None
         if start_thread and not self.deterministic:
-            self._thread = threading.Thread(target=self._loop,
-                                            name="hvd-cycle", daemon=True)
+            self._thread = schedhooks.Thread(target=self._loop,
+                                             name="hvd-cycle", daemon=True)
             self._thread.start()
 
     # -- enqueue side (any thread; ref EnqueueTensorAllreduce op.cc:1404) ----
@@ -518,7 +526,7 @@ class Coordinator:
         x = entry.x
         entry.nbytes = self._ctx.size * x.numel() * x.element_size()
         if entry.op_type in ("allreduce", "allgather"):
-            entry.joined = _joined_for(entry.process_set)
+            entry.joined = _joined_for(entry.process_set, self._ctx)
         if x.is_cuda:
             entry.stream = torch.cuda.current_stream(x.device)
         # The stall clock of a deferred entry starts at dispatch (the
@@ -562,7 +570,7 @@ class Coordinator:
                 continue
             cycle_ms = float(knobs.get("HOROVOD_CYCLE_TIME"))
             if cycle_ms > 0:
-                time.sleep(cycle_ms / 1000.0)
+                schedhooks.sleep(cycle_ms / 1000.0)
             try:
                 self.run_cycle()
             except Exception:       # pragma: no cover - keep the loop alive

@@ -21,9 +21,11 @@ concurrent triggers agree on whoever won). Every rank polls the key from
 ``check()`` and stops at the published step, so all ranks snapshot the
 SAME step. A rank already past the published step stops at once and logs
 the skew. The c10d store lives as long as the process group, so the key
-carries the handler's sequence number in this process: every rank makes
-its handlers in the same order, and a later handler never reads an
-earlier one's stop step.
+carries the handler's sequence number among the handlers this process
+made as the same (rank, world size): every rank makes its handlers in the
+same order, and a later handler never reads an earlier one's stop step.
+Counting per (rank, world size), not per process, lets the ranks that the
+model checker (``analysis.model``) plays in one process agree too.
 
 Exit contract: ``RESUMABLE_EXIT_CODE`` (75, EX_TEMPFAIL) tells the
 launcher the run ended with durable state on purpose; it relaunches and
@@ -37,7 +39,7 @@ import os
 import signal
 import threading
 import time
-from typing import Any, Optional
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 from horovod_tpu_torch.config import knobs
 from horovod_tpu_torch.utils import schedhooks
@@ -51,7 +53,16 @@ logger = get_logger("horovod_tpu_torch.resilience")
 RESUMABLE_EXIT_CODE = 75
 
 _KV_STOP_KEY = "hvd_preempt/stop_step"
-_handler_seq = itertools.count()
+# (rank, world size) -> the sequence of that identity's handlers
+_handler_seqs: Dict[Tuple[int, int], Iterator[int]] = {}
+_handler_seqs_lock = threading.Lock()
+
+
+def _next_handler_seq() -> int:
+    world = schedhooks.process_world()
+    with _handler_seqs_lock:
+        seq = _handler_seqs.setdefault(world, itertools.count())
+        return next(seq)
 
 _active_handler: Optional["PreemptionHandler"] = None
 _active_lock = threading.Lock()
@@ -92,7 +103,7 @@ class PreemptionHandler:
         self._published = False
         self._last_kv_poll = 0.0
         self._start_time = time.time()
-        self._stop_key = f"{_KV_STOP_KEY}/{next(_handler_seq)}"
+        self._stop_key = f"{_KV_STOP_KEY}/{_next_handler_seq()}"
         self._stop_watch = schedhooks.Event()
         self._prev_handlers = {}
         if install_signals:

@@ -8,7 +8,8 @@ severity; the same golden lists), the torch fixtures of
 rules in torch idiom, the engine's suppressions and baseline behave
 alike, the CLI keeps the JAX exit codes and refuses the tiers not ported
 yet, and the port's own tree lints clean against the empty
-``.hvdlint-torch-baseline.json``.
+``.hvdlint-torch-baseline.json``. The model-checking tier HVD6xx is
+``tests/test_torch_modellint.py``.
 """
 
 import json
@@ -479,10 +480,11 @@ def run_cli(*argv, cwd=REPO):
 
 class TestCli:
     def test_list_rules_and_formats(self):
+        from horovod_tpu_torch.analysis import rules_model
         out = run_cli("--list-rules")
         assert out.returncode == 0
         assert [line.split()[0] for line in out.stdout.splitlines()] == \
-            [r.code for r in all_rules()]
+            [r.code for r in all_rules()] + [r.code for r in rules_model.RULES]
         target = os.path.join("tests", "lint_torch", "knobs_bad.py")
         out = run_cli(target, "--no-baseline", "--format", "json")
         assert out.returncode == 1
@@ -493,8 +495,7 @@ class TestCli:
                     if line.startswith("::error file=")]) == 3
 
     @pytest.mark.parametrize("flag, item", [
-        ("--ir", "A.15.3"), ("--model", "A.15.2"), ("--replay", "A.15.2"),
-        ("--cost", "A.15.4"), ("--compat", "A.15.4")])
+        ("--ir", "A.15.3"), ("--cost", "A.15.4"), ("--compat", "A.15.4")])
     def test_unported_tiers_are_usage_errors(self, flag, item):
         out = run_cli("horovod_tpu_torch", flag, "x")
         assert out.returncode == 2
